@@ -5,19 +5,27 @@
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; no CUDA -> exit 2, no result.
-  2. build: both CUDA kernels from nemotron_tpu_torch/csrc with nvcc.
+  2. build: the three CUDA kernels from nemotron_tpu_torch/csrc with nvcc,
+     one process each, all at once.
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (all four latency modes, f32 and bf16, dense
-     and int8 rings for the attention), with the tolerances below; times of
-     the kernel, the plain version and one PyTorch library call.
-  4. main path: a seeded full-width (0.6B) random-weight GGUF with Q8_0
-     encoder matmuls, written with the port's writer, loaded with
-     load_model(device="cuda") and streamed through StreamSession in all
-     four latency modes. Each kernel's launch count must match the chunk
-     count; the R=13 tokens must equal the port's CPU run of the same
-     session, and the encoder's output over enough chunks to wrap the ring,
-     and its caches after them, must agree with the CPU.
-  5. one JSON line of kernel results, the card's name and power limit, and
+     the main paths' shapes (all four latency modes, f32 and bf16, dense
+     and int8 rings for the attention; the W8A8 matmul bit for bit), with
+     the tolerances below; times of the kernel, the plain version and one
+     PyTorch library call.
+  4. Q8_0 main path (slice 1): a seeded full-width (0.6B) random-weight
+     GGUF with Q8_0 encoder matmuls, written with the port's writer, loaded
+     with load_model(device="cuda") and streamed through StreamSession
+     (f32, one stream) in all four latency modes. Each kernel's launch
+     count must match the chunk count; the R=13 tokens must equal the
+     port's CPU run of the same session, and the encoder's output over
+     enough chunks to wrap the ring, and its caches after them, must agree
+     with the CPU.
+  5. W8A8 serving tier (slice 2): the same GGUF turned into W8A8 in memory
+     (quantize_model_params), streamed in bf16 over 8 streams with int8 K/V
+     rings in all four modes, then with the shared x-ring at R=13; launch
+     counts per chunk; the f32 R=13 session's tokens, encoder output and
+     caches against the port's CPU run; bf16 against f32 on the card.
+  6. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -43,7 +51,7 @@ MODES = (0, 1, 6, 13)
 # cores yet), so f32 work is bounded by the f32 peak and bf16 work by the
 # bf16 tensor-core peak (the least time the card could take).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # Tolerances, kernel vs plain version on the same inputs. f32: the two sum
 # the same products in another order, so the gap grows like sqrt(K) ulps of
 # the largest partial sum; 4e-6 relative to the largest output covers
@@ -59,6 +67,34 @@ TOL_BF16_REL = 2.0 ** -6
 # 24 layers of f32 arithmetic in different summation orders (cuDNN/cuBLAS
 # vs CPU), carried from chunk to chunk through the caches
 TOL_ENCODER_ABS = 1e-3
+# W8A8 + int8 K/V, card vs CPU, f32, 8 streams, R = 13. The W8A8 kernel
+# equals its plain version bit for bit, but int8 rounding turns the
+# last-bit differences of the other ops (cuBLAS/cuDNN vs CPU sums, the
+# attention kernel) into whole steps: an activation on a rounding boundary
+# takes the neighbouring int8 value (1/127 of its row's amax). Over 24
+# layers such flips grow to the tier's quantization noise: the port's own
+# CPU run departs from itself by 8-9% of max|out| when its input moves by
+# two f32 ulps (a control this phase measures), as far as the card departs
+# from it (measured on an H100 80GB HBM3 at 700 W). So the checks are:
+#  - each layer replayed on the card with the CPU's inputs and caches (ring
+#    wrapped): outputs, new K/V, conv cache and the attention input within
+#    3e-2 of their max|.| (one layer's flips: up to 1.2e-2 measured there);
+#  - the same replay in bf16 against the CPU's f32: within 0.08, the JAX
+#    package's own bound for this config (tests/test_quant.py:247-276);
+#  - free-running, n_seg + 2 chunks: the card departs from the CPU no more
+#    than twice as far as the control does (outputs, conv cache, scales,
+#    mean int8 ring step), and bf16 from f32 on the card no more than 0.08
+#    of max|out| or, where the control's noise floor is higher, twice the
+#    control; valid_len and phase exact;
+#  - tokens: every stream agrees position by position in at least 95% of
+#    its tokens (the JAX package's bf16 token bound is 5%,
+#    tests/test_trained_fixture.py:80-95).
+TOL_W8A8_LAYER_REL = 3e-2
+TOL_BF16_VS_F32_REL = 0.08
+W8A8_CONTROL_FACTOR = 2.0
+W8A8_CONTROL_ULPS = 2
+TOL_W8A8_TOKEN_AGREE = 0.95
+W8A8_STREAMS = 8
 
 
 def log(msg: str) -> None:
@@ -314,6 +350,92 @@ def q8_phase(failures: list) -> dict:
     return out
 
 
+def quantize_rows(x):
+    """int8 activations, one scale per row (the library yardstick's input)."""
+    import torch
+
+    xf = x.float()
+    s = xf.abs().amax(dim=1, keepdim=True).clamp_min(1e-12) / 127.0
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+
+
+def w8a8_phase(failures: list) -> dict:
+    import torch
+
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul, w8a8_matmul_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def weights(K, N, n=1):
+        return [(torch.randint(-127, 128, (K, N), device="cuda", generator=g,
+                               dtype=torch.int8),
+                 torch.rand(N, device="cuda", generator=g) * 1e-2 + 1e-4)
+                for _ in range(n)]
+
+    def act(M, K, dt):
+        # rows of unequal scale, as the activations of the encoder
+        scale = torch.rand(M, 1, device="cuda", generator=g) * 3 + 0.1
+        return (torch.randn(M, K, device="cuda", generator=g) * scale).to(dt)
+
+    log("phase kernels: w8a8_matmul vs w8a8_matmul_ref (bit for bit)")
+    shapes = [(M, K, N) for M in (1, 8, 112, 672) for (K, N) in Q8_SHAPES]
+    worst = 0.0
+    for M, K, N in shapes + [(3, 96, 56)]:
+        for dt in (torch.float32, torch.bfloat16):
+            (q, cs), = weights(K, N)
+            x = act(M, K, dt)
+            got = w8a8_matmul(x, q, cs)
+            want = w8a8_matmul_ref(x, q, cs)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.equal(got, want) and not err > 0:
+                err = float("inf")          # a NaN or a signed zero differs
+            worst = max(worst, err)
+            check(f"w8a8 M={M} K={K} N={N} {str(dt)[6:]}", err, 0.0, failures)
+
+    # times at the main path's shapes: M = 8 streams x 14 frames (R = 13)
+    # for the ten weight matmuls of a layer, and M = 8 x 84 ring slots for
+    # the shared x-ring's K/V recompute; bf16 activations (the serving
+    # dtype); enough weight copies to exceed L2 as a chunk does
+    log("phase kernels: w8a8_matmul times (bf16; weights cycled beyond L2; "
+        "library = torch._int_mm on the pre-quantized activation, without "
+        "the quantize and rescale)")
+    out = {}
+    for M, kn in ((112, list(Q8_SHAPES)), (672, [(1024, 1024)])):
+        for (K, N) in kn:
+            n = max(2, (192 << 20) // (K * N))
+            ws = weights(K, N, n)
+            x = act(M, K, torch.bfloat16)
+            err = max((w8a8_matmul(x, q, cs).float()
+                       - w8a8_matmul_ref(x, q, cs).float()).abs().max().item()
+                      for q, cs in ws[:4])
+            ms = time_calls([lambda q=q, cs=cs: w8a8_matmul(x, q, cs)
+                             for q, cs in ws], 500)
+            plain_ms = time_calls([lambda q=q, cs=cs: w8a8_matmul_ref(x, q, cs)
+                                   for q, cs in ws[:8]], 100)
+            xq = quantize_rows(x)          # M > 16, as torch._int_mm needs
+            lib_ms = time_calls([lambda q=q: torch._int_mm(xq, q)
+                                 for q, _ in ws], 500)
+            nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+            ops = 2 * M * K * N
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = ops / PEAK_FLOPS["int8"]
+            out[(M, K, N)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=max(t_bytes, t_ops) * 1e3,
+                                  bytes=nbytes, ops=ops, max_abs_err=err,
+                                  bound_by="bytes" if t_bytes >= t_ops
+                                  else "operations")
+            log(f"  M={M} K={K} N={N}: kernel {ms * 1e3:.2f} us, plain "
+                f"{plain_ms * 1e3:.2f} us, _int_mm {lib_ms * 1e3:.2f} us, "
+                f"bound {max(t_bytes, t_ops) * 1e6:.3f} us "
+                f"({out[(M, K, N)]['bound_by']}), err {err:.2e}")
+            if err != 0.0:
+                failures.append(f"w8a8 timing inputs M={M} K={K} N={N}")
+            del ws
+    out["max_abs_err"] = worst
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -352,11 +474,13 @@ def write_full_width_gguf(path: str):
     return len(quantize)
 
 
-def seeded_pcm() -> np.ndarray:
+def seeded_pcm(stream: int = 0) -> np.ndarray:
+    """4 s of tone plus noise; each stream its own pitch and noise."""
     n = int(AUDIO_SECONDS * 16000)
     t = np.arange(n) / 16000.0
-    noise = np.random.default_rng(SEED).standard_normal(n)
-    pcm = (0.3 * np.sin(2 * np.pi * 440 * t) + 0.05 * noise) * 16000
+    noise = np.random.default_rng(SEED + stream).standard_normal(n)
+    pcm = (0.3 * np.sin(2 * np.pi * 440 * (1 + 0.1 * stream) * t)
+           + 0.05 * noise) * 16000
     return pcm.astype("<i2")
 
 
@@ -452,7 +576,7 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
         (n_seg + 2, 1, cc.chunk_mel_frames, cfg.n_mels)).astype(np.float32)
     outs, states = [], []
     for p in (params, cpu_params):
-        st = enc_mod.init_encoder_state(cfg, cc, 1, device=p.device)
+        st = enc_mod.init_encoder_state(cfg, cc, 1, torch.float32, p.device)
         ph = enc_mod.precompute_pos_heads(p, cfg, cc)
         per_chunk = []
         for mel in mels:
@@ -479,6 +603,266 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
             f"max_abs_err {err:.3e} (tol {TOL_ENCODER_ABS:.0e})")
         if not err <= TOL_ENCODER_ABS:
             failures.append(f"encoder state {name} card vs CPU: err {err:.3e}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the W8A8 + int8 K/V serving tier at full width
+# ---------------------------------------------------------------------------
+
+def position_agreement(got: list, want: list) -> float:
+    """Share of `want`'s (token, frame) pairs that `got` has at the same
+    position."""
+    same = sum(x == y for x, y in zip(got, want))
+    return same / max(len(want), len(got), 1)
+
+
+def run_session(params, cfg, vocab, cc, pcm, dtype):
+    """One StreamSession over the streams' PCM to the end; returns it."""
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    sess = StreamSession(params, cfg, vocab, cc, n_streams=pcm.shape[0],
+                         compute_dtype=dtype)
+    sess.process(pcm)
+    sess.finalize()
+    return sess
+
+
+def encoder_run(params, cfg, cc, mels, dtype, record_last: bool = False):
+    """The encoder over each chunk of `mels` [n, S, T, n_mels]: per-chunk
+    outputs (f32, on the CPU), the state after the last chunk and, with
+    record_last, each layer's call in the last chunk (inputs cloned before
+    the in-place ring write, outputs)."""
+    import torch
+
+    from nemotron_tpu_torch.models import encoder as enc_mod
+    from nemotron_tpu_torch.params import cast_params
+
+    p = cast_params(params, dtype)
+    st = enc_mod.init_encoder_state(cfg, cc, mels.shape[1], dtype, p.device)
+    ph = enc_mod.precompute_pos_heads(p, cfg, cc, dtype)
+    outs, calls = [], []
+    layer_fn = enc_mod.conformer_layer
+
+    def recorded(lp, *args, **kw):
+        saved = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        out = layer_fn(lp, *args, **kw)
+        calls.append((saved, kw, out))
+        return out
+
+    try:
+        for i, mel in enumerate(mels):
+            if record_last and i == len(mels) - 1:
+                enc_mod.conformer_layer = recorded
+            o, st = enc_mod.encode_chunk(
+                p, cfg, cc, torch.from_numpy(mel).to(p.device, dtype), st, ph)
+            outs.append(o.float().cpu())
+    finally:
+        enc_mod.conformer_layer = layer_fn
+    return outs, st, calls
+
+
+def state_gaps(a, b) -> dict:
+    """How far encoder state `a` departs from `b`: conv cache (abs), scales
+    (relative), mean int8 ring step; valid_len and phase equal or not."""
+    import torch
+
+    gaps = {}
+    for name in ("k_cache", "v_cache", "k_scale", "v_scale", "conv_cache"):
+        x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+        if x.dtype == torch.int8:
+            gaps[name] = (x.int() - y.int()).abs().float().mean().item()
+        elif name.endswith("scale"):
+            gaps[name] = ((x - y).abs() / y.abs()).max().item()
+        else:
+            gaps[name] = (x.float() - y.float()).abs().max().item()
+    gaps["exact"] = all(torch.equal(getattr(a, n).cpu(), getattr(b, n).cpu())
+                        for n in ("valid_len", "phase"))
+    return gaps
+
+
+def replay_layers(calls, params, dtype) -> list:
+    """Each recorded CPU layer call again on the card, in `dtype`, with the
+    card's params: per layer, the largest gap of each output (y, new K, new
+    V, conv cache, attention input) relative to the CPU's max|.|."""
+    import torch
+
+    from nemotron_tpu_torch.models import encoder as enc_mod
+    from nemotron_tpu_torch.params import cast_params
+
+    layers = cast_params(params, dtype).layers
+    gaps = []
+    for l, (args, kw, want) in enumerate(calls):
+        # x, pos_heads and the conv cache are in the compute dtype; the
+        # mask, ring, slot indices and scale columns keep theirs
+        dev = [a.to("cuda", dtype) if i in (0, 1, 3) else
+               a.to("cuda") if isinstance(a, torch.Tensor) else a
+               for i, a in enumerate(args)]
+        got = enc_mod.conformer_layer(layers.layer(l), *dev, **kw)
+        gaps.append([(g.float().cpu() - w.float()).abs().max().item()
+                     / max(w.abs().max().item(), 1e-12)
+                     for g, w in zip(got, want)])
+    return gaps
+
+
+def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.ops.quant_kernel import q8_matmul
+    from nemotron_tpu_torch.ops.ring_attn_kernel import fused_ring_attention
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul
+    from nemotron_tpu_torch.params import load_model, quantize_model_params
+
+    t0 = time.perf_counter()
+    params, cfg, vocab = load_model(gguf_path, device="cuda")
+    params = quantize_model_params(params, mode="w8a8")
+    torch.cuda.synchronize()
+    log(f"phase W8A8 path: load_model(device='cuda') + quantize_model_params"
+        f"(mode='w8a8') {time.perf_counter() - t0:.1f} s, encoder matmuls: "
+        f"{type(params.layers.ffn1_w1).__name__}")
+    S = W8A8_STREAMS
+    pcm = np.stack([seeded_pcm(s) for s in range(S)])
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+    for R, shared in [(R, False) for R in MODES] + [(13, True)]:
+        cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
+                         kv_cache_int8=True, shared_cache=shared)
+        run_session(params, cfg, vocab, cc, pcm[:, :cc.chunk_samples * 2],
+                    bf16)                                          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_ring_attention.launches = 0
+        w8a8_matmul.launches = 0
+        q8_matmul.launches = 0
+        sess = run_session(params, cfg, vocab, cc, pcm, bf16)
+        torch.cuda.synchronize()
+        counts = (fused_ring_attention.launches, w8a8_matmul.launches,
+                  q8_matmul.launches)
+        chunks = sess.total_chunks
+        n_tok = [len(sess.get_tokens(s)) for s in range(S)]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        name = f"R={R}" + (" shared" if shared else "")
+        results[name] = dict(chunks=chunks, tokens=sum(n_tok),
+                             attn_launches=counts[0], w8a8_launches=counts[1],
+                             q8_launches=counts[2],
+                             chunk_ms=sess.chunk_seconds / max(chunks, 1) * 1e3,
+                             rtf=sess.rtf, peak_gib=peak)
+        log(f"  {name} bf16 S={S} int8 K/V: {chunks} chunks, {sum(n_tok)} "
+            f"tokens, mean chunk {results[name]['chunk_ms']:.2f} ms, RTF "
+            f"{sess.rtf:.4f}, launches attn {counts[0]} w8a8 {counts[1]} q8 "
+            f"{counts[2]}, peak {peak:.2f} GiB, "
+            f"text {sess.get_transcript(S - 1)[:32]!r}")
+        per_layer = 12 if shared else 10
+        want = (cfg.n_layers * chunks, per_layer * cfg.n_layers * chunks, 0)
+        if chunks == 0 or counts != want or min(n_tok) == 0:
+            failures.append(f"W8A8 {name}: launches (attn, w8a8, q8) {counts}"
+                            f" (want {want}), tokens per stream {n_tok}")
+        del sess
+
+    # where a chunk's time goes: the R = 13 bf16 session, profiled
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                     kv_cache_int8=True)
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    sess = StreamSession(params, cfg, vocab, cc, n_streams=S,
+                         compute_dtype=bf16)
+    sess.process(pcm[:, :cc.chunk_samples * 2])
+    warm_chunks = sess.total_chunks
+    prof = profile_window(lambda: sess.process(pcm))
+    if prof["busy_us"] > 0:
+        log(f"  profile R=13 bf16 S={S} ({sess.total_chunks - warm_chunks} "
+            f"chunks): wall {prof['wall_us'] / 1e3:.2f} ms, device busy "
+            f"{prof['busy_us'] / 1e3:.2f} ms "
+            f"({100 * prof['busy_us'] / prof['wall_us']:.1f}%)")
+        for kname, us in prof["by_name"][:10]:
+            log(f"    {us / 1e3:8.3f} ms  {kname}")
+        log("  the port's kernels in that profile:")
+        for kname, us in prof["by_name"]:
+            if kname.startswith(("w8a8_", "ring_attn_kernel")):
+                log(f"    {us / 1e3:8.3f} ms  {kname}")
+    else:
+        log("  profile R=13 bf16: no device time recorded (not measured)")
+    del sess
+
+    # f32, R = 13, the same config on the card and the port's CPU run
+    cpu_params = quantize_model_params(
+        load_model(gguf_path, device="cpu")[0], mode="w8a8")
+    card = run_session(params, cfg, vocab, cc, pcm, f32)
+    cpu = run_session(cpu_params, cfg, vocab, cc, pcm, f32)
+    agree = [position_agreement(card.get_tokens(s), cpu.get_tokens(s))
+             for s in range(S)]
+    log(f"  R=13 f32 S={S} tokens card vs CPU: {sum(a == 1 for a in agree)} "
+        f"of {S} streams equal, position agreement {min(agree):.4f}-"
+        f"{max(agree):.4f} ({sum(len(cpu.get_tokens(s)) for s in range(S))} "
+        f"tokens; tol {TOL_W8A8_TOKEN_AGREE})")
+    if min(agree) < TOL_W8A8_TOKEN_AGREE:
+        failures.append(f"W8A8 R=13 f32 tokens card vs CPU: agreement "
+                        f"{min(agree):.4f}")
+
+    # the encoder over n_seg + 2 chunks: the int8 rings fill and wrap
+    n_seg = cc.kv_len // cc.chunk_enc_len
+    mels = np.random.default_rng(SEED + 1).standard_normal(
+        (n_seg + 2, S, cc.chunk_mel_frames, cfg.n_mels)).astype(np.float32)
+    nudged = (mels * np.float32(1 + W8A8_CONTROL_ULPS * 2.0 ** -23)
+              ).astype(np.float32)
+    o_cpu, st_cpu, calls = encoder_run(cpu_params, cfg, cc, mels, f32,
+                                       record_last=True)
+    o_ctl, st_ctl, _ = encoder_run(cpu_params, cfg, cc, nudged, f32)
+    o_card, st_card, _ = encoder_run(params, cfg, cc, mels, f32)
+    o_bf16, st_bf16, _ = encoder_run(params, cfg, cc, mels, bf16)
+
+    for dtype, tol in ((f32, TOL_W8A8_LAYER_REL),
+                       (bf16, TOL_BF16_VS_F32_REL)):
+        gaps = replay_layers(calls, params, dtype)
+        worst = [max(g[i] for g in gaps) for i in range(5)]
+        log(f"  W8A8 layers replayed on the card in {str(dtype)[6:]} with the "
+            f"CPU's inputs (R=13 S={S}, ring wrapped): worst gap of y "
+            f"{worst[0]:.3e}, new K {worst[1]:.3e}, new V {worst[2]:.3e}, "
+            f"conv {worst[3]:.3e}, attention input {worst[4]:.3e} of "
+            f"max|.| (tol {tol}); layers with no gap: "
+            f"{sum(max(g) == 0 for g in gaps)} of {len(gaps)}")
+        if not max(worst) <= tol:
+            failures.append(f"W8A8 layer replay {str(dtype)[6:]}: "
+                            f"{max(worst):.3e} > {tol}")
+
+    def out_gap(outs, ref):
+        return max((a - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(outs, ref))
+
+    control = out_gap(o_ctl, o_cpu)
+    ctl_state = state_gaps(st_ctl, st_cpu)
+    log(f"  W8A8 control: the CPU run against itself with its input moved "
+        f"by {W8A8_CONTROL_ULPS} f32 ulps: outputs {control:.3e} of "
+        f"max|out|; state {json.dumps(ctl_state)}")
+    for name, outs, st, ref, ref_st, bound, check_state in (
+            ("card vs CPU f32", o_card, st_card, o_cpu, st_cpu,
+             W8A8_CONTROL_FACTOR * control, True),
+            ("bf16 vs f32 on the card", o_bf16, st_bf16, o_card, st_card,
+             max(TOL_BF16_VS_F32_REL, W8A8_CONTROL_FACTOR * control), False)):
+        gap = out_gap(outs, ref)
+        sg = state_gaps(st, ref_st)
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        shape_ok = all(tuple(o.shape) == (S, cc.valid_out_len, cfg.d_model)
+                       for o in outs)
+        over = [k for k, v in sg.items() if check_state and k != "exact"
+                and v > W8A8_CONTROL_FACTOR * ctl_state[k] + 1e-6]
+        ok = (finite and shape_ok and sg["exact"] and not over
+              and gap <= bound)
+        log(f"  W8A8 encoder {name} over {len(mels)} chunks (R=13 S={S}): "
+            f"outputs {gap:.3e} of max|out| (tol {bound:.3e}); state "
+            f"{json.dumps(sg)}{'' if ok else ' FAIL'}")
+        if not ok:
+            failures.append(f"W8A8 encoder {name}: outputs {gap:.3e}, "
+                            f"finite {finite}, shape {shape_ok}, "
+                            f"over the control: {over}")
+
+    # bf16 against f32 on the card: tokens
+    bf = run_session(params, cfg, vocab, cc, pcm, bf16)
+    agree = [position_agreement(bf.get_tokens(s), card.get_tokens(s))
+             for s in range(S)]
+    log(f"  W8A8 R=13 tokens bf16 vs f32 on the card: position agreement "
+        f"{min(agree):.4f}-{max(agree):.4f}")
     return results
 
 
@@ -511,6 +895,7 @@ def main() -> int:
     failures: list[str] = []
     attn = attention_phase(failures)
     q8 = q8_phase(failures)
+    w8 = w8a8_phase(failures)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "full_width_q8.gguf")
@@ -520,7 +905,12 @@ def main() -> int:
             f"GiB GGUF ({n_q} Q8_0 tensors) in "
             f"{time.perf_counter() - t0:.1f} s")
         runs = main_path_phase(path, failures)
+        w8_runs = w8a8_path_phase(path, failures)
 
+    w8_layer = {k: sum(w8[(112, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    w8_bytes = sum(w8[(112, K, N)]["bytes"] * c for (K, N), c in Q8_SHAPES.items())
+    w8_ops = sum(w8[(112, K, N)]["ops"] * c for (K, N), c in Q8_SHAPES.items())
     a13 = attn[13]
     layer_ms = {k: sum(q8[(14, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -530,7 +920,8 @@ def main() -> int:
         {"name": "fused_ring_attention", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/ring_attn.cu",
          "replaces": "nemotron_tpu/ops/ring_attn_kernel.py:87",
-         "launches": sum(r["attn_launches"] for r in runs.values()),
+         "launches": sum(r["attn_launches"] for r in runs.values())
+         + sum(r["attn_launches"] for r in w8_runs.values()),
          "max_abs_err": a13["max_abs_err"], "ms": a13["ms"],
          "plain_ms": a13["plain_ms"], "bound_ms": a13["bound_ms"],
          "bound_by": a13["bound_by"], "library_ms": a13["library_ms"],
@@ -548,10 +939,24 @@ def main() -> int:
          "library_ms": layer_ms["library_ms"],
          "shape": "one layer's 10 calls, M=14 f32: (K,N) 5x(1024,1024) "
                   "2x(1024,4096) 2x(4096,1024) 1x(1024,2048)"},
+        {"name": "w8a8_matmul", "route": "cuda",
+         "source": "nemotron_tpu_torch/csrc/w8a8_matmul.cu",
+         "replaces": "nemotron_tpu/ops/w8a8_kernel.py:52",
+         "launches": sum(r["w8a8_launches"] for r in w8_runs.values()),
+         "max_abs_err": w8["max_abs_err"],
+         "ms": w8_layer["ms"], "plain_ms": w8_layer["plain_ms"],
+         "bound_ms": w8_layer["bound_ms"],
+         "bound_by": ("bytes" if w8_bytes / HBM_BYTES_PER_S
+                      >= w8_ops / PEAK_FLOPS["int8"] else "operations"),
+         "library_ms": w8_layer["library_ms"],
+         "shape": "one layer's 10 calls, M=112 (8 streams x 14) bf16: same "
+                  "(K,N); library = torch._int_mm on pre-quantized int8 "
+                  "activations, without the quantize and rescale"},
     ]
     modes = {f"R={R}": {k: v for k, v in r.items() if k != "tokens"}
              | {"n_tokens": len(r["tokens"])} for R, r in runs.items()}
     log("main path: " + json.dumps(modes))
+    log("W8A8 path: " + json.dumps(w8_runs))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

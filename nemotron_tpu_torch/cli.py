@@ -5,12 +5,17 @@ argv contract (src/transcribe_stream.cpp:27-36):
 
     python -m nemotron_tpu_torch.cli <model.gguf> <audio.pcm|-|--stdin>
                                      [chunk_ms] [right_context] [--cpu]
+                                     [--quantize=q8_0|w8a8] [--kv-int8]
+                                     [--shared-cache]
 
   - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin
   - chunk_ms is advisory (>=10 warning); the actual read size comes from the
     cache config, as in the reference (src/transcribe_stream.cpp:119,143-146)
   - right_context in {0, 1, 6, 13} selects the latency mode
   - runs on the CUDA card unless --cpu is given
+  - --quantize=q8_0|w8a8 requantizes the encoder matmul weights at load
+    (a Q8_0 GGUF served as W8A8), --kv-int8 keeps int8 K/V rings,
+    --shared-cache one shared x-ring per layer
   - incremental text on stdout; config + stats on stderr
 """
 
@@ -21,6 +26,9 @@ import sys
 import time
 
 
+_FLAGS = ("--cpu", "--kv-int8", "--shared-cache")
+
+
 def main(argv: list[str]) -> int:
     # --stdin is positional (it IS the audio argument); map it to '-'
     argv_t = ["-" if a == "--stdin" else a for a in argv[1:]]
@@ -29,11 +37,24 @@ def main(argv: list[str]) -> int:
     if len(args) < 2:
         print(__doc__, file=sys.stderr)
         return 1
-    unknown = [f for f in flags if f != "--cpu"]
+    later = [f for f in flags if f.startswith(("--quantize=w8a8-sq",
+                                                "--kv-int4", "--rc-by-layer="))]
+    if later:
+        print(f"error: {' '.join(later)} comes with a later slice of this "
+              "port (SmoothQuant, int4 rings, per-layer right context)",
+              file=sys.stderr)
+        return 1
+    unknown = [f for f in flags if f not in _FLAGS
+               and not f.startswith("--quantize=")]
     if unknown:
         print(f"error: unsupported flag(s) {' '.join(unknown)} (this port "
-              "takes --cpu only)", file=sys.stderr)
+              f"takes {', '.join(_FLAGS)} and --quantize=q8_0|w8a8)",
+              file=sys.stderr)
         return 1
+    quant_mode = None
+    for f in flags:
+        if f.startswith("--quantize="):
+            quant_mode = f.split("=", 1)[1]
 
     model_path, audio_path = args[0], args[1]
     chunk_ms = int(args[2]) if len(args) > 2 else 0
@@ -48,7 +69,7 @@ def main(argv: list[str]) -> int:
     import numpy as np
 
     from .config import CacheConfig
-    from .params import load_model
+    from .params import load_model, quantize_model_params
     from .streaming.session import StreamSession
 
     if not os.path.exists(model_path):
@@ -59,7 +80,22 @@ def main(argv: list[str]) -> int:
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    cc = CacheConfig(att_right_context=right_context, n_mels=cfg.n_mels)
+    if quant_mode:
+        try:
+            params = quantize_model_params(params, mode=quant_mode)
+        except KeyError:
+            print(f"error: unknown --quantize mode '{quant_mode}' "
+                  "(expected q8_0, w8a8, w8a8-sq or w8a8-sq-static)",
+                  file=sys.stderr)
+            return 1
+        print(f"runtime quantization: {quant_mode}", file=sys.stderr)
+    cc = CacheConfig(att_right_context=right_context, n_mels=cfg.n_mels,
+                     kv_cache_int8="--kv-int8" in flags,
+                     shared_cache="--shared-cache" in flags)
+    if cc.kv_cache_int8:
+        print("int8 K/V cache rings enabled", file=sys.stderr)
+    if cc.shared_cache:
+        print("shared channel cache (x-ring) enabled", file=sys.stderr)
     print(f"config: chunk={cc.chunk_mel_frames} mel frames "
           f"({cc.latency_ms} ms), shift={cc.shift_mel_frames}, "
           f"valid_out={cc.valid_out_len}, left_context={cc.att_left_context}",

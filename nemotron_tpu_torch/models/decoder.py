@@ -30,12 +30,14 @@ class DecoderState:
     prev_token: Any   # [B] int32
 
 
-def init_decoder_state(cfg: ModelConfig, batch: int,
-                       device="cpu") -> DecoderState:
+def init_decoder_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                       device) -> DecoderState:
+    """Blank-primed state on `device`: h/c in the compute dtype, as the JAX
+    package keeps them, prev_token int32."""
     L, H = cfg.decoder_layers, cfg.decoder_dim
     return DecoderState(
-        h=torch.zeros((batch, L, H), device=device),
-        c=torch.zeros((batch, L, H), device=device),
+        h=torch.zeros((batch, L, H), dtype=dtype, device=device),
+        c=torch.zeros((batch, L, H), dtype=dtype, device=device),
         prev_token=torch.full((batch,), cfg.blank_token, dtype=torch.int32,
                               device=device),
     )
@@ -86,6 +88,10 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
     sym = torch.zeros((B,), dtype=i32, device=dev)         # symbols this frame
     bidx = torch.arange(B, device=dev)
     t_idx = torch.arange(T, dtype=i32, device=dev)[None, :]
+    if state.h.dtype != enc.dtype or state.c.dtype != enc.dtype:
+        # the where() below would promote the state to the wider dtype
+        raise TypeError(f"decoder state {state.h.dtype} does not match the "
+                        f"compute dtype {enc.dtype}")
     h, c, prev = state.h, state.c, state.prev_token
 
     it = 0

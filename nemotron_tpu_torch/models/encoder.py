@@ -1,18 +1,23 @@
 """FastConformer encoder, cache-aware streaming step.
 
 The port's counterpart of the streaming half of
-`nemotron_tpu/models/encoder.py` (split dense K/V ring, no step mask):
+`nemotron_tpu/models/encoder.py` (no step mask):
 
   - All streaming state is an explicit `EncoderState` of fixed-shape
     tensors. The K/V attention window is a head-major RING buffer
     [L, B, H, KV, Dh]; one segment is rewritten per chunk (the reference's
     concat+keep-last-70 graph rewrites the full window every chunk,
     src/nemo-stream.cpp:465-484).
+  - The rings are dense in the compute dtype, or int8 with one scale per
+    (layer, stream, head, segment) (`cc.kv_cache_int8`), or one shared
+    x-ring of post-norm activations from which each layer recomputes its
+    K/V (`cc.shared_cache`, dense or int8).
   - Cold-cache validity masking is data (an additive mask computed from
     `valid_len`), not shape.
   - Position embeddings are projected through linear_pos once per session.
   - Attention goes through the fused ring-attention kernel, which reads each
-    layer's ring slice in place from the stacked rings.
+    layer's ring slice in place from the stacked rings (the recomputed K/V
+    of the shared x-ring as a one-layer stack).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from ..config import CacheConfig, ModelConfig
 from ..ops.basic import ffn, layer_norm
 from ..ops.conv import conformer_conv_module, conv_subsampling
+from ..ops.quant import qmm
 from ..ops.rel_attention import (pos_emb_descending, project_pos,
                                  rel_pos_mha_ring_fused)
 
@@ -34,14 +40,15 @@ def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
                     n_heads: int, d_head: int):
     """One conformer layer (residual structure: reference
     src/nemo-ggml.cpp:768-813) over the ring cache. Returns
-    (y, new_k [B, H, Q, Dh], new_v, new_conv_cache)."""
+    (y, new_k [B, H, Q, Dh], new_v, new_conv_cache, norm_attn [B, Q, D]),
+    norm_attn being the attention's input (what the shared x-ring keeps)."""
     r = x
     cur = layer_norm(r, lp.norm_ff1_w, lp.norm_ff1_b)
     r = r + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2)
 
-    cur = layer_norm(r, lp.norm_attn_w, lp.norm_attn_b)
+    norm_attn = layer_norm(r, lp.norm_attn_w, lp.norm_attn_b)
     attn, new_k, new_v = rel_pos_mha_ring_fused(
-        lp, cur, pos_heads, n_heads, d_head, layer_idx, k_ring_all,
+        lp, norm_attn, pos_heads, n_heads, d_head, layer_idx, k_ring_all,
         v_ring_all, chron, mask, k_cols, v_cols)
     r = r + attn
 
@@ -52,7 +59,7 @@ def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
     cur = layer_norm(r, lp.norm_ff2_w, lp.norm_ff2_b)
     r = r + 0.5 * ffn(cur, lp.ffn2_w1, lp.ffn2_w2)
     return (layer_norm(r, lp.norm_final_w, lp.norm_final_b), new_k, new_v,
-            new_conv)
+            new_conv, norm_attn)
 
 
 @dataclasses.dataclass
@@ -65,34 +72,50 @@ class EncoderState:
     segment each stream will overwrite. `valid_len` mirrors the reference's
     host-side cache_valid_len (src/nemo-stream.h:239)."""
 
-    k_cache: Any      # [L, B, H, KV, Dh] ring (head-major), compute dtype
-    v_cache: Any
-    k_scale: Any      # [L, B, H, n_seg] f32 (ones: the rings are dense)
-    v_scale: Any
+    k_cache: Any      # [L, B, H, KV, Dh] ring (head-major), compute dtype,
+    v_cache: Any      #   or int8 (cc.kv_cache_int8). cc.shared_cache:
+    #                     k_cache is the x-ring [L, B, 1, KV, D] of the
+    #                     attention's post-norm inputs and v_cache an empty
+    #                     [L, B, 1, KV, 0] placeholder (the JAX layout).
+    k_scale: Any      # [L, B, H|1, n_seg] f32 per-segment dequant scales
+    v_scale: Any      #   (ones where the ring is not quantized)
     conv_cache: Any   # [L, B, K-1, D]
     valid_len: Any    # [B] int32 (valid cached frames, capped at C)
     phase: Any        # [B] int32 (next ring segment to write)
 
 
+def _refuse_int4(cc: CacheConfig) -> None:
+    if cc.kv_cache_int4:
+        raise NotImplementedError("int4 K/V rings come with a later slice of "
+                                  "the port (how nibble-packed rings reach a "
+                                  "hand-written kernel is still open)")
+
+
 def init_encoder_state(cfg: ModelConfig, cc: CacheConfig, batch: int,
-                       dtype=torch.float32, device="cpu") -> EncoderState:
-    """Zeroed caches for `batch` streams: the split dense ring in the
-    compute dtype (f32 or bf16)."""
+                       dtype: torch.dtype, device) -> EncoderState:
+    """Zeroed caches for `batch` streams on `device`: the split ring in the
+    compute dtype (f32 or bf16) or in int8, or the shared x-ring."""
     kv = cc.kv_len
     if kv % cc.chunk_enc_len:
         raise ValueError(f"kv_len {kv} must be a multiple of chunk_enc_len "
                          f"{cc.chunk_enc_len} for the ring cache")
-    if cc.kv_quant_max is not None or cc.shared_cache:
-        raise NotImplementedError("int8/int4 and shared x-ring caches come "
-                                  "with the quant-tier slice of the port")
+    _refuse_int4(cc)
     L, D, H, DH = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head
     n_seg = kv // cc.chunk_enc_len
+    ring_dtype = torch.int8 if cc.kv_cache_int8 else dtype
+    if cc.shared_cache:
+        k_shape, v_shape, heads = (L, batch, 1, kv, D), (L, batch, 1, kv, 0), 1
+    else:
+        k_shape = v_shape = (L, batch, H, kv, DH)
+        heads = H
     kw = dict(device=device)
     return EncoderState(
-        k_cache=torch.zeros((L, batch, H, kv, DH), dtype=dtype, **kw),
-        v_cache=torch.zeros((L, batch, H, kv, DH), dtype=dtype, **kw),
-        k_scale=torch.ones((L, batch, H, n_seg), dtype=torch.float32, **kw),
-        v_scale=torch.ones((L, batch, H, n_seg), dtype=torch.float32, **kw),
+        k_cache=torch.zeros(k_shape, dtype=ring_dtype, **kw),
+        v_cache=torch.zeros(v_shape, dtype=ring_dtype, **kw),
+        k_scale=torch.ones((L, batch, heads, n_seg), dtype=torch.float32,
+                           **kw),
+        v_scale=torch.ones((L, batch, heads, n_seg), dtype=torch.float32,
+                           **kw),
         conv_cache=torch.zeros((L, batch, cc.conv_cache_size, D), dtype=dtype,
                                **kw),
         valid_len=torch.zeros((batch,), dtype=torch.int32, **kw),
@@ -100,15 +123,26 @@ def init_encoder_state(cfg: ModelConfig, cc: CacheConfig, batch: int,
     )
 
 
-def precompute_pos_heads(params, cfg: ModelConfig,
-                         cc: CacheConfig) -> torch.Tensor:
-    """[L, P, H, Dh] f32: per-layer linear_pos projection of the streaming
-    pos-emb slice, hoisted out of the chunk step."""
+def precompute_pos_heads(params, cfg: ModelConfig, cc: CacheConfig,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[L, P, H, Dh] in `dtype`: per-layer linear_pos projection of the
+    streaming pos-emb slice, hoisted out of the chunk step."""
     pos = torch.from_numpy(pos_emb_descending(cc.kv_len, cfg.d_model)).to(
-        device=params.device, dtype=torch.float32)
+        device=params.device, dtype=dtype)
     w = params.layers.attn_pos_w
     return torch.stack([project_pos(w[l], pos, cfg.n_heads, cfg.d_head)
                         for l in range(cfg.n_layers)])
+
+
+def _quantize_segment(seg: torch.Tensor, qmax: int):
+    """One new ring segment [L, B, H, Q, Dh] -> (int8 values, f32 scales
+    [L, B, H]): one scale per (layer, stream, head), amax / qmax with a
+    divide, as the JAX package's quant_seg (encoder.py:478-494)."""
+    f32 = seg.to(torch.float32)
+    amax = f32.abs().amax(dim=(-2, -1))
+    sc = torch.clamp_min(amax, 1e-12) / qmax
+    q = torch.clamp(torch.round(f32 / sc[..., None, None]), -qmax, qmax)
+    return q.to(torch.int8), sc
 
 
 def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
@@ -123,10 +157,12 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
 
     The rings are written IN PLACE: `state.k_cache`/`v_cache` are the same
     tensors in the returned state, with this chunk's segment overwritten
-    (the JAX package donates the buffers to XLA instead)."""
+    (the JAX package donates the buffers to XLA instead), and so are the
+    per-segment scales of quantized rings."""
     if cc.rc_schedule(cfg.n_layers) is not None or cc.strict_right_context:
         raise NotImplementedError("per-layer and strict right context come "
-                                  "with the quant-tier slice of the port")
+                                  "with a later slice of the port")
+    _refuse_int4(cc)
     dev = mel_chunk.device
     x = conv_subsampling(params.subsampling, mel_chunk)
     x = x[:, cc.drop_extra_pre_encoded:, :]
@@ -161,22 +197,58 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
                        torch.ones((B, Q), dtype=torch.bool, device=dev)], -1)
     mask = torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None, None, :]
 
-    ones = torch.ones((B, cfg.n_heads, kv), dtype=torch.float32, device=dev)
+    H, Dh = cfg.n_heads, cfg.d_head
+    quant = cc.kv_cache_int8
+    shared = cc.shared_cache
+    if quant:
+        # per-segment dequant scales expanded to per-slot columns
+        k_cols_all = state.k_scale.repeat_interleave(Q, -1)      # [L,B,H,kv]
+        v_cols_all = state.v_scale.repeat_interleave(Q, -1)
+    ones = torch.ones((B, H, kv), dtype=torch.float32, device=dev)
     new_k, new_v, new_conv = [], [], []
     for l in range(cfg.n_layers):
-        x, nk, nv, ncv = conformer_layer(
-            params.layers.layer(l), x, pos_heads[l], mask,
-            state.conv_cache[l], l, state.k_cache, state.v_cache, chron,
-            ones, ones, n_heads=cfg.n_heads, d_head=cfg.d_head)
-        new_k.append(nk)
-        new_v.append(nv)
+        lp = params.layers.layer(l)
+        if shared:
+            # shared x-ring: dequantize the cached activations and recompute
+            # this layer's K/V from them (encoder.py:396-424 of the JAX
+            # package); the kernel reads them as a one-layer stack with ones
+            # columns, the dequant having happened before the projection
+            x_r = state.k_cache[l][:, 0]                            # [B,kv,D]
+            if quant:
+                x_r = x_r.to(torch.float32) * k_cols_all[l][:, 0, :, None]
+            x_r = x_r.to(x.dtype)
+            k_r, v_r = (t.reshape(B, kv, H, Dh).transpose(1, 2)
+                        .contiguous()[None]
+                        for t in (qmm(x_r, lp.attn_k_w), qmm(x_r, lp.attn_v_w)))
+            rings, ring_l, k_cols, v_cols = (k_r, v_r), 0, ones, ones
+        else:
+            rings, ring_l = (state.k_cache, state.v_cache), l
+            k_cols, v_cols = ((k_cols_all[l], v_cols_all[l]) if quant
+                              else (ones, ones))
+        x, nk, nv, ncv, norm_attn = conformer_layer(
+            lp, x, pos_heads[l], mask, state.conv_cache[l], ring_l, *rings,
+            chron, k_cols, v_cols, n_heads=H, d_head=Dh)
+        if shared:
+            new_k.append(norm_attn[:, None])                        # [B,1,Q,D]
+        else:
+            new_k.append(nk)
+            new_v.append(nv)
         new_conv.append(ncv)
 
     # one segment write per step, after all layers (the rings are read-only
-    # inside the layer loop)
+    # inside the layer loop); quantized rings take the new segment per
+    # (layer, stream, head) with its scale, while the current chunk above
+    # attended at full precision
     seg = phase_s * Q + torch.arange(Q, device=dev)
-    state.k_cache.index_copy_(3, seg, torch.stack(new_k).to(state.k_cache.dtype))
-    state.v_cache.index_copy_(3, seg, torch.stack(new_v).to(state.v_cache.dtype))
+    for ring, scales, new in ((state.k_cache, state.k_scale, new_k),
+                              (state.v_cache, state.v_scale, new_v)):
+        if not new:             # the shared x-ring has no V ring
+            continue
+        new = torch.stack(new)                              # [L,B,H,Q,Dh]
+        if quant:
+            new, sc = _quantize_segment(new, cc.kv_quant_max)
+            scales.index_copy_(3, phase_s[None], sc[..., None])
+        ring.index_copy_(3, seg, new.to(ring.dtype))
 
     new_state = EncoderState(
         k_cache=state.k_cache,

@@ -1,15 +1,16 @@
-"""Weight-only int8 quantization (GGUF Q8_0-compatible).
+"""Int8 encoder weights: weight-only Q8_0 and dynamic W8A8.
 
-The port's counterpart of `nemotron_tpu/ops/quant.py`, Q8_0 tier only:
+The port's counterpart of `nemotron_tpu/ops/quant.py`, without SmoothQuant:
 
   - A `QTensor` holds int8 values [.., in, out] plus per-block f32 scales
     [.., in//32, out] -- the 32-element blocking of Q8_0 along the
-    contraction dim, transposed into x @ w orientation.
-  - `qmm` sends a QTensor through the Q8 matmul kernel (ops/quant_kernel.py)
-    and a dense weight through torch.matmul.
-
-Numerics match round-tripping through the reference's Q8_0 exactly:
-quantize -> QTensor -> qmm == quantize -> dequantize f32 -> matmul.
+    contraction dim, transposed into x @ w orientation. Numerics match
+    round-tripping through the reference's Q8_0 exactly.
+  - A `QTensorW8A8` holds int8 values [.., in, out] plus one f32 scale per
+    output column; activations are quantized per row on the fly.
+  - `qmm` sends a QTensor through the Q8 matmul kernel (ops/quant_kernel.py),
+    a QTensorW8A8 through the W8A8 kernel (ops/w8a8_kernel.py) and a dense
+    weight through torch.matmul.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .quant_kernel import q8_matmul
+from .w8a8_kernel import w8a8_matmul
 
 QK = 32  # Q8_0 block size (elements per scale)
 
@@ -70,13 +72,62 @@ def dequantize(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     return w.reshape(*lead, n_in, n_out)
 
 
+@dataclasses.dataclass
+class QTensorW8A8:
+    """Weight of the dynamic W8A8 path in x @ w orientation.
+
+    q:         int8 [..., in, out]
+    col_scale: f32  [..., out]   (one scale per output column)
+    act_scale: a static activation scale from SmoothQuant calibration; the
+               port does not take one yet (None)."""
+
+    q: Any
+    col_scale: Any
+    act_scale: Any = None
+
+    def __getitem__(self, i) -> "QTensorW8A8":
+        """Index the leading (layer) axis of a stacked weight."""
+        return QTensorW8A8(q=self.q[i], col_scale=self.col_scale[i],
+                           act_scale=None if self.act_scale is None
+                           else self.act_scale[i])
+
+
+def quantize_tensor_w8a8(w: np.ndarray) -> QTensorW8A8:
+    """Per-output-column symmetric int8 quantization of a [in, out] (or
+    [L, in, out]) weight, as numpy arrays (the JAX package's rule)."""
+    w = np.asarray(w, dtype=np.float32)
+    amax = np.max(np.abs(w), axis=-2)                       # [.., out]
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(w / scale[..., None, :]), -127, 127).astype(np.int8)
+    return QTensorW8A8(q=q, col_scale=scale)
+
+
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
-    """x [.., in] @ w [in, out], w a dense tensor or a 2-D QTensor."""
+    """x [.., in] @ w [in, out], w a dense tensor, a 2-D QTensor or a 2-D
+    QTensorW8A8."""
+    if isinstance(w, QTensorW8A8):
+        if w.act_scale is not None:
+            raise NotImplementedError("static activation scales (SmoothQuant) "
+                                      "come with the SmoothQuant slice of "
+                                      "the port")
+        lead = x.shape[:-1]
+        out = w8a8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.q,
+                          w.col_scale)
+        return out.reshape(*lead, w.q.shape[-1])
     if not isinstance(w, QTensor):
         return x @ w.to(x.dtype)
     lead = x.shape[:-1]
     out = q8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.q, w.scale)
     return out.reshape(*lead, w.q.shape[-1])
+
+
+def qmm_shared(x: torch.Tensor, ws: list) -> list:
+    """Several matmuls over the same input (the attention q/k/v
+    projections). The JAX package quantizes x once for W8A8 weights; here
+    each qmm quantizes it again, per row with one group of K = d_model
+    columns, which gives the same values. Fusing the three products into
+    one kernel is later work."""
+    return [qmm(x, w) for w in ws]
 
 
 _ENCODER_MATMUL_SUFFIXES = (

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .quant import QTensor, dequantize, qmm
+from .quant import QTensor, QTensorW8A8, dequantize, qmm, qmm_shared
 from .ring_attn_kernel import fused_ring_attention
 
 
@@ -68,9 +68,13 @@ def _heads(t: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
 
 
 def _pos_attn(q_v, pos_heads, kv: int, chron):
-    """Position bias in ring-slot order [B, H, Q, kv+Q], f32."""
+    """Position bias in ring-slot order [B, H, Q, kv+Q], f32. The raw bias
+    is summed in f32 and rounded to the compute dtype, as the JAX package
+    rounds it (nemotron_tpu/ops/rel_attention.py:285-294)."""
     dt = q_v.dtype
-    pos_raw = torch.einsum("bhid,phd->bhip", q_v, pos_heads.to(dt))
+    f32 = torch.float32
+    pos_raw = torch.einsum("bhid,phd->bhip", q_v.to(f32),
+                           pos_heads.to(dt).to(f32)).to(dt)
     pos_chron = rel_shift(pos_raw, kv)
     return chron_to_slot(pos_chron, chron).to(torch.float32)
 
@@ -88,9 +92,8 @@ def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
     B, Q, D = x.shape
     dt = x.dtype
     f32 = torch.float32
-    q = _heads(qmm(x, lp.attn_q_w), n_heads, d_head)
-    k_new = _heads(qmm(x, lp.attn_k_w), n_heads, d_head)
-    v_new = _heads(qmm(x, lp.attn_v_w), n_heads, d_head)
+    q, k_new, v_new = (_heads(t, n_heads, d_head) for t in qmm_shared(
+        x, [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w]))
     kv = k_ring.shape[2]
     k_r, v_r = k_ring.to(dt), v_ring.to(dt)
     q_u = q + lp.pos_bias_u.to(dt)[None, :, None, :]
@@ -136,9 +139,8 @@ def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
     Returns (out [B, Q, D], k_new [B, H, Q, Dh], v_new [B, H, Q, Dh])."""
     B, Q, D = x.shape
     dt = x.dtype
-    q = _heads(qmm(x, lp.attn_q_w), n_heads, d_head)
-    k_new = _heads(qmm(x, lp.attn_k_w), n_heads, d_head)
-    v_new = _heads(qmm(x, lp.attn_v_w), n_heads, d_head)
+    q, k_new, v_new = (_heads(t, n_heads, d_head) for t in qmm_shared(
+        x, [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w]))
     kv = k_ring_all.shape[3]
     q_u = (q + lp.pos_bias_u.to(dt)[None, :, None, :]).contiguous()
     q_v = q + lp.pos_bias_v.to(dt)[None, :, None, :]
@@ -156,9 +158,13 @@ def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
 
 def project_pos(lp_pos_w, pos_emb: torch.Tensor, n_heads: int,
                 d_head: int) -> torch.Tensor:
-    """pos_emb [P, D] @ linear_pos -> [P, H, Dh], dequantizing a QTensor
-    weight first. Precomputed once per session, not once per chunk."""
+    """pos_emb [P, D] @ linear_pos -> [P, H, Dh], dequantizing a quantized
+    weight first, in pos_emb's dtype. Precomputed once per session, not
+    once per chunk."""
     if isinstance(lp_pos_w, QTensor):
         lp_pos_w = dequantize(lp_pos_w, pos_emb.dtype)
+    elif isinstance(lp_pos_w, QTensorW8A8):
+        lp_pos_w = (lp_pos_w.q.to(pos_emb.dtype)
+                    * lp_pos_w.col_scale.to(pos_emb.dtype))
     P = pos_emb.shape[0]
     return (pos_emb @ lp_pos_w.to(pos_emb.dtype)).reshape(P, n_heads, d_head)

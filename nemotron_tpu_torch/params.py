@@ -22,7 +22,10 @@ import torch
 from . import gguf as gguf_mod
 from .config import ModelConfig
 from .device import resolve_device
-from .ops.quant import QTensor, should_quantize
+from .ops.quant import (QTensor, QTensorW8A8, quantize_tensor,
+                        quantize_tensor_w8a8, should_quantize)
+
+_QUANT_FIELDS = {QTensor: ("q", "scale"), QTensorW8A8: ("q", "col_scale")}
 
 
 @dataclasses.dataclass
@@ -132,7 +135,8 @@ _CONTAINERS = (("subsampling", SubsamplingParams),
 
 
 def map_leaves(fn, params: ModelParams) -> ModelParams:
-    """Apply `fn` to every leaf: an array, or a QTensor as a whole."""
+    """Apply `fn` to every leaf: an array, or a QTensor or QTensorW8A8 as a
+    whole."""
     return ModelParams(**{
         name: cls(**{f.name: fn(getattr(getattr(params, name), f.name))
                      for f in dataclasses.fields(cls)})
@@ -140,18 +144,33 @@ def map_leaves(fn, params: ModelParams) -> ModelParams:
 
 
 def flatten(params: ModelParams) -> dict[str, Any]:
-    """Field path -> leaf, e.g. 'layers.ffn1_w1.q' (the JAX package's
-    ModelParams flattens to the same paths in the tests)."""
+    """Field path -> leaf, e.g. 'layers.ffn1_w1.q' and '.scale' (QTensor) or
+    '.col_scale' (QTensorW8A8); the JAX package's ModelParams flattens to
+    the same paths in the tests."""
     out = {}
     for name, cls in _CONTAINERS:
         for f in dataclasses.fields(cls):
             x = getattr(getattr(params, name), f.name)
-            if isinstance(x, QTensor):
-                out[f"{name}.{f.name}.q"] = x.q
-                out[f"{name}.{f.name}.scale"] = x.scale
+            if type(x) in _QUANT_FIELDS:
+                for part in _QUANT_FIELDS[type(x)]:
+                    out[f"{name}.{f.name}.{part}"] = getattr(x, part)
             else:
                 out[f"{name}.{f.name}"] = x
     return out
+
+
+def _map_quant(fn, x):
+    """`fn` on the arrays of a QTensor or QTensorW8A8 (int8 values and f32
+    scales), on `x` itself otherwise."""
+    if isinstance(x, QTensor):
+        return QTensor(q=fn(x.q), scale=fn(x.scale))
+    if isinstance(x, QTensorW8A8):
+        if x.act_scale is not None:
+            raise NotImplementedError("static activation scales (SmoothQuant) "
+                                      "come with the SmoothQuant slice of "
+                                      "the port")
+        return QTensorW8A8(q=fn(x.q), col_scale=fn(x.col_scale))
+    return fn(x)
 
 
 def to_device(params: ModelParams, device) -> ModelParams:
@@ -159,13 +178,69 @@ def to_device(params: ModelParams, device) -> ModelParams:
     device = torch.device(device)
 
     def conv(x):
-        if isinstance(x, QTensor):
-            return QTensor(q=conv(x.q), scale=conv(x.scale))
         if isinstance(x, torch.Tensor):
             return x.to(device)
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
-    return map_leaves(conv, params)
+    return map_leaves(lambda x: _map_quant(conv, x), params)
+
+
+def cast_params(params: ModelParams, dtype) -> ModelParams:
+    """Cast every floating-point leaf to `dtype` (bf16 for serving).
+    Quantized leaves are left as they are: int8 values and f32 scales
+    (nemotron_tpu/params.py:707-729)."""
+    def cast(x):
+        if isinstance(x, (QTensor, QTensorW8A8)) or not x.is_floating_point():
+            return x
+        return x.to(dtype)
+
+    return map_leaves(cast, params)
+
+
+_QUANT_LAYER_FIELDS = (
+    "ffn1_w1", "ffn1_w2", "ffn2_w1", "ffn2_w2",
+    "attn_q_w", "attn_k_w", "attn_v_w", "attn_pos_w", "attn_out_w",
+    "conv_pw1_w", "conv_pw2_w",
+)
+
+
+def quantize_model_params(params: ModelParams,
+                          mode: str = "q8_0") -> ModelParams:
+    """Quantize the encoder conformer matmul weights (the reference's
+    default quant pattern; nemotron_tpu/params.py:275-308). Subsampling,
+    depthwise convs, norms, decoder and joint stay dense.
+
+    mode 'q8_0': weight-only Q8_0 blocks; 'w8a8': per-column int8 weights
+    with per-row activation scales. A weight already quantized the other
+    way is dequantized in f32 first (a Q8_0 GGUF served as W8A8). The
+    quantization runs on the host in numpy, as the JAX package's does, and
+    the result goes to the params' device. An unknown mode raises
+    KeyError."""
+    quantize = {"q8_0": quantize_tensor, "w8a8": quantize_tensor_w8a8}[mode]
+
+    def host(a) -> np.ndarray:
+        return a.detach().to(torch.float32).cpu().numpy()
+
+    layers = params.layers
+    updates = {}
+    for f in _QUANT_LAYER_FIELDS:
+        w = getattr(layers, f)
+        if isinstance(w, QTensor):
+            if mode == "q8_0":
+                continue
+            *lead, n_in, n_out = w.q.shape
+            w = (host(w.q).reshape(*lead, n_in // 32, 32, n_out)
+                 * host(w.scale)[..., :, None, :]).reshape(w.q.shape)
+        elif isinstance(w, QTensorW8A8):
+            if mode == "w8a8":
+                continue
+            w = host(w.q) * host(w.col_scale)[..., None, :]
+        else:
+            w = host(w)
+        updates[f] = _map_quant(lambda a: torch.from_numpy(a).to(
+            params.device), quantize(w))
+    return dataclasses.replace(
+        params, layers=dataclasses.replace(layers, **updates))
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +368,9 @@ def params_from_arrays(t: dict, cfg: ModelConfig,
 def params_from_jax_arrays(flat: dict, cfg: ModelConfig,
                            device="cpu") -> ModelParams:
     """Carry the JAX package's ModelParams across: `flat` maps each field
-    path of the JAX pytree ('layers.ffn1_w1', or 'layers.ffn1_w1.q' and
-    '.scale' for a QTensor) to a numpy array."""
+    path of the JAX pytree ('layers.ffn1_w1', or 'layers.ffn1_w1.q' with
+    '.scale' for a QTensor or '.col_scale' for a QTensorW8A8) to a numpy
+    array."""
     del cfg  # the shapes are in the arrays
     groups = {}
     for name, cls in _CONTAINERS:
@@ -303,9 +379,17 @@ def params_from_jax_arrays(flat: dict, cfg: ModelConfig,
             key = f"{name}.{f.name}"
             if key in flat:
                 fields[f.name] = np.asarray(flat[key])
-            elif f"{key}.q" in flat:
+            elif f"{key}.act_scale" in flat:
+                raise NotImplementedError(
+                    f"{key}: static activation scales (SmoothQuant) come "
+                    "with the SmoothQuant slice of the port")
+            elif f"{key}.scale" in flat:
                 fields[f.name] = QTensor(q=np.asarray(flat[f"{key}.q"]),
                                          scale=np.asarray(flat[f"{key}.scale"]))
+            elif f"{key}.col_scale" in flat:
+                fields[f.name] = QTensorW8A8(
+                    q=np.asarray(flat[f"{key}.q"]),
+                    col_scale=np.asarray(flat[f"{key}.col_scale"]))
             else:
                 raise KeyError(f"missing parameter {key}")
         groups[name] = cls(**fields)

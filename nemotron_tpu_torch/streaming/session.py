@@ -19,7 +19,7 @@ from ..config import CacheConfig, ModelConfig, PreprocessorConfig
 from ..frontend.preprocessor import StreamingPreprocessor
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
-from ..params import ModelParams
+from ..params import ModelParams, cast_params
 from ..utils.text import tokens_to_text
 
 
@@ -39,13 +39,17 @@ def chunk_step(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
 
 class StreamSession:
     """Lifecycle mirror of nemo_stream_init / process_incremental / finalize /
-    get_transcript / get_tokens / reset. Runs in f32 on the params' device,
-    with the filterbank and window the params carry."""
+    get_transcript / get_tokens / reset. Runs on the params' device in
+    `compute_dtype` (float32 or bfloat16: float leaves of the params, the
+    position bias, both states and each mel chunk; quantized weights keep
+    int8 and f32 scales), with the f32 filterbank and window the params
+    carry."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
                  cache_config: CacheConfig | None = None,
                  n_streams: int = 1,
+                 compute_dtype: torch.dtype = torch.float32,
                  trace_dir: str | None = None,
                  beam_size: int = 1,
                  confidence: bool = False,
@@ -65,7 +69,11 @@ class StreamSession:
         if trace_dir is not None:
             raise NotImplementedError("dump tracing comes with the utils "
                                       "slice of the port")
-        self.params = params
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
+                             "bfloat16")
+        self.params = cast_params(params, compute_dtype)
+        self.dtype = compute_dtype
         self.device = params.device
         self.cfg = cfg
         self.cc = cache_config or CacheConfig(n_mels=cfg.n_mels)
@@ -73,18 +81,21 @@ class StreamSession:
         self.n_streams = n_streams
 
         self.preproc = StreamingPreprocessor(
-            params.preprocessor.filterbank.cpu().numpy(),
-            params.preprocessor.window.cpu().numpy(), n_streams=n_streams,
+            params.preprocessor.filterbank.float().cpu().numpy(),
+            params.preprocessor.window.float().cpu().numpy(),
+            n_streams=n_streams,
             cfg=PreprocessorConfig(n_mels=cfg.n_mels), device=self.device)
-        self.pos_heads = enc_mod.precompute_pos_heads(params, cfg, self.cc)
+        self.pos_heads = enc_mod.precompute_pos_heads(
+            self.params, cfg, self.cc, compute_dtype)
         self.reset()
 
     def reset(self) -> None:
         """Clear caches and transcript (reference src/nemo-stream.cpp:81-101)."""
         cfg, cc, S = self.cfg, self.cc, self.n_streams
-        self.enc_state = enc_mod.init_encoder_state(cfg, cc, S,
-                                                    device=self.device)
-        self.dec_state = dec_mod.init_decoder_state(cfg, S, self.device)
+        self.enc_state = enc_mod.init_encoder_state(cfg, cc, S, self.dtype,
+                                                    self.device)
+        self.dec_state = dec_mod.init_decoder_state(cfg, S, self.dtype,
+                                                    self.device)
         self.preproc.reset()
         # 9-frame zero-seeded overlap (reference src/nemo-stream.cpp:58-60)
         self.mel_buffer = np.zeros((S, cc.pre_encode_cache_size, cfg.n_mels),
@@ -129,7 +140,8 @@ class StreamSession:
         new_text = [""] * self.n_streams
         while self.mel_buffer.shape[1] >= cc.chunk_mel_frames:
             chunk = torch.from_numpy(np.ascontiguousarray(
-                self.mel_buffer[:, :cc.chunk_mel_frames])).to(self.device)
+                self.mel_buffer[:, :cc.chunk_mel_frames])).to(
+                    self.device, self.dtype)
             t0 = time.perf_counter()
             tokens, self.enc_state, self.dec_state = chunk_step(
                 self.params, self.cfg, cc, chunk, self.enc_state,

@@ -109,12 +109,13 @@ def test_cli_without_cpu_flag_refuses_when_cuda_is_absent(monkeypatch,
     gguf = os.path.join(REPO, "weights", "tones_tiny.gguf")
     assert cli.main(["cli", gguf, str(pcm)]) == 1
     assert "CUDA" in capsys.readouterr().err
-    assert cli.main(["cli", gguf, str(pcm), "--kv-int8", "--cpu"]) == 1
+    assert cli.main(["cli", gguf, str(pcm), "--kv-int4", "--cpu"]) == 1
 
 
 def test_kernel_wrappers_refuse_other_devices():
     from nemotron_tpu_torch.ops.quant_kernel import q8_matmul
     from nemotron_tpu_torch.ops.ring_attn_kernel import fused_ring_attention
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul
 
     x = torch.zeros((2, 32), device="meta")
     with pytest.raises(ValueError, match="device"):
@@ -123,3 +124,6 @@ def test_kernel_wrappers_refuse_other_devices():
     q = torch.zeros((1, 1, 1, 4), device="meta")
     with pytest.raises(ValueError, match="device"):
         fused_ring_attention(0, q, q, q, q[None], q[None], q, q, q)
+    with pytest.raises(ValueError, match="device"):
+        w8a8_matmul(x, torch.zeros((32, 4), dtype=torch.int8, device="meta"),
+                    torch.zeros((4,), device="meta"))

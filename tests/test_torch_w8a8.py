@@ -1,0 +1,316 @@
+"""The W8A8 tier of the port against the JAX package on the CPU: the W8A8
+kernel's plain version against the Pallas kernel (interpret mode) and
+against the per-row XLA path, the quantizers and the params conversions
+bit for bit, W8A8 params carried across, `qmm`/`qmm_shared`/`project_pos`
+on W8A8 weights, the bf16 Q8_0 matmul, and -- on a machine with a card --
+the CUDA kernel against its plain version (marked `cuda`).
+
+The JAX imports sit inside the tests that compare with JAX, so the `cuda`
+test also runs where JAX is not installed:
+    python -m pytest --noconftest -m cuda tests/test_torch_w8a8.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nemotron_tpu_torch import params as tparams
+from nemotron_tpu_torch.ops import quant as tquant
+from nemotron_tpu_torch.ops.w8a8_kernel import (w8a8_k_tile, w8a8_matmul,
+                                                w8a8_matmul_ref)
+
+torch.set_num_threads(1)
+
+
+def jax_flat(params) -> dict:
+    import jax
+
+    leaves, _ = jax.tree_util.tree_flatten_with_path(params)
+    return {jax.tree_util.keystr(p)[1:]: np.asarray(v) for p, v in leaves}
+
+
+def w8a8_inputs(rng, M, K, N):
+    w = rng.standard_normal((K, N), dtype=np.float32) * 0.1
+    x = rng.standard_normal((M, K), dtype=np.float32)
+    x *= rng.random((M, 1), dtype=np.float32) * 3     # rows of unequal scale
+    return x, tquant.quantize_tensor_w8a8(w)
+
+
+def test_w8a8_k_tile_is_the_tpu_kernels_group():
+    assert [w8a8_k_tile(k) for k in (4096, 3072, 1024, 2560, 768, 256)] == \
+        [1024, 1024, 1024, 512, 256, 256]
+    assert [w8a8_k_tile(k) for k in (64, 96, 640, 1000)] == [64, 96, 640, 1000]
+    with pytest.raises(ValueError, match="K=1100"):
+        w8a8_k_tile(1100)
+
+
+@pytest.mark.parametrize("M,K,N", [(37, 512, 256), (300, 1024, 512),
+                                   (5, 4096, 256)])
+def test_w8a8_matmul_ref_matches_pallas_interpret(M, K, N):
+    import jax.numpy as jnp
+
+    from nemotron_tpu.ops.w8a8_kernel import w8a8_matmul as pallas_w8a8
+
+    x, qt = w8a8_inputs(np.random.default_rng(M + K), M, K, N)
+    want = np.asarray(pallas_w8a8(jnp.asarray(x), jnp.asarray(qt.q),
+                                  jnp.asarray(qt.col_scale), interpret=True))
+    got = w8a8_matmul_ref(torch.tensor(x), torch.tensor(qt.q),
+                          torch.tensor(qt.col_scale))
+    assert tuple(got.shape) == (M, N) and got.dtype == torch.float32
+    if K <= 1024:       # one group: acc = 0 + p * s, the same float steps
+        np.testing.assert_array_equal(got.numpy(), want)
+    # several groups: XLA on the CPU contracts acc + p * s into an FMA (one
+    # rounding fewer per group), so an output that cancels to near zero
+    # differs by one rounding of the accumulator, ~1e-7 of max|out|
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+    cpu = w8a8_matmul(torch.tensor(x), torch.tensor(qt.q),
+                      torch.tensor(qt.col_scale))     # CPU -> plain version
+    torch.testing.assert_close(cpu, got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("M,K,N", [(7, 64, 96), (9, 96, 40), (37, 512, 256),
+                                   (300, 1024, 512)])
+def test_w8a8_matmul_ref_matches_jax_per_row_path(M, K, N):
+    """K <= 1024: one group, the whole row, as JAX's qmm_w8a8. The scale is
+    amax * f32(1/127) here and amax / 127 there: at most one ulp apart, so
+    an activation on a rounding boundary may round the other way, moving
+    the output by at most s * 127 * col_scale."""
+    import jax.numpy as jnp
+
+    from nemotron_tpu.ops import quant as jquant
+
+    x, qt = w8a8_inputs(np.random.default_rng(K), M, K, N)
+    want = np.asarray(jquant.qmm_w8a8(jnp.asarray(x), jquant.QTensorW8A8(
+        q=jnp.asarray(qt.q), col_scale=jnp.asarray(qt.col_scale))))
+    got = w8a8_matmul_ref(torch.tensor(x), torch.tensor(qt.q),
+                          torch.tensor(qt.col_scale)).numpy()
+    amax = np.abs(x).max(axis=1)
+    s_port = np.maximum(amax, np.float32(1e-12)) * np.float32(1 / 127)
+    s_jax = np.maximum(amax, np.float32(1e-12)) / np.float32(127)
+    np.testing.assert_array_max_ulp(s_port, s_jax, maxulp=1)
+    flip = s_port.max() * 127 * qt.col_scale.max()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=flip + 1e-6 * np.abs(want).max())
+
+
+def test_w8a8_matmul_ref_within_jax_gate_at_k4096():
+    """K = 4096 (the ffn w2 matmul): groups of 1024 here, the whole row in
+    JAX's per-row path; both held to the exact product of the quantized
+    weight by the JAX package's gate (tests/test_quant.py:194-212)."""
+    import jax.numpy as jnp
+
+    from nemotron_tpu.ops import quant as jquant
+
+    x, qt = w8a8_inputs(np.random.default_rng(3), 16, 4096, 256)
+    ref = x @ (qt.q.astype(np.float32) * qt.col_scale)
+    xla = np.asarray(jquant.qmm_w8a8(jnp.asarray(x), jquant.QTensorW8A8(
+        q=jnp.asarray(qt.q), col_scale=jnp.asarray(qt.col_scale))))
+    got = w8a8_matmul_ref(torch.tensor(x), torch.tensor(qt.q),
+                          torch.tensor(qt.col_scale)).numpy()
+    denom = np.abs(ref).max()
+    err, err_xla = (np.abs(a - ref).max() / denom for a in (got, xla))
+    assert err < max(2 * err_xla, 0.02), (err, err_xla)
+
+
+def test_w8a8_matmul_ref_nan_row_and_bf16():
+    q = torch.tensor(np.random.default_rng(0).integers(
+        -127, 128, (64, 8)).astype(np.int8))
+    cs = torch.full((8,), 0.01)
+    x = torch.randn(3, 64, generator=torch.Generator().manual_seed(0))
+    x[1, 7] = float("nan")
+    out = w8a8_matmul_ref(x, q, cs)
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[[0, 2]]).all()
+    xb = x[[0, 2]].bfloat16()
+    got = w8a8_matmul_ref(xb, q, cs)
+    assert got.dtype == torch.bfloat16
+    # bf16 in, f32 arithmetic, one rounding to bf16 at the end
+    torch.testing.assert_close(
+        got, w8a8_matmul_ref(xb.float(), q, cs).bfloat16(), atol=0, rtol=0)
+
+
+def test_quantize_tensor_w8a8_bit_equal_to_jax():
+    from nemotron_tpu.ops import quant as jquant
+
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((3, 64, 40), dtype=np.float32) * 0.05
+    w[1, :, 5] = 0.0                                  # an all-zero column
+    got, want = tquant.quantize_tensor_w8a8(w), jquant.quantize_tensor_w8a8(w)
+    assert got.q.dtype == np.int8 and got.col_scale.dtype == np.float32
+    np.testing.assert_array_equal(got.q, want.q)
+    np.testing.assert_array_equal(got.col_scale, want.col_scale)
+
+
+@pytest.fixture(scope="module")
+def w8a8_models(model_setup):
+    """The tiny model in both packages: dense, W8A8, Q8_0 -> W8A8 and
+    W8A8 -> Q8_0, each quantized by its own package."""
+    from nemotron_tpu.params import quantize_model_params as jquantize
+
+    _arrays, jp, cfg = model_setup
+    tp = tparams.params_from_jax_arrays(jax_flat(jp), cfg)
+    jq8 = jquantize(jp, "q8_0")
+    tq8 = tparams.params_from_jax_arrays(jax_flat(jq8), cfg)
+    jw = jquantize(jp, "w8a8")
+    return dict(cfg=cfg, jp=jp, tp=tp, jw=jw,
+                tw=tparams.quantize_model_params(tp, "w8a8"),
+                jq8w=jquantize(jq8, "w8a8"),
+                tq8w=tparams.quantize_model_params(tq8, "w8a8"),
+                jwq8=jquantize(jw, "q8_0"),
+                twq8=tparams.quantize_model_params(
+                    tparams.quantize_model_params(tp, "w8a8"), "q8_0"))
+
+
+@pytest.mark.parametrize("pair", ["w", "q8w", "wq8"])
+def test_quantize_model_params_bit_equal_to_jax(w8a8_models, pair):
+    want = jax_flat(w8a8_models["j" + pair])
+    got = tparams.flatten(w8a8_models["t" + pair])
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        g = got[key].numpy()
+        assert g.dtype == arr.dtype, key
+        np.testing.assert_array_equal(g, arr, key)
+    kind = tquant.QTensor if pair == "wq8" else tquant.QTensorW8A8
+    assert isinstance(w8a8_models["t" + pair].layers.attn_q_w, kind)
+    assert isinstance(w8a8_models["t" + pair].layers.conv_dw_w, torch.Tensor)
+    with pytest.raises(KeyError):
+        tparams.quantize_model_params(w8a8_models["tp"], "w4")
+
+
+def test_params_from_jax_arrays_w8a8(w8a8_models):
+    m = w8a8_models
+    tp = tparams.params_from_jax_arrays(jax_flat(m["jw"]), m["cfg"])
+    want = jax_flat(m["jw"])
+    assert "layers.ffn1_w1.col_scale" in want
+    got = tparams.flatten(tp)
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), arr, key)
+    layer = tp.layers.layer(2)
+    assert isinstance(layer.attn_k_w, tquant.QTensorW8A8)
+    np.testing.assert_array_equal(layer.attn_k_w.q.numpy(),
+                                  np.asarray(m["jw"].layers.attn_k_w.q[2]))
+
+
+def test_cast_params_keeps_quantized_leaves(w8a8_models):
+    tw = w8a8_models["tw"]
+    cast = tparams.cast_params(tw, torch.bfloat16)
+    flat = tparams.flatten(cast)
+    for key, arr in flat.items():
+        if key.endswith(".q"):
+            assert arr.dtype == torch.int8, key
+        elif key.endswith((".col_scale", ".scale")):
+            assert arr.dtype == torch.float32, key
+        else:
+            assert arr.dtype == torch.bfloat16, key
+    torch.testing.assert_close(cast.layers.ffn1_w1.col_scale,
+                               tw.layers.ffn1_w1.col_scale, atol=0, rtol=0)
+
+
+def test_qmm_and_qmm_shared_w8a8_match_jax(w8a8_models):
+    """Per-row activation scales, one group of K = d_model: within the
+    scale's one-ulp effect of JAX's qmm and its one shared quantization."""
+    import jax.numpy as jnp
+
+    from nemotron_tpu.ops import quant as jquant
+
+    m = w8a8_models
+    jl = m["jw"].layers
+    tl = m["tw"].layers.layer(1)
+    x = np.random.default_rng(2).standard_normal((2, 5, m["cfg"].d_model),
+                                                 dtype=np.float32)
+    names = ("attn_q_w", "attn_k_w", "attn_v_w")
+    jws = [jquant.QTensorW8A8(q=getattr(jl, n).q[1],
+                              col_scale=getattr(jl, n).col_scale[1])
+           for n in names]
+    want = jquant.qmm_shared(jnp.asarray(x), jws)
+    got = tquant.qmm_shared(torch.tensor(x), [getattr(tl, n) for n in names])
+    for g, w, jw in zip(got, want, jws):
+        flip = np.abs(x).max() * float(np.max(jw.col_scale))  # s*127*cs
+        assert tuple(g.shape) == (2, 5, m["cfg"].d_model)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=flip + 1e-6)
+        np.testing.assert_allclose(
+            tquant.qmm(torch.tensor(x), tl.attn_k_w).numpy(),
+            np.asarray(jquant.qmm(jnp.asarray(x), jws[1])), rtol=0,
+            atol=flip + 1e-6)
+    with pytest.raises(NotImplementedError, match="SmoothQuant"):
+        tquant.qmm(torch.tensor(x), tquant.QTensorW8A8(
+            q=tl.attn_q_w.q, col_scale=tl.attn_q_w.col_scale,
+            act_scale=torch.tensor(0.1)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_project_pos_w8a8_matches_jax(w8a8_models, dtype):
+    """The W8A8 weight is dequantized in the pos-emb dtype (q and
+    col_scale each rounded to it, then multiplied)."""
+    import jax.numpy as jnp
+
+    from nemotron_tpu.ops import rel_attention as jrel
+    from nemotron_tpu_torch.ops import rel_attention as trel
+
+    m = w8a8_models
+    cfg = m["cfg"]
+    pos = jrel.pos_emb_descending(20, cfg.d_model)
+    jw = m["jw"].layers.attn_pos_w
+    want = np.asarray(jrel.project_pos(
+        type(jw)(q=jw.q[0], col_scale=jw.col_scale[0]),
+        jnp.asarray(pos, getattr(jnp, dtype)), cfg.n_heads, cfg.d_head),
+        np.float32)
+    got = trel.project_pos(m["tw"].layers.attn_pos_w[0],
+                           torch.tensor(pos).to(getattr(torch, dtype)),
+                           cfg.n_heads, cfg.d_head)
+    assert got.dtype == getattr(torch, dtype)
+    # f32: summation order only; bf16: one rounding of the output (2 ulps)
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -7 * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+def test_bf16_q8_qmm_within_two_bf16_ulps_of_jax(w8a8_models):
+    """Known difference: in bf16 the port dequantizes a Q8_0 weight as the
+    TPU kernel does ((float)q * scale in f32, rounded once to bf16); JAX's
+    qmm off the TPU multiplies q and scale each rounded to bf16. The
+    outputs stay within two bf16 ulps of max|out|."""
+    import jax.numpy as jnp
+
+    from nemotron_tpu.ops import quant as jquant
+    from nemotron_tpu.params import quantize_model_params as jquantize
+
+    jq = jquantize(w8a8_models["jp"], "q8_0")
+    tq = tparams.params_from_jax_arrays(jax_flat(jq), w8a8_models["cfg"])
+    x = np.random.default_rng(4).standard_normal(
+        (6, w8a8_models["cfg"].d_model), dtype=np.float32)
+    for name in ("ffn1_w1", "attn_out_w"):
+        jw = getattr(jq.layers, name)
+        want = np.asarray(jquant.qmm(
+            jnp.asarray(x, jnp.bfloat16),
+            jquant.QTensor(q=jw.q[0], scale=jw.scale[0])), np.float32)
+        got = tquant.qmm(torch.tensor(x).bfloat16(),
+                         getattr(tq.layers, name)[0])
+        assert got.dtype == torch.bfloat16
+        tol = 2 * 2.0 ** -7 * np.abs(want).max()
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(1, 1024, 1024), (112, 4096, 1024),
+                                   (672, 1024, 1024), (3, 96, 56)])
+def test_w8a8_matmul_kernel_equals_plain_on_card(cuda_device, M, K, N, dtype):
+    x, qt = w8a8_inputs(np.random.default_rng(M), M, K, N)
+    x = torch.tensor(x, device=cuda_device).to(getattr(torch, dtype))
+    q = torch.tensor(qt.q, device=cuda_device)
+    cs = torch.tensor(qt.col_scale, device=cuda_device)
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, q, cs)
+    want = w8a8_matmul_ref(x, q, cs)
+    torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
