@@ -8,15 +8,20 @@ Phases (any failure exits non-zero):
   2. build: the three CUDA kernels from nemotron_tpu_torch/csrc with nvcc,
      one process each, all at once.
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main paths' shapes (all four latency modes, f32 and bf16, dense
-     and int8 rings for the attention; the W8A8 matmul bit for bit), with
-     the tolerances below; times of the kernel, the plain version and one
-     PyTorch library call.
+     the main paths' shapes (all four latency modes, B = 1 and 8, f32 and
+     bf16, dense and int8 rings for the attention; M = 1, 14, 112 for the
+     Q8 matmul; the W8A8 matmul bit for bit), with the tolerances below;
+     repeated calls bit-equal (attention and Q8); times of the kernel, the
+     plain version and one PyTorch library call: the attention in every
+     mode at B = 1 (f32, dense rings) and at the W8A8 path's B = 8 (bf16,
+     int8 rings, R = 13), the Q8 matmul per layer at M = 14 and M = 1.
   4. Q8_0 main path (slice 1): a seeded full-width (0.6B) random-weight
      GGUF with Q8_0 encoder matmuls, written with the port's writer, loaded
      with load_model(device="cuda") and streamed through StreamSession
      (f32, one stream) in all four latency modes. Each kernel's launch
-     count must match the chunk count; the R=13 tokens must equal the
+     count must match the chunk count, and in the profile of R=13 chunks
+     each Q8 call must be one kernel launch (no reduce kernel); the R=13
+     tokens must equal the
      port's CPU run of the same session, and the encoder's output over
      enough chunks to wrap the ring, and its caches after them, must agree
      with the CPU.
@@ -138,9 +143,9 @@ def time_calls(calls, iters: int, replays: int = 5) -> float:
 
 
 def profile_window(fn) -> dict:
-    """Device time by kernel name and the device's busy share over one call
-    of `fn`, from torch.profiler (CUPTI). Kernels run on one stream, so the
-    sum of their durations is the busy time."""
+    """Device time and launch count by kernel name and the device's busy
+    share over one call of `fn`, from torch.profiler (CUPTI). Kernels run
+    on one stream, so the sum of their durations is the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -153,6 +158,7 @@ def profile_window(fn) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
+    count: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "")
@@ -160,9 +166,16 @@ def profile_window(fn) -> dict:
                 name = name.rsplit("(", 1)[0]
             name = name.removeprefix("void ")[:100]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+            count[name] = count.get(name, 0) + 1
     busy_us = sum(by_name.values())
-    return dict(wall_us=wall_us, busy_us=busy_us,
+    return dict(wall_us=wall_us, busy_us=busy_us, count=count,
                 by_name=sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+def launches_of(prof: dict, prefix: str) -> int:
+    """Kernel launches in a profile whose names start with `prefix`."""
+    return sum(n for name, n in prof["count"].items()
+               if name.startswith(prefix))
 
 
 def check(name: str, err: float, tol: float, failures: list) -> None:
@@ -231,51 +244,76 @@ def attention_phase(failures: list) -> dict:
                     check(f"attn R={R} Q={Q} KV={KV} B={B} {str(dt)[6:]} "
                           f"ring={str(ring_dt)[6:]}", err, tol, failures)
 
-    # times at the main path's shapes: one stream, f32, dense rings
-    log("phase kernels: fused_ring_attention times (B=1, f32, dense rings; "
-        "8 ring stacks x 24 layers cycled, beyond L2)")
-    per_mode = {}
-    for R in MODES:
+    # determinism: the same inputs give the same bits (no atomics)
+    for B, dt, ring_dt in ((1, torch.float32, torch.float32),
+                           (8, torch.bfloat16, torch.int8)):
+        x = inputs(B, 14, 84, dt, ring_dt)
+        first = run(fused_ring_attention, x, L - 1)
+        same = all(torch.equal(run(fused_ring_attention, x, L - 1), first)
+                   for _ in range(3))
+        log(f"  attn B={B} {str(dt)[6:]} ring={str(ring_dt)[6:]}: repeated "
+            f"calls bit-equal: {same}")
+        if not same:
+            failures.append(f"attn B={B} {str(dt)[6:]}: not deterministic")
+
+    def timed(R, B, dt, ring_dt, with_library):
         cc = CacheConfig(att_right_context=R)
-        Q, KV, B = cc.chunk_enc_len, cc.kv_len, 1
-        x = inputs(B, Q, KV, torch.float32, torch.float32, n_stacks=8)
-        err = max((run(fused_ring_attention, x, l, s).float()
-                   - run(ring_attention_ref, x, l, s).float()).abs().max().item()
-                  for s in range(8) for l in (0, L - 1))
+        Q, KV = cc.chunk_enc_len, cc.kv_len
+        x = inputs(B, Q, KV, dt, ring_dt, n_stacks=8)
+        pairs = [(run(fused_ring_attention, x, l, s).float(),
+                  run(ring_attention_ref, x, l, s).float())
+                 for s in range(8) for l in (0, L - 1)]
+        err = max((g - w).abs().max().item() for g, w in pairs)
+        tol = (TOL_F32_ATTN_ABS if dt == torch.float32 else TOL_BF16_REL
+               * max(max(w.abs().max().item() for _, w in pairs), 1.0))
+        del pairs
         calls = [lambda s=s, l=l: run(fused_ring_attention, x, l, s)
                  for s in range(8) for l in range(L)]
         plain = [lambda s=s, l=l: run(ring_attention_ref, x, l, s)
                  for s in range(8) for l in range(L)]
-        # library yardstick: SDPA over the concatenated dense K/V with the
-        # additive mask a (the same function for dense rings)
-        kcat = [[torch.cat([x["rings"][s][0][l], x["k_new"]], dim=2)
-                 for l in range(L)] for s in range(8)]
-        vcat = [[torch.cat([x["rings"][s][1][l], x["v_new"]], dim=2)
-                 for l in range(L)] for s in range(8)]
-        lib = [lambda s=s, l=l: F.scaled_dot_product_attention(
-            x["q_u"], kcat[s][l], vcat[s][l], attn_mask=x["a"],
-            scale=1.0 / math.sqrt(Dh))
-            for s in range(8) for l in range(L)]
         ms = time_calls(calls, 2000)
         plain_ms = time_calls(plain, 200)
-        lib_ms = time_calls(lib, 2000)
-        nbytes = 4 * (4 * B * H * Q * Dh + 2 * B * H * KV * Dh
-                      + B * H * Q * (KV + Q) + 2 * B * H * KV)
+        lib_ms = None
+        if with_library:
+            # library yardstick: SDPA over the concatenated dense K/V with
+            # the additive mask a (the same function for dense rings)
+            kcat = [[torch.cat([x["rings"][s][0][l], x["k_new"]], dim=2)
+                     for l in range(L)] for s in range(8)]
+            vcat = [[torch.cat([x["rings"][s][1][l], x["v_new"]], dim=2)
+                     for l in range(L)] for s in range(8)]
+            lib = [lambda s=s, l=l: F.scaled_dot_product_attention(
+                x["q_u"], kcat[s][l], vcat[s][l], attn_mask=x["a"],
+                scale=1.0 / math.sqrt(Dh))
+                for s in range(8) for l in range(L)]
+            lib_ms = time_calls(lib, 2000)
+        es, er = x["q_u"].element_size(), x["rings"][0][0].element_size()
+        nbytes = (es * (4 * B * H * Q * Dh + B * H * Q * (KV + Q))
+                  + er * 2 * B * H * KV * Dh + 4 * 2 * B * H * KV)
         flops = 2 * 2 * B * H * Q * (KV + Q) * Dh
-        bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                       flops / PEAK_FLOPS["float32"]) * 1e3
-        per_mode[R] = dict(Q=Q, KV=KV, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=bound_ms,
-                           bytes=nbytes, flops=flops, max_abs_err=err,
-                           bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                                     >= flops / PEAK_FLOPS["float32"]
-                                     else "operations"))
-        log(f"  R={R} Q={Q} KV={KV}: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, bound "
-            f"{bound_ms * 1e3:.3f} us ({nbytes} B, {flops} FLOP), "
-            f"err {err:.2e}")
-        if err > TOL_F32_ATTN_ABS:
-            failures.append(f"attn timing inputs R={R}: err {err:.3e}")
+        peak = PEAK_FLOPS[str(dt)[6:]]
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+        r = dict(Q=Q, KV=KV, B=B, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=bound_ms, bytes=nbytes,
+                 flops=flops, max_abs_err=err,
+                 bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                           >= flops / peak else "operations"))
+        lib_txt = f"sdpa {lib_ms * 1e3:.2f} us, " if with_library else ""
+        log(f"  R={R} Q={Q} KV={KV} B={B} {str(dt)[6:]} ring="
+            f"{str(ring_dt)[6:]}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, {lib_txt}bound {bound_ms * 1e3:.3f} us "
+            f"({nbytes} B, {flops} FLOP), err {err:.2e}")
+        if err > tol:
+            failures.append(f"attn timing inputs R={R} B={B}: err {err:.3e}")
+        return r
+
+    # times at the main paths' shapes: the Q8_0 path's (one stream, f32,
+    # dense rings, every mode) and the W8A8 path's (8 streams, bf16, int8
+    # rings, R = 13; no library call computes it)
+    log("phase kernels: fused_ring_attention times (8 ring stacks x 24 "
+        "layers cycled, beyond L2)")
+    per_mode = {R: timed(R, 1, torch.float32, torch.float32, True)
+                for R in MODES}
+    per_mode["w8a8"] = timed(13, 8, torch.bfloat16, torch.int8, False)
     return per_mode
 
 
@@ -312,6 +350,16 @@ def q8_phase(failures: list) -> dict:
                        else TOL_BF16_REL) * scale
                 check(f"q8 M={M} K={K} N={N} {str(dt)[6:]}", err, tol,
                       failures)
+
+    # determinism: the same inputs give the same bits (no atomics)
+    for M, (K, N) in ((14, (4096, 1024)), (1, (1024, 4096))):
+        (q, s), = weights(K, N)
+        x = torch.randn(M, K, device="cuda", generator=g)
+        first = q8_matmul(x, q, s)
+        same = all(torch.equal(q8_matmul(x, q, s), first) for _ in range(3))
+        log(f"  q8 M={M} K={K} N={N}: repeated calls bit-equal: {same}")
+        if not same:
+            failures.append(f"q8 M={M} K={K} N={N}: not deterministic")
 
     # times at the main path's shapes: M = 14 rows (one stream, R=13) and
     # M = 1 (R=0), f32; enough weight copies to exceed L2 as a chunk does
@@ -538,7 +586,10 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
     sess = StreamSession(params, cfg, vocab, cc)
     sess.process(pcm[: cc.chunk_samples * 2])
     warm_chunks = sess.total_chunks
+    q8_before, attn_before = q8_matmul.launches, fused_ring_attention.launches
     prof = profile_window(lambda: sess.process(pcm))
+    q8_calls = q8_matmul.launches - q8_before
+    attn_calls = fused_ring_attention.launches - attn_before
     if prof["busy_us"] > 0:
         log(f"  profile R=13 ({sess.total_chunks - warm_chunks} chunks): wall "
             f"{prof['wall_us'] / 1e3:.2f} ms, device busy "
@@ -548,9 +599,20 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
             log(f"    {us / 1e3:8.3f} ms  {name}")
         log("  the port's kernels in that profile:")
         for name, us in prof["by_name"]:
-            if name.startswith(("q8_matmul_kernel", "q8_reduce_kernel",
-                                "ring_attn_kernel")):
-                log(f"    {us / 1e3:8.3f} ms  {name}")
+            if name.startswith(("q8_", "ring_attn_")):
+                log(f"    {us / 1e3:8.3f} ms  {prof['count'][name]:6d} "
+                    f"launches  {name}")
+        q8_k = launches_of(prof, "q8_matmul_cluster_kernel")
+        attn_k = launches_of(prof, "ring_attn_cluster_kernel")
+        reduce_k = launches_of(prof, "q8_reduce")
+        log(f"  Q8 calls {q8_calls}, Q8 kernel launches {q8_k}, reduce "
+            f"launches {reduce_k}; attention calls {attn_calls}, kernel "
+            f"launches {attn_k}")
+        if q8_k != q8_calls or reduce_k or attn_k != attn_calls \
+                or q8_calls == 0:
+            failures.append(f"Q8_0 profile: {q8_calls} Q8 calls but {q8_k} "
+                            f"Q8 kernels and {reduce_k} reduce kernels; "
+                            f"{attn_calls} attention calls, {attn_k} kernels")
     else:
         log("  profile R=13: no device time recorded (not measured)")
     del sess
@@ -779,8 +841,11 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
             log(f"    {us / 1e3:8.3f} ms  {kname}")
         log("  the port's kernels in that profile:")
         for kname, us in prof["by_name"]:
-            if kname.startswith(("w8a8_", "ring_attn_kernel")):
-                log(f"    {us / 1e3:8.3f} ms  {kname}")
+            if kname.startswith(("w8a8_", "ring_attn_", "q8_")):
+                log(f"    {us / 1e3:8.3f} ms  {prof['count'][kname]:6d} "
+                    f"launches  {kname}")
+        if launches_of(prof, "q8_"):
+            failures.append("W8A8 profile: Q8 kernels launched")
     else:
         log("  profile R=13 bf16: no device time recorded (not measured)")
     del sess
@@ -912,10 +977,19 @@ def main() -> int:
     w8_bytes = sum(w8[(112, K, N)]["bytes"] * c for (K, N), c in Q8_SHAPES.items())
     w8_ops = sum(w8[(112, K, N)]["ops"] * c for (K, N), c in Q8_SHAPES.items())
     a13 = attn[13]
-    layer_ms = {k: sum(q8[(14, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    q8_bytes = sum(q8[(14, K, N)]["bytes"] * c for (K, N), c in Q8_SHAPES.items())
-    q8_flops = sum(q8[(14, K, N)]["flops"] * c for (K, N), c in Q8_SHAPES.items())
+
+    def q8_layer(M):
+        t = {k: sum(q8[(M, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                       "flops")}
+        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["flops"] / PEAK_FLOPS["float32"]
+                         else "operations")
+        return t
+
+    layer_ms = q8_layer(14)
+    attn_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "max_abs_err")
     kernels = [
         {"name": "fused_ring_attention", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/ring_attn.cu",
@@ -925,7 +999,12 @@ def main() -> int:
          "max_abs_err": a13["max_abs_err"], "ms": a13["ms"],
          "plain_ms": a13["plain_ms"], "bound_ms": a13["bound_ms"],
          "bound_by": a13["bound_by"], "library_ms": a13["library_ms"],
-         "shape": f"one call, B=1 H=8 Q=14 KV=84 Dh=128 f32 dense rings"},
+         "shape": "one call, B=1 H=8 Q=14 KV=84 Dh=128 f32 dense rings",
+         "modes": {f"R={R}": {k: attn[R][k] for k in ("Q", "KV") + attn_keys}
+                   for R in MODES},
+         "w8a8_variant": {k: attn["w8a8"][k] for k in attn_keys}
+         | {"shape": "one call, B=8 H=8 Q=14 KV=84 Dh=128 bf16 int8 rings; "
+                     "no library call computes it"}},
         {"name": "q8_matmul", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/q8_matmul.cu",
          "replaces": "nemotron_tpu/ops/quant_kernel.py:58",
@@ -933,12 +1012,13 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for (m, _, _), v in q8.items()
                             if m == 14),
          "ms": layer_ms["ms"], "plain_ms": layer_ms["plain_ms"],
-         "bound_ms": layer_ms["bound_ms"],
-         "bound_by": ("bytes" if q8_bytes / HBM_BYTES_PER_S
-                      >= q8_flops / PEAK_FLOPS["float32"] else "operations"),
+         "bound_ms": layer_ms["bound_ms"], "bound_by": layer_ms["bound_by"],
          "library_ms": layer_ms["library_ms"],
          "shape": "one layer's 10 calls, M=14 f32: (K,N) 5x(1024,1024) "
-                  "2x(1024,4096) 2x(4096,1024) 1x(1024,2048)"},
+                  "2x(1024,4096) 2x(4096,1024) 1x(1024,2048)",
+         "per_m": {f"M={M}": {k: v for k, v in q8_layer(M).items()
+                              if k not in ("bytes", "flops")}
+                   for M in (1, 14)}},
         {"name": "w8a8_matmul", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/w8a8_matmul.cu",
          "replaces": "nemotron_tpu/ops/w8a8_kernel.py:52",

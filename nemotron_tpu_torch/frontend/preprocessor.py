@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import PreprocessorConfig
+from ..device import resolve_device
 
 
 def mel_spectrogram(frames: torch.Tensor, window: torch.Tensor,
@@ -43,17 +44,18 @@ def pad_window(window: np.ndarray, n_fft: int) -> np.ndarray:
 
 class StreamingPreprocessor:
     """Stateful PCM -> log-mel for S parallel streams. All S streams advance
-    by the same number of samples per call."""
+    by the same number of samples per call. The FFT runs on `device`: the
+    card unless the caller asks for the CPU."""
 
     def __init__(self, filterbank, window, n_streams: int = 1,
                  cfg: PreprocessorConfig = PreprocessorConfig(),
-                 device="cpu"):
+                 device="cuda"):
+        self.device = resolve_device(device)
         self.cfg = cfg
         fb = np.asarray(filterbank, np.float32)
         if fb.shape != (cfg.n_mels, cfg.n_freqs):
             raise ValueError(f"filterbank {fb.shape} != "
                              f"{(cfg.n_mels, cfg.n_freqs)}")
-        self.device = torch.device(device)
         self.filterbank = torch.from_numpy(fb).to(self.device)
         self.window = torch.from_numpy(pad_window(
             np.asarray(window, np.float32), cfg.n_fft)).to(self.device)

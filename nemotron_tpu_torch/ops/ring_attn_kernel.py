@@ -23,6 +23,7 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CLUSTER = 8   # blocks of the thread-block cluster per (stream, head)
 
 
 def ring_attention_ref(layer: int, q_u, k_new, v_new, k_ring_all, v_ring_all,
@@ -58,7 +59,7 @@ def _lib() -> ctypes.CDLL:
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ring_attn_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, p,
-                                     i, i, i, i, i, ctypes.c_float, p]
+                                     i, i, i, i, i, i, ctypes.c_float, p]
     lib.ring_attn_launch.restype = i
     lib.ring_attn_max_q.argtypes = []
     lib.ring_attn_max_q.restype = i
@@ -70,7 +71,13 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
     """q_u/k_new/v_new [B, H, Q, Dh] f32 or bf16; k_ring_all/v_ring_all
     [L, B, H, KV, Dh] in the compute dtype or int8 (read only);
     a [B, H, Q, KV+Q] in the compute dtype; k_cols/v_cols [B, H, KV] f32.
-    Returns ctx [B, H, Q, Dh] in the compute dtype."""
+    Returns ctx [B, H, Q, Dh] in the compute dtype.
+
+    On the card: one launch of B*H thread-block clusters of CLUSTER = 8
+    blocks (256 threads each; 64 blocks at B = 1, H = 8), block r of a
+    cluster taking keys [r*S/8, (r+1)*S/8) of the S = KV+Q keys. Needs
+    Q <= 16, Dh a multiple of 32 and 16-byte aligned q_u, k_new, v_new and
+    rings."""
     if q_u.device.type == "cpu":
         return ring_attention_ref(layer, q_u, k_new, v_new, k_ring_all,
                                   v_ring_all, a, k_cols, v_cols)
@@ -105,6 +112,14 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
         raise ValueError("fused_ring_attention: q_u must be contiguous")
     if not 0 <= layer < L:
         raise ValueError(f"fused_ring_attention: layer {layer} of {L}")
+    if Dh % (4 * CLUSTER) or Dh % 16:
+        raise ValueError(f"fused_ring_attention: Dh={Dh} is not a multiple "
+                         f"of {max(16, 4 * CLUSTER)}")
+    for name, t in (("q_u", q_u), ("k_new", k_new), ("v_new", v_new),
+                    ("k_ring_all", k_ring_all), ("v_ring_all", v_ring_all)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_ring_attention: {name} is not 16-byte "
+                             f"aligned")
     lib = _lib()
     if Q > lib.ring_attn_max_q():
         raise ValueError(f"fused_ring_attention: Q={Q} exceeds the kernel's "
@@ -115,7 +130,7 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
         k_new.data_ptr(), v_new.data_ptr(), k_ring_all.data_ptr(),
         v_ring_all.data_ptr(), a.data_ptr(), k_cols.data_ptr(),
         v_cols.data_ptr(), out.data_ptr(), int(layer), B * H, Q, KV, Dh,
-        float(1.0 / (Dh ** 0.5)),
+        CLUSTER, float(1.0 / (Dh ** 0.5)),
         torch.cuda.current_stream(q_u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ring attention kernel launch failed: "

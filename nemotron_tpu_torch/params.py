@@ -366,12 +366,13 @@ def params_from_arrays(t: dict, cfg: ModelConfig,
 
 
 def params_from_jax_arrays(flat: dict, cfg: ModelConfig,
-                           device="cpu") -> ModelParams:
-    """Carry the JAX package's ModelParams across: `flat` maps each field
-    path of the JAX pytree ('layers.ffn1_w1', or 'layers.ffn1_w1.q' with
-    '.scale' for a QTensor or '.col_scale' for a QTensorW8A8) to a numpy
-    array."""
+                           device="cuda") -> ModelParams:
+    """Carry the JAX package's ModelParams across onto `device` (the card
+    unless the caller asks for the CPU): `flat` maps each field path of the
+    JAX pytree ('layers.ffn1_w1', or 'layers.ffn1_w1.q' with '.scale' for a
+    QTensor or '.col_scale' for a QTensorW8A8) to a numpy array."""
     del cfg  # the shapes are in the arrays
+    device = resolve_device(device)
     groups = {}
     for name, cls in _CONTAINERS:
         fields = {}
@@ -393,7 +394,7 @@ def params_from_jax_arrays(flat: dict, cfg: ModelConfig,
             else:
                 raise KeyError(f"missing parameter {key}")
         groups[name] = cls(**fields)
-    return to_device(ModelParams(**groups), resolve_device(device))
+    return to_device(ModelParams(**groups), device)
 
 
 def load_model(path: str, device="cuda",

@@ -12,12 +12,22 @@ import numpy as np
 import pytest
 import torch
 
+from nemotron_tpu_torch.config import CacheConfig
 from nemotron_tpu_torch.ops.quant import quantize_tensor
-from nemotron_tpu_torch.ops.quant_kernel import q8_matmul, q8_matmul_ref
-from nemotron_tpu_torch.ops.ring_attn_kernel import (fused_ring_attention,
+from nemotron_tpu_torch.ops.quant_kernel import (q8_launch_geometry,
+                                                 q8_matmul, q8_matmul_ref)
+from nemotron_tpu_torch.ops.ring_attn_kernel import (CLUSTER,
+                                                     fused_ring_attention,
                                                      ring_attention_ref)
 
 torch.set_num_threads(1)
+
+# (Q, KV) of the four latency modes R = 0, 1, 6, 13 at full width
+MODE_SHAPES = [(CacheConfig(att_right_context=r).chunk_enc_len,
+                CacheConfig(att_right_context=r).kv_len) for r in (0, 1, 6, 13)]
+# the encoder's (K, N) matmul shapes at full width
+Q8_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 2048)]
+H100_SMS = 132
 
 
 def ring_inputs(rng, L=3, B=2, H=4, Q=3, KV=9, Dh=16, int8=False):
@@ -45,15 +55,21 @@ def call(fn, layer, x, conv, **kw):
               conv(x["k_cols"]), conv(x["v_cols"]), **kw)
 
 
+def test_mode_shapes_are_the_latency_modes():
+    assert MODE_SHAPES == [(1, 71), (2, 72), (7, 77), (14, 84)]
+
+
+@pytest.mark.parametrize("Q,KV", [(3, 9)] + MODE_SHAPES)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("layer", [0, 2])
-def test_ring_attention_ref_matches_pallas_interpret(int8, layer):
+def test_ring_attention_ref_matches_pallas_interpret(int8, layer, Q, KV):
     import jax.numpy as jnp
 
     from nemotron_tpu.ops.ring_attn_kernel import (
         fused_ring_attention as pallas_ring_attention)
 
-    x = ring_inputs(np.random.default_rng(5 + layer), int8=int8)
+    x = ring_inputs(np.random.default_rng(5 + layer + Q), H=2, Q=Q, KV=KV,
+                    int8=int8)
     want = call(pallas_ring_attention, layer, x, jnp.asarray, block_b=2,
                 interpret=True)
     got = call(ring_attention_ref, layer, x, torch.tensor)
@@ -63,7 +79,7 @@ def test_ring_attention_ref_matches_pallas_interpret(int8, layer):
     np.testing.assert_array_equal(cpu.numpy(), got.numpy())
 
 
-@pytest.mark.parametrize("M", [8, 37, 300])
+@pytest.mark.parametrize("M", [1, 8, 14, 37, 300])
 def test_q8_matmul_ref_matches_pallas_interpret(M):
     import jax.numpy as jnp
 
@@ -99,6 +115,31 @@ def test_q8_matmul_ref_rounds_weights_to_the_activation_dtype():
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("K,N", Q8_SHAPES)
+def test_q8_launch_geometry_fills_an_h100(K, N):
+    """One launch a call, at least one full wave of blocks on an H100 for
+    every encoder shape at any M, clusters of at most 8 blocks, whole
+    32-row scale blocks per cluster rank."""
+    tn, ck, blocks = q8_launch_geometry(K, N, H100_SMS)
+    assert blocks >= H100_SMS
+    assert tn in (32, 64) and 1 <= ck <= 8 and K // 32 >= ck
+    assert blocks == -(-N // tn) * ck
+
+
+@pytest.mark.parametrize("K,N,want", [(96, 56, (32, 3, 6)),
+                                      (32, 4096, (32, 1, 128)),
+                                      (1024, 1024, (32, 8, 256))])
+def test_q8_launch_geometry_small_and_odd_shapes(K, N, want):
+    assert q8_launch_geometry(K, N, H100_SMS) == want
+
+
+def test_ring_attention_cluster_gives_32_blocks_at_one_stream():
+    H = 8
+    assert 1 <= CLUSTER <= 8
+    assert 1 * H * CLUSTER >= 32
+    assert 128 % (4 * CLUSTER) == 0    # Dh = 128: 4-column groups per rank
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -106,29 +147,54 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("int8", [False, True])
-def test_ring_attention_kernel_matches_plain_on_card(cuda_device, int8):
-    x = ring_inputs(np.random.default_rng(11), L=24, B=2, H=8, Q=14, KV=84,
+def card_ring_inputs(device, B, Q, KV, dtype, int8, seed=11):
+    """Full-width ring-attention inputs on the card: compute-dtype
+    operands in `dtype`, rings int8 or in `dtype`, f32 dequant columns."""
+    x = ring_inputs(np.random.default_rng(seed), L=24, B=B, H=8, Q=Q, KV=KV,
                     Dh=128, int8=int8)
+    keep = {"k_cols", "v_cols"} | ({"k_ring", "v_ring"} if int8 else set())
+    return {k: torch.tensor(v, device=device) if k in keep
+            else torch.tensor(v, device=device).to(dtype)
+            for k, v in x.items()}
 
-    def conv(a):
-        return torch.tensor(a, device=cuda_device)
 
-    got = call(fused_ring_attention, 7, x, conv)
-    want = call(ring_attention_ref, 7, x, conv)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+def ident(a):
+    return a
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Q,KV", MODE_SHAPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_ring_attention_kernel_matches_plain_on_card(cuda_device, int8, Q, KV,
+                                                     dtype, B):
+    dt = getattr(torch, dtype)
+    x = card_ring_inputs(cuda_device, B, Q, KV, dt, int8)
+    before = fused_ring_attention.launches
+    got = call(fused_ring_attention, 7, x, ident)
+    want = call(ring_attention_ref, 7, x, ident)
+    torch.cuda.synchronize()
+    assert fused_ring_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == want.shape
+    # f32: the same products summed in another order (the JAX package's
+    # fused-vs-einsum test holds 2e-5); bf16: one rounding of the f32
+    # context, two bf16 ulps of the largest output
+    scale = max(want.float().abs().max().item(), 1.0)
+    atol = 1e-5 if dt == torch.float32 else 2.0 ** -6 * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", Q8_SHAPES)
 @pytest.mark.parametrize("M", [1, 14, 112])
-def test_q8_matmul_kernel_matches_plain_on_card(cuda_device, M):
-    rng = np.random.default_rng(M)
-    K, N = 4096, 1024
+def test_q8_matmul_kernel_matches_plain_on_card(cuda_device, M, K, N, dtype):
+    rng = np.random.default_rng(M + K + N)
+    dt = getattr(torch, dtype)
     qt = quantize_tensor(rng.standard_normal((K, N)).astype(np.float32))
     x = torch.tensor(rng.standard_normal((M, K)).astype(np.float32),
-                     device=cuda_device)
+                     device=cuda_device).to(dt)
     q = torch.tensor(qt.q, device=cuda_device)
     s = torch.tensor(qt.scale, device=cuda_device)
     before = q8_matmul.launches
@@ -136,5 +202,59 @@ def test_q8_matmul_kernel_matches_plain_on_card(cuda_device, M):
     want = q8_matmul_ref(x, q, s)
     torch.cuda.synchronize()
     assert q8_matmul.launches == before + 1
-    scale = want.abs().max().item()
-    torch.testing.assert_close(got, want, atol=4e-6 * scale, rtol=0)
+    assert got.dtype == dt and got.shape == (M, N)
+    scale = want.float().abs().max().item()
+    tol = 4e-6 if dt == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,offset", [(3, 96, 56, 0), (20, 64, 40, 0),
+                                          (14, 1024, 1024, 1)])
+def test_q8_matmul_kernel_odd_shapes_on_card(cuda_device, M, K, N, offset,
+                                             dtype):
+    """N not a multiple of 16 or an x that is not 16-byte aligned (plain
+    loads), clusters of 2 and 3 blocks, and M above 16 (two row tiles)."""
+    rng = np.random.default_rng(M * K + N)
+    dt = getattr(torch, dtype)
+    qt = quantize_tensor(rng.standard_normal((K, N)).astype(np.float32))
+    xs = torch.tensor(rng.standard_normal(M * K + offset).astype(np.float32),
+                      device=cuda_device).to(dt)
+    x = xs[offset:].view(M, K)
+    q = torch.tensor(qt.q, device=cuda_device)
+    s = torch.tensor(qt.scale, device=cuda_device)
+    got = q8_matmul(x, q, s)
+    want = q8_matmul_ref(x, q, s)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    tol = 4e-6 if dt == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,dtype,int8", [(1, "float32", False),
+                                          (8, "bfloat16", True)])
+def test_ring_attention_kernel_is_deterministic(cuda_device, B, dtype, int8):
+    x = card_ring_inputs(cuda_device, B, 14, 84, getattr(torch, dtype), int8)
+    first = call(fused_ring_attention, 23, x, ident)
+    for _ in range(3):
+        assert torch.equal(call(fused_ring_attention, 23, x, ident), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(14, 4096, 1024), (1, 1024, 4096),
+                                   (112, 1024, 1024)])
+def test_q8_matmul_kernel_is_deterministic(cuda_device, M, K, N, dtype):
+    rng = np.random.default_rng(3)
+    qt = quantize_tensor(rng.standard_normal((K, N)).astype(np.float32))
+    x = torch.tensor(rng.standard_normal((M, K)).astype(np.float32),
+                     device=cuda_device).to(getattr(torch, dtype))
+    q = torch.tensor(qt.q, device=cuda_device)
+    s = torch.tensor(qt.scale, device=cuda_device)
+    first = q8_matmul(x, q, s)
+    for _ in range(3):
+        assert torch.equal(q8_matmul(x, q, s), first)

@@ -51,9 +51,9 @@ def both(model_setup):
     matmuls: whole params (jp/tp, jq/tq), layer-0 params (j0/t0, jq0/tq0)
     and the config."""
     _arrays, jp, cfg = model_setup
-    tp = tparams.params_from_jax_arrays(jax_flat(jp), cfg)
+    tp = tparams.params_from_jax_arrays(jax_flat(jp), cfg, device="cpu")
     jq = quantize_model_params(jp, "q8_0")
-    tq = tparams.params_from_jax_arrays(jax_flat(jq), cfg)
+    tq = tparams.params_from_jax_arrays(jax_flat(jq), cfg, device="cpu")
     j0 = jax.tree_util.tree_map(lambda a: a[0], jp.layers)
     jq0 = jax.tree_util.tree_map(lambda a: a[0], jq.layers)
     return dict(jp=jp, tp=tp, jq=jq, tq=tq, j0=j0, t0=tp.layers.layer(0),
@@ -247,9 +247,9 @@ def test_streaming_preprocessor_matches_jax_and_one_shot(both, rng):
                                     cfg=JPC(n_mels=cfg.n_mels),
                                     backend="numpy")
     tp = tpre.StreamingPreprocessor(fb, win, n_streams=2,
-                                    cfg=TPC(n_mels=cfg.n_mels))
+                                    cfg=TPC(n_mels=cfg.n_mels), device="cpu")
     one = tpre.StreamingPreprocessor(fb, win, n_streams=2,
-                                     cfg=TPC(n_mels=cfg.n_mels))
+                                     cfg=TPC(n_mels=cfg.n_mels), device="cpu")
     got, want = [], []
     for lo, hi in ((0, 100), (100, 2999), (2999, 3000), (3000, 9000)):
         got.append(tp.process(audio[:, lo:hi]))

@@ -9,6 +9,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -97,6 +98,24 @@ def test_load_model_defaults_to_cuda_and_raises_without_it(monkeypatch):
         load_model(gguf)
     params, cfg, _ = load_model(gguf, device="cpu")
     assert params.device.type == "cpu"
+
+
+def test_jax_params_and_preprocessor_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from nemotron_tpu_torch.config import ModelConfig, PreprocessorConfig
+    from nemotron_tpu_torch.frontend.preprocessor import StreamingPreprocessor
+    from nemotron_tpu_torch.params import params_from_jax_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax_arrays({}, ModelConfig())
+    pc = PreprocessorConfig()
+    fb = np.zeros((pc.n_mels, pc.n_freqs), np.float32)
+    win = np.ones(pc.n_window_size, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingPreprocessor(fb, win)
+    pre = StreamingPreprocessor(fb, win, device="cpu")
+    assert pre.device.type == "cpu"
 
 
 def test_cli_without_cpu_flag_refuses_when_cuda_is_absent(monkeypatch,

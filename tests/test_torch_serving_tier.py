@@ -67,7 +67,7 @@ def w8a8_model(model_setup):
     weights: tests/test_torch_w8a8.py) and the config."""
     _arrays, jp, cfg = model_setup
     jw = jquantize(jp, "w8a8")
-    return jw, params_from_jax_arrays(jax_flat(jw), cfg), cfg
+    return jw, params_from_jax_arrays(jax_flat(jw), cfg, device="cpu"), cfg
 
 
 def jax_step(cfg, cc):

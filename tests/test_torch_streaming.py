@@ -46,7 +46,8 @@ def models(model_setup):
     """{'f32'|'q8': (JAX params, port params)} and the tiny config."""
     _arrays, jp, cfg = model_setup
     jq = quantize_model_params(jp, "q8_0")
-    return {name: (p, params_from_jax_arrays(jax_flat(p), cfg))
+    return {name: (p, params_from_jax_arrays(jax_flat(p), cfg,
+                                                  device="cpu"))
             for name, p in (("f32", jp), ("q8", jq))}, cfg
 
 

@@ -148,9 +148,10 @@ def w8a8_models(model_setup):
     from nemotron_tpu.params import quantize_model_params as jquantize
 
     _arrays, jp, cfg = model_setup
-    tp = tparams.params_from_jax_arrays(jax_flat(jp), cfg)
+    tp = tparams.params_from_jax_arrays(jax_flat(jp), cfg, device="cpu")
     jq8 = jquantize(jp, "q8_0")
-    tq8 = tparams.params_from_jax_arrays(jax_flat(jq8), cfg)
+    tq8 = tparams.params_from_jax_arrays(jax_flat(jq8), cfg,
+                                        device="cpu")
     jw = jquantize(jp, "w8a8")
     return dict(cfg=cfg, jp=jp, tp=tp, jw=jw,
                 tw=tparams.quantize_model_params(tp, "w8a8"),
@@ -179,7 +180,8 @@ def test_quantize_model_params_bit_equal_to_jax(w8a8_models, pair):
 
 def test_params_from_jax_arrays_w8a8(w8a8_models):
     m = w8a8_models
-    tp = tparams.params_from_jax_arrays(jax_flat(m["jw"]), m["cfg"])
+    tp = tparams.params_from_jax_arrays(jax_flat(m["jw"]), m["cfg"],
+                                       device="cpu")
     want = jax_flat(m["jw"])
     assert "layers.ffn1_w1.col_scale" in want
     got = tparams.flatten(tp)
@@ -277,7 +279,8 @@ def test_bf16_q8_qmm_within_two_bf16_ulps_of_jax(w8a8_models):
     from nemotron_tpu.params import quantize_model_params as jquantize
 
     jq = jquantize(w8a8_models["jp"], "q8_0")
-    tq = tparams.params_from_jax_arrays(jax_flat(jq), w8a8_models["cfg"])
+    tq = tparams.params_from_jax_arrays(jax_flat(jq), w8a8_models["cfg"],
+                                       device="cpu")
     x = np.random.default_rng(4).standard_normal(
         (6, w8a8_models["cfg"].d_model), dtype=np.float32)
     for name in ("ffn1_w1", "attn_out_w"):
