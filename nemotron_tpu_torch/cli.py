@@ -4,7 +4,8 @@ The counterpart of `cli/transcribe_stream.py`, with the reference binary's
 argv contract (src/transcribe_stream.cpp:27-36):
 
     python -m nemotron_tpu_torch.cli <model.gguf> <audio.pcm|-|--stdin>
-                                     [chunk_ms] [right_context] [--cpu]
+                                     [chunk_ms] [right_context]
+                                     [--cpu|--cuda|--metal|--tpu]
                                      [--quantize=q8_0|w8a8] [--kv-int8]
                                      [--shared-cache]
 
@@ -12,7 +13,9 @@ argv contract (src/transcribe_stream.cpp:27-36):
   - chunk_ms is advisory (>=10 warning); the actual read size comes from the
     cache config, as in the reference (src/transcribe_stream.cpp:119,143-146)
   - right_context in {0, 1, 6, 13} selects the latency mode
-  - runs on the CUDA card unless --cpu is given
+  - runs on the CUDA card unless --cpu is given; --cuda asks for the card
+    (the default), --metal and --tpu warn and run on the card, as the JAX
+    CLI warns on the backends it lacks; --cpu with --cuda is an error
   - --quantize=q8_0|w8a8 requantizes the encoder matmul weights at load
     (a Q8_0 GGUF served as W8A8), --kv-int8 keeps int8 K/V rings,
     --shared-cache one shared x-ring per layer
@@ -26,7 +29,7 @@ import sys
 import time
 
 
-_FLAGS = ("--cpu", "--kv-int8", "--shared-cache")
+_FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--shared-cache")
 
 
 def main(argv: list[str]) -> int:
@@ -51,6 +54,14 @@ def main(argv: list[str]) -> int:
               f"takes {', '.join(_FLAGS)} and --quantize=q8_0|w8a8)",
               file=sys.stderr)
         return 1
+    if "--cpu" in flags and "--cuda" in flags:
+        print("error: --cpu and --cuda ask for different devices",
+              file=sys.stderr)
+        return 1
+    for f in flags:
+        if f in ("--metal", "--tpu"):
+            print(f"warning: {f} is not a backend of this port; using the "
+                  "CUDA card", file=sys.stderr)
     quant_mode = None
     for f in flags:
         if f.startswith("--quantize="):

@@ -23,7 +23,18 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CLUSTER = 8   # blocks of the thread-block cluster per (stream, head)
+MAX_CLUSTER = 8   # the portable thread-block cluster size
+
+
+def cluster_size(Dh: int) -> int:
+    """Blocks of the thread-block cluster per (stream, head): the largest
+    C <= 8 with Dh % (4 * C) == 0, so that each block owns Dh / C output
+    columns in whole groups of 4 (8 at Dh = 128 and 64, 4 at Dh = 16).
+    The kernel also needs Dh % 16 == 0 (16-byte rows of int8 rings)."""
+    if Dh <= 0 or Dh % 16:
+        raise ValueError(f"fused_ring_attention: Dh={Dh} is not a positive "
+                         f"multiple of 16")
+    return max(c for c in range(1, MAX_CLUSTER + 1) if Dh % (4 * c) == 0)
 
 
 def ring_attention_ref(layer: int, q_u, k_new, v_new, k_ring_all, v_ring_all,
@@ -73,11 +84,11 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
     a [B, H, Q, KV+Q] in the compute dtype; k_cols/v_cols [B, H, KV] f32.
     Returns ctx [B, H, Q, Dh] in the compute dtype.
 
-    On the card: one launch of B*H thread-block clusters of CLUSTER = 8
-    blocks (256 threads each; 64 blocks at B = 1, H = 8), block r of a
-    cluster taking keys [r*S/8, (r+1)*S/8) of the S = KV+Q keys. Needs
-    Q <= 16, Dh a multiple of 32 and 16-byte aligned q_u, k_new, v_new and
-    rings."""
+    On the card: one launch of B*H thread-block clusters of
+    C = cluster_size(Dh) blocks (256 threads each; 64 blocks at B = 1,
+    H = 8, Dh = 128), block r of a cluster taking keys [r*S/C, (r+1)*S/C)
+    of the S = KV+Q keys. Needs Q <= 16, Dh a multiple of 16 and 16-byte
+    aligned q_u, k_new, v_new and rings."""
     if q_u.device.type == "cpu":
         return ring_attention_ref(layer, q_u, k_new, v_new, k_ring_all,
                                   v_ring_all, a, k_cols, v_cols)
@@ -112,9 +123,7 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
         raise ValueError("fused_ring_attention: q_u must be contiguous")
     if not 0 <= layer < L:
         raise ValueError(f"fused_ring_attention: layer {layer} of {L}")
-    if Dh % (4 * CLUSTER) or Dh % 16:
-        raise ValueError(f"fused_ring_attention: Dh={Dh} is not a multiple "
-                         f"of {max(16, 4 * CLUSTER)}")
+    C = cluster_size(Dh)
     for name, t in (("q_u", q_u), ("k_new", k_new), ("v_new", v_new),
                     ("k_ring_all", k_ring_all), ("v_ring_all", v_ring_all)):
         if t.data_ptr() % 16:
@@ -130,7 +139,7 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
         k_new.data_ptr(), v_new.data_ptr(), k_ring_all.data_ptr(),
         v_ring_all.data_ptr(), a.data_ptr(), k_cols.data_ptr(),
         v_cols.data_ptr(), out.data_ptr(), int(layer), B * H, Q, KV, Dh,
-        CLUSTER, float(1.0 / (Dh ** 0.5)),
+        C, float(1.0 / (Dh ** 0.5)),
         torch.cuda.current_stream(q_u.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ring attention kernel launch failed: "

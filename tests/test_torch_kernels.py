@@ -8,6 +8,8 @@ tests also run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,7 @@ from nemotron_tpu_torch.config import CacheConfig
 from nemotron_tpu_torch.ops.quant import quantize_tensor
 from nemotron_tpu_torch.ops.quant_kernel import (q8_launch_geometry,
                                                  q8_matmul, q8_matmul_ref)
-from nemotron_tpu_torch.ops.ring_attn_kernel import (CLUSTER,
+from nemotron_tpu_torch.ops.ring_attn_kernel import (cluster_size,
                                                      fused_ring_attention,
                                                      ring_attention_ref)
 
@@ -28,6 +30,7 @@ MODE_SHAPES = [(CacheConfig(att_right_context=r).chunk_enc_len,
 # the encoder's (K, N) matmul shapes at full width
 Q8_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 2048)]
 H100_SMS = 132
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def ring_inputs(rng, L=3, B=2, H=4, Q=3, KV=9, Dh=16, int8=False):
@@ -134,10 +137,19 @@ def test_q8_launch_geometry_small_and_odd_shapes(K, N, want):
 
 
 def test_ring_attention_cluster_gives_32_blocks_at_one_stream():
-    H = 8
-    assert 1 <= CLUSTER <= 8
-    assert 1 * H * CLUSTER >= 32
-    assert 128 % (4 * CLUSTER) == 0    # Dh = 128: 4-column groups per rank
+    H, C = 8, cluster_size(128)
+    assert 1 <= C <= 8
+    assert 1 * H * C >= 32
+    assert 128 % (4 * C) == 0    # Dh = 128: 4-column groups per rank
+
+
+def test_ring_attention_cluster_size_follows_dh():
+    """The largest C <= 8 with Dh % (4 C) == 0: the full model's Dh = 128,
+    Dh = 64, and the trained fixtures' Dh = 16 (d_model 128, 8 heads)."""
+    assert [cluster_size(d) for d in (128, 64, 16, 48)] == [8, 8, 4, 6]
+    for bad in (8, 24, 0):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            cluster_size(bad)
 
 
 @pytest.fixture()
@@ -183,6 +195,74 @@ def test_ring_attention_kernel_matches_plain_on_card(cuda_device, int8, Q, KV,
     scale = max(want.float().abs().max().item(), 1.0)
     atol = 1e-5 if dt == torch.float32 else 2.0 ** -6 * scale
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8", [("float32", False), ("bfloat16", True)])
+@pytest.mark.parametrize("Q,KV", MODE_SHAPES)
+@pytest.mark.parametrize("Dh", [16, 64])
+def test_ring_attention_kernel_small_heads_on_card(cuda_device, Dh, Q, KV,
+                                                   dtype, int8):
+    """Dh = 16 (clusters of 4) and Dh = 64 (clusters of 8) at the same
+    tolerances as Dh = 128."""
+    dt = getattr(torch, dtype)
+    x = ring_inputs(np.random.default_rng(Dh + Q), L=3, B=2, H=8, Q=Q, KV=KV,
+                    Dh=Dh, int8=int8)
+    keep = {"k_cols", "v_cols"} | ({"k_ring", "v_ring"} if int8 else set())
+    x = {k: torch.tensor(v, device=cuda_device) if k in keep
+         else torch.tensor(v, device=cuda_device).to(dt)
+         for k, v in x.items()}
+    before = fused_ring_attention.launches
+    got = call(fused_ring_attention, 2, x, ident)
+    want = call(ring_attention_ref, 2, x, ident)
+    torch.cuda.synchronize()
+    assert fused_ring_attention.launches == before + 1
+    scale = max(want.float().abs().max().item(), 1.0)
+    atol = 1e-5 if dt == torch.float32 else 2.0 ** -6 * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def tone_pcm(seconds=5.0, n_tones=16, seed=7):
+    """A seeded run of 200 ms tones with 50 ms gaps from the trained
+    fixtures' inventory (16 log-spaced pitches, 180-3600 Hz) over noise."""
+    rng = np.random.default_rng(seed)
+    sr = 16000
+    freqs = np.geomspace(180.0, 3600.0, n_tones)
+    sig = 0.02 * rng.standard_normal(int(seconds * sr))
+    t = np.arange(int(0.2 * sr)) / sr
+    for pos in range(0, sig.size - t.size, int(0.25 * sr)):
+        f = freqs[rng.integers(n_tones)]
+        sig[pos:pos + t.size] += rng.uniform(0.5, 0.9) * np.sin(
+            2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+    return np.clip(sig * 16000, -32767, 32767).astype("<i2")
+
+
+@pytest.mark.cuda
+def test_stream_session_on_trained_fixture_card_equals_cpu(cuda_device):
+    """The trained tones fixture (d_model 128, 8 heads: Dh = 16) streamed
+    in f32, one stream, R = 13, on the card and on the CPU: the same
+    tokens, and every chunk's attention through the kernel."""
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    path = os.path.join(REPO, "weights", "tones_tiny.gguf")
+    pcm = tone_pcm()
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        params, cfg, vocab = load_model(path, device=dev)
+        assert cfg.d_head == 16
+        sess = StreamSession(params, cfg, vocab, CacheConfig(
+            att_right_context=13, n_mels=cfg.n_mels))
+        before = fused_ring_attention.launches
+        sess.process(pcm)
+        sess.finalize()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert fused_ring_attention.launches - before == \
+                cfg.n_layers * sess.total_chunks > 0
+        tokens[dev] = sess.get_tokens(0)
+    assert tokens["cuda"] == tokens["cpu"]
+    assert len(tokens["cpu"]) > 5
 
 
 @pytest.mark.cuda
