@@ -14,7 +14,8 @@ Phases (any failure exits non-zero):
      repeated calls bit-equal (attention and Q8); times of the kernel, the
      plain version and one PyTorch library call: the attention in every
      mode at B = 1 (f32, dense rings) and at the W8A8 path's B = 8 (bf16,
-     int8 rings, R = 13), the Q8 matmul per layer at M = 14 and M = 1.
+     int8 rings, R = 13), the Q8 matmul per layer at M = 14 and M = 1, the
+     W8A8 matmul per layer at M = 8, 16 and 112 and per call at M = 672.
   4. Q8_0 main path (slice 1): a seeded full-width (0.6B) random-weight
      GGUF with Q8_0 encoder matmuls, written with the port's writer, loaded
      with load_model(device="cuda") and streamed through StreamSession
@@ -29,7 +30,9 @@ Phases (any failure exits non-zero):
      (quantize_model_params), streamed in bf16 over 8 streams with int8 K/V
      rings in all four modes, then with the shared x-ring at R=13; launch
      counts per chunk; the f32 R=13 session's tokens, encoder output and
-     caches against the port's CPU run; bf16 against f32 on the card.
+     caches against the port's CPU run; bf16 against f32 on the card. In
+     the profile of R=13 chunks each W8A8 call must be one kernel launch
+     (no quantize or reduce kernel).
   6. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}.
 
@@ -426,7 +429,8 @@ def w8a8_phase(failures: list) -> dict:
         return (torch.randn(M, K, device="cuda", generator=g) * scale).to(dt)
 
     log("phase kernels: w8a8_matmul vs w8a8_matmul_ref (bit for bit)")
-    shapes = [(M, K, N) for M in (1, 8, 112, 672) for (K, N) in Q8_SHAPES]
+    shapes = [(M, K, N) for M in (1, 8, 16, 56, 112, 672)
+              for (K, N) in Q8_SHAPES]
     worst = 0.0
     for M, K, N in shapes + [(3, 96, 56)]:
         for dt in (torch.float32, torch.bfloat16):
@@ -441,15 +445,16 @@ def w8a8_phase(failures: list) -> dict:
             worst = max(worst, err)
             check(f"w8a8 M={M} K={K} N={N} {str(dt)[6:]}", err, 0.0, failures)
 
-    # times at the main path's shapes: M = 8 streams x 14 frames (R = 13)
-    # for the ten weight matmuls of a layer, and M = 8 x 84 ring slots for
-    # the shared x-ring's K/V recompute; bf16 activations (the serving
-    # dtype); enough weight copies to exceed L2 as a chunk does
+    # times at the main path's shapes: M = 8 streams x 1, 2 or 14 frames
+    # (R = 0, 1, 13) for the ten weight matmuls of a layer, and M = 8 x 84
+    # ring slots for the shared x-ring's K/V recompute; bf16 activations
+    # (the serving dtype); enough weight copies to exceed L2 as a chunk does
     log("phase kernels: w8a8_matmul times (bf16; weights cycled beyond L2; "
         "library = torch._int_mm on the pre-quantized activation, without "
-        "the quantize and rescale)")
+        "the quantize and rescale, its rows padded to 32 below M = 17)")
     out = {}
-    for M, kn in ((112, list(Q8_SHAPES)), (672, [(1024, 1024)])):
+    for M, kn in ((8, list(Q8_SHAPES)), (16, list(Q8_SHAPES)),
+                  (112, list(Q8_SHAPES)), (672, [(1024, 1024)])):
         for (K, N) in kn:
             n = max(2, (192 << 20) // (K * N))
             ws = weights(K, N, n)
@@ -461,7 +466,9 @@ def w8a8_phase(failures: list) -> dict:
                              for q, cs in ws], 500)
             plain_ms = time_calls([lambda q=q, cs=cs: w8a8_matmul_ref(x, q, cs)
                                    for q, cs in ws[:8]], 100)
-            xq = quantize_rows(x)          # M > 16, as torch._int_mm needs
+            xq = quantize_rows(x)
+            if M <= 16:                    # torch._int_mm needs M > 16
+                xq = torch.cat([xq, xq.new_zeros(32 - M, K)])
             lib_ms = time_calls([lambda q=q: torch._int_mm(xq, q)
                                  for q, _ in ws], 500)
             nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
@@ -831,7 +838,9 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
                          compute_dtype=bf16)
     sess.process(pcm[:, :cc.chunk_samples * 2])
     warm_chunks = sess.total_chunks
+    w8_before = w8a8_matmul.launches
     prof = profile_window(lambda: sess.process(pcm))
+    w8_calls = w8a8_matmul.launches - w8_before
     if prof["busy_us"] > 0:
         log(f"  profile R=13 bf16 S={S} ({sess.total_chunks - warm_chunks} "
             f"chunks): wall {prof['wall_us'] / 1e3:.2f} ms, device busy "
@@ -844,6 +853,16 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
             if kname.startswith(("w8a8_", "ring_attn_", "q8_")):
                 log(f"    {us / 1e3:8.3f} ms  {prof['count'][kname]:6d} "
                     f"launches  {kname}")
+        w8_k = launches_of(prof, "w8a8_matmul_cluster_kernel")
+        w8_other = (launches_of(prof, "w8a8_quantize")
+                    + launches_of(prof, "w8a8_reduce")
+                    + launches_of(prof, "w8a8_product"))
+        log(f"  W8A8 calls {w8_calls}, W8A8 kernel launches {w8_k}, "
+            f"quantize/product/reduce launches {w8_other}")
+        if w8_k != w8_calls or w8_other or w8_calls == 0:
+            failures.append(f"W8A8 profile: {w8_calls} W8A8 calls but "
+                            f"{w8_k} W8A8 kernels and {w8_other} quantize, "
+                            f"product or reduce kernels")
         if launches_of(prof, "q8_"):
             failures.append("W8A8 profile: Q8 kernels launched")
     else:
@@ -972,10 +991,15 @@ def main() -> int:
         runs = main_path_phase(path, failures)
         w8_runs = w8a8_path_phase(path, failures)
 
-    w8_layer = {k: sum(w8[(112, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    w8_bytes = sum(w8[(112, K, N)]["bytes"] * c for (K, N), c in Q8_SHAPES.items())
-    w8_ops = sum(w8[(112, K, N)]["ops"] * c for (K, N), c in Q8_SHAPES.items())
+    def w8_layer(M):
+        t = {k: sum(w8[(M, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                       "ops")}
+        t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
+                         >= t["ops"] / PEAK_FLOPS["int8"] else "operations")
+        return t
+
+    w8_112 = w8_layer(112)
     a13 = attn[13]
 
     def q8_layer(M):
@@ -1024,14 +1048,20 @@ def main() -> int:
          "replaces": "nemotron_tpu/ops/w8a8_kernel.py:52",
          "launches": sum(r["w8a8_launches"] for r in w8_runs.values()),
          "max_abs_err": w8["max_abs_err"],
-         "ms": w8_layer["ms"], "plain_ms": w8_layer["plain_ms"],
-         "bound_ms": w8_layer["bound_ms"],
-         "bound_by": ("bytes" if w8_bytes / HBM_BYTES_PER_S
-                      >= w8_ops / PEAK_FLOPS["int8"] else "operations"),
-         "library_ms": w8_layer["library_ms"],
+         "ms": w8_112["ms"], "plain_ms": w8_112["plain_ms"],
+         "bound_ms": w8_112["bound_ms"], "bound_by": w8_112["bound_by"],
+         "library_ms": w8_112["library_ms"],
          "shape": "one layer's 10 calls, M=112 (8 streams x 14) bf16: same "
-                  "(K,N); library = torch._int_mm on pre-quantized int8 "
-                  "activations, without the quantize and rescale"},
+                  "(K,N); one kernel launch a call; library = torch._int_mm "
+                  "on pre-quantized int8 activations, without the quantize "
+                  "and rescale (rows padded to 32 below M = 17)",
+         "per_m": {f"M={M}": {k: v for k, v in w8_layer(M).items()
+                              if k not in ("bytes", "ops")}
+                   for M in (8, 16, 112)}
+         | {"M=672": {k: w8[(672, 1024, 1024)][k]
+                      for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}
+            | {"shape": "one call, (K,N) = (1024,1024)"}}},
     ]
     modes = {f"R={R}": {k: v for k, v in r.items() if k != "tokens"}
              | {"n_tokens": len(r["tokens"])} for R, r in runs.items()}

@@ -25,6 +25,9 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CLUSTER = 8   # the portable thread-block cluster size
+KSTEP = 32        # K depth of the kernel's int8 tensor-core step
+_sm_counts: dict[int, int] = {}
 
 
 def w8a8_k_tile(K: int) -> int:
@@ -57,23 +60,51 @@ def w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     return (acc * col_scale.to(torch.float32)).to(x.dtype)
 
 
+def w8a8_launch_geometry(K: int, N: int, sms: int) -> tuple[int, int, int]:
+    """(bn, C, blocks) of the kernel's launch on a card with `sms`
+    streaming multiprocessors. A cluster of C = n_groups * c <= 8 blocks
+    splits K, c the largest power of two that keeps each block's slice
+    K / C a multiple of 32 inside one group of `w8a8_k_tile(K)` columns
+    (C = 8 for K = 1024 and 4096; a single group that holds no multiple of
+    32 runs with C = 1). A cluster covers bn = 64 columns where that still
+    gives one full wave of blocks, else 32. Raises ValueError where no such
+    C exists: more than 8 groups."""
+    G = w8a8_k_tile(K)
+    n_groups = K // G
+    if n_groups > MAX_CLUSTER:
+        raise ValueError(f"w8a8_matmul: K={K} has {n_groups} groups of {G}; "
+                         f"the kernel's cluster takes at most {MAX_CLUSTER}")
+    c = 1
+    while (n_groups * 2 * c <= MAX_CLUSTER and G % (2 * c) == 0
+           and (G // (2 * c)) % KSTEP == 0):
+        c *= 2
+    C = n_groups * c
+    bn = 64 if -(-N // 64) * C >= sms else 32
+    return bn, C, -(-N // bn) * C
+
+
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
     lib = cuda_build.load("w8a8_matmul")
     if lib.w8a8_matmul_launch.argtypes is not None:
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.w8a8_matmul_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.w8a8_matmul_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i,
+                                       p]
     lib.w8a8_matmul_launch.restype = i
-    lib.w8a8_matmul_scratch_bytes.argtypes = [i, i, i, i]
-    lib.w8a8_matmul_scratch_bytes.restype = ctypes.c_long
     return lib
 
 
 def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
                 col_scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] f32 or bf16; q int8 [K, N]; col_scale f32 [N].
-    Returns [M, N] in x's dtype."""
+    Returns [M, N] in x's dtype.
+
+    On the card: one kernel launch, nothing allocated but the output. The
+    grid is `w8a8_launch_geometry(K, N, SMs)`: ceil(N/bn) thread-block
+    clusters of C blocks along K; the activation's quantization is fused
+    in and the products run on the int8 tensor cores; M is taken in tiles
+    of 16, 32 or 64 rows inside the block (4 warps, 8 above 16 rows)."""
     if x.device.type == "cpu":
         return w8a8_matmul_ref(x, q, col_scale)
     if x.device.type != "cuda":
@@ -96,14 +127,19 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
     if not (x.is_contiguous() and q.is_contiguous()
             and col_scale.is_contiguous()):
         raise ValueError("w8a8_matmul: operands must be contiguous")
+    dev = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    bn, C, _ = w8a8_launch_geometry(K, N, _sm_counts[dev])
     lib = _lib()
-    scratch = torch.empty(lib.w8a8_matmul_scratch_bytes(M, K, N, G),
-                          dtype=torch.uint8, device=x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    vec = int(N % 4 == 0 and q.data_ptr() % 4 == 0)
+    vec_x = int(K * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0)
+    vec_w = int(N % 16 == 0 and q.data_ptr() % 16 == 0)
     rc = lib.w8a8_matmul_launch(
         _DTYPES[x.dtype], x.data_ptr(), q.data_ptr(), col_scale.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), M, K, N, G, vec,
+        out.data_ptr(), M, K, N, G, bn, C, vec_x, vec_w,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"w8a8_matmul kernel launch failed: CUDA error {rc}")

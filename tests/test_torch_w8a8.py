@@ -16,8 +16,9 @@ import torch
 
 from nemotron_tpu_torch import params as tparams
 from nemotron_tpu_torch.ops import quant as tquant
-from nemotron_tpu_torch.ops.w8a8_kernel import (w8a8_k_tile, w8a8_matmul,
-                                                w8a8_matmul_ref)
+from nemotron_tpu_torch.ops.w8a8_kernel import (w8a8_k_tile,
+                                                w8a8_launch_geometry,
+                                                w8a8_matmul, w8a8_matmul_ref)
 
 torch.set_num_threads(1)
 
@@ -127,6 +128,36 @@ def test_w8a8_matmul_ref_nan_row_and_bf16():
     # bf16 in, f32 arithmetic, one rounding to bf16 at the end
     torch.testing.assert_close(
         got, w8a8_matmul_ref(xb.float(), q, cs).bfloat16(), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("K,N,want", [
+    (1024, 1024, (32, 8, 256)), (1024, 4096, (64, 8, 512)),
+    (4096, 1024, (32, 8, 256)), (1024, 2048, (64, 8, 256)),
+    (96, 56, (32, 1, 2)), (32, 8, (32, 1, 1)), (64, 96, (32, 2, 6)),
+    (3072, 1024, (32, 6, 192)), (1000, 8, (32, 1, 1))])
+def test_w8a8_launch_geometry(K, N, want):
+    """Clusters of C <= 8 blocks along K, each block's slice a multiple of
+    32 inside one group (C = 8 for every encoder shape: slices of 128 at
+    K = 1024, 512 at K = 4096), bn = 64 only where a wave stays full; a
+    single group that holds no multiple of 32 runs with C = 1."""
+    bn, C, blocks = w8a8_launch_geometry(K, N, 132)
+    assert (bn, C, blocks) == want
+    G = w8a8_k_tile(K)
+    assert C % (K // G) == 0 and G % (C // (K // G)) == 0
+    ks = K // C
+    assert C == 1 or ks % 32 == 0
+
+
+def test_w8a8_launch_geometry_refuses_more_than_8_groups():
+    """K = 4608: 9 groups of 512, more than a cluster's 8 blocks. The
+    geometry (which the wrapper asks before any launch) raises; the plain
+    version still computes it."""
+    with pytest.raises(ValueError, match="9 groups of 512"):
+        w8a8_launch_geometry(4608, 64, 132)
+    x, qt = w8a8_inputs(np.random.default_rng(9), 3, 4608, 64)
+    out = w8a8_matmul(torch.tensor(x), torch.tensor(qt.q),
+                      torch.tensor(qt.col_scale))        # CPU -> plain
+    assert tuple(out.shape) == (3, 64) and torch.isfinite(out).all()
 
 
 def test_quantize_tensor_w8a8_bit_equal_to_jax():
@@ -305,7 +336,11 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,K,N", [(1, 1024, 1024), (112, 4096, 1024),
-                                   (672, 1024, 1024), (3, 96, 56)])
+                                   (672, 1024, 1024), (3, 96, 56),
+                                   (8, 1024, 1024), (16, 1024, 4096),
+                                   (56, 1024, 2048), (8, 4096, 1024),
+                                   (37, 1024, 1024), (37, 4096, 1024),
+                                   (20, 3072, 256), (5, 64, 96)])
 def test_w8a8_matmul_kernel_equals_plain_on_card(cuda_device, M, K, N, dtype):
     x, qt = w8a8_inputs(np.random.default_rng(M), M, K, N)
     x = torch.tensor(x, device=cuda_device).to(getattr(torch, dtype))
@@ -317,3 +352,80 @@ def test_w8a8_matmul_kernel_equals_plain_on_card(cuda_device, M, K, N, dtype):
     torch.cuda.synchronize()
     assert w8a8_matmul.launches == before + 1
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_w8a8_matmul_kernel_one_tile_fragments_on_card(cuda_device, dtype):
+    """One 16x8x32 tile (C = 1, one mma k-step): integer activations whose
+    rows reach 127 have s = 127 * f32(1/127) = 1 exactly and quantize to
+    themselves, so the output is the int64 product of A and B (exact in
+    f32, rounded once to bf16) -- a wrong fragment map moves whole
+    products."""
+    rng = np.random.default_rng(16)
+    a = rng.integers(-127, 128, (16, 32))
+    a[np.arange(16), rng.integers(0, 32, 16)] = 127
+    b = rng.integers(-127, 128, (32, 8)).astype(np.int8)
+    dt = getattr(torch, dtype)
+    want = torch.tensor(a @ b.astype(np.int64), dtype=torch.float32).to(dt)
+    x = torch.tensor(a, dtype=dt, device=cuda_device)
+    q = torch.tensor(b, device=cuda_device)
+    cs = torch.ones(8, device=cuda_device)
+    got = w8a8_matmul(x, q, cs)
+    torch.testing.assert_close(got, w8a8_matmul_ref(x, q, cs), atol=0, rtol=0)
+    torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K", [(8, 1024), (112, 4096)])
+def test_w8a8_matmul_kernel_nan_row_on_card(cuda_device, M, K, dtype):
+    """A NaN in one row makes that row's outputs NaN (its scale is NaN);
+    every other row equals the plain version bit for bit."""
+    x, qt = w8a8_inputs(np.random.default_rng(K + M), M, K, 256)
+    x[M // 2, K - 3] = np.nan
+    x = torch.tensor(x, device=cuda_device).to(getattr(torch, dtype))
+    q = torch.tensor(qt.q, device=cuda_device)
+    cs = torch.tensor(qt.col_scale, device=cuda_device)
+    got = w8a8_matmul(x, q, cs)
+    want = w8a8_matmul_ref(x, q, cs)
+    assert torch.isnan(got[M // 2]).all()
+    keep = [m for m in range(M) if m != M // 2]
+    torch.testing.assert_close(got[keep], want[keep], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (672, 1024, 1024)])
+def test_w8a8_matmul_kernel_is_deterministic_and_one_launch(cuda_device, M,
+                                                            K, N):
+    """Repeated calls give the same bits (no atomics), and one call is one
+    kernel launch (no quantize or reduce pass) and one count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, qt = w8a8_inputs(np.random.default_rng(1), M, K, N)
+    x = torch.tensor(x, device=cuda_device).bfloat16()
+    q = torch.tensor(qt.q, device=cuda_device)
+    cs = torch.tensor(qt.col_scale, device=cuda_device)
+    first = w8a8_matmul(x, q, cs)
+    for _ in range(3):
+        assert torch.equal(w8a8_matmul(x, q, cs), first)
+    torch.cuda.synchronize()
+    before = w8a8_matmul.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w8a8_matmul(x, q, cs)
+        torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len([n for n in names if "w8a8_matmul_cluster_kernel" in n]) == 1
+    assert not [n for n in names if "quantize" in n or "reduce" in n]
+
+
+@pytest.mark.cuda
+def test_w8a8_matmul_wrapper_refuses_more_than_8_groups_on_card(cuda_device):
+    x = torch.zeros((2, 4608), device=cuda_device)
+    q = torch.zeros((4608, 64), dtype=torch.int8, device=cuda_device)
+    before = w8a8_matmul.launches
+    with pytest.raises(ValueError, match="9 groups"):
+        w8a8_matmul(x, q, torch.ones(64, device=cuda_device))
+    assert w8a8_matmul.launches == before
