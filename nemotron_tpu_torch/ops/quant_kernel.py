@@ -46,6 +46,16 @@ def q8_launch_geometry(K: int, N: int, sms: int) -> tuple[int, int, int]:
     return tn, ck, -(-N // tn) * ck
 
 
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_counts[dev]
+
+
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
     lib = cuda_build.load("q8_matmul")
@@ -88,12 +98,7 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor,
     if not (x.is_contiguous() and q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("q8_matmul: operands must be contiguous")
     lib = _lib()
-    dev = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    if dev not in _sm_counts:
-        _sm_counts[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    tn, ck, _ = q8_launch_geometry(K, N, _sm_counts[dev])
+    tn, ck, _ = q8_launch_geometry(K, N, sm_count(x.device))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     vec = int(N % 16 == 0 and all(t.data_ptr() % 16 == 0
                                   for t in (x, q, scale)))

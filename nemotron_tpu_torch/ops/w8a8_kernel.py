@@ -23,11 +23,11 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .quant_kernel import sm_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CLUSTER = 8   # the portable thread-block cluster size
 KSTEP = 32        # K depth of the kernel's int8 tensor-core step
-_sm_counts: dict[int, int] = {}
 
 
 def w8a8_k_tile(K: int) -> int:
@@ -127,12 +127,7 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
     if not (x.is_contiguous() and q.is_contiguous()
             and col_scale.is_contiguous()):
         raise ValueError("w8a8_matmul: operands must be contiguous")
-    dev = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    if dev not in _sm_counts:
-        _sm_counts[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    bn, C, _ = w8a8_launch_geometry(K, N, _sm_counts[dev])
+    bn, C, _ = w8a8_launch_geometry(K, N, sm_count(x.device))
     lib = _lib()
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     vec_x = int(K * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0)

@@ -340,7 +340,8 @@ def cuda_device():
                                    (8, 1024, 1024), (16, 1024, 4096),
                                    (56, 1024, 2048), (8, 4096, 1024),
                                    (37, 1024, 1024), (37, 4096, 1024),
-                                   (20, 3072, 256), (5, 64, 96)])
+                                   (20, 3072, 256), (5, 64, 96),
+                                   (3, 5120, 64), (7, 36, 40)])
 def test_w8a8_matmul_kernel_equals_plain_on_card(cuda_device, M, K, N, dtype):
     x, qt = w8a8_inputs(np.random.default_rng(M), M, K, N)
     x = torch.tensor(x, device=cuda_device).to(getattr(torch, dtype))
@@ -352,6 +353,22 @@ def test_w8a8_matmul_kernel_equals_plain_on_card(cuda_device, M, K, N, dtype):
     torch.cuda.synchronize()
     assert w8a8_matmul.launches == before + 1
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(20, 1024, 1024), (3, 96, 56)])
+def test_w8a8_matmul_kernel_unaligned_x_on_card(cuda_device, M, K, N, dtype):
+    """An x that is not 16-byte aligned takes the kernel's plain loads."""
+    x, qt = w8a8_inputs(np.random.default_rng(K + 1), M, K, N)
+    flat = torch.tensor(np.concatenate([[0.0], x.ravel()]).astype(np.float32),
+                        device=cuda_device).to(getattr(torch, dtype))
+    x = flat[1:].view(M, K)
+    assert x.data_ptr() % 16
+    q = torch.tensor(qt.q, device=cuda_device)
+    cs = torch.tensor(qt.col_scale, device=cuda_device)
+    torch.testing.assert_close(w8a8_matmul(x, q, cs), w8a8_matmul_ref(x, q, cs),
+                               atol=0, rtol=0)
 
 
 @pytest.mark.cuda
