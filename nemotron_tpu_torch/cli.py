@@ -14,8 +14,8 @@ argv contract (src/transcribe_stream.cpp:27-36):
     cache config, as in the reference (src/transcribe_stream.cpp:119,143-146)
   - right_context in {0, 1, 6, 13} selects the latency mode
   - runs on the CUDA card unless --cpu is given; --cuda asks for the card
-    (the default), --metal and --tpu warn and run on the card, as the JAX
-    CLI warns on the backends it lacks; --cpu with --cuda is an error
+    (the default), --metal and --tpu warn and are ignored, as the JAX CLI
+    warns on the backends it lacks; --cpu with --cuda is an error
   - --quantize=q8_0|w8a8 requantizes the encoder matmul weights at load
     (a Q8_0 GGUF served as W8A8), --kv-int8 keeps int8 K/V rings,
     --shared-cache one shared x-ring per layer
@@ -58,10 +58,12 @@ def main(argv: list[str]) -> int:
         print("error: --cpu and --cuda ask for different devices",
               file=sys.stderr)
         return 1
+    device = "cpu" if "--cpu" in flags else "cuda"
     for f in flags:
         if f in ("--metal", "--tpu"):
-            print(f"warning: {f} is not a backend of this port; using the "
-                  "CUDA card", file=sys.stderr)
+            using = "the CPU (--cpu)" if device == "cpu" else "the CUDA card"
+            print(f"warning: {f} is not a backend of this port; using "
+                  f"{using}", file=sys.stderr)
     quant_mode = None
     for f in flags:
         if f.startswith("--quantize="):
@@ -75,7 +77,6 @@ def main(argv: list[str]) -> int:
     if right_context not in (0, 1, 6, 13):
         print(f"warning: right_context {right_context} is non-standard "
               "(expected 0, 1, 6 or 13)", file=sys.stderr)
-    device = "cpu" if "--cpu" in flags else "cuda"
 
     import numpy as np
 

@@ -26,19 +26,23 @@
 // main path's calls fall.
 //
 // Design: one launch a call, no scratch in device memory. The grid is
-// ceil(N / BN) column tiles of BN = 32 or 64 columns, each a thread-block
+// ceil(N / BN) column tiles of BN = 32 or 64 columns (64 where a wave of
+// blocks stays full, or above 16 rows where the K slices are 128 deep:
+// every column tile quantizes its own copy of x), each a thread-block
 // cluster of C <= 8 blocks along K: C = n_groups * c, c the largest power
 // of two that keeps each block's slice of KS = K / C rows a multiple of 32
 // inside one group (KS = 128 at K = 1024, 512 at K = 4096; a single group
 // that holds no multiple of 32 runs with C = 1, padded with zero bytes).
-// Each block:
+// M is cut into tiles of BM = 16, 32 or 64 rows (BM halved while two
+// blocks would not fit an SM; 4 warps at BM = 16, else 8), and the tiles
+// are split over as many clusters of a column tile (grid.y) as the card
+// holds at once beside the other column tiles. Each block:
 //  - issues its [KS][BN] weight slice and its first x tile as 16-byte
 //    cp.async copies at once; the weights are transposed once, with 4x4
 //    byte permutes, into [BN][KS + 16] (k contiguous, rows padded against
 //    bank conflicts) and stay in shared memory;
-//  - loops over M tiles of BM = 16, 32 or 64 rows (BM halved while two
-//    blocks would not fit an SM; 4 warps at BM = 16, else 8), so the
-//    weights are read from device memory once whatever M is. Per tile:
+//  - loops over its M tiles, so the weights are read once for all of
+//    them. Per tile:
 //    1. THREADS / BM threads take each row of the staged x tile; each
 //       row's amax over the block's slice is pushed into every block of
 //       the cluster (distributed shared memory); one cluster barrier;
@@ -47,8 +51,9 @@
 //    3. it quantizes its slice into xq [BM][KS + 16] int8: x * f32(1/s)
 //       in a loop without branches or conversion instructions, then the
 //       correctly rounded divide for the few chunks where that lands
-//       within 1e-3 of a half-integer (the same integers); the next x
-//       tile is issued;
+//       within 1e-3 of a half-integer (the same integers; the divide on
+//       every element made the call up to 1.8x slower on an H100); the
+//       next x tile is issued;
 //    4. each warp runs mma.sync.m16n8k32 s8 x s8 -> s32 over the slice for
 //       16 rows and BN / (warps along N) columns;
 //    5. each block pushes its int32 partial tile into the shared memory of
@@ -57,10 +62,13 @@
 //       runs the ordered f32 group loop and stores. The next tile's first
 //       barrier also orders this tile's reads of the exchanged buffers
 //       before they are written again.
-// What the card showed (phase clocks of an instrumented build): from
-// M = 56 on, the x passes (copy from L2, amax, quantize), which every
-// column tile repeats for its own columns, and the two cluster barriers a
-// tile take most of the time, not the weight bytes or the tensor cores.
+// What the card showed (H100): from M = 56 on, the x passes (copy from L2,
+// amax, quantize), which every column tile repeats for its own columns,
+// and the two cluster barriers a tile take most of the time, not the
+// weight bytes or the tensor cores. A tile is a chain of waits, so a
+// block's loop over tiles is slow where clusters side by side are not:
+// with 64-column tiles, the grid.y split halved the call at M = 672. The
+// K = 4096 calls (512-deep slices, 32-row tiles) did not gain from it.
 // Left for later: sharing the quantized x tile across column tiles, wgmma
 // and TMA, q/k/v in one call (one read of x for three weights), and
 // programmatic dependent launch against the launch floor.
@@ -235,7 +243,8 @@ __global__ void __launch_bounds__(threads_of<BM>())
 w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
                            const float* __restrict__ col_scale,
                            T* __restrict__ out, int M, int K, int N, int C,
-                           int ks, int ksp, int n_groups, int vec_x, int vec_w) {
+                           int ks, int ksp, int n_groups, int m_rows, int vec_x,
+                           int vec_w) {
   constexpr int THREADS = threads_of<BM>();
   constexpr int NW = THREADS / 32;
   constexpr int RW = BM / 16;          // warps along M
@@ -248,6 +257,8 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int n0 = (blockIdx.x / C) * BN;
+  const int m_begin = blockIdx.y * m_rows;           // this cluster's rows
+  const int m_end = min(M, m_begin + m_rows);
   const int k0 = rank * ks;
   const int per_group = C / n_groups;      // blocks of a group
   const int grp = rank / per_group;
@@ -285,7 +296,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
                                         : (int8_t)0;
     }
   }
-  load_x_tile<T, BM, THREADS>(x, xs, 0, M, K, k0, ks, ksp, vec_x, tid);
+  load_x_tile<T, BM, THREADS>(x, xs, m_begin, M, K, k0, ks, ksp, vec_x, tid);
   for (int i = tid; i < cw; i += THREADS) {
     const int c = rank * cw + i;
     if (c < BN && n0 + c < N) cp_async4(cs_sh + i, col_scale + n0 + c);
@@ -294,7 +305,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
 
   const int wr = warp / CWN, wc = warp % CWN;
   const int g = lane >> 2, t4 = lane & 3;
-  for (int m0 = 0; m0 < M; m0 += BM) {
+  for (int m0 = m_begin; m0 < m_end; m0 += BM) {
     cp_async_wait_all();
     __syncthreads();
     // 1. row amax over this block's slice, pushed into every block of the
@@ -317,7 +328,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
       for (int r = seg; r < C; r += TPR)
         *cluster.map_shared_rank(amax_sh + rank * BM + xm, r) = amax;
     }
-    if (m0 == 0) {
+    if (m0 == m_begin) {
       // the weights have landed: stage [ksp][BN] -> wt [BN][row], 4x4
       // blocks of bytes, before xq (which aliases the staging) is written
       for (int i = tid; i < (ksp / 4) * (BN / 4); i += THREADS) {
@@ -382,7 +393,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
     }
     __syncthreads();
     // the next x tile lands while this one is multiplied and exchanged
-    if (m0 + BM < M) load_x_tile<T, BM, THREADS>(x, xs, m0 + BM, M, K, k0, ks, ksp, vec_x, tid);
+    if (m0 + BM < m_end) load_x_tile<T, BM, THREADS>(x, xs, m0 + BM, M, K, k0, ks, ksp, vec_x, tid);
     // 4. int32 products on the tensor cores: warp (wr, wc) takes rows
     //    [wr*16, wr*16+16) and columns [wc*WN, wc*WN+WN) of the tile
     int acc[NT][4];
@@ -460,6 +471,28 @@ struct Split {
   }
 };
 
+// Clusters of C blocks with `bytes` of shared memory each that the card
+// holds at once (0 where it cannot tell), asked once per (C, bytes).
+template <typename T, int BM, int BN>
+int resident_clusters(const cudaLaunchConfig_t& cfg, int C, int bytes) {
+  static int key_c[16], key_b[16], val[16], n = 0;
+  for (int i = 0; i < n; ++i)
+    if (key_c[i] == C && key_b[i] == bytes) return val[i];
+  cudaLaunchConfig_t one = cfg;
+  one.gridDim = dim3(C);
+  int fit = 0;
+  if (cudaOccupancyMaxActiveClusters(&fit, w8a8_matmul_cluster_kernel<T, BM, BN>, &one) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    fit = 0;
+  }
+  if (n < 16) {
+    key_c[n] = C, key_b[n] = bytes, val[n] = fit;
+    ++n;
+  }
+  return fit;
+}
+
 template <typename T, int BM, int BN>
 int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
                   int K, int N, int C, const Split& s, int vec_x, int vec_w,
@@ -474,8 +507,8 @@ int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
     if (e != cudaSuccess) return (int)e;
     allowed = L.bytes;
   }
+  const int cols = (N + BN - 1) / BN, tiles = (M + BM - 1) / BM;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((N + BN - 1) / BN) * C);
   cfg.blockDim = dim3(threads_of<BM>());
   cfg.dynamicSmemBytes = L.bytes;
   cfg.stream = stream;
@@ -486,9 +519,20 @@ int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  // M tiles are split over as many clusters of a column tile as the card
+  // holds at once: a tile is a chain of waits (x from L2, two cluster
+  // barriers), which clusters side by side overlap and one block's loop
+  // does not
+  int chunks = 1;
+  if (tiles > 1) {
+    const int fit = resident_clusters<T, BM, BN>(cfg, C, L.bytes);
+    chunks = fit / cols < 1 ? 1 : fit / cols < tiles ? fit / cols : tiles;
+  }
+  const int per = (tiles + chunks - 1) / chunks;   // M tiles a cluster
+  cfg.gridDim = dim3(cols * C, (tiles + per - 1) / per);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, w8a8_matmul_cluster_kernel<T, BM, BN>, x, q, cs, out, M, K, N, C,
-      s.ks, s.ksp, s.n_groups, vec_x, vec_w);
+      s.ks, s.ksp, s.n_groups, per * BM, vec_x, vec_w);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

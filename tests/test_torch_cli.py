@@ -24,6 +24,16 @@ def test_other_backends_warn_and_run_on(capsys, flag):
     assert cli.main(["cli", "missing.gguf", "a.pcm", "80", "13", flag]) == 1
     err = capsys.readouterr().err
     assert f"warning: {flag} is not a backend of this port" in err
+    assert "using the CUDA card" in err
+    assert "model file not found" in err
+
+
+@pytest.mark.parametrize("flag", ["--metal", "--tpu"])
+def test_other_backends_with_cpu_name_the_cpu(capsys, flag):
+    assert cli.main(["cli", "missing.gguf", "a.pcm", "--cpu", flag]) == 1
+    err = capsys.readouterr().err
+    assert f"warning: {flag} is not a backend of this port; using the CPU" in err
+    assert "CUDA card" not in err
     assert "model file not found" in err
 
 
