@@ -26,49 +26,41 @@
 // main path's calls fall.
 //
 // Design: one launch a call, no scratch in device memory. The grid is
-// ceil(N / BN) column tiles of BN = 32 or 64 columns (64 where a wave of
-// blocks stays full, or above 16 rows where the K slices are 128 deep:
-// every column tile quantizes its own copy of x), each a thread-block
-// cluster of C <= 8 blocks along K: C = n_groups * c, c the largest power
-// of two that keeps each block's slice of KS = K / C rows a multiple of 32
-// inside one group (KS = 128 at K = 1024, 512 at K = 4096; a single group
-// that holds no multiple of 32 runs with C = 1, padded with zero bytes).
-// M is cut into tiles of BM = 16, 32 or 64 rows (BM halved while two
-// blocks would not fit an SM; 4 warps at BM = 16, else 8), and the tiles
-// are split over as many clusters of a column tile (grid.y) as the card
-// holds at once beside the other column tiles. Each block:
-//  - issues its [KS][BN] weight slice and its first x tile as 16-byte
-//    cp.async copies at once; the weights are transposed once, with 4x4
-//    byte permutes, into [BN][KS + 16] (k contiguous, rows padded against
-//    bank conflicts) and stay in shared memory;
-//  - loops over its M tiles, so the weights are read once for all of
-//    them. Per tile:
-//    1. THREADS / BM threads take each row of the staged x tile; each
-//       row's amax over the block's slice is pushed into every block of
-//       the cluster (distributed shared memory); one cluster barrier;
-//    2. each block takes each group's max over the group's blocks (a max
-//       is exact in any order) and computes s;
-//    3. it quantizes its slice into xq [BM][KS + 16] int8: x * f32(1/s)
-//       in a loop without branches or conversion instructions, then the
-//       correctly rounded divide for the few chunks where that lands
-//       within 1e-3 of a half-integer (the same integers; the divide on
-//       every element made the call up to 1.8x slower on an H100); the
-//       next x tile is issued;
-//    4. each warp runs mma.sync.m16n8k32 s8 x s8 -> s32 over the slice for
-//       16 rows and BN / (warps along N) columns;
-//    5. each block pushes its int32 partial tile into the shared memory of
-//       the block that owns those columns; one cluster barrier;
-//    6. the owner adds each group's int32 partials (exact in any order),
-//       runs the ordered f32 group loop and stores. The next tile's first
-//       barrier also orders this tile's reads of the exchanged buffers
-//       before they are written again.
+// ceil(N / BN) column tiles of BN = 32 or 64 columns (64 above 16 rows,
+// since every column tile quantizes its own copy of x, and wherever a wave
+// of blocks stays full), each a thread-block cluster of C <= 8 blocks
+// along K: C = n_groups * c, c the largest power of two that keeps each
+// block's slice of KS = K / C rows a multiple of 32 inside one group
+// (KS = 128 at K = 1024, 512 at K = 4096; a single group that holds no
+// multiple of 32 runs with C = 1, padded with zero bytes). Along y, one
+// cluster for each M tile of BM = 16, 32 or 64 rows (BM halved while two
+// blocks would not fit an SM; 4 warps at BM = 16, else 8). Each block:
+//  1. issues its [KS][BN] weight slice and its [BM][KS] x tile as 16-byte
+//     cp.async copies at once; each row's amax over the block's slice is
+//     pushed into every block of the cluster (distributed shared memory);
+//     the weights are transposed, with 4x4 byte permutes, into
+//     [BN][KS + 16] (k contiguous, rows padded against bank conflicts);
+//     one cluster barrier;
+//  2. takes each group's max over the group's blocks (a max is exact in
+//     any order) and computes s;
+//  3. quantizes its slice into xq [BM][KS + 16] int8: x * f32(1/s) in a
+//     loop without branches or conversion instructions, then the correctly
+//     rounded divide for the few chunks where that lands within 1e-3 of a
+//     half-integer (the same integers; the divide on every element made
+//     the call up to 1.8x slower on an H100);
+//  4. runs mma.sync.m16n8k32 s8 x s8 -> s32 over the slice, each warp for
+//     16 rows and BN / (warps along N) columns;
+//  5. pushes its int32 partial tile into the shared memory of the block
+//     that owns those columns; one cluster barrier;
+//  6. as owner, adds each group's int32 partials (exact in any order),
+//     runs the ordered f32 group loop and stores.
 // What the card showed (H100): from M = 56 on, the x passes (copy from L2,
 // amax, quantize), which every column tile repeats for its own columns,
-// and the two cluster barriers a tile take most of the time, not the
-// weight bytes or the tensor cores. A tile is a chain of waits, so a
-// block's loop over tiles is slow where clusters side by side are not:
-// with 64-column tiles, the grid.y split halved the call at M = 672. The
-// K = 4096 calls (512-deep slices, 32-row tiles) did not gain from it.
+// and the cluster barriers take most of the time, not the weight bytes or
+// the tensor cores. A tile is a chain of waits, so one cluster a tile
+// side by side (the weights re-read from L2) beat a block's loop over its
+// tiles (the weights read once) where the loop ran long: the K = 4096 and
+// N = 4096 calls at M = 112.
 // Left for later: sharing the quantized x tile across column tiles, wgmma
 // and TMA, q/k/v in one call (one read of x for three weights), and
 // programmatic dependent launch against the launch floor.
@@ -235,16 +227,16 @@ __device__ __forceinline__ void load_x_tile(const T* __restrict__ x, T* xs, int 
   }
 }
 
-// Grid: ceil(N / BN) * C blocks in clusters of C along K. Block r of a
-// cluster takes K rows [r*ks, (r+1)*ks) (ks = K / C, padded to ksp, a
-// multiple of 32, with zeros), all inside group r / (C / n_groups).
+// Grid: ceil(N / BN) * C blocks in clusters of C along K, times
+// ceil(M / BM) along y (one M tile a cluster). Block r of a cluster takes
+// K rows [r*ks, (r+1)*ks) (ks = K / C, padded to ksp, a multiple of 32,
+// with zeros), all inside group r / (C / n_groups).
 template <typename T, int BM, int BN>
 __global__ void __launch_bounds__(threads_of<BM>())
 w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
                            const float* __restrict__ col_scale,
                            T* __restrict__ out, int M, int K, int N, int C,
-                           int ks, int ksp, int n_groups, int m_rows, int vec_x,
-                           int vec_w) {
+                           int ks, int ksp, int n_groups, int vec_x, int vec_w) {
   constexpr int THREADS = threads_of<BM>();
   constexpr int NW = THREADS / 32;
   constexpr int RW = BM / 16;          // warps along M
@@ -257,8 +249,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int n0 = (blockIdx.x / C) * BN;
-  const int m_begin = blockIdx.y * m_rows;           // this cluster's rows
-  const int m_end = min(M, m_begin + m_rows);
+  const int m0 = blockIdx.y * BM;          // the cluster's M tile
   const int k0 = rank * ks;
   const int per_group = C / n_groups;      // blocks of a group
   const int grp = rank / per_group;
@@ -281,7 +272,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
   const int j0 = (xm + seg * (32 / TPR)) % cpt;
 
   // the block's weight slice q[k0:k0+ks, n0:n0+BN] -> stage [ksp][BN],
-  // zero past the slice and past N, and the first x tile, all in flight
+  // zero past the slice and past N, and the x tile, all in flight
   if (vec_w) {
     for (int c = tid; c < ksp * (BN / 16); c += THREADS) {
       const int r = c / (BN / 16), col = (c % (BN / 16)) * 16;
@@ -296,7 +287,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
                                         : (int8_t)0;
     }
   }
-  load_x_tile<T, BM, THREADS>(x, xs, m_begin, M, K, k0, ks, ksp, vec_x, tid);
+  load_x_tile<T, BM, THREADS>(x, xs, m0, M, K, k0, ks, ksp, vec_x, tid);
   for (int i = tid; i < cw; i += THREADS) {
     const int c = rank * cw + i;
     if (c < BN && n0 + c < N) cp_async4(cs_sh + i, col_scale + n0 + c);
@@ -305,153 +296,147 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
 
   const int wr = warp / CWN, wc = warp % CWN;
   const int g = lane >> 2, t4 = lane & 3;
-  for (int m0 = m_begin; m0 < m_end; m0 += BM) {
-    cp_async_wait_all();
-    __syncthreads();
-    // 1. row amax over this block's slice, pushed into every block of the
-    //    cluster
-    {
-      unsigned amax = 0;   // |x| >= 0, so the bit patterns order as the values
-      const T* xr = xs + xm * ksp + seg * cpt * 4;
-      int j = j0;
+  cp_async_wait_all();
+  __syncthreads();
+  // 1. row amax over this block's slice, pushed into every block of the
+  //    cluster
+  {
+    unsigned amax = 0;   // |x| >= 0, so the bit patterns order as the values
+    const T* xr = xs + xm * ksp + seg * cpt * 4;
+    int j = j0;
 #pragma unroll 4
-      for (int n = 0; n < cpt; ++n) {
-        float v[4];
-        load4<T>(xr + j * 4, v);
+    for (int n = 0; n < cpt; ++n) {
+      float v[4];
+      load4<T>(xr + j * 4, v);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) amax = max(amax, __float_as_uint(fabsf(v[c])));
-        if (++j == cpt) j = 0;
-      }
-#pragma unroll
-      for (int o = 1; o < TPR; o <<= 1)
-        amax = max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      for (int r = seg; r < C; r += TPR)
-        *cluster.map_shared_rank(amax_sh + rank * BM + xm, r) = amax;
+      for (int c = 0; c < 4; ++c) amax = max(amax, __float_as_uint(fabsf(v[c])));
+      if (++j == cpt) j = 0;
     }
-    if (m0 == m_begin) {
-      // the weights have landed: stage [ksp][BN] -> wt [BN][row], 4x4
-      // blocks of bytes, before xq (which aliases the staging) is written
-      for (int i = tid; i < (ksp / 4) * (BN / 4); i += THREADS) {
-        const int n4 = (i % (BN / 4)) * 4, k4 = (i / (BN / 4)) * 4;
-        unsigned w[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          w[r] = *reinterpret_cast<const unsigned*>(stage + (k4 + r) * BN + n4);
-        // col[c] packs q[k4..k4+3, n4+c]
-        const unsigned t0 = __byte_perm(w[0], w[1], 0x5140);
-        const unsigned t1 = __byte_perm(w[2], w[3], 0x5140);
-        const unsigned t2 = __byte_perm(w[0], w[1], 0x7362);
-        const unsigned t3 = __byte_perm(w[2], w[3], 0x7362);
-        const unsigned col[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                                 __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
+    for (int o = 1; o < TPR; o <<= 1)
+      amax = max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    for (int r = seg; r < C; r += TPR)
+      *cluster.map_shared_rank(amax_sh + rank * BM + xm, r) = amax;
+  }
+  {
+    // the weights have landed: stage [ksp][BN] -> wt [BN][row], 4x4
+    // blocks of bytes, before xq (which aliases the staging) is written
+    for (int i = tid; i < (ksp / 4) * (BN / 4); i += THREADS) {
+      const int n4 = (i % (BN / 4)) * 4, k4 = (i / (BN / 4)) * 4;
+      unsigned w[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          *reinterpret_cast<unsigned*>(wt + (n4 + c) * row + k4) = col[c];
-      }
+      for (int r = 0; r < 4; ++r)
+        w[r] = *reinterpret_cast<const unsigned*>(stage + (k4 + r) * BN + n4);
+      // col[c] packs q[k4..k4+3, n4+c]
+      const unsigned t0 = __byte_perm(w[0], w[1], 0x5140);
+      const unsigned t1 = __byte_perm(w[2], w[3], 0x5140);
+      const unsigned t2 = __byte_perm(w[0], w[1], 0x7362);
+      const unsigned t3 = __byte_perm(w[2], w[3], 0x7362);
+      const unsigned col[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                               __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        *reinterpret_cast<unsigned*>(wt + (n4 + c) * row + k4) = col[c];
     }
-    cluster.sync();
-    // 2. each group's scale per row: the max over the group's blocks
-    for (int i = tid; i < n_groups * BM; i += THREADS) {
-      const int t = i / BM, m = i % BM;
-      unsigned a = 0;
-      for (int r = t * per_group; r < (t + 1) * per_group; ++r)
-        a = max(a, amax_sh[r * BM + m]);
-      const float af = __uint_as_float(a);
-      const float floored = (af >= 1e-12f || af != af) ? af : 1e-12f;  // NaN stays
-      scale_sh[i] = __fmul_rn(floored, INV_QMAX);
-    }
-    __syncthreads();
-    // 3. quantize this block's slice into xq [BM][row]: a loop without
-    //    branches over the chunks, then the correctly rounded divide for
-    //    the few chunks with a quotient near a half-integer (bit j % 64 of
-    //    `near` marks chunk j)
-    {
-      const float sc = scale_sh[grp * BM + xm];
-      const float rs = __frcp_rn(sc);
-      const T* xr = xs + xm * ksp + seg * cpt * 4;
-      int8_t* qr = xq + xm * row + seg * cpt * 4;
-      unsigned long long near = isfinite(sc) ? 0ull : ~0ull;
-      int j = j0;
+  }
+  cluster.sync();
+  // 2. each group's scale per row: the max over the group's blocks
+  for (int i = tid; i < n_groups * BM; i += THREADS) {
+    const int t = i / BM, m = i % BM;
+    unsigned a = 0;
+    for (int r = t * per_group; r < (t + 1) * per_group; ++r)
+      a = max(a, amax_sh[r * BM + m]);
+    const float af = __uint_as_float(a);
+    const float floored = (af >= 1e-12f || af != af) ? af : 1e-12f;  // NaN stays
+    scale_sh[i] = __fmul_rn(floored, INV_QMAX);
+  }
+  __syncthreads();
+  // 3. quantize this block's slice into xq [BM][row]: a loop without
+  //    branches over the chunks, then the correctly rounded divide for
+  //    the few chunks with a quotient near a half-integer (bit j % 64 of
+  //    `near` marks chunk j)
+  {
+    const float sc = scale_sh[grp * BM + xm];
+    const float rs = __frcp_rn(sc);
+    const T* xr = xs + xm * ksp + seg * cpt * 4;
+    int8_t* qr = xq + xm * row + seg * cpt * 4;
+    unsigned long long near = isfinite(sc) ? 0ull : ~0ull;
+    int j = j0;
 #pragma unroll 4
-      for (int n = 0; n < cpt; ++n) {
+    for (int n = 0; n < cpt; ++n) {
+      float v[4];
+      load4<T>(xr + j * 4, v);
+      unsigned packed;
+      near |= (unsigned long long)fast4(v, rs, &packed) << (j & 63);
+      *reinterpret_cast<unsigned*>(qr + j * 4) = packed;
+      j = j + 1 == cpt ? 0 : j + 1;
+    }
+    while (near) {
+      const int b = __ffsll((long long)near) - 1;
+      near &= near - 1;
+      for (int jj = b; jj < cpt; jj += 64) {
         float v[4];
-        load4<T>(xr + j * 4, v);
-        unsigned packed;
-        near |= (unsigned long long)fast4(v, rs, &packed) << (j & 63);
-        *reinterpret_cast<unsigned*>(qr + j * 4) = packed;
-        j = j + 1 == cpt ? 0 : j + 1;
-      }
-      while (near) {
-        const int b = __ffsll((long long)near) - 1;
-        near &= near - 1;
-        for (int jj = b; jj < cpt; jj += 64) {
-          float v[4];
-          load4<T>(xr + jj * 4, v);
-          *reinterpret_cast<unsigned*>(qr + jj * 4) = exact4(v, sc);
-        }
+        load4<T>(xr + jj * 4, v);
+        *reinterpret_cast<unsigned*>(qr + jj * 4) = exact4(v, sc);
       }
     }
-    __syncthreads();
-    // the next x tile lands while this one is multiplied and exchanged
-    if (m0 + BM < m_end) load_x_tile<T, BM, THREADS>(x, xs, m0 + BM, M, K, k0, ks, ksp, vec_x, tid);
-    // 4. int32 products on the tensor cores: warp (wr, wc) takes rows
-    //    [wr*16, wr*16+16) and columns [wc*WN, wc*WN+WN) of the tile
-    int acc[NT][4];
+  }
+  __syncthreads();
+  // 4. int32 products on the tensor cores: warp (wr, wc) takes rows
+  //    [wr*16, wr*16+16) and columns [wc*WN, wc*WN+WN) of the tile
+  int acc[NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-    {
-      const int8_t* a_lo = xq + (wr * 16 + g) * row + 4 * t4;
-      const int8_t* a_hi = a_lo + 8 * row;
-      const int8_t* b_p = wt + (wc * WN + g) * row + 4 * t4;
-      for (int kk = 0; kk < ksp; kk += KSTEP) {
-        const unsigned a[4] = {ld32(a_lo + kk), ld32(a_hi + kk), ld32(a_lo + kk + 16),
-                               ld32(a_hi + kk + 16)};
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+  {
+    const int8_t* a_lo = xq + (wr * 16 + g) * row + 4 * t4;
+    const int8_t* a_hi = a_lo + 8 * row;
+    const int8_t* b_p = wt + (wc * WN + g) * row + 4 * t4;
+    for (int kk = 0; kk < ksp; kk += KSTEP) {
+      const unsigned a[4] = {ld32(a_lo + kk), ld32(a_hi + kk), ld32(a_lo + kk + 16),
+                             ld32(a_hi + kk + 16)};
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int8_t* bp = b_p + j * 8 * row + kk;
-          mma_s8(acc[j], a, ld32(bp), ld32(bp + 16));
-        }
+      for (int j = 0; j < NT; ++j) {
+        const int8_t* bp = b_p + j * 8 * row + kk;
+        mma_s8(acc[j], a, ld32(bp), ld32(bp + 16));
       }
     }
-    // 5. the partial tile to the blocks that own its columns (two adjacent
-    //    columns a store where a block owns an even count)
+  }
+  // 5. the partial tile to the blocks that own its columns (two adjacent
+  //    columns a store where a block owns an even count)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = wr * 16 + g + h * 8;
-        const int c = wc * WN + j * 8 + 2 * t4;
-        int* dst = recv + (rank * BM + m) * cw + c % cw;
-        if (cw % 2 == 0) {
-          *reinterpret_cast<int2*>(cluster.map_shared_rank(dst, c / cw)) =
-              make_int2(acc[j][2 * h], acc[j][2 * h + 1]);
-        } else {
-          *cluster.map_shared_rank(dst, c / cw) = acc[j][2 * h];
-          const int c1 = c + 1;
-          *cluster.map_shared_rank(recv + (rank * BM + m) * cw + c1 % cw, c1 / cw) =
-              acc[j][2 * h + 1];
-        }
-      }
-    cluster.sync();
-    // 6. this block's columns: each group's partials (int32, exact), then
-    //    the f32 group loop in order
-    for (int i = tid; i < BM * cw; i += THREADS) {
-      const int m = i / cw, cc = i % cw, c = rank * cw + cc;
-      if (c < BN && n0 + c < N && m0 + m < M) {
-        float a = 0.f;
-        for (int t = 0; t < n_groups; ++t) {
-          const int* pr = recv + (t * per_group * BM + m) * cw + cc;
-          int p = 0;
-#pragma unroll
-          for (int r = 0; r < MAXC; ++r)
-            if (r < per_group) p += pr[r * BM * cw];
-          a = __fadd_rn(a, __fmul_rn((float)p, scale_sh[t * BM + m]));
-        }
-        out[(size_t)(m0 + m) * N + n0 + c] = from_f<T>(__fmul_rn(a, cs_sh[cc]));
+    for (int h = 0; h < 2; ++h) {
+      const int m = wr * 16 + g + h * 8;
+      const int c = wc * WN + j * 8 + 2 * t4;
+      int* dst = recv + (rank * BM + m) * cw + c % cw;
+      if (cw % 2 == 0) {
+        *reinterpret_cast<int2*>(cluster.map_shared_rank(dst, c / cw)) =
+            make_int2(acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        *cluster.map_shared_rank(dst, c / cw) = acc[j][2 * h];
+        const int c1 = c + 1;
+        *cluster.map_shared_rank(recv + (rank * BM + m) * cw + c1 % cw, c1 / cw) =
+            acc[j][2 * h + 1];
       }
     }
-    // the next tile's first cluster barrier orders these reads of recv and
-    // scale_sh, and this tile's reads of amax_sh, before their rewrite
+  cluster.sync();
+  // 6. this block's columns: each group's partials (int32, exact), then
+  //    the f32 group loop in order
+  for (int i = tid; i < BM * cw; i += THREADS) {
+    const int m = i / cw, cc = i % cw, c = rank * cw + cc;
+    if (c < BN && n0 + c < N && m0 + m < M) {
+      float a = 0.f;
+      for (int t = 0; t < n_groups; ++t) {
+        const int* pr = recv + (t * per_group * BM + m) * cw + cc;
+        int p = 0;
+#pragma unroll
+        for (int r = 0; r < MAXC; ++r)
+          if (r < per_group) p += pr[r * BM * cw];
+        a = __fadd_rn(a, __fmul_rn((float)p, scale_sh[t * BM + m]));
+      }
+      out[(size_t)(m0 + m) * N + n0 + c] = from_f<T>(__fmul_rn(a, cs_sh[cc]));
+    }
   }
 }
 
@@ -471,28 +456,6 @@ struct Split {
   }
 };
 
-// Clusters of C blocks with `bytes` of shared memory each that the card
-// holds at once (0 where it cannot tell), asked once per (C, bytes).
-template <typename T, int BM, int BN>
-int resident_clusters(const cudaLaunchConfig_t& cfg, int C, int bytes) {
-  static int key_c[16], key_b[16], val[16], n = 0;
-  for (int i = 0; i < n; ++i)
-    if (key_c[i] == C && key_b[i] == bytes) return val[i];
-  cudaLaunchConfig_t one = cfg;
-  one.gridDim = dim3(C);
-  int fit = 0;
-  if (cudaOccupancyMaxActiveClusters(&fit, w8a8_matmul_cluster_kernel<T, BM, BN>, &one) !=
-      cudaSuccess) {
-    cudaGetLastError();
-    fit = 0;
-  }
-  if (n < 16) {
-    key_c[n] = C, key_b[n] = bytes, val[n] = fit;
-    ++n;
-  }
-  return fit;
-}
-
 template <typename T, int BM, int BN>
 int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
                   int K, int N, int C, const Split& s, int vec_x, int vec_w,
@@ -507,8 +470,8 @@ int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
     if (e != cudaSuccess) return (int)e;
     allowed = L.bytes;
   }
-  const int cols = (N + BN - 1) / BN, tiles = (M + BM - 1) / BM;
   cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + BN - 1) / BN) * C, (M + BM - 1) / BM);
   cfg.blockDim = dim3(threads_of<BM>());
   cfg.dynamicSmemBytes = L.bytes;
   cfg.stream = stream;
@@ -519,20 +482,9 @@ int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // M tiles are split over as many clusters of a column tile as the card
-  // holds at once: a tile is a chain of waits (x from L2, two cluster
-  // barriers), which clusters side by side overlap and one block's loop
-  // does not
-  int chunks = 1;
-  if (tiles > 1) {
-    const int fit = resident_clusters<T, BM, BN>(cfg, C, L.bytes);
-    chunks = fit / cols < 1 ? 1 : fit / cols < tiles ? fit / cols : tiles;
-  }
-  const int per = (tiles + chunks - 1) / chunks;   // M tiles a cluster
-  cfg.gridDim = dim3(cols * C, (tiles + per - 1) / per);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, w8a8_matmul_cluster_kernel<T, BM, BN>, x, q, cs, out, M, K, N, C,
-      s.ks, s.ksp, s.n_groups, per * BM, vec_x, vec_w);
+      s.ks, s.ksp, s.n_groups, vec_x, vec_w);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -573,8 +525,9 @@ extern "C" {
 // of a cluster along K (1..8, a multiple of K / G, each block's K slice a
 // multiple of 32 inside one group unless C = 1). vec_x = 1 when
 // K * sizeof(x) % 16 == 0 and x is 16-byte aligned; vec_w = 1 when
-// N % 16 == 0 and q is 16-byte aligned. Launches ceil(N/bn) clusters of C blocks, one kernel, and
-// allocates nothing. Returns the launch's CUDA error code (0 on success).
+// N % 16 == 0 and q is 16-byte aligned. Launches one kernel: ceil(N/bn)
+// clusters of C blocks for each M tile. Allocates nothing. Returns the
+// launch's CUDA error code (0 on success).
 int w8a8_matmul_launch(int dtype, const void* x, const void* q,
                        const void* col_scale, void* out, int M, int K, int N,
                        int G, int bn, int C, int vec_x, int vec_w, void* stream) {

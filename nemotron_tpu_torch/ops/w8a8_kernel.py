@@ -63,17 +63,16 @@ def w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
 def w8a8_launch_geometry(K: int, N: int, sms: int,
                          M: int = 1) -> tuple[int, int, int]:
     """(bn, C, blocks) of the kernel's launch for an [M, K] x [K, N] call
-    on a card with `sms` streaming multiprocessors; blocks along N and K,
-    which the kernel repeats for each cluster of M rows it adds. A cluster
+    on a card with `sms` streaming multiprocessors; `blocks` counts one M
+    tile's clusters, which the kernel repeats for each tile of M. A cluster
     of C = n_groups * c <= 8 blocks splits K, c the largest power of two
     that keeps each block's slice K / C a multiple of 32 inside one group
     of `w8a8_k_tile(K)` columns (C = 8 for K = 1024 and 4096; a single
     group that holds no multiple of 32 runs with C = 1). A cluster covers
-    bn = 64 columns where that still gives one full wave of blocks, or
-    where M > 16 and the blocks' slices are at most 128 deep: every column
-    tile quantizes its own copy of x, and wider tiles halve that work.
-    Else 32. Raises ValueError where no such C exists: more than 8
-    groups."""
+    bn = 64 columns above 16 rows (more than one M tile fills the card, and
+    every column tile quantizes its own copy of x, which wider tiles halve)
+    or where that still gives one full wave of blocks; else 32. Raises
+    ValueError where no such C exists: more than 8 groups."""
     G = w8a8_k_tile(K)
     n_groups = K // G
     if n_groups > MAX_CLUSTER:
@@ -84,8 +83,7 @@ def w8a8_launch_geometry(K: int, N: int, sms: int,
            and (G // (2 * c)) % KSTEP == 0):
         c *= 2
     C = n_groups * c
-    wide = -(-N // 64) * C >= sms or (M > 16 and K // C <= 128)
-    bn = 64 if wide else 32
+    bn = 64 if M > 16 or -(-N // 64) * C >= sms else 32
     return bn, C, -(-N // bn) * C
 
 
@@ -109,9 +107,8 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
     On the card: one kernel launch, nothing allocated but the output. The
     grid is `w8a8_launch_geometry(K, N, SMs, M)`: ceil(N/bn) thread-block
     clusters of C blocks along K; the activation's quantization is fused
-    in and the products run on the int8 tensor cores; M is taken in tiles
-    of 16, 32 or 64 rows (4 warps, 8 above 16 rows), looped over inside a
-    block and split over as many clusters as the card holds at once."""
+    in and the products run on the int8 tensor cores; each tile of 16, 32
+    or 64 rows of M (4 warps, 8 above 16 rows) has its own clusters."""
     if x.device.type == "cpu":
         return w8a8_matmul_ref(x, q, col_scale)
     if x.device.type != "cuda":

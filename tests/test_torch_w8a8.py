@@ -151,13 +151,12 @@ def test_w8a8_launch_geometry(K, N, want):
 @pytest.mark.parametrize("M,K,N,want", [
     (16, 1024, 1024, (32, 8, 256)), (17, 1024, 1024, (64, 8, 128)),
     (112, 1024, 4096, (64, 8, 512)), (672, 1024, 1024, (64, 8, 128)),
-    (112, 4096, 1024, (32, 8, 256)), (112, 1024, 2048, (64, 8, 256)),
+    (112, 4096, 1024, (64, 8, 128)), (112, 1024, 2048, (64, 8, 256)),
     (40, 96, 56, (64, 1, 1))])
 def test_w8a8_launch_geometry_above_16_rows(M, K, N, want):
-    """Above 16 rows a cluster covers 64 columns wherever the blocks' K
-    slices are at most 128 deep (the K = 1024 shapes): each column tile
-    quantizes its own copy of x. The 512-deep slices of K = 4096 keep 32
-    columns."""
+    """Above 16 rows a cluster covers 64 columns at every shape: each
+    column tile quantizes its own copy of x, and the M tiles' clusters
+    fill the card."""
     assert w8a8_launch_geometry(K, N, 132, M) == want
 
 
