@@ -15,7 +15,9 @@ Phases (any failure exits non-zero):
      plain version and one PyTorch library call: the attention in every
      mode at B = 1 (f32, dense rings) and at the W8A8 path's B = 8 (bf16,
      int8 rings, R = 13), the Q8 matmul per layer at M = 14 and M = 1, the
-     W8A8 matmul per layer at M = 8, 16 and 112 and per call at M = 672.
+     W8A8 matmul per layer at M = 8, 16 and 112 and per call at M = 672;
+     the Q8 matmul also at the full-utterance path's M = 17, 257 and 804
+     (checked) and per layer at M = 804 (timed).
   4. Q8_0 main path (slice 1): a seeded full-width (0.6B) random-weight
      GGUF with Q8_0 encoder matmuls, written with the port's writer, loaded
      with load_model(device="cuda") and streamed through StreamSession
@@ -33,8 +35,23 @@ Phases (any failure exits non-zero):
      caches against the port's CPU run; bf16 against f32 on the card. In
      the profile of R=13 chunks each W8A8 call must be one kernel launch
      (no quantize or reduce kernel).
-  6. one JSON line of kernel results, the card's name and power limit, and
-     last the line {"ok": true, "device": {...}}.
+  6. full-utterance path (slice 7): the same Q8_0 GGUF, f32, through
+     transcribe_batch on 4 seeded utterances of 4, 8, 12 and 16 s (M =
+     4 x 201 = 804 rows a matmul): wall, RTF, device busy share, peak
+     memory; 240 Q8 launches per encode_batch (wrapper count and profile by
+     name); tokens and texts equal to the port's CPU run; the encoder's
+     output against the CPU within a tolerance fixed from a control (the
+     CPU run against itself under a two-ulp input change); a
+     transcribe_batch_with_state chain of two segments equal to the CPU's.
+  7. tones cell (slice 7): the trained fixture weights/tones_tiny.gguf (f32,
+     Dh = 16) on 8 seeded 15 s tone streams: streaming in all four modes at
+     S = 8 and at S = 1 (R = 13), and transcribe_batch of the 8 streams,
+     each with token error < 10% against the labels and the port's CPU
+     tokens; then W8A8 with int8 K/V (bf16, R = 13, S = 8): its token
+     error, its agreement with the f32 card run, chunk ms and RTF.
+  8. one JSON line of kernel results, the card's name and power limit, and
+     last the line {"ok": true, "device": {...}}. Each phase prints its
+     wall time.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -103,6 +120,22 @@ W8A8_CONTROL_FACTOR = 2.0
 W8A8_CONTROL_ULPS = 2
 TOL_W8A8_TOKEN_AGREE = 0.95
 W8A8_STREAMS = 8
+# full-utterance path: 4 utterances, the longest 16 s = 201 encoder frames,
+# so each encoder matmul takes M = 4 x 201 = 804 rows
+FULL_UTT_SECONDS = (4.0, 8.0, 12.0, 16.0)
+FULL_UTT_M = 804
+# its encoder output, card vs CPU (f32, valid frames, relative to the CPU's
+# max|out|): at most FULL_CONTROL_FACTOR times the control, the CPU run's
+# departure from itself under a two-ulp input change. Set from the CPU
+# before any card reading: the JAX package against the port, both on the
+# CPU (another summation order in every op, as the card has), departed 1.1x
+# and 1.4x as far as that control at d_model 256 / 4 layers and 512 / 6
+# layers (Q8_0, random weights, 2 ragged utterances).
+FULL_CONTROL_FACTOR = 4.0
+# tones cell: the JAX package's trained-fixture gate
+# (tests/test_trained_fixture.py:66-77) on 8 streams
+TONES_STREAMS, TONES_SECONDS, TONES_SEED, TONES_N = 8, 15.0, 123, 16
+TONES_TER_MAX = 0.10
 
 
 def log(msg: str) -> None:
@@ -179,6 +212,25 @@ def launches_of(prof: dict, prefix: str) -> int:
     """Kernel launches in a profile whose names start with `prefix`."""
     return sum(n for name, n in prof["count"].items()
                if name.startswith(prefix))
+
+
+def kernel_counts() -> dict:
+    """Each kernel wrapper's launch count."""
+    from nemotron_tpu_torch.ops.quant_kernel import q8_matmul
+    from nemotron_tpu_torch.ops.ring_attn_kernel import fused_ring_attention
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul
+
+    return {"attn": fused_ring_attention.launches, "q8": q8_matmul.launches,
+            "w8a8": w8a8_matmul.launches}
+
+
+def reset_counts() -> None:
+    from nemotron_tpu_torch.ops.quant_kernel import q8_matmul
+    from nemotron_tpu_torch.ops.ring_attn_kernel import fused_ring_attention
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul
+
+    for fn in (fused_ring_attention, q8_matmul, w8a8_matmul):
+        fn.launches = 0
 
 
 def check(name: str, err: float, tol: float, failures: list) -> None:
@@ -339,7 +391,7 @@ def q8_phase(failures: list) -> dict:
                 for _ in range(n)]
 
     log("phase kernels: q8_matmul vs q8_matmul_ref")
-    for M in (1, 14, 112):
+    for M in (1, 14, 112, 17, 257, FULL_UTT_M):
         for (K, N) in Q8_SHAPES:
             for dt in (torch.float32, torch.bfloat16):
                 (q, s), = weights(K, N)
@@ -364,11 +416,13 @@ def q8_phase(failures: list) -> dict:
         if not same:
             failures.append(f"q8 M={M} K={K} N={N}: not deterministic")
 
-    # times at the main path's shapes: M = 14 rows (one stream, R=13) and
-    # M = 1 (R=0), f32; enough weight copies to exceed L2 as a chunk does
+    # times at the main paths' shapes: M = 14 rows (one stream, R=13), M = 1
+    # (R=0) and the full-utterance batch's M = 804, f32; enough weight
+    # copies to exceed L2 as a chunk does
     log("phase kernels: q8_matmul times (f32; weights cycled beyond L2)")
     out = {}
-    for M in (14, 1):
+    for M in (14, 1, FULL_UTT_M):
+        iters = 500 if M <= 16 else 100
         for (K, N) in Q8_SHAPES:
             n = max(2, (192 << 20) // (K * N))
             ws = weights(K, N, n)
@@ -378,11 +432,11 @@ def q8_phase(failures: list) -> dict:
             dense = [(q.float().reshape(K // 32, 32, N)
                       * s[:, None, :]).reshape(K, N) for q, s in ws[:8]]
             ms = time_calls([lambda q=q, s=s: q8_matmul(x, q, s)
-                             for q, s in ws], 500)
+                             for q, s in ws], iters)
             plain_ms = time_calls([lambda q=q, s=s: q8_matmul_ref(x, q, s)
                                    for q, s in ws[:8]], 100)
             lib_ms = time_calls([lambda w=w: torch.matmul(x, w)
-                                 for w in dense], 500)
+                                 for w in dense], iters)
             nbytes = M * K * 4 + K * N + (K // 32) * N * 4 + M * N * 4
             flops = 2 * M * K * N
             t_bytes = nbytes / HBM_BYTES_PER_S
@@ -529,9 +583,9 @@ def write_full_width_gguf(path: str):
     return len(quantize)
 
 
-def seeded_pcm(stream: int = 0) -> np.ndarray:
-    """4 s of tone plus noise; each stream its own pitch and noise."""
-    n = int(AUDIO_SECONDS * 16000)
+def seeded_pcm(stream: int = 0, seconds: float = AUDIO_SECONDS) -> np.ndarray:
+    """Tone plus noise; each stream its own pitch and noise."""
+    n = int(seconds * 16000)
     t = np.arange(n) / 16000.0
     noise = np.random.default_rng(SEED + stream).standard_normal(n)
     pcm = (0.3 * np.sin(2 * np.pi * 440 * (1 + 0.1 * stream) * t)
@@ -565,12 +619,12 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
         torch.cuda.synchronize()
         sess = StreamSession(params, cfg, vocab, cc)
         torch.cuda.reset_peak_memory_stats()
-        fused_ring_attention.launches = 0
-        q8_matmul.launches = 0
+        reset_counts()
         sess.process(pcm)
         sess.finalize()
         torch.cuda.synchronize()
-        attn_n, q8_n = fused_ring_attention.launches, q8_matmul.launches
+        n = kernel_counts()
+        attn_n, q8_n = n["attn"], n["q8"]
         chunks = sess.total_chunks
         toks = [t for t, _ in sess.get_tokens(0)]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -778,8 +832,6 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
     import torch
 
     from nemotron_tpu_torch.config import CacheConfig
-    from nemotron_tpu_torch.ops.quant_kernel import q8_matmul
-    from nemotron_tpu_torch.ops.ring_attn_kernel import fused_ring_attention
     from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul
     from nemotron_tpu_torch.params import load_model, quantize_model_params
 
@@ -801,13 +853,11 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
                     bf16)                                          # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fused_ring_attention.launches = 0
-        w8a8_matmul.launches = 0
-        q8_matmul.launches = 0
+        reset_counts()
         sess = run_session(params, cfg, vocab, cc, pcm, bf16)
         torch.cuda.synchronize()
-        counts = (fused_ring_attention.launches, w8a8_matmul.launches,
-                  q8_matmul.launches)
+        n = kernel_counts()
+        counts = (n["attn"], n["w8a8"], n["q8"])
         chunks = sess.total_chunks
         n_tok = [len(sess.get_tokens(s)) for s in range(S)]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -950,6 +1000,261 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the full-utterance path at full width
+# ---------------------------------------------------------------------------
+
+def valid_gap(a, b, lengths) -> float:
+    """Largest |a - b| over each utterance's valid frames, relative to the
+    largest |b| there."""
+    return (max((a[i, :n] - b[i, :n]).abs().max().item()
+                for i, n in enumerate(lengths))
+            / max(b[i, :n].abs().max().item() for i, n in enumerate(lengths)))
+
+
+def full_utterance_phase(gguf_path: str, failures: list) -> dict:
+    import torch
+
+    from nemotron_tpu_torch.models import decoder as dec_mod
+    from nemotron_tpu_torch.models import encoder as enc_mod
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming import session as sess_mod
+    from nemotron_tpu_torch.utils.text import tokens_to_text
+
+    params, cfg, vocab = load_model(gguf_path, device="cuda")
+    cpu_params, _, _ = load_model(gguf_path, device="cpu")
+    utts = [seeded_pcm(i, s) for i, s in enumerate(FULL_UTT_SECONDS)]
+    audio_s = sum(FULL_UTT_SECONDS)
+    sess_mod.transcribe_batch(params, cfg, vocab, utts)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    texts = sess_mod.transcribe_batch(params, cfg, vocab, utts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"attn": 0, "q8": 10 * cfg.n_layers, "w8a8": 0}
+    log(f"phase full utterance: transcribe_batch of {len(utts)} utterances "
+        f"({', '.join(f'{s:g}' for s in FULL_UTT_SECONDS)} s; f32, Q8_0): "
+        f"wall {wall * 1e3:.2f} ms, RTF {wall / audio_s:.5f}, peak "
+        f"{peak:.2f} GiB, launches {json.dumps(counts)}, text lengths "
+        f"{[len(t) for t in texts]}")
+    if counts != want:
+        failures.append(f"full utterance: launches {counts} (want {want})")
+
+    # where the time goes, and the Q8 kernel launches counted by name
+    prof = profile_window(
+        lambda: sess_mod.transcribe_batch(params, cfg, vocab, utts))
+    busy = prof["busy_us"] / max(prof["wall_us"], 1e-9)
+    q8_k = launches_of(prof, "q8_matmul_cluster_kernel")
+    if prof["busy_us"] > 0:
+        log(f"  profile of one transcribe_batch: wall "
+            f"{prof['wall_us'] / 1e3:.2f} ms, device busy "
+            f"{prof['busy_us'] / 1e3:.2f} ms ({100 * busy:.1f}%), "
+            f"q8_matmul_cluster_kernel launches {q8_k} (one encode_batch)")
+        for name, us in prof["by_name"][:10]:
+            log(f"    {us / 1e3:8.3f} ms  {prof['count'][name]:6d} launches  "
+                f"{name}")
+        if q8_k != 10 * cfg.n_layers:
+            failures.append(f"full utterance profile: {q8_k} Q8 kernel "
+                            f"launches (want {10 * cfg.n_layers})")
+    else:
+        failures.append("full utterance profile: no device time recorded")
+
+    # card vs the port's CPU run on the CPU's mel: the encoder output (and
+    # the control that fixes its tolerance), then greedy tokens
+    mel, lengths = sess_mod.batch_mel(cpu_params, cfg, utts)
+    nudged = (mel * np.float32(1 + W8A8_CONTROL_ULPS * 2.0 ** -23)
+              ).astype(np.float32)
+    enc, toks = {}, {}
+    for name, p, m in (("cpu", cpu_params, mel), ("control", cpu_params,
+                                                  nudged),
+                       ("card", params, mel)):
+        lens = torch.from_numpy(lengths).to(p.device)
+        e = enc_mod.encode_batch(p, cfg, torch.from_numpy(m).to(p.device),
+                                 enc_lengths=lens)
+        if name != "control":
+            st = dec_mod.init_decoder_state(cfg, len(utts), torch.float32,
+                                            p.device)
+            toks[name] = dec_mod.greedy_decode(p, cfg, e, st,
+                                               enc_lengths=lens)[0].cpu()
+        enc[name] = e.float().cpu()
+    rows = enc["card"].shape[0] * enc["card"].shape[1]
+    control = valid_gap(enc["control"], enc["cpu"], lengths)
+    tol = FULL_CONTROL_FACTOR * control
+    gap = valid_gap(enc["card"], enc["cpu"], lengths)
+    finite = bool(torch.isfinite(enc["card"]).all())
+    log(f"  encode_batch card vs CPU ({rows} rows = M, enc_lengths "
+        f"{lengths.tolist()}): {gap:.3e} of max|out| (tol {tol:.3e} = "
+        f"{FULL_CONTROL_FACTOR:g} x the control {control:.3e}), finite "
+        f"{finite}")
+    if rows != FULL_UTT_M or not finite or not gap <= tol:
+        failures.append(f"full utterance encoder card vs CPU: {gap:.3e} "
+                        f"(tol {tol:.3e}), rows {rows}, finite {finite}")
+    same_tokens = torch.equal(toks["card"], toks["cpu"])
+    cpu_texts = [tokens_to_text(t, vocab) for t in
+                 dec_mod.tokens_to_list(toks["cpu"].numpy(),
+                                        cfg.blank_token)]
+    n_tok = int((toks["cpu"] != cfg.blank_token).sum())
+    log(f"  greedy tokens card vs CPU: {'equal' if same_tokens else 'DIFFER'}"
+        f" ({n_tok} tokens); transcribe_batch texts on the card vs the CPU's "
+        f"tokens: {'equal' if texts == cpu_texts else 'DIFFER'}")
+    if not same_tokens or texts != cpu_texts or n_tok == 0:
+        failures.append("full utterance tokens differ between the card and "
+                        "the CPU")
+
+    # decoder state carried over two segments of the 8 s utterance
+    half = utts[1].size // 2
+    chains = {}
+    for name, p in (("card", params), ("cpu", cpu_params)):
+        st, off, out = None, 0, []
+        for seg in (utts[1][:half], utts[1][half:]):
+            text, tl, st, off = sess_mod.transcribe_batch_with_state(
+                p, cfg, vocab, seg, dec_state=st, frame_offset=off)
+            out.append((text, tl, off))
+        chains[name] = out
+    same = chains["card"] == chains["cpu"]
+    log(f"  transcribe_batch_with_state, 2 segments: card vs CPU "
+        f"{'equal' if same else 'DIFFER'} (tokens "
+        f"{[len(o[1]) for o in chains['card']]}, offsets "
+        f"{[o[2] for o in chains['card']]})")
+    if not same or not chains["cpu"][1][1]:
+        failures.append("transcribe_batch_with_state differs between the "
+                        "card and the CPU")
+    return dict(wall_ms=wall * 1e3, rtf=wall / audio_s, busy_share=busy,
+                peak_gib=peak, launches=counts, M=rows,
+                encoder_gap=gap, encoder_tol=tol)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the trained tones fixture
+# ---------------------------------------------------------------------------
+
+def token_error(got: list, truths: list) -> float:
+    """Levenshtein distance over all streams / truth tokens."""
+    from nemotron_tpu_torch.utils.text import edit_distance
+
+    return (sum(edit_distance(g, t) for g, t in zip(got, truths))
+            / sum(len(t) for t in truths))
+
+
+def tones_phase(failures: list) -> dict:
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model, quantize_model_params
+    from nemotron_tpu_torch.streaming.session import transcribe_batch
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "weights", "tones_tiny.gguf")
+    card = load_model(path, device="cuda")
+    cpu = load_model(path, device="cpu")
+    cfg, vocab = card[1], card[2]
+    audio, truths = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                      seed=TONES_SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+    log(f"phase tones: {path} (d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.d_head}, {cfg.n_layers} layers, f32), {TONES_STREAMS} "
+        f"streams of {TONES_SECONDS:g} s (seed {TONES_SEED}), "
+        f"{sum(len(t) for t in truths)} labels")
+
+    def stream(params, R, pcm, dtype=f32, int8=False):
+        cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
+                         kv_cache_int8=int8)
+        sess = run_session(params, cfg, vocab, cc, pcm, dtype)
+        return sess, [[t for t, _ in sess.get_tokens(s)]
+                      for s in range(pcm.shape[0])]
+
+    def card_run(fn):
+        """fn on the card with the launch counts set to 0; its result, its
+        wall seconds and the counts."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernel_counts()
+
+    run_session(card[0], cfg, vocab, CacheConfig(n_mels=cfg.n_mels),
+                audio[:, :16000], f32)                        # warm-up
+    results = {}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    runs = [(f"R={R} S={TONES_STREAMS}", R, audio) for R in MODES]
+    runs.append(("R=13 S=1", 13, audio[:1]))
+    f32_card = {}
+    for name, R, pcm in runs:
+        (sess, got), wall, counts = card_run(lambda: stream(card[0], R, pcm))
+        _, want = stream(cpu[0], R, pcm)
+        ter = token_error(got, truths[:pcm.shape[0]])
+        chunks = sess.total_chunks
+        f32_card[name] = sess
+        results[name] = dict(ter=ter, chunk_ms=sess.chunk_seconds
+                             / max(chunks, 1) * 1e3, rtf=sess.rtf,
+                             wall_s=wall, chunks=chunks, launches=counts,
+                             same_as_cpu=got == want)
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"  streaming {name} f32: token error {ter:.4f}, "
+            f"{sum(map(len, got))} tokens, {chunks} chunks, mean chunk "
+            f"{results[name]['chunk_ms']:.2f} ms, RTF {sess.rtf:.4f}, "
+            f"launches {json.dumps(counts)}, tokens vs CPU "
+            f"{'equal' if got == want else 'DIFFER'}")
+        want_counts = {"attn": cfg.n_layers * chunks, "q8": 0, "w8a8": 0}
+        if (not ter < TONES_TER_MAX or got != want or chunks == 0
+                or counts != want_counts):
+            failures.append(f"tones {name}: token error {ter:.4f}, tokens "
+                            f"vs CPU equal {got == want}, launches {counts}")
+
+    texts, wall, counts = card_run(
+        lambda: transcribe_batch(card[0], cfg, vocab, list(audio)))
+    cpu_texts = transcribe_batch(cpu[0], cfg, vocab, list(audio))
+    got = [[vocab.index("▁" + w) for w in t.split()] for t in texts]
+    ter = token_error(got, truths)
+    results["transcribe_batch"] = dict(ter=ter, wall_ms=wall * 1e3,
+                                       rtf=wall / (TONES_SECONDS
+                                                   * TONES_STREAMS),
+                                       launches=counts,
+                                       same_as_cpu=texts == cpu_texts)
+    log(f"  transcribe_batch of the {TONES_STREAMS} streams f32: token error "
+        f"{ter:.4f}, wall {wall * 1e3:.2f} ms, RTF "
+        f"{results['transcribe_batch']['rtf']:.5f}, launches "
+        f"{json.dumps(counts)}, texts vs CPU "
+        f"{'equal' if texts == cpu_texts else 'DIFFER'}")
+    if not ter < TONES_TER_MAX or texts != cpu_texts or any(counts.values()):
+        failures.append(f"tones transcribe_batch: token error {ter:.4f}, "
+                        f"texts vs CPU equal {texts == cpu_texts}, launches "
+                        f"{counts}")
+
+    w8 = quantize_model_params(card[0], mode="w8a8")
+    (sess, got), wall, counts = card_run(
+        lambda: stream(w8, 13, audio, bf16, int8=True))
+    ter = token_error(got, truths)
+    ref = f32_card[f"R=13 S={TONES_STREAMS}"]
+    agree = [position_agreement(sess.get_tokens(s), ref.get_tokens(s))
+             for s in range(TONES_STREAMS)]
+    chunks = sess.total_chunks
+    for k in launches:
+        launches[k] += counts[k]
+    results["w8a8"] = dict(ter=ter, agreement_min=min(agree),
+                           agreement_mean=sum(agree) / len(agree),
+                           chunk_ms=sess.chunk_seconds / max(chunks, 1) * 1e3,
+                           rtf=sess.rtf, launches=counts)
+    log(f"  streaming R=13 S={TONES_STREAMS} W8A8 + int8 K/V bf16: token "
+        f"error {ter:.4f} (f32 {results[f'R=13 S={TONES_STREAMS}']['ter']:.4f}), "
+        f"position agreement with the f32 card run {min(agree):.4f}-"
+        f"{max(agree):.4f}, mean chunk {results['w8a8']['chunk_ms']:.2f} ms, "
+        f"RTF {sess.rtf:.4f}, launches {json.dumps(counts)}")
+    want_counts = {"attn": cfg.n_layers * chunks, "q8": 0,
+                   "w8a8": 10 * cfg.n_layers * chunks}
+    if counts != want_counts or chunks == 0:
+        failures.append(f"tones W8A8: launches {counts} (want {want_counts})")
+    results["launches"] = launches
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -977,9 +1282,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     failures: list[str] = []
-    attn = attention_phase(failures)
-    q8 = q8_phase(failures)
-    w8 = w8a8_phase(failures)
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args, failures)
+        log(f"phase {name}: wall {time.perf_counter() - t0:.1f} s")
+        return out
+
+    attn = phase("attention kernel", attention_phase)
+    q8 = phase("Q8 kernel", q8_phase)
+    w8 = phase("W8A8 kernel", w8a8_phase)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "full_width_q8.gguf")
@@ -988,8 +1300,10 @@ def main() -> int:
         log(f"phase main path: wrote {os.path.getsize(path) / 2 ** 30:.2f} "
             f"GiB GGUF ({n_q} Q8_0 tensors) in "
             f"{time.perf_counter() - t0:.1f} s")
-        runs = main_path_phase(path, failures)
-        w8_runs = w8a8_path_phase(path, failures)
+        runs = phase("Q8_0 main path", main_path_phase, path)
+        w8_runs = phase("W8A8 path", w8a8_path_phase, path)
+        full = phase("full utterance", full_utterance_phase, path)
+    tones = phase("tones", tones_phase)
 
     def w8_layer(M):
         t = {k: sum(w8[(M, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
@@ -1012,6 +1326,7 @@ def main() -> int:
         return t
 
     layer_ms = q8_layer(14)
+    tones_n = tones["launches"]
     attn_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                  "max_abs_err")
     kernels = [
@@ -1019,7 +1334,8 @@ def main() -> int:
          "source": "nemotron_tpu_torch/csrc/ring_attn.cu",
          "replaces": "nemotron_tpu/ops/ring_attn_kernel.py:87",
          "launches": sum(r["attn_launches"] for r in runs.values())
-         + sum(r["attn_launches"] for r in w8_runs.values()),
+         + sum(r["attn_launches"] for r in w8_runs.values())
+         + tones_n["attn"],
          "max_abs_err": a13["max_abs_err"], "ms": a13["ms"],
          "plain_ms": a13["plain_ms"], "bound_ms": a13["bound_ms"],
          "bound_by": a13["bound_by"], "library_ms": a13["library_ms"],
@@ -1032,7 +1348,8 @@ def main() -> int:
         {"name": "q8_matmul", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/q8_matmul.cu",
          "replaces": "nemotron_tpu/ops/quant_kernel.py:58",
-         "launches": sum(r["q8_launches"] for r in runs.values()),
+         "launches": sum(r["q8_launches"] for r in runs.values())
+         + full["launches"]["q8"],
          "max_abs_err": max(v["max_abs_err"] for (m, _, _), v in q8.items()
                             if m == 14),
          "ms": layer_ms["ms"], "plain_ms": layer_ms["plain_ms"],
@@ -1042,11 +1359,12 @@ def main() -> int:
                   "2x(1024,4096) 2x(4096,1024) 1x(1024,2048)",
          "per_m": {f"M={M}": {k: v for k, v in q8_layer(M).items()
                               if k not in ("bytes", "flops")}
-                   for M in (1, 14)}},
+                   for M in (1, 14, FULL_UTT_M)}},
         {"name": "w8a8_matmul", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/w8a8_matmul.cu",
          "replaces": "nemotron_tpu/ops/w8a8_kernel.py:52",
-         "launches": sum(r["w8a8_launches"] for r in w8_runs.values()),
+         "launches": sum(r["w8a8_launches"] for r in w8_runs.values())
+         + tones_n["w8a8"],
          "max_abs_err": w8["max_abs_err"],
          "ms": w8_112["ms"], "plain_ms": w8_112["plain_ms"],
          "bound_ms": w8_112["bound_ms"], "bound_by": w8_112["bound_by"],
@@ -1067,6 +1385,8 @@ def main() -> int:
              | {"n_tokens": len(r["tokens"])} for R, r in runs.items()}
     log("main path: " + json.dumps(modes))
     log("W8A8 path: " + json.dumps(w8_runs))
+    log("full utterance: " + json.dumps(full))
+    log("tones: " + json.dumps(tones))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

@@ -9,7 +9,9 @@ argv contract (src/transcribe_stream.cpp:27-36):
                                      [--quantize=q8_0|w8a8] [--kv-int8]
                                      [--shared-cache]
 
-  - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin
+  - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin;
+    .wav files decode directly (PCM16 or float32, any sample rate --
+    polyphase-resampled, stereo averaged) and are replayed as raw PCM
   - chunk_ms is advisory (>=10 warning); the actual read size comes from the
     cache config, as in the reference (src/transcribe_stream.cpp:119,143-146)
   - right_context in {0, 1, 6, 13} selects the latency mode
@@ -24,12 +26,31 @@ argv contract (src/transcribe_stream.cpp:27-36):
 
 from __future__ import annotations
 
+import io
 import os
 import sys
 import time
 
 
 _FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--shared-cache")
+
+
+def device_from_flags(flags: list[str]) -> str | None:
+    """The device the reference's device flags ask for: "cuda" unless
+    --cpu is given. --metal and --tpu are not backends of this port: they
+    warn and are ignored, as the JAX CLIs warn on the backends they lack.
+    --cpu with --cuda is an error: printed, and None returned."""
+    if "--cpu" in flags and "--cuda" in flags:
+        print("error: --cpu and --cuda ask for different devices",
+              file=sys.stderr)
+        return None
+    device = "cpu" if "--cpu" in flags else "cuda"
+    for f in flags:
+        if f in ("--metal", "--tpu"):
+            using = "the CPU (--cpu)" if device == "cpu" else "the CUDA card"
+            print(f"warning: {f} is not a backend of this port; using "
+                  f"{using}", file=sys.stderr)
+    return device
 
 
 def main(argv: list[str]) -> int:
@@ -54,16 +75,9 @@ def main(argv: list[str]) -> int:
               f"takes {', '.join(_FLAGS)} and --quantize=q8_0|w8a8)",
               file=sys.stderr)
         return 1
-    if "--cpu" in flags and "--cuda" in flags:
-        print("error: --cpu and --cuda ask for different devices",
-              file=sys.stderr)
+    device = device_from_flags(flags)
+    if device is None:
         return 1
-    device = "cpu" if "--cpu" in flags else "cuda"
-    for f in flags:
-        if f in ("--metal", "--tpu"):
-            using = "the CPU (--cpu)" if device == "cpu" else "the CUDA card"
-            print(f"warning: {f} is not a backend of this port; using "
-                  f"{using}", file=sys.stderr)
     quant_mode = None
     for f in flags:
         if f.startswith("--quantize="):
@@ -118,12 +132,15 @@ def main(argv: list[str]) -> int:
         src = sys.stdin.buffer
     else:
         src = open(audio_path, "rb")
-        if src.read(4) == b"RIFF":
+        head = src.read(12)
+        if head[:4] == b"RIFF":  # WAV: decode fully, replay as raw PCM
+            from .utils.audio import read_audio_bytes
+
+            data = head + src.read()
             src.close()
-            print("error: WAV input is not supported by this port yet; "
-                  "pass raw s16le 16 kHz mono PCM", file=sys.stderr)
-            return 1
-        src.seek(0)
+            src = io.BytesIO(read_audio_bytes(data).tobytes())
+        else:
+            src.seek(0)
     chunk_bytes = cc.chunk_samples * 2
 
     t_start = time.perf_counter()

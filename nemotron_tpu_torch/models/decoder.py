@@ -60,10 +60,56 @@ def joint_logits(jp, enc_proj: torch.Tensor, dec_out: torch.Tensor):
     return logits + jp.out_b.to(torch.float32)
 
 
+def decode_frame(params, cfg: ModelConfig, state: DecoderState,
+                 enc_proj_t: torch.Tensor):
+    """Greedy label loop for ONE encoder frame across all B streams
+    (nemotron_tpu/models/decoder.py:81-117): the reference's per-frame loop
+    (src/nemo-ggml.cpp:1138-1246), run on the host until every stream has
+    emitted blank or MAX_SYMBOLS_PER_STEP symbols.
+
+    enc_proj_t: [B, joint_dim] (already through the joint enc projection).
+    Returns (new state, tokens [MAX_SYMBOLS_PER_STEP, B] int32
+    blank-padded)."""
+    dp = params.decoder
+    blank = cfg.blank_token
+    B = enc_proj_t.shape[0]
+    emb_table = dp.embedding.to(enc_proj_t.dtype)
+    tokens = torch.full((MAX_SYMBOLS_PER_STEP, B), blank, dtype=torch.int32,
+                        device=enc_proj_t.device)
+    h, c, prev = state.h, state.c, state.prev_token
+    active = torch.ones((B,), dtype=torch.bool, device=enc_proj_t.device)
+    sym = 0
+    while sym < MAX_SYMBOLS_PER_STEP and bool(active.any()):
+        dec_out, h2, c2 = lstm_step(dp, emb_table[prev.long()], h, c)
+        logits = joint_logits(params.joint, enc_proj_t, dec_out)
+        tok = logits.argmax(dim=-1).to(torch.int32)                 # [B]
+        emit = active & (tok != blank)
+        h = torch.where(emit[:, None, None], h2, h)
+        c = torch.where(emit[:, None, None], c2, c)
+        prev = torch.where(emit, tok, prev)
+        tokens[sym] = torch.where(emit, tok, blank)
+        active = emit
+        sym += 1
+    return DecoderState(h, c, prev), tokens
+
+
+def greedy_decode_by_frame(params, cfg: ModelConfig, enc: torch.Tensor,
+                           state: DecoderState):
+    """Greedy RNN-T frame by frame (nemotron_tpu/models/decoder.py:120-133):
+    the semantics oracle of greedy_decode, O(T) sequential frames.
+    Returns (tokens [B, T, MAX_SYMBOLS_PER_STEP] int32, new state)."""
+    enc_proj = joint_project_enc(params.joint, enc)                 # [B, T, J]
+    frames = []
+    for t in range(enc_proj.shape[1]):
+        state, toks = decode_frame(params, cfg, state, enc_proj[:, t])
+        frames.append(toks)
+    return torch.stack(frames).permute(2, 0, 1), state
+
+
 def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
-                  state: DecoderState):
+                  state: DecoderState, enc_lengths=None):
     """Frame-skipping batched greedy RNN-T (nemotron_tpu/models/decoder.py:
-    136-256, without its confidence and enc_lengths options).
+    136-256, without its confidence and step-mask options).
 
     The LSTM state only changes on non-blank emissions, so for a fixed state
     the joint is evaluated against ALL remaining frames in one matmul and
@@ -71,8 +117,10 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
     iterations instead of O(T). The loop runs on the host; its exit test is
     one device->host sync per iteration.
 
-    enc: [B, T, d_model]. Returns (tokens [B, T, MAX_SYMBOLS_PER_STEP] int32
-    blank-padded, new DecoderState)."""
+    enc: [B, T, d_model]; enc_lengths [B] int (optional): each stream's
+    valid frames in a padded batch -- frames at or beyond it emit nothing.
+    Returns (tokens [B, T, MAX_SYMBOLS_PER_STEP] int32 blank-padded, new
+    DecoderState)."""
     dp = params.decoder
     blank = cfg.blank_token
     B, T, _ = enc.shape
@@ -85,6 +133,8 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
     tokens = torch.full((B, T * MAX), blank, dtype=i32, device=dev)
     ptr = torch.zeros((B,), dtype=i32, device=dev)         # current frame
     t_limit = torch.full((B,), T, dtype=i32, device=dev)
+    if enc_lengths is not None:
+        t_limit = torch.clamp(enc_lengths.to(dev, i32), max=T)
     sym = torch.zeros((B,), dtype=i32, device=dev)         # symbols this frame
     bidx = torch.arange(B, device=dev)
     t_idx = torch.arange(T, dtype=i32, device=dev)[None, :]
@@ -151,3 +201,12 @@ def extract_emitted(tokens, blank: int, frame_offsets=None):
         out[stream] = [(int(v), off + int(t))
                        for v, t in zip(vals[s0:e0], nz[s0:e0, 1])]
     return out
+
+
+def tokens_to_list(tokens, blank: int):
+    """Host-side: [T, MAX] or [B, T, MAX] int32 -> list of (token, frame)
+    (a list of such lists for [B, T, MAX]), in emission order."""
+    arr = np.asarray(tokens)
+    if arr.ndim == 3:
+        return [tokens_to_list(a, blank) for a in arr]
+    return [(int(arr[t, s]), t) for t, s in np.argwhere(arr != blank)]

@@ -1,7 +1,10 @@
-"""FastConformer encoder, cache-aware streaming step.
+"""FastConformer encoder: full utterance (`encode_batch`) and the
+cache-aware streaming step (`encode_chunk`).
 
-The port's counterpart of the streaming half of
-`nemotron_tpu/models/encoder.py` (no step mask):
+The port's counterpart of `nemotron_tpu/models/encoder.py` (no step mask,
+no rematerialisation). The full-utterance encoder attends over the whole
+utterance, masked by per-utterance lengths and, for streaming-equivalent
+visibility, by chunks. The streaming step:
 
   - All streaming state is an explicit `EncoderState` of fixed-shape
     tensors. The K/V attention window is a head-major RING buffer
@@ -32,24 +35,19 @@ from ..ops.basic import ffn, layer_norm
 from ..ops.conv import conformer_conv_module, conv_subsampling
 from ..ops.quant import qmm
 from ..ops.rel_attention import (pos_emb_descending, project_pos,
-                                 rel_pos_mha_ring_fused)
+                                 rel_pos_mha, rel_pos_mha_ring_fused)
 
 
-def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
-                    k_ring_all, v_ring_all, chron, k_cols, v_cols, *,
-                    n_heads: int, d_head: int):
-    """One conformer layer (residual structure: reference
-    src/nemo-ggml.cpp:768-813) over the ring cache. Returns
-    (y, new_k [B, H, Q, Dh], new_v, new_conv_cache, norm_attn [B, Q, D]),
-    norm_attn being the attention's input (what the shared x-ring keeps)."""
+def _conformer_block(lp, x, attention, conv_cache):
+    """The residual structure of one conformer layer (reference
+    src/nemo-ggml.cpp:768-813) around `attention(norm_attn) -> (out, new_k,
+    new_v)`. Returns (y, new_k, new_v, new_conv_cache, norm_attn)."""
     r = x
     cur = layer_norm(r, lp.norm_ff1_w, lp.norm_ff1_b)
     r = r + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2)
 
     norm_attn = layer_norm(r, lp.norm_attn_w, lp.norm_attn_b)
-    attn, new_k, new_v = rel_pos_mha_ring_fused(
-        lp, norm_attn, pos_heads, n_heads, d_head, layer_idx, k_ring_all,
-        v_ring_all, chron, mask, k_cols, v_cols)
+    attn, new_k, new_v = attention(norm_attn)
     r = r + attn
 
     cur = layer_norm(r, lp.norm_conv_w, lp.norm_conv_b)
@@ -60,6 +58,70 @@ def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
     r = r + 0.5 * ffn(cur, lp.ffn2_w1, lp.ffn2_w2)
     return (layer_norm(r, lp.norm_final_w, lp.norm_final_b), new_k, new_v,
             new_conv, norm_attn)
+
+
+def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
+                    k_ring_all, v_ring_all, chron, k_cols, v_cols, *,
+                    n_heads: int, d_head: int):
+    """One conformer layer over the ring cache. Returns
+    (y, new_k [B, H, Q, Dh], new_v, new_conv_cache, norm_attn [B, Q, D]),
+    norm_attn being the attention's input (what the shared x-ring keeps)."""
+    return _conformer_block(lp, x, lambda a: rel_pos_mha_ring_fused(
+        lp, a, pos_heads, n_heads, d_head, layer_idx, k_ring_all,
+        v_ring_all, chron, mask, k_cols, v_cols), conv_cache)
+
+
+def conformer_layer_batch(lp, x, pos_heads, mask=None, *, n_heads: int,
+                          d_head: int) -> torch.Tensor:
+    """One conformer layer over whole utterances (no caches; the depthwise
+    conv zero-pads its causal history): x [B, T', D] -> [B, T', D]."""
+    return _conformer_block(lp, x, lambda a: rel_pos_mha(
+        lp, a, pos_heads, n_heads, d_head, mask=mask), None)[0]
+
+
+def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
+                 enc_lengths=None, att_chunk: int | None = None,
+                 att_left: int = 70) -> torch.Tensor:
+    """Full-utterance encoder (nemotron_tpu/models/encoder.py:105-156):
+    mel [B, T, n_mels] -> [B, T', d_model], in mel's dtype.
+
+    The position table is sized per call (no length cap) and projected
+    through linear_pos in every layer, dequantizing a quantized weight.
+
+    enc_lengths [B] int (encoder frames): keys at or beyond an utterance's
+    length are masked out of every query's attention. As in the JAX
+    package nothing else is masked: the subsampling and the depthwise conv
+    are causal (the last real frame's subsampling window still takes in
+    the first padded mel frame, a zero in transcribe_batch's batches).
+
+    att_chunk (encoder frames): streaming-equivalent visibility -- frame i
+    attends to its own chunk [c*C, (c+1)*C) and the `att_left` frames
+    before the chunk's start, as the cache-aware streaming step sees it."""
+    dev = mel.device
+    x = conv_subsampling(params.subsampling, mel)
+    Tp = x.shape[1]
+    pos = torch.from_numpy(pos_emb_descending(Tp, cfg.d_model)).to(
+        device=dev, dtype=x.dtype)
+
+    f32 = torch.float32
+    mask = None
+    j = torch.arange(Tp, dtype=torch.int32, device=dev)
+    if enc_lengths is not None:
+        invalid = j[None, :] >= enc_lengths.to(dev)[:, None]       # [B, T']
+        mask = torch.where(invalid, -1e9, 0.0).to(f32)[:, None, None, :]
+    if att_chunk is not None:
+        start = (j // att_chunk) * att_chunk                       # [T']
+        vis = ((j[None, :] < start[:, None] + att_chunk)
+               & (j[None, :] >= start[:, None] - att_left))        # [T', T']
+        cmask = torch.where(vis, 0.0, -1e9).to(f32)[None, None]
+        mask = cmask if mask is None else mask + cmask
+
+    for l in range(cfg.n_layers):
+        lp = params.layers.layer(l)
+        pos_heads = project_pos(lp.attn_pos_w, pos, cfg.n_heads, cfg.d_head)
+        x = conformer_layer_batch(lp, x, pos_heads, mask,
+                                  n_heads=cfg.n_heads, d_head=cfg.d_head)
+    return x
 
 
 @dataclasses.dataclass

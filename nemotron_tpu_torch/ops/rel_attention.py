@@ -1,5 +1,6 @@
-"""Relative-position multi-head attention (Transformer-XL style) over the
-streaming encoder's ring-buffered K/V cache.
+"""Relative-position multi-head attention (Transformer-XL style): over the
+streaming encoder's ring-buffered K/V cache, and over a whole utterance
+(`rel_pos_mha`, the full-utterance encoder's attention).
 
 The port's counterpart of `nemotron_tpu/ops/rel_attention.py`. The rel-shift
 (reference src/nemo-ggml.cpp:548-585, src/nemo-stream.cpp:391-433) selects
@@ -67,16 +68,82 @@ def _heads(t: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
     return t.reshape(B, Q, n_heads, d_head).transpose(1, 2).contiguous()
 
 
-def _pos_attn(q_v, pos_heads, kv: int, chron):
-    """Position bias in ring-slot order [B, H, Q, kv+Q], f32. The raw bias
-    is summed in f32 and rounded to the compute dtype, as the JAX package
-    rounds it (nemotron_tpu/ops/rel_attention.py:285-294)."""
+def _pos_raw(q_v: torch.Tensor, pos_heads: torch.Tensor) -> torch.Tensor:
+    """q_v [B, H, Q, Dh] against the projected position table [P, H, Dh]:
+    [B, H, Q, P], summed in f32 and rounded to the compute dtype, as the
+    JAX package rounds it (nemotron_tpu/ops/rel_attention.py:124-126,
+    285-294)."""
     dt = q_v.dtype
     f32 = torch.float32
-    pos_raw = torch.einsum("bhid,phd->bhip", q_v.to(f32),
-                           pos_heads.to(dt).to(f32)).to(dt)
-    pos_chron = rel_shift(pos_raw, kv)
+    return torch.einsum("bhid,phd->bhip", q_v.to(f32),
+                        pos_heads.to(dt).to(f32)).to(dt)
+
+
+def _pos_attn(q_v, pos_heads, kv: int, chron):
+    """Position bias in ring-slot order [B, H, Q, kv+Q], f32."""
+    pos_chron = rel_shift(_pos_raw(q_v, pos_heads), kv)
     return chron_to_slot(pos_chron, chron).to(torch.float32)
+
+
+def _softmax(content: torch.Tensor, pos_attn: torch.Tensor, mask,
+             d_head: int) -> torch.Tensor:
+    """Attention weights from the content and position scores (both in the
+    compute dtype): f32 math inside compute-dtype storage at the JAX
+    package's rounding points (nemotron_tpu/ops/rel_attention.py:64-77):
+    the scaled scores and the additive mask in the compute dtype, exp in
+    f32, the row sum with an f32 accumulator."""
+    dt = content.dtype
+    f32 = torch.float32
+    scale = torch.tensor(1.0 / np.sqrt(d_head), dtype=f32,
+                         device=content.device).to(dt)
+    scores = (content + pos_attn) * scale
+    if mask is not None:
+        scores = scores + mask.to(dt)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp((scores - m).to(f32)).to(dt)
+    s = e.to(f32).sum(dim=-1, keepdim=True)
+    return (e.to(f32) / s).to(dt)
+
+
+def rel_pos_mha(lp, x, pos_heads, n_heads: int, d_head: int,
+                kv_cache=None, mask=None):
+    """Relative-position MHA in batch mode, or over the legacy shift cache
+    (nemotron_tpu/ops/rel_attention.py:80-132). Plain tensor code: the JAX
+    package leaves this attention to XLA too.
+
+    x: [B, Q, D] (the attention's post-norm input).
+    pos_heads: [P, H, Dh], the position table already projected through
+        linear_pos; P = 2 * (cache + Q) - 1, cache being 0 in batch mode.
+    kv_cache: optional (k_cache, v_cache), each [B, C, D]: keys and values
+        become concat(cache, new), and the last C frames are returned as the
+        new caches (reference src/nemo-stream.cpp:457-484).
+    mask: optional additive mask broadcastable to [B, 1, Q, kv]
+        (0 = valid, -1e9 = masked).
+
+    Returns (out [B, Q, D], new_k_cache, new_v_cache)."""
+    B, Q, D = x.shape
+    dt = x.dtype
+    f32 = torch.float32
+    q, k_full, v_full = qmm_shared(x, [lp.attn_q_w, lp.attn_k_w,
+                                       lp.attn_v_w])
+    new_k_cache = new_v_cache = None
+    if kv_cache is not None:
+        k_cache, v_cache = kv_cache
+        C = k_cache.shape[1]
+        k_full = torch.cat([k_cache.to(dt), k_full], dim=1)
+        v_full = torch.cat([v_cache.to(dt), v_full], dim=1)
+        new_k_cache, new_v_cache = k_full[:, -C:, :], v_full[:, -C:, :]
+    kv = k_full.shape[1]
+    q, k, v = (_heads(t, n_heads, d_head) for t in (q, k_full, v_full))
+    q_u = q + lp.pos_bias_u.to(dt)[None, :, None, :]
+    q_v = q + lp.pos_bias_v.to(dt)[None, :, None, :]
+
+    content = torch.einsum("bhid,bhjd->bhij", q_u.to(f32), k.to(f32)).to(dt)
+    pos_attn = rel_shift(_pos_raw(q_v, pos_heads), kv)
+    w = _softmax(content, pos_attn, mask, d_head)
+    ctx = torch.einsum("bhij,bhjd->bhid", w.to(f32), v.to(f32)).to(dt)
+    ctx = ctx.transpose(1, 2).reshape(B, Q, D)
+    return qmm(ctx, lp.attn_out_w), new_k_cache, new_v_cache
 
 
 def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
@@ -107,14 +174,7 @@ def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
         torch.einsum("bhid,bhjd->bhij", q_u.to(f32), k_new.to(f32)).to(dt),
     ], dim=-1)
     pos_attn = _pos_attn(q_v, pos_heads, kv, chron).to(dt)
-
-    scale = torch.tensor(1.0 / np.sqrt(d_head), dtype=f32).to(dt)
-    scores = (content + pos_attn) * scale.to(x.device)
-    scores = scores + mask.to(dt)
-    m = scores.amax(dim=-1, keepdim=True)
-    e = torch.exp((scores - m).to(f32)).to(dt)
-    s = e.to(f32).sum(dim=-1, keepdim=True)
-    w = (e.to(f32) / s).to(dt)
+    w = _softmax(content, pos_attn, mask, d_head)
 
     w_r = w[..., :kv]
     if v_scale_cols is not None:

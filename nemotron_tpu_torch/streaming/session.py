@@ -1,11 +1,13 @@
-"""Streaming session engine.
+"""Streaming session engine and full-utterance transcription.
 
 The port's counterpart of `nemotron_tpu/streaming/session.py` (greedy
 RNN-T path) and of the reference's nemo_stream_* API
 (src/nemo-stream.h:176-312). One `StreamSession` manages S parallel
 streams: host-side PCM->mel frontend and mel buffer, plus `chunk_step`,
 which runs the cached encoder and the greedy decode on the params' device
-and brings back only int32 tokens.
+and brings back only int32 tokens. `transcribe_batch` is the reference's
+whole-file path (src/transcribe.cpp): several utterances in one
+length-masked encoder pass and one greedy decode.
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ from ..frontend.preprocessor import StreamingPreprocessor
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..params import ModelParams, cast_params
+from ..utils.tones import enc_frames_of_mel
 from ..utils.text import tokens_to_text
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def chunk_step(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
@@ -69,9 +74,7 @@ class StreamSession:
         if trace_dir is not None:
             raise NotImplementedError("dump tracing comes with the utils "
                                       "slice of the port")
-        if compute_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
-                             "bfloat16")
+        _check_dtype(compute_dtype)
         self.params = cast_params(params, compute_dtype)
         self.dtype = compute_dtype
         self.device = params.device
@@ -190,3 +193,120 @@ class StreamSession:
         if self.total_audio_seconds == 0:
             return 0.0
         return self.total_compute_seconds / self.total_audio_seconds
+
+
+def batch_mel(params: ModelParams, cfg: ModelConfig, utterances,
+              min_mel_frames: int = 0):
+    """Log-mel of each utterance (int16 PCM, 1-D) through its own
+    StreamingPreprocessor on the params' device, zero-padded along time to
+    max(longest, min_mel_frames) frames. Returns (mel [B, Tm, n_mels] f32
+    numpy, enc_lengths [B] int32 numpy: each utterance's encoder frames)."""
+    fb = params.preprocessor.filterbank.float().cpu().numpy()
+    win = params.preprocessor.window.float().cpu().numpy()
+    mels = []
+    for audio in utterances:
+        pre = StreamingPreprocessor(fb, win,
+                                    cfg=PreprocessorConfig(n_mels=cfg.n_mels),
+                                    device=params.device)
+        mels.append(pre.process(np.asarray(audio).reshape(1, -1))[0])
+    Tm = max(max(m.shape[0] for m in mels), min_mel_frames)
+    mel = np.zeros((len(mels), Tm, cfg.n_mels), np.float32)
+    for i, m in enumerate(mels):
+        mel[i, :m.shape[0]] = m
+    enc_lengths = np.array([enc_frames_of_mel(m.shape[0]) for m in mels],
+                           np.int32)
+    return mel, enc_lengths
+
+
+def _check_dtype(compute_dtype) -> None:
+    if compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
+                         "bfloat16")
+
+
+def transcribe_batch(params: ModelParams, cfg: ModelConfig,
+                     vocab: list[str], audio_i16,
+                     timestamp_words: bool = False,
+                     compute_dtype: torch.dtype = torch.float32,
+                     beam_size: int = 1,
+                     return_confidence: bool = False,
+                     return_nbest: int | None = None,
+                     ctc: bool = False, lm=None,
+                     min_mel_frames: int = 0):
+    """Offline full-utterance transcription, greedy RNN-T (the reference's
+    `transcribe` path: src/transcribe.cpp, nemo_transcribe_audio
+    src/nemo-ggml.cpp:1585-1598; nemotron_tpu/streaming/session.py:879-958,
+    1121-1133). There is no 164 s position-table cap: the table is sized
+    per call.
+
+    audio_i16: one int16 PCM array (returns its text, a str), or a list or
+    tuple of them (returns a list of texts), transcribed in one
+    length-masked encoder pass and one greedy decode. The mel runs on the
+    params' device in f32; the encoder and the decoder in compute_dtype
+    (f32 or bf16), with the params as they are (each op casts its weights
+    to the activations' dtype, as the JAX package does).
+
+    min_mel_frames pads the batched mel's time axis to at least this many
+    frames (masked out of the attention, as the shorter utterances'
+    padding is). Beam search, confidence, n-best lists, CTC, LM fusion and TDT
+    checkpoints come with later slices of the port and raise
+    NotImplementedError."""
+    if beam_size > 1 or return_nbest is not None or lm is not None:
+        raise NotImplementedError("beam search, n-best lists and LM fusion "
+                                  "come with the decode-variants slice of "
+                                  "the port")
+    if ctc:
+        raise NotImplementedError("CTC decode comes with the decode-variants "
+                                  "slice of the port")
+    if cfg.tdt_durations:
+        raise NotImplementedError("TDT decode comes with the decode-variants "
+                                  "slice of the port")
+    if return_confidence:
+        raise NotImplementedError("confidence comes with the timestamps, "
+                                  "confidence and subtitles slice of the "
+                                  "port")
+    _check_dtype(compute_dtype)
+    single = not isinstance(audio_i16, (list, tuple))
+    utterances = [audio_i16] if single else audio_i16
+    mel, enc_lengths = batch_mel(params, cfg, utterances, min_mel_frames)
+    dev = params.device
+    lengths = torch.from_numpy(enc_lengths).to(dev)
+    enc = enc_mod.encode_batch(
+        params, cfg, torch.from_numpy(mel).to(dev, compute_dtype),
+        enc_lengths=lengths)
+    dec_state = dec_mod.init_decoder_state(cfg, len(utterances),
+                                           compute_dtype, dev)
+    tokens, _ = dec_mod.greedy_decode(params, cfg, enc, dec_state,
+                                      enc_lengths=lengths)
+    texts = [tokens_to_text(toks, vocab, timestamp_words=timestamp_words)
+             for toks in dec_mod.tokens_to_list(tokens.cpu().numpy(),
+                                                cfg.blank_token)]
+    return texts[0] if single else texts
+
+
+def transcribe_batch_with_state(params: ModelParams, cfg: ModelConfig,
+                                vocab: list[str], audio_i16,
+                                dec_state=None, frame_offset: int = 0,
+                                compute_dtype: torch.dtype = torch.float32):
+    """Whole-segment transcription carrying the decoder state across calls
+    (the reference's nemo_transcribe_audio_with_state,
+    src/nemo-ggml.cpp:1603-1683; nemotron_tpu/streaming/session.py:
+    1136-1170): successive segments share the LSTM state and prev_token,
+    and token frames continue from `frame_offset`. Only the decoder state
+    carries over; the encoder sees each segment on its own (StreamSession
+    keeps the encoder's caches).
+
+    Returns (text, tokens [(id, abs_frame)], dec_state',
+    next_frame_offset)."""
+    _check_dtype(compute_dtype)
+    mel, _ = batch_mel(params, cfg, [audio_i16])
+    dev = params.device
+    enc = enc_mod.encode_batch(params, cfg,
+                               torch.from_numpy(mel).to(dev, compute_dtype))
+    if dec_state is None:
+        dec_state = dec_mod.init_decoder_state(cfg, 1, compute_dtype, dev)
+    tokens, dec_state = dec_mod.greedy_decode(params, cfg, enc, dec_state)
+    toks = [(tid, frame + frame_offset) for tid, frame in
+            dec_mod.tokens_to_list(tokens[0].cpu().numpy(), cfg.blank_token)]
+    return (tokens_to_text(toks, vocab), toks, dec_state,
+            frame_offset + enc.shape[1])

@@ -265,11 +265,62 @@ def test_stream_session_on_trained_fixture_card_equals_cpu(cuda_device):
     assert len(tokens["cpu"]) > 5
 
 
+def small_random_model(device, d_model=256, n_heads=4, n_layers=2):
+    """A seeded random-weight model with Dh = d_model / n_heads and Q8_0
+    encoder matmuls, on `device`. It emits at the 10-symbol cap on every
+    frame, switching between tokens; its top two logits are at least 6e-4
+    apart at the first step (of max|logit| ~1.1, CPU)."""
+    from nemotron_tpu_torch.config import ModelConfig
+    from nemotron_tpu_torch.params import (params_from_arrays,
+                                           quantize_model_params,
+                                           random_weight_arrays)
+
+    cfg = ModelConfig(n_mels=80, d_model=d_model, n_heads=n_heads,
+                      d_head=d_model // n_heads, d_ff=4 * d_model,
+                      n_layers=n_layers, vocab_size=129, decoder_dim=160,
+                      joint_dim=160, subsampling_channels=64)
+    arrays = random_weight_arrays(cfg, seed=1)
+    params = quantize_model_params(params_from_arrays(arrays, cfg, device),
+                                   "q8_0")
+    return params, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tones_tiny", "random_dh64_q8"])
+def test_transcribe_batch_card_equals_cpu(cuda_device, model):
+    """Three ragged utterances through transcribe_batch on the card and on
+    the CPU: the same texts, and on Q8_0 weights each encoder matmul one
+    Q8 kernel launch (10 a layer) at M = B * T'."""
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming.session import transcribe_batch
+
+    utts = [tone_pcm(seconds=s, seed=int(10 * s)) for s in (3.0, 5.0, 4.2)]
+    texts, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        if model == "tones_tiny":
+            params, cfg, vocab = load_model(
+                os.path.join(REPO, "weights", "tones_tiny.gguf"), device=dev)
+        else:
+            params, cfg = small_random_model(dev)
+            vocab = [f"t{i} " for i in range(cfg.vocab_size)]
+        before = q8_matmul.launches
+        texts[dev] = transcribe_batch(params, cfg, vocab, utts)
+        launches[dev] = q8_matmul.launches - before
+    assert texts["cuda"] == texts["cpu"]
+    assert all(len(t) > 5 for t in texts["cpu"])
+    assert launches["cpu"] == 0
+    assert launches["cuda"] == (10 * cfg.n_layers if model != "tones_tiny"
+                                else 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("K,N", Q8_SHAPES)
-@pytest.mark.parametrize("M", [1, 14, 112])
+@pytest.mark.parametrize("M", [1, 14, 17, 112, 257, 804])
 def test_q8_matmul_kernel_matches_plain_on_card(cuda_device, M, K, N, dtype):
+    """M of the streaming step (1, 14, 112) and of the full-utterance
+    encoder (M = B * T': 804 is 4 utterances of 16 s; 17 and 257 end in a
+    one-row tile)."""
     rng = np.random.default_rng(M + K + N)
     dt = getattr(torch, dtype)
     qt = quantize_tensor(rng.standard_normal((K, N)).astype(np.float32))

@@ -353,7 +353,8 @@ def cuda_device():
                                    (56, 1024, 2048), (8, 4096, 1024),
                                    (37, 1024, 1024), (37, 4096, 1024),
                                    (20, 3072, 256), (5, 64, 96),
-                                   (3, 5120, 64), (7, 36, 40)])
+                                   (3, 5120, 64), (7, 36, 40),
+                                   (804, 4096, 1024), (804, 1024, 4096)])
 def test_w8a8_matmul_kernel_equals_plain_on_card(cuda_device, M, K, N, dtype):
     x, qt = w8a8_inputs(np.random.default_rng(M), M, K, N)
     x = torch.tensor(x, device=cuda_device).to(getattr(torch, dtype))
