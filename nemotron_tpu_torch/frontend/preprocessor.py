@@ -79,9 +79,11 @@ class StreamingPreprocessor:
             return 0
         return (avail - self.cfg.n_fft) // self.cfg.n_window_stride + 1
 
-    def process(self, audio_i16: np.ndarray) -> np.ndarray:
-        """audio_i16: [S, N] (or [N] if n_streams == 1) int16.
-        Returns log-mel [S, n_frames, n_mels] f32 numpy (n_frames may be 0)."""
+    def frame_only(self, audio_i16: np.ndarray) -> np.ndarray:
+        """Host state update and framing without the spectral half: returns
+        pre-emphasized frames [S, n_frames, n_fft] f32 numpy, for a caller
+        that runs one `spectral` pass over many preprocessors' frames (the
+        serving engine: one FFT call a tick, not one a slot)."""
         cfg = self.cfg
         if audio_i16.ndim == 1:
             audio_i16 = audio_i16[None]
@@ -98,13 +100,26 @@ class StreamingPreprocessor:
         n_frames = self.n_frames_for(N)
         if n_frames == 0:
             self.residue = buf
-            return np.zeros((S, 0, cfg.n_mels), np.float32)
+            return np.zeros((S, 0, cfg.n_fft), np.float32)
         hop, n_fft = cfg.n_window_stride, cfg.n_fft
         idx = np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None, :]
         frames = buf[:, idx]                      # [S, n_frames, n_fft]
         self.residue = buf[:, n_frames * hop:]
+        return frames
 
+    def spectral(self, frames: np.ndarray) -> np.ndarray:
+        """The spectral half of `process`: frames [..., n_fft] f32 ->
+        log-mel [..., n_mels] f32 numpy, through `torch.fft` on the
+        preprocessor's device."""
         mel = mel_spectrogram(torch.from_numpy(frames).to(self.device),
                               self.window, self.filterbank,
-                              cfg.log_zero_guard)
+                              self.cfg.log_zero_guard)
         return mel.cpu().numpy().astype(np.float32)
+
+    def process(self, audio_i16: np.ndarray) -> np.ndarray:
+        """audio_i16: [S, N] (or [N] if n_streams == 1) int16.
+        Returns log-mel [S, n_frames, n_mels] f32 numpy (n_frames may be 0)."""
+        frames = self.frame_only(audio_i16)
+        if frames.shape[1] == 0:
+            return np.zeros((frames.shape[0], 0, self.cfg.n_mels), np.float32)
+        return self.spectral(frames)

@@ -107,9 +107,9 @@ def greedy_decode_by_frame(params, cfg: ModelConfig, enc: torch.Tensor,
 
 
 def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
-                  state: DecoderState, enc_lengths=None):
+                  state: DecoderState, step_mask=None, enc_lengths=None):
     """Frame-skipping batched greedy RNN-T (nemotron_tpu/models/decoder.py:
-    136-256, without its confidence and step-mask options).
+    136-256, without its confidence option).
 
     The LSTM state only changes on non-blank emissions, so for a fixed state
     the joint is evaluated against ALL remaining frames in one matmul and
@@ -117,8 +117,10 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
     iterations instead of O(T). The loop runs on the host; its exit test is
     one device->host sync per iteration.
 
-    enc: [B, T, d_model]; enc_lengths [B] int (optional): each stream's
-    valid frames in a padded batch -- frames at or beyond it emit nothing.
+    enc: [B, T, d_model]; step_mask [B] bool (optional): streams marked
+    False are skipped -- no tokens, state unchanged (continuous batching);
+    enc_lengths [B] int (optional): each stream's valid frames in a padded
+    batch -- frames at or beyond it emit nothing.
     Returns (tokens [B, T, MAX_SYMBOLS_PER_STEP] int32 blank-padded, new
     DecoderState)."""
     dp = params.decoder
@@ -132,6 +134,8 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
     emb_table = dp.embedding.to(enc_proj.dtype)
     tokens = torch.full((B, T * MAX), blank, dtype=i32, device=dev)
     ptr = torch.zeros((B,), dtype=i32, device=dev)         # current frame
+    if step_mask is not None:                              # skip masked ones
+        ptr = torch.where(step_mask.to(dev, torch.bool), ptr, T).to(i32)
     t_limit = torch.full((B,), T, dtype=i32, device=dev)
     if enc_lengths is not None:
         t_limit = torch.clamp(enc_lengths.to(dev, i32), max=T)

@@ -1,8 +1,8 @@
 """FastConformer encoder: full utterance (`encode_batch`) and the
 cache-aware streaming step (`encode_chunk`).
 
-The port's counterpart of `nemotron_tpu/models/encoder.py` (no step mask,
-no rematerialisation). The full-utterance encoder attends over the whole
+The port's counterpart of `nemotron_tpu/models/encoder.py` (no
+rematerialisation). The full-utterance encoder attends over the whole
 utterance, masked by per-utterance lengths and, for streaming-equivalent
 visibility, by chunks. The streaming step:
 
@@ -209,7 +209,7 @@ def _quantize_segment(seg: torch.Tensor, qmax: int):
 
 def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
                  mel_chunk: torch.Tensor, state: EncoderState,
-                 pos_heads: torch.Tensor):
+                 pos_heads: torch.Tensor, step_mask=None):
     """One streaming encoder step (reference src/nemo-stream.cpp:961-1030):
     subsampling, dropping drop_extra_pre_encoded overlap frames,
     validity-masked cached layers, valid_len bump, valid_out truncation.
@@ -220,7 +220,12 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     The rings are written IN PLACE: `state.k_cache`/`v_cache` are the same
     tensors in the returned state, with this chunk's segment overwritten
     (the JAX package donates the buffers to XLA instead), and so are the
-    per-segment scales of quantized rings."""
+    per-segment scales of quantized rings.
+
+    step_mask [B] bool (continuous batching): streams marked False do not
+    advance. Their segment bytes, scales, conv cache, valid_len and phase
+    come out bit-equal to what went in, and their rows of enc_out are to
+    be discarded (the layers still run over every row)."""
     if cc.rc_schedule(cfg.n_layers) is not None or cc.strict_right_context:
         raise NotImplementedError("per-layer and strict right context come "
                                   "with a later slice of the port")
@@ -238,10 +243,22 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     # chunk written a = ((phase-1-s) mod n_seg) + 1 chunks ago (a = n_seg:
     # the stale segment about to be overwritten, outside the window). The
     # CURRENT chunk occupies Q virtual slots appended after the ring.
-    # All streams advance in lockstep on one phase; a caller that passes
-    # mixed phases gets NaN output (loud instead of wrong).
-    phase_s = state.phase[0].to(torch.int64)
-    phase_uniform = (state.phase == state.phase[0]).all()
+    # All advancing streams share one phase (the serving engine realigns a
+    # lagging stream's ring before it advances again); a caller that passes
+    # mixed phases gets NaN output (loud instead of wrong). Frozen streams
+    # keep stale phases and take no part in either.
+    if step_mask is None:
+        phase_s = state.phase[0].to(torch.int64)
+        phase_uniform = (state.phase == state.phase[0]).all()
+    else:
+        step_mask = step_mask.to(dev, torch.bool)
+        phase_s = torch.where(step_mask, state.phase, -1).amax().to(
+            torch.int64)
+        phase_uniform = torch.where(step_mask, state.phase == phase_s,
+                                    True).all()
+        # no stream advances: write segment 0 back unchanged (as the JAX
+        # package's clamped slice does)
+        phase_s = phase_s.clamp_min(0)
     j = torch.arange(kv, device=dev)
     s_j, o_j = j // Q, j % Q
     age = torch.remainder(phase_s - 1 - s_j, n_seg) + 1            # [kv]
@@ -300,7 +317,8 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     # one segment write per step, after all layers (the rings are read-only
     # inside the layer loop); quantized rings take the new segment per
     # (layer, stream, head) with its scale, while the current chunk above
-    # attended at full precision
+    # attended at full precision. Frozen streams write back the segment
+    # and scale they had, read before the write.
     seg = phase_s * Q + torch.arange(Q, device=dev)
     for ring, scales, new in ((state.k_cache, state.k_scale, new_k),
                               (state.v_cache, state.v_scale, new_v)):
@@ -309,20 +327,86 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
         new = torch.stack(new)                              # [L,B,H,Q,Dh]
         if quant:
             new, sc = _quantize_segment(new, cc.kv_quant_max)
+        new = new.to(ring.dtype)
+        if step_mask is not None:
+            new = torch.where(step_mask[None, :, None, None, None], new,
+                              ring.index_select(3, seg))
+            if quant:
+                sc = torch.where(step_mask[None, :, None], sc,
+                                 scales.index_select(3, phase_s[None])[..., 0])
+        if quant:
             scales.index_copy_(3, phase_s[None], sc[..., None])
-        ring.index_copy_(3, seg, new.to(ring.dtype))
+        ring.index_copy_(3, seg, new)
 
+    conv = torch.stack(new_conv).to(state.conv_cache.dtype)
+    valid_len = torch.clamp(state.valid_len + Q, max=C)
+    phase = torch.remainder(state.phase + 1, n_seg)
+    if step_mask is not None:
+        conv = torch.where(step_mask[None, :, None, None], conv,
+                           state.conv_cache)
+        valid_len = torch.where(step_mask, valid_len, state.valid_len)
+        phase = torch.where(step_mask, phase, state.phase)
     new_state = EncoderState(
         k_cache=state.k_cache,
         v_cache=state.v_cache,
         k_scale=state.k_scale,
         v_scale=state.v_scale,
-        conv_cache=torch.stack(new_conv).to(state.conv_cache.dtype),
-        valid_len=torch.clamp(state.valid_len + Q, max=C),
-        phase=torch.remainder(state.phase + 1, n_seg),
+        conv_cache=conv,
+        valid_len=valid_len,
+        phase=phase,
     )
     enc_out = x[:, :cc.valid_out_len, :]
     enc_out = torch.where(phase_uniform, enc_out,
                           torch.full((), float("nan"), dtype=enc_out.dtype,
                                      device=dev))
     return enc_out, new_state
+
+
+def realign_ring(state: EncoderState, slot: int, delta: int,
+                 chunk_len: int) -> EncoderState:
+    """Roll one stream's K/V ring and scales forward by `delta` segments and
+    bump its phase, IN PLACE, so a stream that skipped engine steps
+    re-enters the engine's lockstep write phase with its content-to-age
+    mapping kept exactly (nemotron_tpu/models/encoder.py:558-579; the JAX
+    package donates the buffers instead). Returns `state`."""
+    n_seg = state.k_cache.shape[-2] // chunk_len
+    for ring in (state.k_cache, state.v_cache):
+        ring[:, slot] = torch.roll(ring[:, slot], delta * chunk_len, dims=-2)
+    for scales in (state.k_scale, state.v_scale):
+        scales[:, slot] = torch.roll(scales[:, slot], delta, dims=-1)
+    state.phase[slot] = torch.remainder(state.phase[slot] + delta, n_seg)
+    return state
+
+
+def realign_rings(state: EncoderState, deltas: torch.Tensor,
+                  chunk_len: int) -> EncoderState:
+    """Batched `realign_ring`: roll EVERY stream's rings by its own
+    deltas[b] segments (0 = unchanged) into a new state
+    (nemotron_tpu/models/encoder.py:582-628). The gather takes per-stream
+    [B, KV] slot indices; indices broadcast to the ring's shape would be 4x
+    the int8 ring's bytes."""
+    KV = state.k_cache.shape[-2]
+    n_seg = KV // chunk_len
+    B = state.k_cache.shape[1]
+    dev = state.k_cache.device
+    deltas = deltas.to(dev, torch.int64)
+    b = torch.arange(B, device=dev)[:, None]                       # [B, 1]
+    idx = torch.remainder(torch.arange(KV, device=dev)[None, :]
+                          - deltas[:, None] * chunk_len, KV)        # [B, KV]
+    sidx = torch.remainder(torch.arange(n_seg, device=dev)[None, :]
+                           - deltas[:, None], n_seg)             # [B, n_seg]
+
+    def roll(x, i):   # [L, B, H, N, ...] by per-stream indices i [B, N]
+        return x.permute(1, 3, 0, 2, *range(4, x.dim()))[b, i].permute(
+            2, 0, 3, 1, *range(4, x.dim()))
+
+    return EncoderState(
+        k_cache=roll(state.k_cache, idx).contiguous(),
+        v_cache=roll(state.v_cache, idx).contiguous(),
+        k_scale=roll(state.k_scale, sidx).contiguous(),
+        v_scale=roll(state.v_scale, sidx).contiguous(),
+        conv_cache=state.conv_cache,
+        valid_len=state.valid_len,
+        phase=torch.remainder(state.phase + deltas, n_seg).to(
+            state.phase.dtype),
+    )

@@ -42,6 +42,20 @@ def chunk_step(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
     return tokens, enc_state, dec_state
 
 
+def chunk_step_masked(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
+                      mel_chunk: torch.Tensor, enc_state, dec_state,
+                      pos_heads, step_mask: torch.Tensor):
+    """chunk_step for continuous batching: `step_mask` [S] bool marks the
+    streams that advance; the rest keep their caches, decoder state and
+    valid_len and emit nothing (their mel rows are padding)."""
+    enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
+                                              enc_state, pos_heads,
+                                              step_mask=step_mask)
+    tokens, dec_state = dec_mod.greedy_decode(params, cfg, enc_out, dec_state,
+                                              step_mask=step_mask)
+    return tokens, enc_state, dec_state
+
+
 class StreamSession:
     """Lifecycle mirror of nemo_stream_init / process_incremental / finalize /
     get_transcript / get_tokens / reset. Runs on the params' device in
