@@ -67,7 +67,30 @@ Phases (any failure exits non-zero):
      card sessions, a prefix of them with device DSP; token error < 10%),
      and endpointing on tones_tiny_sil.gguf (2 events, each within
      Levenshtein 1 of its labels).
-  9. one JSON line of kernel results, the card's name and power limit, and
+  9. network server (slice 9): an ASRServer (TCP, WebSocket and the HTTP
+     sidecar) over a 64-slot ServingEngine with confidence at full width,
+     R = 13, driven by 48 TCP and 8 WebSocket clients streaming 4 s of
+     seeded PCM each at the real-time rate and 8 POST /transcribe
+     requests, in two cells: Q8_0 f32 with host DSP (every client's FINAL
+     or REST tokens equal to those of the same audio through a directly
+     driven engine, and 8 clients' to solo sessions', log-posteriors
+     within TOL_CONF_ABS, words equal to tokens_to_words) and W8A8 +
+     int8 K/V bf16 with device DSP (8 clients' agreement with solo bf16
+     sessions as a reading). Each prints the server tick (net of its wait for the engine
+     lock) beside the engine's own step, END->FINAL, first-PARTIAL and REST
+     latencies, the device busy share over the whole load (CUPTI covers
+     the engine's worker threads) and launches per encoder step by kernel
+     name (24 attention, 240 of the matmul). Then the trained fixtures
+     through the server: 8 TCP clients of 15 s on tones_tiny.gguf at R = 0
+     and 13 (token error < 10%, an SRT from the FINAL words equal to
+     write_subtitles of the tokens) and endpointing on tones_tiny_sil.gguf
+     (2 UTTERANCE events with words); then the entry points on the card
+     against --cpu: the batch CLI with --confidence --srt and the
+     streaming CLI with --timestamps --confidence --vtt (subtitle files
+     byte-equal, stdout equal up to the {p=...} hundredths), and
+     `python -m nemotron_tpu_torch.asr_server` replayed into by
+     `python -m nemotron_tpu_torch.asr_client --srt`.
+ 10. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -79,6 +102,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -164,6 +188,14 @@ SHIFT_MS = {0: 80, 1: 160, 6: 560, 13: 1120}
 # tones cell through the engine: 4 streams at the real-time rate, 3 at half
 # rate, 1 admitted late
 ENGINE_TONES_HALF, ENGINE_TONES_LATE = (4, 5, 6), 7
+# the network server (slice 9): a 64-slot engine behind an ASRServer, 48 TCP
+# and 8 WebSocket clients streaming 4 s each at the real-time rate in
+# 100 ms blocks, and 8 POST /transcribe requests of 4 s; the clients'
+# log-posteriors against solo sessions within the Q8_0 path's card
+# tolerance (TOL_ENCODER_ABS)
+SERVER_SLOTS, SERVER_TCP, SERVER_WS, SERVER_REST = 64, 48, 8, 8
+SERVER_SECONDS = 4.0
+TOL_CONF_ABS = 1e-3
 
 
 def log(msg: str) -> None:
@@ -211,7 +243,6 @@ def profile_window(fn) -> dict:
     share over one call of `fn`, from torch.profiler (CUPTI). Kernels run
     on one stream, so the sum of their durations is the busy time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -221,16 +252,32 @@ def profile_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, wall_us)
+
+
+def profile_summary(prof, wall_us: float) -> dict:
+    """Device time and launches by kernel name, and the busy time, of a
+    finished torch.profiler run over `wall_us` of wall time. Reads the raw
+    activity records (`prof.events()` would build an event tree first, a
+    minute for a few hundred thousand launches)."""
+    from torch.autograd import DeviceType
+
+    raw_ns: dict[str, int] = {}
+    raw_n: dict[str, int] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            raw = e.name()
+            raw_ns[raw] = raw_ns.get(raw, 0) + e.duration_ns()
+            raw_n[raw] = raw_n.get(raw, 0) + 1
     by_name: dict[str, float] = {}
     count: dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            if name.endswith(")"):              # drop the parameter list
-                name = name.rsplit("(", 1)[0]
-            name = name.removeprefix("void ")[:100]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
-            count[name] = count.get(name, 0) + 1
+    for raw, ns in raw_ns.items():
+        name = raw.replace("(anonymous namespace)::", "")
+        if name.endswith(")"):                  # drop the parameter list
+            name = name.rsplit("(", 1)[0]
+        name = name.removeprefix("void ")[:100]
+        by_name[name] = by_name.get(name, 0.0) + ns / 1e3
+        count[name] = count.get(name, 0) + raw_n[raw]
     busy_us = sum(by_name.values())
     return dict(wall_us=wall_us, busy_us=busy_us, count=count,
                 by_name=sorted(by_name.items(), key=lambda kv: -kv[1]))
@@ -1517,8 +1564,9 @@ def log_profile(name, prof, steps, failures, kernel_prefix, per_step):
     return out
 
 
-def w8a8_solo_readings(run, params, cfg, vocab, cc, R, failures) -> dict:
-    """The tracked streams of a 64-slot W8A8 bf16 run against solo bf16
+def w8a8_solo_readings(run, params, cfg, vocab, cc, R, failures,
+                       streams) -> dict:
+    """The `streams` of a 64-slot W8A8 bf16 run against solo bf16
     sessions, beside two controls that involve no engine: the solo
     session against the same stream in a 2-stream session (another batch
     size) and against itself with its mel moved by two f32 ulps. On the
@@ -1534,9 +1582,9 @@ def w8a8_solo_readings(run, params, cfg, vocab, cc, R, failures) -> dict:
 
     from nemotron_tpu_torch.streaming.session import StreamSession
 
-    n, bf16 = run["stats"]["n_slots"], torch.bfloat16
+    bf16 = torch.bfloat16
     rows = {}
-    for sid in tracked_streams(n):
+    for sid in streams:
         pcm = run["pcm"][sid]
         solo = solo_session(params, cfg, vocab, cc, pcm, bf16)
         ref = solo["streamed"]
@@ -1632,8 +1680,12 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
             f"{json.dumps(run['counts'])} (wall "
             f"{time.perf_counter() - t0:.1f} s)")
         if R in (6, 13):
+            # R = 6 on the first two tracked streams only (the run's time
+            # limit; PERF.md §4)
+            track = tracked_streams(n)
             out["modes"][f"R={R}"]["solo"] = w8a8_solo_readings(
-                run, w8_params, cfg, vocab, cc, R, failures)
+                run, w8_params, cfg, vocab, cc, R, failures,
+                track if R == 13 else track[:2])
         del run
 
     cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
@@ -1882,6 +1934,843 @@ def engine_tones_phase(failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the network server (slice 9)
+# ---------------------------------------------------------------------------
+
+class ServerThread:
+    """An ASRServer on its own event loop in a daemon thread; the engine's
+    calls run in that loop's default thread pool, as in a deployment.
+    Every tick that stepped the engine is timed: its wall
+    (ASRServer._tick_once) less its wait for the engine lock, the wait,
+    and the engine steps it ran under the lock with their own time."""
+
+    def __init__(self, engine, **srv_kw):
+        import asyncio
+        import threading
+
+        from nemotron_tpu_torch.server import ASRServer
+
+        class TimedLock(asyncio.Lock):
+            """The engine lock, recording for the holding task its wait
+            and the engine's step count at acquire and at release."""
+
+            def __init__(self):
+                super().__init__()
+                self.held = {}
+
+            async def acquire(self):
+                t0 = time.perf_counter()
+                await super().acquire()
+                self.held[asyncio.current_task()] = [
+                    time.perf_counter() - t0, len(engine.step_times), None]
+                return True
+
+            def release(self):
+                rec = self.held.get(asyncio.current_task())
+                if rec is not None:
+                    rec[2] = len(engine.step_times)
+                super().release()
+
+        self.loop = asyncio.new_event_loop()
+        self.srv = ASRServer(engine, host="127.0.0.1", port=0,
+                             http_stats_port=0, ws_port=0, **srv_kw)
+        self.srv._lock = lock = TimedLock()
+        self.ticks = []     # (own s, lock wait s, engine steps, their s)
+        tick_once = self.srv._tick_once
+
+        async def timed_tick():
+            t0 = time.perf_counter()
+            await tick_once()
+            wall = time.perf_counter() - t0
+            rec = lock.held.pop(asyncio.current_task(), None)
+            if rec is not None and rec[2] is not None and rec[2] > rec[1]:
+                wait, n0, n1 = rec
+                self.ticks.append((wall - wait, wait, n1 - n0,
+                                   sum(engine.step_times[n0:n1])))
+
+        self.srv._tick_once = timed_tick
+        started = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.srv.start())
+            started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not started.wait(120):
+            raise RuntimeError("server did not start")
+
+    def engine_lock(self):
+        """A context that holds the server's engine lock (taken on the
+        server's loop), so that no engine call is in flight inside it."""
+        import asyncio
+        import contextlib
+        import threading
+
+        got, done = threading.Event(), threading.Event()
+
+        async def hold():
+            async with self.srv._lock:
+                got.set()
+                await asyncio.get_running_loop().run_in_executor(None,
+                                                                 done.wait)
+
+        @contextlib.contextmanager
+        def held():
+            fut = asyncio.run_coroutine_threadsafe(hold(), self.loop)
+            if not got.wait(600):
+                raise RuntimeError("engine lock not taken in 600 s")
+            try:
+                yield
+            finally:
+                done.set()
+                fut.result(120)
+
+        return held()
+
+    def stop(self) -> None:
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.srv.stop(),
+                                         self.loop).result(120)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        self.loop.close()
+
+
+def percentiles(xs) -> dict:
+    if not xs:
+        return {"p50": float("nan"), "p90": float("nan"), "n": 0}
+    a = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(a, 50)),
+            "p90": float(np.percentile(a, 90)), "n": int(a.size)}
+
+
+def stream_client(kind, host, port, pcm, rate, block, barrier=None,
+                  wait_utterances=0, timeout=300.0) -> dict:
+    """One streaming client (kind "tcp" or "ws") sending `pcm` in `block`
+    samples, paced at `rate` x real time (0: as fast as the socket takes
+    it), pumping events every 10 ms between blocks; before its END it
+    waits on `barrier` (if given) and for `wait_utterances` UTTERANCE
+    events (60 s at most). Returns the FINAL, the UTTERANCE events, the
+    joined PARTIAL text, the first-PARTIAL latency (from the first audio
+    block) and the END->FINAL latency, in s."""
+    from nemotron_tpu_torch.client import ASRClient, WSASRClient
+    from nemotron_tpu_torch.server import T_PARTIAL
+
+    c = (ASRClient if kind == "tcp" else WSASRClient)(host, port,
+                                                      timeout=timeout)
+    first_partial = None
+    try:
+        ready = c.start()
+        t0 = time.perf_counter()
+
+        def look():
+            nonlocal first_partial
+            if first_partial is None and any(t == T_PARTIAL
+                                             for t, _ in c.events):
+                first_partial = time.perf_counter() - t0
+
+        for i in range(0, pcm.size, block):
+            c.send_audio(pcm[i:i + block])
+            look()
+            if rate:
+                target = t0 + (i + block) / 16000.0 / rate
+                while time.perf_counter() < target:
+                    time.sleep(0.01)
+                    c.pump()
+                    look()
+        if barrier is not None:
+            barrier.wait(600)
+        t_wait = time.perf_counter() + 60
+        while len(c.utterances) < wait_utterances and \
+                time.perf_counter() < t_wait:
+            time.sleep(0.01)
+            c.pump()
+        c.pump()
+        look()
+        t_end = time.perf_counter()
+        final = c.end()
+        end_to_final = time.perf_counter() - t_end
+        look()
+        return dict(ready=ready, final=final, utterances=list(c.utterances),
+                    partials=c.transcript, first_partial_s=first_partial,
+                    end_to_final_s=end_to_final)
+    finally:
+        c.close()
+
+
+def rest_client(http_port, pcm, timeout=300.0) -> dict:
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{http_port}/transcribe",
+                                 data=pcm.tobytes(), method="POST")
+    body = urllib.request.urlopen(req, timeout=timeout).read()
+    return dict(final=json.loads(body), latency_s=time.perf_counter() - t0)
+
+
+def client_threads(ports, pcms, n_tcp, n_ws, n_rest, rate, block,
+                   rest_start_s, barrier, wait_utterances) -> dict:
+    """The clients of run_clients, one thread each, in this process."""
+    import threading
+
+    results, errors = {}, []
+
+    def go(k, fn, *args):
+        try:
+            results[k] = fn(*args)
+        except Exception as e:  # noqa: BLE001 -- raised below
+            errors.append(f"client {k}: {e!r}")
+            if barrier is not None:
+                barrier.abort()
+
+    threads = []
+    for k in range(n_tcp + n_ws):
+        kind, port = ("tcp", ports["tcp"]) if k < n_tcp else ("ws",
+                                                               ports["ws"])
+        threads.append(threading.Thread(target=go, args=(
+            k, stream_client, kind, "127.0.0.1", port, pcms[k], rate, block,
+            barrier, wait_utterances)))
+    for j in range(n_rest):
+        k = n_tcp + n_ws + j
+
+        def rest(k=k, j=j):
+            time.sleep(rest_start_s + 0.25 * j)
+            return rest_client(ports["http"], pcms[k])
+
+        threads.append(threading.Thread(target=go, args=(k, rest)))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors or len(results) != len(threads):
+        raise RuntimeError(f"server clients failed: {errors[:4]} "
+                           f"({len(results)} of {len(threads)} done)")
+    return results
+
+
+def client_process(conn, *args) -> None:
+    """Entry of the client process: client_threads, its result or error
+    sent back through `conn`."""
+    try:
+        conn.send(("ok", client_threads(*args)))
+    except Exception as e:  # noqa: BLE001 -- reported to the parent
+        conn.send(("error", repr(e)))
+
+
+def client_barrier(parties: int):
+    """A barrier shared with the client process."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Barrier(parties)
+
+
+def run_clients(st, pcms, n_tcp, n_ws, n_rest, rate, block=1600,
+                rest_start_s=1.0, barrier=None, wait_utterances=0) -> dict:
+    """The server cells' load, all at once, from a process of its own (so
+    that 64 client threads do not take the server's interpreter lock): n_tcp
+    TCP and n_ws WebSocket clients streaming at `rate` x real time, and
+    n_rest POST /transcribe requests, one every 0.25 s from rest_start_s
+    on. Client k sends pcms[k] (TCP first, then WebSocket, then REST).
+    With a `barrier` (client_barrier(n_tcp + n_ws + 1)) the streaming
+    clients wait on it after their last block, before END. Any client's
+    error is raised here; the process is always stopped."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    ours, theirs = ctx.Pipe()
+    ports = {"tcp": st.srv.port, "ws": st.srv.ws_port,
+             "http": st.srv.http_stats_port}
+    proc = ctx.Process(target=client_process, daemon=True, args=(
+        theirs, ports, list(pcms), n_tcp, n_ws, n_rest, rate, block,
+        rest_start_s, barrier, wait_utterances))
+    proc.start()
+    try:
+        t_end = time.perf_counter() + 1200
+        while not ours.poll(1.0):
+            if not proc.is_alive() or time.perf_counter() > t_end:
+                raise RuntimeError(f"the client process ended (exit "
+                                   f"{proc.exitcode}) or ran out of time "
+                                   "without a result")
+        status, res = ours.recv()
+    finally:
+        proc.join(60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    if status != "ok":
+        if barrier is not None:
+            barrier.abort()
+        raise RuntimeError(res)
+    return res
+
+
+def check_payload(name, final, want_tokens, vocab, spf, tol, failures):
+    """A FINAL (or REST) payload against the tokens it should carry: ids
+    and frames equal, log-posteriors within tol, words equal to
+    tokens_to_words of the tokens. Returns the largest log-posterior
+    gap."""
+    from nemotron_tpu_torch.utils.subtitles import tokens_to_words
+
+    got = [tuple(t) for t in final["tokens"]]
+    gap = max((abs(g[2] - w[2]) for g, w in zip(got, want_tokens)),
+              default=0.0)
+    words = [list(w) for w in tokens_to_words(got, vocab,
+                                              seconds_per_frame=spf)]
+    ok = ([t[:2] for t in got] == [t[:2] for t in want_tokens]
+          and bool(got) and all(len(t) == 3 for t in got) and gap <= tol
+          and final.get("words") == words)
+    if not ok:
+        failures.append(f"{name}: {len(got)} tokens against {len(want_tokens)}"
+                        f", conf gap {gap:.3e} (tol {tol:.0e}), words "
+                        f"{'equal' if final.get('words') == words else 'differ'}")
+    return gap
+
+
+def server_cell(name, params, cfg, vocab, cc, dtype, dsp, failures,
+                kernel, per_layer, solo_check) -> dict:
+    """One full-width server cell: an engine of SERVER_SLOTS slots with
+    confidence behind an ASRServer and the load of run_clients at the
+    real-time rate, then every client's result held against a solo
+    session by `solo_check(results)`. The profile (CUPTI, which sees the
+    kernels of every thread) covers the load from its start until every
+    streaming client has sent its audio, and is stopped under the engine
+    lock, so that its launches fall into whole engine steps; the ENDs go
+    out after it."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+
+    n_clients = SERVER_TCP + SERVER_WS + SERVER_REST
+    eng = ServingEngine(params, cfg, vocab, cc, n_slots=SERVER_SLOTS,
+                        compute_dtype=dtype, dsp=dsp, confidence=True)
+    st = ServerThread(eng)
+    try:
+        # warm-up: one stream through every path of a tick, then reset
+        run_clients(st, [seeded_pcm(900 + k, 2.5) for k in range(3)], 1, 1,
+                    1, 0)
+        eng.step_times.clear()
+        st.ticks.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        box = {}
+        barrier = client_barrier(SERVER_TCP + SERVER_WS + 1)
+        pcms = [seeded_pcm(k, SERVER_SECONDS) for k in range(n_clients)]
+
+        def load():
+            try:
+                box["run"] = run_clients(st, pcms, SERVER_TCP, SERVER_WS,
+                                         SERVER_REST, 1.0, barrier=barrier)
+            except Exception as e:  # noqa: BLE001 -- raised below
+                box["error"] = e
+                barrier.abort()
+
+        with EncoderTap() as tap:
+            # device activity only: the window holds ~40 engine steps of
+            # ~6,000 launches each, and host-op events would multiply the
+            # trace the summary walks
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            t0 = time.perf_counter()
+            loader = threading.Thread(target=load, daemon=True)
+            loader.start()
+            try:
+                barrier.wait(600)      # every stream has sent its audio
+            except threading.BrokenBarrierError:
+                pass
+            with st.engine_lock():
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+                prof.stop()
+                window_steps, window_counts = tap.calls, kernel_counts()
+            loader.join(900)
+            steps = tap.calls
+        if "error" in box or "run" not in box:
+            raise RuntimeError(f"server {name}: the load failed: "
+                               f"{box.get('error')!r}")
+        prof = profile_summary(prof, wall_us)
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results = box["run"]
+        stats = st.srv.stats()
+    finally:
+        st.stop()
+    tick_ms = [w * 1e3 for w, _, _, _ in st.ticks]
+    wait_ms = [w * 1e3 for _, w, _, _ in st.ticks]
+    overhead_ms = [(w - e) * 1e3 for w, _, _, e in st.ticks]
+    eng_ms = [t * 1e3 for t in eng.step_times]
+    streams = [results[k] for k in range(SERVER_TCP + SERVER_WS)]
+    e2f = percentiles([r["end_to_final_s"] * 1e3 for r in streams])
+    fp = [r["first_partial_s"] for r in streams]
+    first = percentiles([x * 1e3 for x in fp if x is not None])
+    rest = percentiles([results[k]["latency_s"] * 1e3
+                        for k in range(SERVER_TCP + SERVER_WS, n_clients)])
+    busy = prof["busy_us"] / prof["wall_us"] if prof["wall_us"] else 0.0
+    attn_n = launches_of(prof, "ring_attn_cluster_kernel")
+    mm_prefix = f"{kernel}_matmul_cluster_kernel"
+    mm_n = launches_of(prof, mm_prefix)
+    other = "q8" if kernel == "w8a8" else "w8a8"
+    out = dict(
+        tick_ms=percentiles(tick_ms), engine_step_ms=percentiles(eng_ms),
+        server_overhead_ms=percentiles(overhead_ms),
+        lock_wait_ms=percentiles(wait_ms),
+        steps_per_tick=float(np.mean([n for _, _, n, _ in st.ticks] or [0])),
+        end_to_final_ms=e2f, first_partial_ms=first, rest_ms=rest,
+        partial_never=sum(x is None for x in fp), busy_share=busy,
+        wall_ms=prof["wall_us"] / 1e3, busy_ms=prof["busy_us"] / 1e3,
+        encoder_steps=steps, window_encoder_steps=window_steps,
+        ticks=len(st.ticks), peak_gib=peak, launches=counts,
+        window_launches=window_counts,
+        launches_per_step={
+            "ring_attn_cluster_kernel": attn_n / max(window_steps, 1),
+            mm_prefix: mm_n / max(window_steps, 1)},
+        engine_rtf=sum(eng.step_times) / (n_clients * SERVER_SECONDS),
+        connections_total=stats["connections_total"])
+    log(f"  server {name}: {SERVER_TCP} TCP + {SERVER_WS} WebSocket clients "
+        f"at the real-time rate, {SERVER_REST} POST /transcribe, "
+        f"{SERVER_SECONDS:g} s each; {len(st.ticks)} ticks that stepped "
+        f"({steps} encoder steps): server tick p50 "
+        f"{out['tick_ms']['p50']:.2f} / p90 {out['tick_ms']['p90']:.2f} ms "
+        f"({out['steps_per_tick']:.2f} engine steps a tick; the tick's time "
+        f"outside its engine steps p50 "
+        f"{out['server_overhead_ms']['p50']:.2f} / p90 "
+        f"{out['server_overhead_ms']['p90']:.2f} ms; its wait for the "
+        f"engine lock p50 {out['lock_wait_ms']['p50']:.2f} / p90 "
+        f"{out['lock_wait_ms']['p90']:.2f} ms), engine step p50 "
+        f"{out['engine_step_ms']['p50']:.2f} / p90 "
+        f"{out['engine_step_ms']['p90']:.2f} ms, engine RTF "
+        f"{out['engine_rtf']:.4f}; END->FINAL p50 "
+        f"{e2f['p50']:.2f} / p90 {e2f['p90']:.2f} ms; first PARTIAL p50 "
+        f"{first['p50']:.2f} / p90 {first['p90']:.2f} ms ({out['partial_never']}"
+        f" streams saw none before FINAL); REST p50 {rest['p50']:.2f} / p90 "
+        f"{rest['p90']:.2f} ms; profile of the streaming part (to the "
+        f"last audio block, {window_steps} encoder steps): device busy "
+        f"{prof['busy_us'] / 1e3:.2f} of {prof['wall_us'] / 1e3:.2f} ms "
+        f"({100 * busy:.1f}%), launches per encoder step by name: "
+        f"ring_attn_cluster_kernel {attn_n / max(window_steps, 1):g}, "
+        f"{mm_prefix} {mm_n / max(window_steps, 1):g}; wrapper counts over "
+        f"the whole load {json.dumps(counts)}; peak {peak:.2f} GiB")
+    for kname, us in prof["by_name"][:6]:
+        log(f"    {us / 1e3:9.3f} ms  {prof['count'][kname]:7d} launches  "
+            f"{kname}")
+    want = {"attn": cfg.n_layers * steps,
+            kernel: per_layer * cfg.n_layers * steps, other: 0}
+    if (not steps or not window_steps or counts != want
+            or attn_n != cfg.n_layers * window_steps
+            or window_counts["attn"] != attn_n
+            or mm_n != per_layer * cfg.n_layers * window_steps
+            or window_counts[kernel] != mm_n
+            or prof["busy_us"] <= 0 or stats["connections_total"]
+            != SERVER_TCP + SERVER_WS + 2):        # + the warm-up's two
+        failures.append(f"server {name}: launches {counts} in {steps} "
+                        f"encoder steps (want {want}); profile {attn_n}, "
+                        f"{mm_n} in {window_steps} (wrappers "
+                        f"{window_counts}), busy {prof['busy_us']:.0f} us")
+    out.update(solo_check(results))
+    return out
+
+
+def server_phase(gguf_path: str, failures: list) -> dict:
+    """The two full-width server cells: Q8_0 f32 with host DSP (every
+    client's FINAL or REST payload equal to that of a directly driven
+    engine, 8 of them also to solo sessions', log-posteriors within
+    TOL_CONF_ABS) and W8A8 + int8 K/V bf16 with device DSP (agreement of
+    8 clients with solo bf16 sessions as a reading)."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model, quantize_model_params
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    q8_params, cfg, vocab = load_model(gguf_path, device="cuda")
+    n_clients = SERVER_TCP + SERVER_WS + SERVER_REST
+    out = {}
+    log(f"phase server: ASRServer over a {SERVER_SLOTS}-slot ServingEngine "
+        f"with confidence at full width, R = 13")
+
+    def solo_sessions(params, cc, dtype, ks):
+        """One StreamSession (confidence on), reset for each client: its
+        tokens over the chunks of real audio and after the finalize."""
+        sess = StreamSession(params, cfg, vocab, cc, compute_dtype=dtype,
+                             confidence=True)
+        solos = {}
+        for k in ks:
+            sess.reset()
+            sess.process(seeded_pcm(k, SERVER_SECONDS))
+            streamed, frames = list(sess.get_tokens(0)), sess.frame_offset
+            sess.finalize()
+            solos[k] = dict(streamed=streamed, frames=frames,
+                            final=list(sess.get_tokens(0)))
+        return solos
+
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    spf = cc.subsampling_factor * cc.hop_length / cc.sample_rate
+    # the clients held to solo sessions: TCP, WebSocket and REST alike
+    ws0, rest0 = SERVER_TCP, SERVER_TCP + SERVER_WS
+    track = (list(range(min(4, SERVER_TCP)))
+             + list(range(ws0, ws0 + min(2, SERVER_WS)))
+             + list(range(rest0, rest0 + min(2, SERVER_REST))))
+
+    def q8_check(results):
+        """Every client against the same audio through a directly driven
+        64-slot engine (fed at once, one finalize_streams), and the tracked
+        clients against solo sessions: 64 solo sessions would take about
+        as long as every other server phase together."""
+        t0 = time.perf_counter()
+        eng = ServingEngine(q8_params, cfg, vocab, cc, n_slots=SERVER_SLOTS,
+                            compute_dtype=torch.float32, dsp="numpy",
+                            confidence=True)
+        slots = eng.add_streams(n_clients)
+        eng.feed_audio({s: seeded_pcm(s, SERVER_SECONDS) for s in slots})
+        eng.step()
+        direct = [toks for _, toks in
+                  eng.finalize_streams(slots, return_tokens=True)]
+        del eng
+        solos = solo_sessions(q8_params, cc, torch.float32, track)
+        checks = [(f"client {k} vs the direct engine", k, direct[k])
+                  for k in range(n_clients)] + [
+                  (f"client {k} vs its solo session", k, solos[k]["final"])
+                  for k in track]
+        bad, gaps = len(failures), []
+        for name, k, want in checks:
+            gaps.append(check_payload(f"server Q8_0 {name}",
+                                      results[k]["final"], want, vocab, spf,
+                                      TOL_CONF_ABS, failures))
+        for k in range(SERVER_TCP + SERVER_WS):
+            if results[k]["partials"] != results[k]["final"]["text"]:
+                failures.append(f"server Q8_0 client {k}: PARTIALs do not "
+                                "join to the FINAL text")
+        ok = len(failures) == bad
+        log(f"  Q8_0 f32: the FINAL/REST tokens of all {n_clients} clients "
+            f"equal to a directly driven engine's and those of clients "
+            f"{track} to their solo f32 sessions (confidence on): {ok}; "
+            f"words equal to tokens_to_words; largest log-posterior gap "
+            f"{max(gaps):.3e} (tol {TOL_CONF_ABS:.0e}) (references "
+            f"{time.perf_counter() - t0:.1f} s)")
+        return dict(all_equal=ok, clients=n_clients, solo_tracked=track,
+                    conf_gap=max(gaps))
+
+    t0 = time.perf_counter()
+    out["q8_f32"] = server_cell("Q8_0 f32 host DSP", q8_params, cfg, vocab,
+                                cc, torch.float32, "numpy", failures, "q8",
+                                10, q8_check)
+    log(f"  (cell wall {time.perf_counter() - t0:.1f} s)")
+
+    w8 = quantize_model_params(q8_params, mode="w8a8")
+    cc8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                      kv_cache_int8=True)
+
+    def w8_check(results):
+        solos = solo_sessions(w8, cc8, torch.bfloat16, track)
+        agree = []
+        for k in track:
+            got = [tuple(t)[:2] for t in results[k]["final"]["tokens"]
+                   if t[1] < solos[k]["frames"]]
+            agree.append(position_agreement(
+                got, [t[:2] for t in solos[k]["streamed"]]))
+            if not results[k]["final"]["tokens"]:
+                failures.append(f"server W8A8 client {k}: no tokens")
+        log(f"  W8A8 bf16 (a reading, the tier is chaotic at full width): "
+            f"position agreement with solo W8A8 bf16 sessions over the "
+            f"chunks of real audio, {len(track)} clients: min "
+            f"{min(agree):.4f}, mean {float(np.mean(agree)):.4f}")
+        return dict(solo_agreement_min=min(agree),
+                    solo_agreement_mean=float(np.mean(agree)),
+                    tracked=len(track))
+
+    t0 = time.perf_counter()
+    out["w8a8_bf16"] = server_cell("W8A8 bf16 device DSP", w8, cfg, vocab,
+                                   cc8, torch.bfloat16, "device", failures,
+                                   "w8a8", 10, w8_check)
+    log(f"  (cell wall {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def server_tones_phase(failures: list) -> dict:
+    """The trained fixtures through the server (f32, the engine's default
+    device DSP, confidence on): 8 TCP clients of 15 s at R = 0 and R = 13
+    (token error against the labels, an SRT from the FINAL words against
+    write_subtitles of the same tokens), and endpointing on
+    tones_tiny_sil.gguf (2 UTTERANCE events with words, each within
+    Levenshtein 1 of its labels)."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+    from nemotron_tpu_torch.utils.subtitles import (format_srt,
+                                                    words_to_cues,
+                                                    write_subtitles)
+    from nemotron_tpu_torch.utils.text import edit_distance
+    from nemotron_tpu_torch.utils.tones import make_eval_streams, render_tones
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    params, cfg, vocab = load_model(os.path.join(here, "weights",
+                                                 "tones_tiny.gguf"),
+                                    device="cuda")
+    audio, truths = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                      seed=TONES_SEED)
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    out = {}
+    log(f"phase server tones: {TONES_STREAMS} TCP clients of "
+        f"{TONES_SECONDS:g} s (seed {TONES_SEED}), 4x the real-time rate")
+    for R in (0, 13):
+        cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels)
+        eng = ServingEngine(params, cfg, vocab, cc, n_slots=TONES_STREAMS,
+                            compute_dtype=torch.float32, confidence=True)
+        st = ServerThread(eng)
+        reset_counts()
+        try:
+            res = run_clients(st, audio, TONES_STREAMS, 0, 0, 4.0)
+        finally:
+            st.stop()
+        counts = kernel_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        finals = [res[k]["final"] for k in range(TONES_STREAMS)]
+        ter = token_error([[t[0] for t in f["tokens"]] for f in finals],
+                          truths)
+        srt_ok = True
+        with tempfile.TemporaryDirectory() as tmp:
+            for k, f in enumerate(finals):
+                path = os.path.join(tmp, f"{k}.srt")
+                write_subtitles(path, [tuple(t) for t in f["tokens"]], vocab,
+                                "srt")
+                with open(path, encoding="utf-8") as fh:
+                    srt_ok &= fh.read() == format_srt(words_to_cues(
+                        f["words"])) != ""
+        ticks = [w * 1e3 for w, _, _, _ in st.ticks]
+        out[f"R={R}"] = dict(ter=ter, srt_equal=srt_ok,
+                             tick_ms=percentiles(ticks), launches=counts,
+                             dsp=eng.dsp_mode)
+        log(f"  R={R} ({eng.dsp_mode} DSP): token error {ter:.4f} (tol "
+            f"{TONES_TER_MAX}), SRT from FINAL words equal to write_subtitles "
+            f"of the tokens: {srt_ok}, server tick p50 "
+            f"{out[f'R={R}']['tick_ms']['p50']:.2f} / p90 "
+            f"{out[f'R={R}']['tick_ms']['p90']:.2f} ms, launches "
+            f"{json.dumps(counts)}")
+        if not ter < TONES_TER_MAX or not srt_ok or not counts["attn"]:
+            failures.append(f"server tones R={R}: token error {ter:.4f}, srt "
+                            f"{srt_ok}, launches {counts}")
+
+    sil, scfg, svocab = load_model(os.path.join(here, "weights",
+                                                "tones_tiny_sil.gguf"),
+                                   device="cuda")
+    rng = np.random.default_rng(7)
+    truth = ([3, 11, 6, 0, 14, 9], [8, 2, 15])
+
+    def utt(labels, tail_s):
+        n = int(0.30 * len(labels) * 16000) + int(tail_s * 16000)
+        return render_tones(np.asarray(labels), np.full(len(labels), 0.25),
+                            rng, 16, n, gaps=np.full(len(labels), 0.05))
+
+    pcm = np.concatenate([utt(truth[0], 3.0), utt(truth[1], 3.0)])
+    eng = ServingEngine(sil, scfg, svocab,
+                        CacheConfig(att_right_context=13, n_mels=scfg.n_mels),
+                        n_slots=2, compute_dtype=torch.float32,
+                        confidence=True, endpoint_silence_s=1.0,
+                        endpoint_reset=True)
+    st = ServerThread(eng)
+    reset_counts()
+    try:
+        res = run_clients(st, [pcm], 1, 0, 0, 4.0, wait_utterances=2)[0]
+    finally:
+        st.stop()
+    counts = kernel_counts()
+    for k in launches:
+        launches[k] += counts[k]
+    utts = res["utterances"]
+    labels = [[int(svocab[t[0]].replace("▁T", "")) for t in u["tokens"]]
+              for u in utts]
+    dist = [edit_distance(g, w) for g, w in zip(labels, truth)]
+    with_words = all(u.get("words") for u in utts)
+    out["endpoint"] = dict(events=len(utts), distances=dist,
+                           words=with_words, dsp=eng.dsp_mode)
+    log(f"  endpointing ({eng.dsp_mode} DSP): {len(utts)} UTTERANCE events, "
+        f"labels {labels}, Levenshtein to the truth {dist}, words on every "
+        f"event {with_words}")
+    if len(utts) != 2 or max(dist) > 1 or not with_words \
+            or [u["index"] for u in utts] != [0, 1]:
+        failures.append(f"server endpointing: {len(utts)} events, distances "
+                        f"{dist}, words {with_words}")
+    out["launches"] = launches
+    return out
+
+
+def conf_annotations_close(a: str, b: str, tol: float = 0.01) -> bool:
+    """Two transcripts equal once each {p=x.xx} is compared within `tol`
+    (a log-posterior within the card tolerance can round to the next
+    hundredth of a posterior)."""
+    import re
+
+    pat = re.compile(r"\{p=(\d+\.\d+)\}")
+    pa, pb = pat.findall(a), pat.findall(b)
+    return (pat.sub("{p}", a) == pat.sub("{p}", b) and len(pa) == len(pb)
+            and all(abs(float(x) - float(y)) <= tol + 1e-9
+                    for x, y in zip(pa, pb)))
+
+
+def cli_phase(failures: list) -> dict:
+    """The user's entry points on the card, each against the same command
+    with --cpu: the batch CLI with --confidence --srt, the streaming CLI
+    with --timestamps --confidence --vtt=FILE (stdout equal up to the
+    {p=...} hundredths, subtitle files byte-equal); then
+    `python -m nemotron_tpu_torch.asr_server` on the card with
+    `python -m nemotron_tpu_torch.asr_client` replaying a recording over
+    TCP with --srt (the server's defaults: bf16, device DSP): the
+    transcript's token error against the labels, the SRT's words against
+    the transcript's."""
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, "weights", "tones_tiny.gguf")
+    env = dict(os.environ, PYTHONPATH=here)
+    out = {}
+    audio, truths = make_eval_streams(2, 8.0, TONES_N, seed=TONES_SEED + 1)
+
+    def start(args, cwd):
+        return (subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env,
+                                 cwd=cwd), args, time.perf_counter())
+
+    def finish(started):
+        proc, args, t0 = started
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{' '.join(args[:2])}: exit {proc.returncode}:"
+                               f" {err[-2000:]}")
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the four CLI runs at once (the CPU runs need no card; the card
+        # runs' walls are not the subject here)
+        started = {}
+        for dev in ("cuda", "cpu"):
+            d = os.path.join(tmp, dev)
+            os.makedirs(d)
+            paths = []
+            for k in range(2):
+                paths.append(os.path.join(d, f"s{k}.pcm"))
+                audio[k].astype("<i2").tofile(paths[-1])
+            flag = ["--cpu"] if dev == "cpu" else []
+            started[dev, "batch"] = start(
+                ["-m", "nemotron_tpu_torch.cli_transcribe", fixture, *paths,
+                 "--confidence", "--srt", *flag], d)
+            started[dev, "stream"] = start(
+                ["-m", "nemotron_tpu_torch.cli", fixture, paths[0], "80",
+                 "13", "--timestamps", "--confidence",
+                 f"--vtt={os.path.join(d, 's0.vtt')}", *flag], d)
+        done = {key: finish(st) for key, st in started.items()}
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            d = os.path.join(tmp, dev)
+            subs = {}
+            for name in ("s0.srt", "s1.srt", "s0.vtt"):
+                with open(os.path.join(d, name), "rb") as f:
+                    subs[name] = f.read()
+            runs[dev] = dict(batch=done[dev, "batch"][0].replace(d, "D"),
+                             stream=done[dev, "stream"][0], subs=subs,
+                             wall_s=dict(batch=done[dev, "batch"][1],
+                                         stream=done[dev, "stream"][1]))
+        same_subs = runs["cuda"]["subs"] == runs["cpu"]["subs"]
+        batch_ok = conf_annotations_close(runs["cuda"]["batch"],
+                                          runs["cpu"]["batch"])
+        stream_ok = conf_annotations_close(runs["cuda"]["stream"],
+                                           runs["cpu"]["stream"])
+        out["clis"] = dict(batch_equal=batch_ok, stream_equal=stream_ok,
+                           subtitles_equal=same_subs,
+                           batch_stdout_exact=runs["cuda"]["batch"]
+                           == runs["cpu"]["batch"],
+                           stream_stdout_exact=runs["cuda"]["stream"]
+                           == runs["cpu"]["stream"],
+                           wall_s={d: runs[d]["wall_s"] for d in runs})
+        log(f"  CLIs on the card against --cpu: batch --confidence --srt "
+            f"stdout {'equal' if batch_ok else 'DIFFERENT'} (exact: "
+            f"{out['clis']['batch_stdout_exact']}), streaming --timestamps "
+            f"--confidence --vtt stdout {'equal' if stream_ok else 'DIFFERENT'}"
+            f" (exact: {out['clis']['stream_stdout_exact']}), SRT/VTT files "
+            f"byte-equal {same_subs}; walls {json.dumps(out['clis']['wall_s'])}")
+        if not (batch_ok and stream_ok and same_subs):
+            failures.append(f"CLIs on the card: {out['clis']}")
+
+        # the server and client modules as a user runs them
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nemotron_tpu_torch.asr_server", fixture,
+             "--port", "0", "--slots", "4", "--confidence", "--tick-ms",
+             "20"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=here)
+        try:
+            port, head = None, []
+            t_end = time.time() + 180
+            while port is None and time.time() < t_end:
+                line = proc.stderr.readline()
+                if not line:
+                    break
+                head.append(line)
+                if line.startswith("listening on "):
+                    port = int(line.split()[2].rsplit(":", 1)[1])
+                    listening = line.strip()
+            if port is None:
+                raise RuntimeError("asr_server did not start: "
+                                   + "".join(head)[-2000:])
+            srt = os.path.join(tmp, "client.srt")
+            transcript, ct = finish(start(
+                ["-m", "nemotron_tpu_torch.asr_client", f"127.0.0.1:{port}",
+                 os.path.join(tmp, "cpu", "s1.pcm"), "--rate", "max",
+                 "--srt", srt], tmp))
+            with open(srt, "rb") as f:
+                client_srt = f.read()
+        finally:
+            proc.send_signal(signal.SIGINT)        # a clean stop
+            try:
+                server_out, _ = proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                server_out, _ = proc.communicate()
+        # the client's transcript against the recording's labels, and its
+        # SRT against the transcript's words
+        import re
+
+        from nemotron_tpu_torch.params import load_model
+
+        ids = {piece: i for i, piece in
+               enumerate(load_model(fixture, device="cpu")[2])}
+        got = [ids.get(f"\u2581{w}", -1) for w in transcript.split()]
+        ter = token_error([got], [list(truths[1])])
+        cue_words = " ".join(
+            ln for ln in client_srt.decode().splitlines()
+            if ln and not ln.isdigit() and "-->" not in ln).split()
+        ok = (ter < TONES_TER_MAX and cue_words == transcript.split()
+              and server_out == "" and "device=cuda" in listening
+              and bool(re.search(r"\d --> \d", client_srt.decode())))
+        out["server_entry_point"] = dict(ter=ter, srt_words_equal=cue_words
+                                         == transcript.split(),
+                                         server_stdout_empty=server_out == "",
+                                         client_wall_s=ct)
+        log(f"  asr_server on the card ({listening}) with asr_client "
+            f"--srt over TCP: token error {ter:.4f} against the labels (tol "
+            f"{TONES_TER_MAX}), SRT cue words equal to the transcript's "
+            f"{cue_words == transcript.split()}, server stdout empty "
+            f"{server_out == ''} (client wall {ct:.1f} s)")
+        if not ok:
+            failures.append(f"asr_server/asr_client on the card: "
+                            f"{out['server_entry_point']}, {listening!r}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1931,10 +2820,16 @@ def main() -> int:
         w8_runs = phase("W8A8 path", w8a8_path_phase, path)
         full = phase("full utterance", full_utterance_phase, path)
         engine = phase("serving engine (slice 8)", engine_phase, path)
+        server = phase("server (slice 9)", server_phase, path)
     tones = phase("tones", tones_phase)
     engine_tones = phase("serving engine tones (slice 8)", engine_tones_phase)
+    server_tones = phase("server tones (slice 9)", server_tones_phase)
+    clis = phase("CLIs and server entry points (slice 9)", cli_phase)
+    server_n = {k: server["q8_f32"]["launches"][k]
+                + server["w8a8_bf16"]["launches"][k]
+                + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
     engine_n = {k: engine["launches"][k] + engine_tones["launches"][k]
-                for k in engine["launches"]}
+                + server_n[k] for k in engine["launches"]}
 
     def w8_layer(M):
         t = {k: sum(w8[(M, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
@@ -2026,6 +2921,9 @@ def main() -> int:
     log("tones: " + json.dumps(tones))
     log("serving engine: " + json.dumps(engine))
     log("serving engine tones: " + json.dumps(engine_tones))
+    log("server: " + json.dumps(server))
+    log("server tones: " + json.dumps(server_tones))
+    log("CLIs and entry points: " + json.dumps(clis))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

@@ -7,7 +7,8 @@ argv contract (src/transcribe_stream.cpp:27-36):
                                      [chunk_ms] [right_context]
                                      [--cpu|--cuda|--metal|--tpu]
                                      [--quantize=q8_0|w8a8] [--kv-int8]
-                                     [--shared-cache]
+                                     [--shared-cache] [--timestamps]
+                                     [--confidence] [--srt=FILE|--vtt=FILE]
 
   - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin;
     .wav files decode directly (PCM16 or float32, any sample rate --
@@ -21,6 +22,10 @@ argv contract (src/transcribe_stream.cpp:27-36):
   - --quantize=q8_0|w8a8 requantizes the encoder matmul weights at load
     (a Q8_0 GGUF served as W8A8), --kv-int8 keeps int8 K/V rings,
     --shared-cache one shared x-ring per layer
+  - --timestamps puts each word's start time in {seconds} before it,
+    --confidence its posterior in {p=...}; --srt=FILE / --vtt=FILE write
+    subtitle cues from the timed tokens at the end (=FILE is required:
+    stdout carries the incremental transcript)
   - incremental text on stdout; config + stats on stderr
 """
 
@@ -32,7 +37,17 @@ import sys
 import time
 
 
-_FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--shared-cache")
+_FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--shared-cache",
+          "--timestamps", "--confidence")
+# flags of cli/transcribe_stream.py that come with later slices of the port
+_LATER = {
+    "--beam": "decode-variants", "--boost": "decode-variants",
+    "--ctc": "decode-variants", "--lm": "decode-variants",
+    "--lm-weight": "decode-variants", "--lm-bonus": "decode-variants",
+    "--kv-int4": "quant-tiers", "--rc-by-layer": "quant-tiers",
+    "--calib": "quant-tiers", "--trace": "utils and native-bindings",
+    "--profile": "utils and native-bindings",
+}
 
 
 def device_from_flags(flags: list[str]) -> str | None:
@@ -61,20 +76,33 @@ def main(argv: list[str]) -> int:
     if len(args) < 2:
         print(__doc__, file=sys.stderr)
         return 1
-    later = [f for f in flags if f.startswith(("--quantize=w8a8-sq",
-                                                "--kv-int4", "--rc-by-layer="))]
-    if later:
-        print(f"error: {' '.join(later)} comes with a later slice of this "
-              "port (SmoothQuant, int4 rings, per-layer right context)",
-              file=sys.stderr)
-        return 1
+    for f in flags:
+        name = f.split("=", 1)[0]
+        later = _LATER.get(name) or ("quant-tiers" if f.startswith(
+            "--quantize=w8a8-sq") else None)
+        if later:
+            print(f"error: {f} comes with a later slice of this port: the "
+                  f"{later} slice", file=sys.stderr)
+            return 1
     unknown = [f for f in flags if f not in _FLAGS
-               and not f.startswith("--quantize=")]
+               and not f.startswith(("--quantize=", "--srt", "--vtt"))]
     if unknown:
         print(f"error: unsupported flag(s) {' '.join(unknown)} (this port "
-              f"takes {', '.join(_FLAGS)} and --quantize=q8_0|w8a8)",
-              file=sys.stderr)
+              f"takes {', '.join(_FLAGS)}, --quantize=q8_0|w8a8 and "
+              "--srt=FILE|--vtt=FILE)", file=sys.stderr)
         return 1
+    sub_fmt, sub_out = None, None
+    for f in flags:
+        if f.startswith(("--srt=", "--vtt=")):
+            if sub_fmt is not None and sub_fmt != f[2:5]:
+                print("error: --srt and --vtt are mutually exclusive "
+                      "(one subtitle format per run)", file=sys.stderr)
+                return 1
+            sub_fmt, sub_out = f[2:5], f.split("=", 1)[1]
+        elif f.startswith(("--srt", "--vtt")):
+            print(f"error: streaming {f} requires {f}=FILE (stdout carries "
+                  "the incremental transcript)", file=sys.stderr)
+            return 1
     device = device_from_flags(flags)
     if device is None:
         return 1
@@ -126,7 +154,9 @@ def main(argv: list[str]) -> int:
           f"({cc.latency_ms} ms), shift={cc.shift_mel_frames}, "
           f"valid_out={cc.valid_out_len}, left_context={cc.att_left_context}",
           file=sys.stderr)
-    sess = StreamSession(params, cfg, vocab, cc)
+    sess = StreamSession(params, cfg, vocab, cc,
+                         timestamp_words="--timestamps" in flags,
+                         confidence_words="--confidence" in flags)
 
     if audio_path == "-":
         src = sys.stdin.buffer
@@ -166,6 +196,12 @@ def main(argv: list[str]) -> int:
         sys.stdout.write(final[before:])
     sys.stdout.write("\n")
     sys.stdout.flush()
+
+    if sub_fmt is not None:
+        from .utils.subtitles import write_subtitles
+
+        n = write_subtitles(sub_out, sess.get_tokens(0), vocab, sub_fmt)
+        print(f"wrote {n} cues to {sub_out}", file=sys.stderr)
 
     elapsed = time.perf_counter() - t_start
     audio_s = n_samples / 16000.0

@@ -107,9 +107,10 @@ def greedy_decode_by_frame(params, cfg: ModelConfig, enc: torch.Tensor,
 
 
 def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
-                  state: DecoderState, step_mask=None, enc_lengths=None):
+                  state: DecoderState, step_mask=None, enc_lengths=None,
+                  with_confidence: bool = False):
     """Frame-skipping batched greedy RNN-T (nemotron_tpu/models/decoder.py:
-    136-256, without its confidence option).
+    136-256).
 
     The LSTM state only changes on non-blank emissions, so for a fixed state
     the joint is evaluated against ALL remaining frames in one matmul and
@@ -121,8 +122,13 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
     False are skipped -- no tokens, state unchanged (continuous batching);
     enc_lengths [B] int (optional): each stream's valid frames in a padded
     batch -- frames at or beyond it emit nothing.
+    with_confidence: also return each emission's log-posterior, log
+    softmax(joint row)[token] at the emitting frame, in f32 (0 in
+    blank-padded slots). The argmax logit is the row's max, so it is
+    max(row) - logsumexp(row); the row is taken with an index, as `best`
+    is (the JAX package selects it with a one-hot product over T).
     Returns (tokens [B, T, MAX_SYMBOLS_PER_STEP] int32 blank-padded, new
-    DecoderState)."""
+    DecoderState[, confs [B, T, MAX_SYMBOLS_PER_STEP] f32])."""
     dp = params.decoder
     blank = cfg.blank_token
     B, T, _ = enc.shape
@@ -133,6 +139,8 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
     enc_proj = joint_project_enc(params.joint, enc)        # [B, T, J]
     emb_table = dp.embedding.to(enc_proj.dtype)
     tokens = torch.full((B, T * MAX), blank, dtype=i32, device=dev)
+    confs = (torch.zeros((B, T * MAX), dtype=torch.float32, device=dev)
+             if with_confidence else None)
     ptr = torch.zeros((B,), dtype=i32, device=dev)         # current frame
     if step_mask is not None:                              # skip masked ones
         ptr = torch.where(step_mask.to(dev, torch.bool), ptr, T).to(i32)
@@ -171,6 +179,11 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
         tok = best[bidx, first.long()]
         cslot = torch.clamp(new_ptr * MAX + new_sym, 0, T * MAX - 1).long()
         tokens[bidx, cslot] = torch.where(emit, tok, tokens[bidx, cslot])
+        if confs is not None:
+            row = logits[bidx, first.long()]                  # [B, V] f32
+            m = row.max(dim=-1).values
+            conf = -torch.log(torch.exp(row - m[:, None]).sum(dim=-1))
+            confs[bidx, cslot] = torch.where(emit, conf, confs[bidx, cslot])
 
         h = torch.where(emit[:, None, None], h2, h)
         c = torch.where(emit[:, None, None], c2, c)
@@ -182,19 +195,27 @@ def greedy_decode(params, cfg: ModelConfig, enc: torch.Tensor,
         sym = torch.where(hit_max, 0, new_sym).to(i32)
         it += 1
 
-    return tokens.reshape(B, T, MAX), DecoderState(h, c, prev)
+    out = (tokens.reshape(B, T, MAX), DecoderState(h, c, prev))
+    if confs is not None:
+        out = out + (confs.reshape(B, T, MAX),)
+    return out
 
 
-def extract_emitted(tokens, blank: int, frame_offsets=None):
+def extract_emitted(tokens, blank: int, frame_offsets=None, confs=None):
     """Host-side token extraction: [B, T, MAX] int32 -> {stream: [(token,
     abs_frame), ...]} in emission order. Only streams that emitted appear;
-    `frame_offsets` [B] offsets each stream's frame indices."""
+    `frame_offsets` [B] offsets each stream's frame indices. With `confs`
+    [B, T, MAX] f32 (greedy_decode's with_confidence output) the entries
+    are (token, abs_frame, log_posterior) triples. Every entry is of
+    Python ints and floats (JSON-ready)."""
     arr = np.asarray(tokens)
     nz = np.argwhere(arr != blank)
     out: dict[int, list[tuple]] = {}
     if nz.size == 0:
         return out
     vals = arr[nz[:, 0], nz[:, 1], nz[:, 2]]
+    cvals = (np.asarray(confs)[nz[:, 0], nz[:, 1], nz[:, 2]]
+             if confs is not None else None)
     b = nz[:, 0]
     # argwhere is lexicographic in (stream, frame, symbol) == emission order
     starts = np.flatnonzero(np.r_[True, b[1:] != b[:-1]])
@@ -202,8 +223,13 @@ def extract_emitted(tokens, blank: int, frame_offsets=None):
     for s0, e0 in zip(starts, ends):
         stream = int(b[s0])
         off = int(frame_offsets[stream]) if frame_offsets is not None else 0
-        out[stream] = [(int(v), off + int(t))
-                       for v, t in zip(vals[s0:e0], nz[s0:e0, 1])]
+        if cvals is None:
+            out[stream] = [(int(v), off + int(t))
+                           for v, t in zip(vals[s0:e0], nz[s0:e0, 1])]
+        else:
+            out[stream] = [(int(v), off + int(t), float(cf))
+                           for v, t, cf in zip(vals[s0:e0], nz[s0:e0, 1],
+                                               cvals[s0:e0])]
     return out
 
 

@@ -203,7 +203,8 @@ def _device_dsp_tick(params, cfg: ModelConfig, cc: CacheConfig,
                      pcfg: PreprocessorConfig, pcm_i16, front_res,
                      front_last, mel_buf, enc_state, dec_state, pos_heads,
                      window, filterbank, dsp_mask: np.ndarray,
-                     fresh_mask: np.ndarray, consume_mask: np.ndarray):
+                     fresh_mask: np.ndarray, consume_mask: np.ndarray,
+                     confidence: bool = False):
     """One ragged tick with the DSP on the device: the DSP for every
     DSP-advancing slot, the two-offset mel-buffer insert, then ONE masked
     encoder + decode chunk step for the consuming slots.
@@ -215,21 +216,25 @@ def _device_dsp_tick(params, cfg: ModelConfig, cc: CacheConfig,
     (a full chunk is buffered after the insert). Frozen slots' DSP state,
     mel buffer, caches and decoder state pass through unchanged. A tick in
     which no slot consumes runs no encoder (tokens None): a fully masked
-    chunk step changes nothing. Returns (tokens, front_res, front_last,
-    mel_buf, enc_state, dec_state)."""
+    chunk step changes nothing. Returns (tokens, confs, front_res,
+    front_last, mel_buf, enc_state, dec_state); confs (the emissions'
+    log-posteriors) is None unless `confidence`."""
     dev = mel_buf.device
     dsp_m, fresh_m, consume_m = (torch.from_numpy(m).to(dev) for m in
                                  (dsp_mask, fresh_mask, consume_mask))
     front_res, front_last, mel_buf = _device_dsp_front(
         cc, pcfg, pcm_i16, front_res, front_last, mel_buf, window,
         filterbank, dsp_m, fresh_m)
-    tokens = None
+    tokens = confs = None
     if consume_mask.any():
-        tokens, enc_state, dec_state = chunk_step_masked(
+        out = chunk_step_masked(
             params, cfg, cc, mel_buf[:, :cc.chunk_mel_frames], enc_state,
-            dec_state, pos_heads, consume_m)
+            dec_state, pos_heads, consume_m, with_confidence=confidence)
+        tokens, enc_state, dec_state = out[:3]
+        confs = out[3] if confidence else None
         mel_buf = _mel_buf_shift(cc, mel_buf, consume_m)
-    return tokens, front_res, front_last, mel_buf, enc_state, dec_state
+    return (tokens, confs, front_res, front_last, mel_buf, enc_state,
+            dec_state)
 
 
 class ServingEngine:
@@ -241,6 +246,10 @@ class ServingEngine:
     `finalize_stream`) or "auto" ("device" when the params live on CUDA,
     else "numpy").
 
+    confidence: tokens become (id, frame, log_posterior) triples (the
+    greedy loop's log softmax at the emitting frame), in `tokens`,
+    `finalize_stream(return_tokens=True)` and `poll_endpoints`.
+
     endpoint_silence_s: a slot that emitted at least one token and then
     stays silent this long (in encoder frames) fires an endpoint event
     (`poll_endpoints`); endpoint_reset=True also gives it a fresh
@@ -248,10 +257,9 @@ class ServingEngine:
     (at most max_segment_s) for `poll_endpoints(with_audio=True)`.
 
     Beam search, CTC, TDT checkpoints and LM fusion (the decode-variants
-    slice), confidence (the timestamps/confidence slice), a device mesh
-    (multi-GPU), snapshots (the snapshots slice) and dsp="native" (the
-    native-bindings slice) come with later slices of the port and raise
-    NotImplementedError."""
+    slice), a device mesh (multi-GPU), snapshots (the snapshots slice) and
+    dsp="native" (the native-bindings slice) come with later slices of the
+    port and raise NotImplementedError."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -274,10 +282,6 @@ class ServingEngine:
         if cfg.tdt_durations:
             raise NotImplementedError("TDT decode comes with the decode-"
                                       "variants slice of the port")
-        if confidence:
-            raise NotImplementedError("confidence comes with the timestamps, "
-                                      "confidence and subtitles slice of the "
-                                      "port")
         if mesh is not None:
             raise NotImplementedError("a device mesh comes with the "
                                       "multi-GPU slice of the port")
@@ -294,6 +298,10 @@ class ServingEngine:
         self.n_slots = n_slots
         self.dtype = compute_dtype
         self.device = params.device
+        self.confidence = bool(confidence)
+        # greedy only: the server reads these to pick its event semantics
+        self.beam_size = 1
+        self.beam_state = None
 
         # Utterance endpointing: silence is counted in encoder output frames
         # (subsampling * hop = 80 ms of audio by default, the reference's
@@ -381,7 +389,7 @@ class ServingEngine:
 
         self.active = np.zeros(n_slots, bool)
         self.mel_buffers = [self._fresh_mel_buffer() for _ in range(n_slots)]
-        self.tokens: list[list[tuple[int, int]]] = [[] for _ in range(n_slots)]
+        self.tokens: list[list[tuple]] = [[] for _ in range(n_slots)]
         self.transcripts = [""] * n_slots
         self.frame_offsets = np.zeros(n_slots, np.int64)
         self.step_times: list[float] = []
@@ -455,7 +463,7 @@ class ServingEngine:
 
     def remove_stream(self, slot: int, return_tokens: bool = False):
         """Evict the slot and return its transcript (with
-        return_tokens=True: (text, [(id, frame), ...]))."""
+        return_tokens=True: (text, [(id, frame[, log_posterior]), ...]))."""
         text = self.transcripts[slot]
         toks = list(self.tokens[slot])
         self.active[slot] = False
@@ -582,11 +590,12 @@ class ServingEngine:
                     self.enc_state, int(s), delta, self.cc.chunk_enc_len)
                 self.slot_phase[s] = self.phase_counter
 
-    def _emit(self, tokens: np.ndarray, out: dict[int, str]) -> dict:
-        """Append each slot's emitted tokens and text; returns them per
-        slot. Masked slots emit only blanks."""
+    def _emit(self, tokens: np.ndarray, confs, out: dict[int, str]) -> dict:
+        """Append each slot's emitted tokens (with confs [S, T, MAX] f32:
+        triples with their log-posteriors) and text; returns them per slot.
+        Masked slots emit only blanks."""
         emitted = dec_mod.extract_emitted(tokens, self.cfg.blank_token,
-                                          self.frame_offsets)
+                                          self.frame_offsets, confs=confs)
         for slot, toks in emitted.items():
             self.tokens[slot].extend(toks)
             text = tokens_to_text(toks, self.vocab)
@@ -681,15 +690,18 @@ class ServingEngine:
             chunk = torch.from_numpy(chunk_np).to(self.dtype).to(self.device)
             mask = torch.from_numpy(ready).to(self.device)
             t0 = time.perf_counter()
-            tokens, self.enc_state, self.dec_state = chunk_step_masked(
+            res = chunk_step_masked(
                 self.params, self.cfg, cc, chunk, self.enc_state,
-                self.dec_state, self.pos_heads, mask)
+                self.dec_state, self.pos_heads, mask,
+                with_confidence=self.confidence)
+            tokens, self.enc_state, self.dec_state = res[:3]
             tokens = tokens.cpu().numpy()       # [S, valid_out, MAX]
+            confs = res[3].cpu().numpy() if self.confidence else None
             self.step_times.append(time.perf_counter() - t0)
 
             for slot in ready_slots:
                 self.mel_buffers[slot].drop(cc.shift_mel_frames)
-            emitted = self._emit(tokens, out)
+            emitted = self._emit(tokens, confs, out)
             self.frame_offsets[ready_slots] += tokens.shape[1]
             self._ep_update(emitted, ready_slots, tokens.shape[1])
             self.phase_counter = (self.phase_counter + 1) % self.n_seg
@@ -732,14 +744,17 @@ class ServingEngine:
                 pcm[s] = self.pcm_fifos[s].take(self._quantum)
             pcm = torch.from_numpy(pcm).to(self.device)
             t0 = time.perf_counter()
-            (tokens, self.front_res, self.front_last, self.mel_buf_dev,
-             self.enc_state, self.dec_state) = _device_dsp_tick(
+            (tokens, confs, self.front_res, self.front_last,
+             self.mel_buf_dev, self.enc_state,
+             self.dec_state) = _device_dsp_tick(
                 self.params, self.cfg, cc, self._pcfg, pcm, self.front_res,
                 self.front_last, self.mel_buf_dev, self.enc_state,
                 self.dec_state, self.pos_heads, self._window,
-                self._filterbank, dsp, fresh, consume)
+                self._filterbank, dsp, fresh, consume, self.confidence)
             if tokens is not None:
                 tokens = tokens.cpu().numpy()
+                if confs is not None:
+                    confs = confs.cpu().numpy()
             elif self.device.type == "cuda":    # a DSP-only tick
                 torch.cuda.synchronize(self.device)
             self.step_times.append(time.perf_counter() - t0)
@@ -749,7 +764,7 @@ class ServingEngine:
                                      post_fill)
             self.fresh = self.fresh & ~dsp
             if consume.any():
-                emitted = self._emit(tokens, out)
+                emitted = self._emit(tokens, confs, out)
                 self.frame_offsets[np.flatnonzero(consume)] += \
                     cc.valid_out_len
                 self._ep_update(emitted, np.flatnonzero(consume),

@@ -29,31 +29,38 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def chunk_step(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
-               mel_chunk: torch.Tensor, enc_state, dec_state, pos_heads):
+               mel_chunk: torch.Tensor, enc_state, dec_state, pos_heads,
+               with_confidence: bool = False):
     """Fused streaming step: cached encoder + greedy RNN-T decode.
 
     mel_chunk: [S, chunk_mel_frames, n_mels]
     Returns (tokens [S, valid_out, MAX_SYMBOLS] int32 blank-padded,
-             enc_state', dec_state'). The K/V rings of `enc_state` are
-    updated in place (see encoder.encode_chunk)."""
+             enc_state', dec_state'), and with_confidence also each
+    emission's log-posterior, confs [S, valid_out, MAX_SYMBOLS] f32, last
+    (the JAX package's _chunk_step_conf_jit). The K/V rings of `enc_state`
+    are updated in place (see encoder.encode_chunk)."""
     enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
                                               enc_state, pos_heads)
-    tokens, dec_state = dec_mod.greedy_decode(params, cfg, enc_out, dec_state)
-    return tokens, enc_state, dec_state
+    out = dec_mod.greedy_decode(params, cfg, enc_out, dec_state,
+                                with_confidence=with_confidence)
+    return (out[0], enc_state) + out[1:]
 
 
 def chunk_step_masked(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
                       mel_chunk: torch.Tensor, enc_state, dec_state,
-                      pos_heads, step_mask: torch.Tensor):
+                      pos_heads, step_mask: torch.Tensor,
+                      with_confidence: bool = False):
     """chunk_step for continuous batching: `step_mask` [S] bool marks the
     streams that advance; the rest keep their caches, decoder state and
-    valid_len and emit nothing (their mel rows are padding)."""
+    valid_len and emit nothing (their mel rows are padding, their confs
+    0)."""
     enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
                                               enc_state, pos_heads,
                                               step_mask=step_mask)
-    tokens, dec_state = dec_mod.greedy_decode(params, cfg, enc_out, dec_state,
-                                              step_mask=step_mask)
-    return tokens, enc_state, dec_state
+    out = dec_mod.greedy_decode(params, cfg, enc_out, dec_state,
+                                step_mask=step_mask,
+                                with_confidence=with_confidence)
+    return (out[0], enc_state) + out[1:]
 
 
 class StreamSession:
@@ -62,7 +69,12 @@ class StreamSession:
     `compute_dtype` (float32 or bfloat16: float leaves of the params, the
     position bias, both states and each mel chunk; quantized weights keep
     int8 and f32 scales), with the f32 filterbank and window the params
-    carry."""
+    carry.
+
+    timestamp_words puts each word's start time ({seconds}) in the
+    transcript; confidence makes the tokens (id, frame, log_posterior)
+    triples; confidence_words (which implies it) also puts each word's
+    posterior ({p=...}) in the transcript."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -70,8 +82,10 @@ class StreamSession:
                  n_streams: int = 1,
                  compute_dtype: torch.dtype = torch.float32,
                  trace_dir: str | None = None,
+                 timestamp_words: bool = False,
                  beam_size: int = 1,
                  confidence: bool = False,
+                 confidence_words: bool = False,
                  ctc: bool = False):
         if beam_size > 1:
             raise NotImplementedError("beam search comes with the decode-"
@@ -81,9 +95,6 @@ class StreamSession:
                                       "variants slice of the port")
         if cfg.tdt_durations:
             raise NotImplementedError("TDT decode comes with the decode-"
-                                      "variants slice of the port")
-        if confidence:
-            raise NotImplementedError("confidence comes with the decode-"
                                       "variants slice of the port")
         if trace_dir is not None:
             raise NotImplementedError("dump tracing comes with the utils "
@@ -96,6 +107,9 @@ class StreamSession:
         self.cc = cache_config or CacheConfig(n_mels=cfg.n_mels)
         self.vocab = vocab or []
         self.n_streams = n_streams
+        self.timestamp_words = timestamp_words
+        self.confidence = confidence or confidence_words
+        self.confidence_words = confidence_words
 
         self.preproc = StreamingPreprocessor(
             params.preprocessor.filterbank.float().cpu().numpy(),
@@ -117,7 +131,7 @@ class StreamSession:
         # 9-frame zero-seeded overlap (reference src/nemo-stream.cpp:58-60)
         self.mel_buffer = np.zeros((S, cc.pre_encode_cache_size, cfg.n_mels),
                                    np.float32)
-        self.tokens: list[list[tuple[int, int]]] = [[] for _ in range(S)]
+        self.tokens: list[list[tuple]] = [[] for _ in range(S)]
         self.transcripts = [""] * S
         self.frame_offset = 0
         # stats (reference src/nemo-stream.h:228-252)
@@ -160,20 +174,25 @@ class StreamSession:
                 self.mel_buffer[:, :cc.chunk_mel_frames])).to(
                     self.device, self.dtype)
             t0 = time.perf_counter()
-            tokens, self.enc_state, self.dec_state = chunk_step(
-                self.params, self.cfg, cc, chunk, self.enc_state,
-                self.dec_state, self.pos_heads)
+            out = chunk_step(self.params, self.cfg, cc, chunk,
+                             self.enc_state, self.dec_state, self.pos_heads,
+                             with_confidence=self.confidence)
+            tokens, self.enc_state, self.dec_state = out[:3]
             tokens = tokens.cpu().numpy()   # [S, valid_out, MAX]
+            confs = out[3].cpu().numpy() if self.confidence else None
             self.chunk_seconds += time.perf_counter() - t0
             self.total_chunks += 1
             self.mel_buffer = self.mel_buffer[:, cc.shift_mel_frames:]
 
             emitted = dec_mod.extract_emitted(
                 tokens, self.cfg.blank_token,
-                np.full(self.n_streams, self.frame_offset, np.int64))
+                np.full(self.n_streams, self.frame_offset, np.int64),
+                confs=confs)
             for s, toks in emitted.items():
                 self.tokens[s].extend(toks)
-                text = tokens_to_text(toks, self.vocab)
+                text = tokens_to_text(toks, self.vocab,
+                                      timestamp_words=self.timestamp_words,
+                                      confidence_words=self.confidence_words)
                 self.transcripts[s] += text
                 new_text[s] += text
             self.frame_offset += tokens.shape[1]
@@ -198,7 +217,9 @@ class StreamSession:
     def get_transcript(self, stream: int = 0) -> str:
         return self.transcripts[stream]
 
-    def get_tokens(self, stream: int = 0) -> list[tuple[int, int]]:
+    def get_tokens(self, stream: int = 0) -> list[tuple]:
+        """(id, frame) pairs, or (id, frame, log_posterior) triples when
+        the session was built with confidence."""
         return self.tokens[stream]
 
     @property
@@ -260,9 +281,14 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
     (f32 or bf16), with the params as they are (each op casts its weights
     to the activations' dtype, as the JAX package does).
 
+    return_confidence: returns (texts, token_lists) instead (for one
+    utterance: (text, token_list)), each token list of (id, frame,
+    log_posterior) triples from the greedy loop's log softmax at the
+    emitting frame.
+
     min_mel_frames pads the batched mel's time axis to at least this many
     frames (masked out of the attention, as the shorter utterances'
-    padding is). Beam search, confidence, n-best lists, CTC, LM fusion and TDT
+    padding is). Beam search, n-best lists, CTC, LM fusion and TDT
     checkpoints come with later slices of the port and raise
     NotImplementedError."""
     if beam_size > 1 or return_nbest is not None or lm is not None:
@@ -275,10 +301,6 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
     if cfg.tdt_durations:
         raise NotImplementedError("TDT decode comes with the decode-variants "
                                   "slice of the port")
-    if return_confidence:
-        raise NotImplementedError("confidence comes with the timestamps, "
-                                  "confidence and subtitles slice of the "
-                                  "port")
     _check_dtype(compute_dtype)
     single = not isinstance(audio_i16, (list, tuple))
     utterances = [audio_i16] if single else audio_i16
@@ -290,11 +312,20 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
         enc_lengths=lengths)
     dec_state = dec_mod.init_decoder_state(cfg, len(utterances),
                                            compute_dtype, dev)
-    tokens, _ = dec_mod.greedy_decode(params, cfg, enc, dec_state,
-                                      enc_lengths=lengths)
+    out = dec_mod.greedy_decode(params, cfg, enc, dec_state,
+                                enc_lengths=lengths,
+                                with_confidence=return_confidence)
+    tokens = out[0].cpu().numpy()
+    if return_confidence:
+        emitted = dec_mod.extract_emitted(tokens, cfg.blank_token,
+                                          confs=out[2].cpu().numpy())
+        token_lists = [emitted.get(i, []) for i in range(len(utterances))]
+        texts = [tokens_to_text(tl, vocab, timestamp_words=timestamp_words)
+                 for tl in token_lists]
+        return ((texts[0], token_lists[0]) if single
+                else (texts, token_lists))
     texts = [tokens_to_text(toks, vocab, timestamp_words=timestamp_words)
-             for toks in dec_mod.tokens_to_list(tokens.cpu().numpy(),
-                                                cfg.blank_token)]
+             for toks in dec_mod.tokens_to_list(tokens, cfg.blank_token)]
     return texts[0] if single else texts
 
 

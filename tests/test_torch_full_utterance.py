@@ -315,7 +315,8 @@ def test_transcribe_batch_with_state_matches_jax(fixture_models):
 
 @pytest.mark.parametrize("kw", [{"beam_size": 4}, {"return_nbest": 2},
                                 {"lm": object()}, {"ctc": True},
-                                {"return_confidence": True}, {"tdt": True}])
+                                {"return_confidence": True, "beam_size": 4},
+                                {"tdt": True}])
 def test_transcribe_batch_refuses_later_options(fixture_models, kw):
     _, (tp, tc, tv) = fixture_models
     if kw.pop("tdt", False):

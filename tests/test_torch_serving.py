@@ -732,7 +732,8 @@ def test_engine_refuses_later_slices_and_resolves_auto(tiny):
     _jp, tp, cfg, vocab = tiny
     cc = TCC(**CC_KW, n_mels=cfg.n_mels)
     for kw in ({"beam_size": 4}, {"ctc": True}, {"lm": object()},
-               {"confidence": True}, {"mesh": object()}, {"dsp": "native"}):
+               {"beam_size": 4, "confidence": True}, {"mesh": object()},
+               {"dsp": "native"}):
         with pytest.raises(NotImplementedError):
             TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, **kw)
     with pytest.raises(NotImplementedError, match="TDT"):

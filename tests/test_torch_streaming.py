@@ -222,8 +222,8 @@ def test_session_q8_tokens_match_jax(models):
 
 def test_session_refuses_other_decoders(fixture_models):
     _, (tp, tc, tv) = fixture_models
-    for kw in ({"beam_size": 4}, {"ctc": True}, {"confidence": True},
-               {"trace_dir": "x"}):
+    for kw in ({"beam_size": 4}, {"ctc": True}, {"trace_dir": "x"},
+               {"beam_size": 4, "confidence": True}):
         with pytest.raises(NotImplementedError):
             TSession(tp, tc, tv, **kw)
 
