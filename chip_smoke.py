@@ -1935,7 +1935,7 @@ def engine_tones_phase(failures: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the network server (slice 9)
+# phase 9: the network server (slice 9)
 # ---------------------------------------------------------------------------
 
 class ServerThread:
