@@ -90,7 +90,27 @@ Phases (any failure exits non-zero):
      byte-equal, stdout equal up to the {p=...} hundredths), and
      `python -m nemotron_tpu_torch.asr_server` replayed into by
      `python -m nemotron_tpu_torch.asr_client --srt`.
- 10. one JSON line of kernel results, the card's name and power limit, and
+ 10. the rest of the quant tiers and snapshots (slice 10). The kernel
+     phase holds the attention kernel's int4 mode (packed rings) to its
+     plain version at Dh = 128 and 16, B = 1, 8 and 64, every mode, f32
+     and bf16 (repeated calls bit-equal), and times it beside int8 at
+     B = 8 and 64; and the W8A8 kernel's static mode bit for bit at
+     M = 8, 16, 112 and 896 for every (K, N) of a layer, timed per layer
+     beside the dynamic mode and _int_mm. Then, on the full-width GGUF:
+     SmoothQuant calibrated on the card on 4 s of seeded PCM, w8a8-sq-static
+     with int4 rings (bf16, 8 streams) in the four modes (launches a step
+     by name: 24 int4 attention, 240 W8A8), readings against the int8
+     dynamic tier and the port's CPU run; --rc-by-layer 13,6,1,0 on Q8_0
+     f32 (tokens equal to the CPU's); the 64-slot engine on the new tier
+     beside the int8 engine; snapshots on the card (a Q8_0 f32 and a W8A8
+     bf16 session resumed bit-equal, the Q8_0 snapshot continued on the
+     CPU to the CPU's tokens, the 64-slot engine in both DSP modes resumed
+     to every slot's tokens). The tones fixture with int4 (f32) and
+     w8a8-sq-static + int4 (bf16): token error < 10%. The streaming CLI
+     with --kv-int4, --rc-by-layer and --quantize=w8a8-sq-static --calib
+     on the card against --cpu, and asr_server --kv-int4 --rc-by-layer
+     replayed into by asr_client.
+ 11. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -196,6 +216,12 @@ ENGINE_TONES_HALF, ENGINE_TONES_LATE = (4, 5, 6), 7
 SERVER_SLOTS, SERVER_TCP, SERVER_WS, SERVER_REST = 64, 48, 8, 8
 SERVER_SECONDS = 4.0
 TOL_CONF_ABS = 1e-3
+# slice 10: the quant tiers and snapshots. SmoothQuant calibrates on 4 s of
+# seeded PCM (its own stream, not one the sessions decode); per-layer right
+# context as NeMo's lookahead groups; snapshots cut mid-stream, mid-chunk
+SQ_CALIB_STREAM, SQ_CALIB_SECONDS = 900, 4.0
+RC_BY_LAYER = (13, 6, 1, 0)
+SNAPSHOT_CUT = 30_000         # samples into a 4 s stream (R = 13: mid-chunk)
 
 
 def log(msg: str) -> None:
@@ -326,28 +352,34 @@ def attention_phase(failures: list) -> dict:
 
     from nemotron_tpu_torch.config import CacheConfig, ModelConfig
     from nemotron_tpu_torch.ops.ring_attn_kernel import (fused_ring_attention,
+                                                         pack_int4,
                                                          ring_attention_ref)
 
     cfg = ModelConfig()
     L, H, Dh = cfg.n_layers, cfg.n_heads, cfg.d_head
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def inputs(B, Q, KV, dt, ring_dt, n_stacks=1):
+    def inputs(B, Q, KV, dt, ring_dt, n_stacks=1, dh=Dh):
+        """ring_dt: the compute dtype, torch.int8, or "int4" (packed)."""
         def rn(*s):
             return torch.randn(*s, device="cuda", generator=g).to(dt)
-        if ring_dt == torch.int8:
+        if ring_dt in (torch.int8, "int4"):
+            qmax = 127 if ring_dt == torch.int8 else 7
+
             def ring():
-                return torch.randint(-127, 128, (L, B, H, KV, Dh), device="cuda",
-                                     generator=g, dtype=torch.int8)
+                r = torch.randint(-qmax, qmax + 1, (L, B, H, KV, dh),
+                                  device="cuda", generator=g,
+                                  dtype=torch.int8)
+                return r if qmax == 127 else pack_int4(r)
             kc = torch.rand(B, H, KV, device="cuda", generator=g) * 0.02
             vc = torch.rand(B, H, KV, device="cuda", generator=g) * 0.02
         else:
             def ring():
-                return rn(L, B, H, KV, Dh)
+                return rn(L, B, H, KV, dh)
             kc = torch.ones(B, H, KV, device="cuda")
             vc = torch.ones(B, H, KV, device="cuda")
-        return dict(q_u=rn(B, H, Q, Dh), k_new=rn(B, H, Q, Dh),
-                    v_new=rn(B, H, Q, Dh),
+        return dict(q_u=rn(B, H, Q, dh), k_new=rn(B, H, Q, dh),
+                    v_new=rn(B, H, Q, dh),
                     rings=[(ring(), ring()) for _ in range(n_stacks)],
                     a=rn(B, H, Q, KV + Q), k_cols=kc, v_cols=vc)
 
@@ -403,6 +435,33 @@ def attention_phase(failures: list) -> dict:
         if not same:
             failures.append(f"attn B={B} {str(dt)[6:]}: not deterministic")
 
+    # slice 10: packed int4 rings, at the full model's Dh = 128 and the
+    # trained tones fixture's Dh = 16 (8-byte rows), in every mode, at the
+    # session's, the W8A8 path's and the engine's stream counts
+    log("phase kernels: fused_ring_attention over int4 rings vs "
+        "ring_attention_ref")
+    for dh in (128, 16):
+        for R in MODES:
+            cc = CacheConfig(att_right_context=R)
+            Q, KV = cc.chunk_enc_len, cc.kv_len
+            for B in (1, 8, 64):
+                for dt in (torch.float32, torch.bfloat16):
+                    x = inputs(B, Q, KV, dt, "int4", dh=dh)
+                    got = run(fused_ring_attention, x, L - 1)
+                    want = run(ring_attention_ref, x, L - 1)
+                    again = run(fused_ring_attention, x, L - 1)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    scale = want.float().abs().max().item()
+                    tol = (TOL_F32_ATTN_ABS if dt == torch.float32
+                           else TOL_BF16_REL * max(scale, 1.0))
+                    check(f"attn int4 Dh={dh} R={R} B={B} {str(dt)[6:]}",
+                          err, tol, failures)
+                    if not torch.equal(got, again):
+                        failures.append(f"attn int4 Dh={dh} R={R} B={B} "
+                                        f"{str(dt)[6:]}: not deterministic")
+                    del x, got, want, again
+
     def timed(R, B, dt, ring_dt, with_library, n_stacks=8, iters=2000):
         cc = CacheConfig(att_right_context=R)
         Q, KV = cc.chunk_enc_len, cc.kv_len
@@ -433,9 +492,10 @@ def attention_phase(failures: list) -> dict:
                 scale=1.0 / math.sqrt(Dh))
                 for s in range(n_stacks) for l in range(L)]
             lib_ms = time_calls(lib, iters)
-        es, er = x["q_u"].element_size(), x["rings"][0][0].element_size()
+        es = x["q_u"].element_size()
+        ring_row = x["rings"][0][0].element_size() * x["rings"][0][0].shape[-1]
         nbytes = (es * (4 * B * H * Q * Dh + B * H * Q * (KV + Q))
-                  + er * 2 * B * H * KV * Dh + 4 * 2 * B * H * KV)
+                  + ring_row * 2 * B * H * KV + 4 * 2 * B * H * KV)
         flops = 2 * 2 * B * H * Q * (KV + Q) * Dh
         peak = PEAK_FLOPS[str(dt)[6:]]
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
@@ -445,8 +505,9 @@ def attention_phase(failures: list) -> dict:
                  bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                            >= flops / peak else "operations"))
         lib_txt = f"sdpa {lib_ms * 1e3:.2f} us, " if with_library else ""
+        ring_name = ring_dt if isinstance(ring_dt, str) else str(ring_dt)[6:]
         log(f"  R={R} Q={Q} KV={KV} B={B} {str(dt)[6:]} ring="
-            f"{str(ring_dt)[6:]}: kernel {ms * 1e3:.2f} us, plain "
+            f"{ring_name}: kernel {ms * 1e3:.2f} us, plain "
             f"{plain_ms * 1e3:.2f} us, {lib_txt}bound {bound_ms * 1e3:.3f} us "
             f"({nbytes} B, {flops} FLOP), err {err:.2e}")
         if err > tol:
@@ -468,6 +529,11 @@ def attention_phase(failures: list) -> dict:
                                     n_stacks=1, iters=480)
     per_mode["engine_f32"] = timed(13, B, torch.float32, torch.float32, True,
                                    n_stacks=1, iters=480)
+    # slice 10: int4 rings beside int8 at the W8A8 path's and the engine's
+    # stream counts (no library call computes either)
+    per_mode["int4"] = timed(13, 8, torch.bfloat16, "int4", False)
+    per_mode["engine_int4"] = timed(13, B, torch.bfloat16, "int4", False,
+                                    n_stacks=1, iters=480)
     return per_mode
 
 
@@ -563,10 +629,19 @@ def quantize_rows(x):
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
 
 
+def static_scale(x):
+    """A static activation scale as SmoothQuant's calibration gives it (the
+    calibrated amax / 127), set at 80% of this input's amax so that the
+    largest values saturate: one f32 value on the card."""
+    return (x.float().abs().amax() * 0.8 / 127.0).reshape(1)[0].contiguous()
+
+
 def w8a8_phase(failures: list) -> dict:
     import torch
 
-    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul, w8a8_matmul_ref
+    from nemotron_tpu_torch.ops.w8a8_kernel import (w8a8_matmul,
+                                                    w8a8_matmul_ref,
+                                                    w8a8_matmul_static_ref)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
@@ -598,6 +673,26 @@ def w8a8_phase(failures: list) -> dict:
                 err = float("inf")          # a NaN or a signed zero differs
             worst = max(worst, err)
             check(f"w8a8 M={M} K={K} N={N} {str(dt)[6:]}", err, 0.0, failures)
+
+    # slice 10: the static mode (SmoothQuant's calibrated scale) at the
+    # main paths' M, bit for bit; the scale saturates the largest rows
+    log("phase kernels: w8a8_matmul static mode vs w8a8_matmul_static_ref "
+        "(bit for bit)")
+    for M in (8, 16, 112, ENGINE_M):
+        for K, N in Q8_SHAPES:
+            for dt in (torch.float32, torch.bfloat16):
+                (q, cs), = weights(K, N)
+                x = act(M, K, dt)
+                s_act = static_scale(x)
+                got = w8a8_matmul(x, q, cs, s_act)
+                want = w8a8_matmul_static_ref(x, q, cs, s_act)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.equal(got, want) and not err > 0:
+                    err = float("inf")
+                worst = max(worst, err)
+                check(f"w8a8 static M={M} K={K} N={N} {str(dt)[6:]}", err,
+                      0.0, failures)
 
     # times at the main path's shapes: M = 8 streams x 1, 2 or 14 frames
     # (R = 0, 1, 13) for the ten weight matmuls of a layer, and M = 8 x 84
@@ -641,6 +736,29 @@ def w8a8_phase(failures: list) -> dict:
                 f"({out[(M, K, N)]['bound_by']}), err {err:.2e}")
             if err != 0.0:
                 failures.append(f"w8a8 timing inputs M={M} K={K} N={N}")
+            if M in (8, 16, 112, ENGINE_M):
+                # slice 10: the static mode on the same weights and x
+                s_act = static_scale(x)
+                err = max((w8a8_matmul(x, q, cs, s_act).float()
+                           - w8a8_matmul_static_ref(x, q, cs, s_act).float()
+                           ).abs().max().item() for q, cs in ws[:4])
+                st_ms = time_calls([lambda q=q, cs=cs: w8a8_matmul(
+                    x, q, cs, s_act) for q, cs in ws], 500)
+                st_plain = time_calls([lambda q=q, cs=cs: w8a8_matmul_static_ref(
+                    x, q, cs, s_act) for q, cs in ws[:8]], 100)
+                st_bytes = nbytes + 4
+                t_bytes = st_bytes / HBM_BYTES_PER_S
+                out[("static", M, K, N)] = dict(
+                    ms=st_ms, plain_ms=st_plain, library_ms=lib_ms,
+                    bound_ms=max(t_bytes, t_ops) * 1e3, bytes=st_bytes,
+                    ops=ops, max_abs_err=err,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+                log(f"  static M={M} K={K} N={N}: kernel {st_ms * 1e3:.2f} "
+                    f"us (dynamic {ms * 1e3:.2f}), plain "
+                    f"{st_plain * 1e3:.2f} us, err {err:.2e}")
+                if err != 0.0:
+                    failures.append(f"w8a8 static timing inputs M={M} K={K} "
+                                    f"N={N}")
             del ws
     out["max_abs_err"] = worst
     return out
@@ -2771,6 +2889,530 @@ def cli_phase(failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the quant tiers and snapshots (slice 10)
+# ---------------------------------------------------------------------------
+
+def sq_quantize(dense, cfg, cc, pcm, static: bool = True):
+    """SmoothQuant on the params' device: calibrated on the log-mel of
+    `pcm` (int16, 1-D) with cc's chunked visibility, folded and
+    W8A8-quantized, with static activation scales when `static`."""
+    from nemotron_tpu_torch.config import PreprocessorConfig
+    from nemotron_tpu_torch.frontend.preprocessor import StreamingPreprocessor
+    from nemotron_tpu_torch.ops.smoothquant import smooth_quantize
+
+    pre = StreamingPreprocessor(
+        dense.preprocessor.filterbank.float().cpu().numpy(),
+        dense.preprocessor.window.float().cpu().numpy(),
+        cfg=PreprocessorConfig(n_mels=cfg.n_mels), device=dense.device)
+    mel = pre.process(pcm)
+    return smooth_quantize(dense, cfg, mel, att_chunk=cc.chunk_enc_len,
+                           static_act=static)
+
+
+def sessions_equal(a, b) -> bool:
+    """Two sessions' tokens and every state leaf bit-equal."""
+    import torch
+
+    return a.tokens == b.tokens and all(
+        torch.equal(getattr(x, f), getattr(y, f))
+        for x, y in ((a.enc_state, b.enc_state), (a.dec_state, b.dec_state))
+        for f in x.__dataclass_fields__)
+
+
+def snapshot_session(make, pcm, cut, tmp):
+    """A session saved after pcm[:, :cut], resumed in a fresh one from the
+    file: (uninterrupted, resumed, save s, load s, file bytes)."""
+    import torch
+
+    path = os.path.join(tmp, "session.npz")
+    ref = make()
+    ref.process(pcm[:, :cut])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.save(path)
+    save_s = time.perf_counter() - t0
+    ref.process(pcm[:, cut:])
+    ref.finalize()
+    res = make()
+    t0 = time.perf_counter()
+    res.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    res.process(pcm[:, cut:])
+    res.finalize()
+    return ref, res, save_s, load_s, os.path.getsize(path)
+
+
+def snapshot_engine(make, tmp) -> dict:
+    """The 64-slot engine on a ragged load (the last ENGINE_HALF slots at
+    half rate), saved half-way with a partial PCM block staged, and
+    loaded into a fresh engine that finishes the load: every slot's final
+    tokens against the uninterrupted engine's."""
+    import torch
+
+    eng = make()
+    n, q = eng.n_slots, eng.cc.shift_samples
+    pcm = {s: seeded_pcm(s, ENGINE_SECONDS) for s in range(n)}
+    feeds, pos = [], {s: 0 for s in range(n)}
+    while any(pos[s] < pcm[s].size for s in range(n)):
+        t, f = len(feeds), {}
+        for s in range(n):
+            if s >= n - ENGINE_HALF and t % 2:
+                continue
+            a = pcm[s][pos[s]:pos[s] + q]
+            if a.size:
+                f[s] = a
+                pos[s] += a.size
+        feeds.append(f)
+    cut = len(feeds) // 2
+    staged = {0: feeds[cut][0][:q // 2]}
+    feeds[cut][0] = feeds[cut][0][q // 2:]
+    path = os.path.join(tmp, "engine.npz")
+
+    def drive(e, ticks):
+        for t in ticks:
+            e.feed_audio(feeds[t])
+            e.step()
+
+    eng.add_streams(n)
+    drive(eng, range(cut))
+    eng.feed_audio(staged)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.save(path)
+    save_s = time.perf_counter() - t0
+    drive(eng, range(cut, len(feeds)))
+    want = eng.finalize_streams(list(range(n)), return_tokens=True)
+    del eng
+    res = make()
+    t0 = time.perf_counter()
+    res.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    drive(res, range(cut, len(feeds)))
+    got = res.finalize_streams(list(range(n)), return_tokens=True)
+    return dict(equal_slots=sum(g == w for g, w in zip(got, want)),
+                slots=n, tokens=sum(len(w[1]) for w in want), save_s=save_s,
+                load_s=load_s, bytes=os.path.getsize(path), ticks=len(feeds),
+                cut_tick=cut)
+
+
+def quant_tier_phase(gguf_path: str, failures: list) -> dict:
+    """Slice 10 at full width: SmoothQuant calibrated on the card, then
+    w8a8-sq-static with int4 rings (bf16, 8 streams) in the four modes,
+    launches a step by name; the int8 dynamic tier timed beside it, and
+    readings against it and the port's CPU run; --rc-by-layer on Q8_0 f32
+    against the CPU (exact); the 64-slot engine on both tiers; snapshots
+    on the card (sessions, the CPU continuing a card snapshot, the 64-slot
+    engine in both DSP modes). Garbage of the earlier phases is collected
+    first, so that the peaks are this phase's."""
+    import gc
+
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import (load_model, quantize_model_params,
+                                           to_device)
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"modes": {}}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    gc.collect()
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        n = kernel_counts()
+        for k in launches:
+            launches[k] += n[k]
+        return r, n
+
+    t0 = time.perf_counter()
+    dense, cfg, vocab = load_model(gguf_path, device="cuda",
+                                   keep_quantized=False)
+    cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                       kv_cache_int4=True)
+    t1 = time.perf_counter()
+    sq = sq_quantize(dense, cfg, cc13, seeded_pcm(SQ_CALIB_STREAM,
+                                                  SQ_CALIB_SECONDS))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t1
+    del dense
+    act = [float(sq.layers.attn_q_w.act_scale[l]) for l in (0, cfg.n_layers - 1)]
+    out["calibration_s"] = calib_s
+    log(f"phase quant tiers: dense load {t1 - t0:.1f} s; SmoothQuant on the "
+        f"card over {SQ_CALIB_SECONDS:g} s of seeded PCM, fold, W8A8 and "
+        f"static scales {calib_s:.1f} s; attn q static scale layer 0 "
+        f"{act[0]:.4e}, layer {cfg.n_layers - 1} {act[1]:.4e}")
+
+    S = W8A8_STREAMS
+    pcm = np.stack([seeded_pcm(s) for s in range(S)])
+    tokens13 = None
+    for R in MODES:
+        cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
+                         kv_cache_int4=True)
+        run_session(sq, cfg, vocab, cc, pcm[:, :cc.chunk_samples * 2], bf16)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        sess, n = counted(lambda: run_session(sq, cfg, vocab, cc, pcm, bf16))
+        chunks = sess.total_chunks
+        toks = [sess.get_tokens(s) for s in range(S)]
+        res = dict(chunks=chunks, tokens=sum(map(len, toks)),
+                   chunk_ms=sess.chunk_seconds / max(chunks, 1) * 1e3,
+                   rtf=sess.rtf, launches=n,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out["modes"][f"R={R}"] = res
+        log(f"  w8a8-sq-static + int4 K/V bf16 S={S} R={R}: {chunks} chunks, "
+            f"{res['tokens']} tokens, mean chunk {res['chunk_ms']:.2f} ms, "
+            f"RTF {sess.rtf:.4f}, peak {res['peak_gib']:.2f} GiB, launches "
+            f"{json.dumps(n)}, ring {tuple(sess.enc_state.k_cache.shape)} "
+            f"{str(sess.enc_state.k_cache.dtype)[6:]}")
+        want = {"attn": cfg.n_layers * chunks, "q8": 0,
+                "w8a8": 10 * cfg.n_layers * chunks}
+        if not chunks or n != want or not res["tokens"]:
+            failures.append(f"quant tier R={R}: launches {n} (want {want})")
+        if R == 13:
+            tokens13 = toks
+        del sess
+
+    # launches a step by name, in a profile of R = 13 chunks
+    sess = StreamSession(sq, cfg, vocab, cc13, n_streams=S,
+                         compute_dtype=bf16)
+    sess.process(pcm[:, :cc13.chunk_samples * 2])
+    warm = sess.total_chunks
+    prof, n = counted(lambda: profile_window(lambda: sess.process(pcm)))
+    steps = sess.total_chunks - warm
+    attn_k = launches_of(prof, "ring_attn_cluster_kernel<__nv_bfloat16, nib4")
+    w8_k = launches_of(prof, "w8a8_matmul_cluster_kernel")
+    busy = prof["busy_us"] / max(prof["wall_us"], 1e-9)
+    out["profile"] = dict(steps=steps, attn_per_step=attn_k / max(steps, 1),
+                          w8a8_per_step=w8_k / max(steps, 1),
+                          busy_share=busy)
+    log(f"  profile R=13 ({steps} chunks): device busy {100 * busy:.1f}%; "
+        f"per step {attn_k / max(steps, 1):g} int4 attention launches "
+        f"(ring_attn_cluster_kernel<bf16, nib4>), {w8_k / max(steps, 1):g} "
+        f"W8A8 launches, Q8 launches {launches_of(prof, 'q8_')}")
+    if (not steps or attn_k != cfg.n_layers * steps
+            or w8_k != 10 * cfg.n_layers * steps or launches_of(prof, "q8_")
+            or n["w8a8"] != w8_k):
+        failures.append(f"quant tier profile: {attn_k} int4 attention and "
+                        f"{w8_k} W8A8 launches in {steps} steps")
+    del sess
+
+    # the int8 dynamic tier on the same audio, timed beside this tier
+    # (dynamic, static, static, dynamic); then readings of their agreement
+    # and of the port's CPU run of this tier (f32 on both devices):
+    # full-width W8A8 is chaotic under int8 rounding (the W8A8 path
+    # phase), so these are readings
+    q8, _, _ = load_model(gguf_path, device="cuda")
+    w8 = quantize_model_params(q8, mode="w8a8")
+    cc8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                      kv_cache_int8=True)
+    side = {"int8 dynamic": [], "sq-static int4": []}
+    for name in ("int8 dynamic", "sq-static int4", "sq-static int4",
+                 "int8 dynamic"):
+        p, c = (w8, cc8) if name == "int8 dynamic" else (sq, cc13)
+        dyn, _ = counted(lambda: run_session(p, cfg, vocab, c, pcm, bf16))
+        side[name].append(dyn.chunk_seconds / dyn.total_chunks * 1e3)
+    out["beside_int8"] = side
+    log(f"  R=13 bf16 S={S} chunk ms, in turns: int8 dynamic "
+        f"{side['int8 dynamic'][0]:.2f}, {side['int8 dynamic'][1]:.2f}; "
+        f"sq-static + int4 {side['sq-static int4'][0]:.2f}, "
+        f"{side['sq-static int4'][1]:.2f}")
+    vs_dyn = [position_agreement(tokens13[s], dyn.get_tokens(s))
+              for s in range(S)]
+    card32, _ = counted(lambda: run_session(sq, cfg, vocab, cc13, pcm, f32))
+    cpu32 = run_session(to_device(sq, "cpu"), cfg, vocab, cc13, pcm, f32)
+    vs_cpu = [position_agreement(card32.get_tokens(s), cpu32.get_tokens(s))
+              for s in range(S)]
+    out["readings"] = dict(vs_int8_dynamic=vs_dyn, card_vs_cpu_f32=vs_cpu)
+    log(f"  readings at R=13, S={S}: position agreement with the int8 "
+        f"dynamic tier (bf16) {min(vs_dyn):.4f}-{max(vs_dyn):.4f}; card vs "
+        f"CPU in f32 {min(vs_cpu):.4f}-{max(vs_cpu):.4f}")
+    del dyn, card32, cpu32
+
+    # per-layer right context on the exact tier: Q8_0 f32, S = 1
+    cpu_q8, _, _ = load_model(gguf_path, device="cpu")
+    ccr = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                      att_right_context_by_layer=RC_BY_LAYER)
+    card, n = counted(lambda: run_session(q8, cfg, vocab, ccr, pcm[:1], f32))
+    cpu = run_session(cpu_q8, cfg, vocab, ccr, pcm[:1], f32)
+    plain = run_session(cpu_q8, cfg, vocab, CacheConfig(
+        att_right_context=13, n_mels=cfg.n_mels), pcm[:1], f32)
+    same = card.get_tokens(0) == cpu.get_tokens(0)
+    chunks = card.total_chunks
+    out["rc_by_layer"] = dict(tokens_equal_cpu=same, chunks=chunks,
+                              tokens=len(card.get_tokens(0)), launches=n,
+                              differs_from_uniform=cpu.get_tokens(0)
+                              != plain.get_tokens(0))
+    log(f"  --rc-by-layer {RC_BY_LAYER} R=13 Q8_0 f32 S=1: tokens card vs "
+        f"CPU {'equal' if same else 'DIFFER'} ({len(cpu.get_tokens(0))} "
+        f"tokens, {chunks} chunks; tokens differ from uniform R=13: "
+        f"{out['rc_by_layer']['differs_from_uniform']}), launches "
+        f"{json.dumps(n)}")
+    if not same or not chunks or n != {"attn": cfg.n_layers * chunks,
+                                       "q8": 10 * cfg.n_layers * chunks,
+                                       "w8a8": 0}:
+        failures.append(f"rc-by-layer: tokens equal {same}, launches {n}")
+    del card, cpu, plain
+
+    # the 64-slot engine on the new tier and, beside it, on the int8
+    # dynamic tier: device DSP, R = 13, the engine phase's ragged schedule
+    n_slots = ENGINE_SLOTS
+    res = {}
+    for name, p, c in (("sq-static int4", sq, cc13),
+                       ("int8 dynamic", w8, cc8)):
+        eng = ServingEngine(p, cfg, vocab, c, n_slots=n_slots,
+                            compute_dtype=bf16, dsp="device")
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        with EncoderTap() as tap:
+            run, n = counted(lambda: engine_schedule(
+                eng, lambda sid: seeded_pcm(sid, ENGINE_SECONDS),
+                **ragged_plan(n_slots, ENGINE_SECONDS, c.shift_samples)))
+        check_engine_launches(f"{name} R=13", n, tap.calls, cfg, 10, "w8a8",
+                              failures)
+        lat = run["latency"]
+        res[name] = dict(p50_ms=lat["p50"] * 1e3, p90_ms=lat["p90"] * 1e3,
+                         rtf=run["stats"]["aggregate_rtf"], ticks=run["ticks"],
+                         encoder_steps=tap.calls,
+                         tokens=sum(map(len, run["finals"].values())),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del eng, run
+    prof, n = counted(lambda: engine_step_profile(ServingEngine(
+        sq, cfg, vocab, cc13, n_slots=n_slots, compute_dtype=bf16,
+        dsp="device")))
+    res["profile"] = log_profile(
+        "w8a8-sq-static + int4 bf16 R=13", prof, 3, failures, "q8_",
+        {"ring_attn_cluster_kernel<__nv_bfloat16, nib4": cfg.n_layers,
+         "w8a8_matmul_cluster_kernel": 10 * cfg.n_layers})
+    out["engine"] = res
+    for name in ("sq-static int4", "int8 dynamic"):
+        r = res[name]
+        log(f"  engine {n_slots} slots {name} bf16 device DSP R=13: tick p50 "
+            f"{r['p50_ms']:.2f} / p90 {r['p90_ms']:.2f} ms, aggregate RTF "
+            f"{r['rtf']:.4f}, {r['encoder_steps']} encoder steps, "
+            f"{r['tokens']} tokens, peak {r['peak_gib']:.2f} GiB")
+
+    # snapshots on the card
+    out["snapshots"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+        for name, params, ccs, dtype, streams in (
+                ("Q8_0 f32 S=1", q8, cc, f32, 1),
+                ("W8A8 + int8 K/V bf16 S=8", w8, cc8, bf16, S)):
+            (ref, res_s, save_s, load_s, size), _ = counted(
+                lambda: snapshot_session(
+                    lambda: StreamSession(params, cfg, vocab, ccs,
+                                          n_streams=streams,
+                                          compute_dtype=dtype),
+                    pcm[:streams], SNAPSHOT_CUT, tmp))
+            ok = sessions_equal(ref, res_s) and len(ref.tokens[0]) > 0
+            row = dict(bit_equal=ok, save_s=save_s, load_s=load_s,
+                       bytes=size, tokens=sum(map(len, ref.tokens)))
+            if streams == 1:
+                # the card's mid-stream snapshot continued on the CPU
+                on_cpu = StreamSession(cpu_q8, cfg, vocab, ccs)
+                on_cpu.load(os.path.join(tmp, "session.npz"))
+                on_cpu.process(pcm[:1, SNAPSHOT_CUT:])
+                on_cpu.finalize()
+                cpu_ref = run_session(cpu_q8, cfg, vocab, ccs, pcm[:1], f32)
+                row["cpu_continues_to_cpu_tokens"] = (
+                    on_cpu.get_tokens(0) == cpu_ref.get_tokens(0))
+                ok = ok and row["cpu_continues_to_cpu_tokens"]
+            out["snapshots"][name] = row
+            log(f"  snapshot {name} R=13 cut at {SNAPSHOT_CUT} samples: "
+                f"resumed tokens and state leaves bit-equal {row['bit_equal']}"
+                f"{', CPU continuation = CPU tokens ' + str(row.get('cpu_continues_to_cpu_tokens')) if streams == 1 else ''}; "
+                f"save {save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms, "
+                f"{size / 2 ** 20:.2f} MiB")
+            if not ok:
+                failures.append(f"snapshot {name}: {row}")
+            del ref, res_s
+        for name, params, ccs, dtype, dsp in (
+                ("Q8_0 f32 host DSP", q8, cc, f32, "numpy"),
+                ("W8A8 + int8 K/V bf16 device DSP", w8, cc8, bf16, "device")):
+            row, _ = counted(lambda: snapshot_engine(
+                lambda: ServingEngine(params, cfg, vocab, ccs,
+                                      n_slots=ENGINE_SLOTS,
+                                      compute_dtype=dtype, dsp=dsp), tmp))
+            out["snapshots"][f"engine {name}"] = row
+            log(f"  snapshot engine {ENGINE_SLOTS} slots {name} R=13, saved "
+                f"at tick {row['cut_tick']} of {row['ticks']}: "
+                f"{row['equal_slots']} of {row['slots']} slots' tokens equal "
+                f"the uninterrupted run ({row['tokens']} tokens); save "
+                f"{row['save_s'] * 1e3:.1f} ms, load {row['load_s'] * 1e3:.1f}"
+                f" ms, {row['bytes'] / 2 ** 20:.2f} MiB")
+            if row["equal_slots"] != row["slots"] or not row["tokens"]:
+                failures.append(f"snapshot engine {name}: {row}")
+    out["launches"] = launches
+    return out
+
+
+def tones_quant_phase(failures: list) -> dict:
+    """The trained tones fixture (Dh = 16: the int4 kernel's 8-byte rows),
+    8 streams of 15 s, R = 13: int4 rings in f32, and w8a8-sq-static with
+    int4 rings in bf16 (calibrated on the first 20 s of another seeded
+    recording), each with token error < 10% against the labels."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "weights", "tones_tiny.gguf")
+    params, cfg, vocab = load_model(path, device="cuda")
+    dense = load_model(path, device="cuda", keep_quantized=False)[0]
+    audio, truths = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                      seed=TONES_SEED)
+    calib, _ = make_eval_streams(1, 20.0, TONES_N, seed=TONES_SEED + 7)
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                     kv_cache_int4=True)
+    sq = sq_quantize(dense, cfg, cc, calib[0])
+    out, launches = {}, {"attn": 0, "q8": 0, "w8a8": 0}
+    for name, p, dtype in (("int4 f32", params, torch.float32),
+                           ("w8a8-sq-static + int4 bf16", sq,
+                            torch.bfloat16)):
+        torch.cuda.synchronize()
+        reset_counts()
+        sess = run_session(p, cfg, vocab, cc, audio, dtype)
+        torch.cuda.synchronize()
+        n = kernel_counts()
+        for k in launches:
+            launches[k] += n[k]
+        got = [[t for t, _ in sess.get_tokens(s)]
+               for s in range(TONES_STREAMS)]
+        ter = token_error(got, truths)
+        chunks = sess.total_chunks
+        out[name] = dict(ter=ter, chunk_ms=sess.chunk_seconds
+                         / max(chunks, 1) * 1e3, launches=n)
+        log(f"  tones {name} R=13 S={TONES_STREAMS}: token error {ter:.4f} "
+            f"(tol {TONES_TER_MAX}), mean chunk {out[name]['chunk_ms']:.2f} "
+            f"ms, launches {json.dumps(n)}")
+        want_w8 = 0 if dtype == torch.float32 else 10 * cfg.n_layers * chunks
+        if (not ter < TONES_TER_MAX or n["attn"] != cfg.n_layers * chunks
+                or n["w8a8"] != want_w8):
+            failures.append(f"tones {name}: token error {ter:.4f}, "
+                            f"launches {n}")
+    out["launches"] = launches
+    return out
+
+
+def cli_quant_phase(failures: list) -> dict:
+    """The entry points on the card with the slice's flags, against --cpu,
+    on the tones fixture: the streaming CLI with --kv-int4, with
+    --rc-by-layer=13,6,1,0 (exact tiers: stdout equal) and with
+    --quantize=w8a8-sq-static --calib=FILE (int8 rounding: stdout
+    agreement stated, token error < 10% on the card); then
+    `asr_server --kv-int4 --rc-by-layer 13,6,1,0` on the card replayed
+    into by `asr_client` (token error < 10%)."""
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, "weights", "tones_tiny.gguf")
+    env = dict(os.environ, PYTHONPATH=here)
+    audio, truths = make_eval_streams(2, 8.0, TONES_N, seed=TONES_SEED + 3)
+    ids = {piece: i for i, piece in
+           enumerate(load_model(fixture, device="cpu")[2])}
+
+    def ter_of(text, k):
+        got = [ids.get(f"▁{w}", -1) for w in text.split()]
+        return token_error([got], [list(truths[k])])
+
+    def run(args, timeout=300):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env,
+                                cwd=here)
+        return proc, t0, timeout
+
+    def finish(started):
+        proc, t0, timeout = started
+        try:
+            so, se = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            so, se = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"exit {proc.returncode}: {se[-2000:]}")
+        return so, time.perf_counter() - t0
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for k in range(2):
+            paths.append(os.path.join(tmp, f"s{k}.pcm"))
+            audio[k].astype("<i2").tofile(paths[-1])
+        cells = {"--kv-int4": ["--kv-int4"],
+                 "--rc-by-layer": ["--rc-by-layer=13,6,1,0"],
+                 "--quantize=w8a8-sq-static": [
+                     "--quantize=w8a8-sq-static", f"--calib={paths[1]}"]}
+        started = {(name, dev): run(["-m", "nemotron_tpu_torch.cli", fixture,
+                                     paths[0], "80", "13", *flags,
+                                     *(["--cpu"] if dev == "cpu" else [])])
+                   for name, flags in cells.items() for dev in ("cuda", "cpu")}
+        done = {key: finish(st) for key, st in started.items()}
+        for name in cells:
+            card, cpu = done[name, "cuda"][0], done[name, "cpu"][0]
+            exact = name != "--quantize=w8a8-sq-static"
+            ter = ter_of(card, 0)
+            out[name] = dict(stdout_equal=card == cpu, ter_card=ter,
+                             ter_cpu=ter_of(cpu, 0),
+                             wall_s=done[name, "cuda"][1])
+            log(f"  streaming CLI {name} on the card against --cpu: stdout "
+                f"{'equal' if card == cpu else 'different'}"
+                f"{'' if exact else ' (int8 rounding: a reading)'}; token "
+                f"error card {ter:.4f}, CPU {out[name]['ter_cpu']:.4f}")
+            if (exact and card != cpu) or not ter < TONES_TER_MAX:
+                failures.append(f"CLI {name}: {out[name]}")
+
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nemotron_tpu_torch.asr_server", fixture,
+             "--port", "0", "--slots", "4", "--kv-int4", "--rc-by-layer",
+             "13,6,1,0", "--tick-ms", "20"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=here)
+        try:
+            port, head = None, []
+            t_end = time.time() + 180
+            while port is None and time.time() < t_end:
+                line = proc.stderr.readline()
+                if not line:
+                    break
+                head.append(line)
+                if line.startswith("listening on "):
+                    port = int(line.split()[2].rsplit(":", 1)[1])
+                    listening = line.strip()
+            if port is None:
+                raise RuntimeError("asr_server did not start: "
+                                   + "".join(head)[-2000:])
+            transcript, ct = finish(run(
+                ["-m", "nemotron_tpu_torch.asr_client", f"127.0.0.1:{port}",
+                 paths[1], "--rate", "max"]))
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+        ter = ter_of(transcript, 1)
+        out["asr_server"] = dict(ter=ter, client_wall_s=ct,
+                                 on_card="device=cuda" in listening)
+        log(f"  asr_server --kv-int4 --rc-by-layer 13,6,1,0 on the card "
+            f"({listening}) with asr_client: token error {ter:.4f} (tol "
+            f"{TONES_TER_MAX}), client wall {ct:.1f} s")
+        if not ter < TONES_TER_MAX or not out["asr_server"]["on_card"]:
+            failures.append(f"asr_server quant flags: {out['asr_server']}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2821,18 +3463,25 @@ def main() -> int:
         full = phase("full utterance", full_utterance_phase, path)
         engine = phase("serving engine (slice 8)", engine_phase, path)
         server = phase("server (slice 9)", server_phase, path)
+        quant = phase("quant tiers and snapshots (slice 10)",
+                      quant_tier_phase, path)
     tones = phase("tones", tones_phase)
     engine_tones = phase("serving engine tones (slice 8)", engine_tones_phase)
     server_tones = phase("server tones (slice 9)", server_tones_phase)
     clis = phase("CLIs and server entry points (slice 9)", cli_phase)
+    tones_quant = phase("tones quant tiers (slice 10)", tones_quant_phase)
+    clis_quant = phase("CLIs and server with the quant flags (slice 10)",
+                       cli_quant_phase)
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
     engine_n = {k: engine["launches"][k] + engine_tones["launches"][k]
-                + server_n[k] for k in engine["launches"]}
+                + server_n[k] + quant["launches"][k]
+                + tones_quant["launches"][k] for k in engine["launches"]}
 
-    def w8_layer(M):
-        t = {k: sum(w8[(M, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
+    def w8_layer(M, mode=()):
+        t = {k: sum(w8[(*mode, M, K, N)][k] * c
+                    for (K, N), c in Q8_SHAPES.items())
              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
                        "ops")}
         t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
@@ -2876,7 +3525,13 @@ def main() -> int:
                      "bf16 int8 rings; no library call computes it"},
          "engine_f32": {k: attn["engine_f32"][k] for k in attn_keys}
          | {"shape": "one call, B=64 (engine slots) H=8 Q=14 KV=84 Dh=128 "
-                     "f32 dense rings"}},
+                     "f32 dense rings"},
+         "int4_variant": {k: attn["int4"][k] for k in attn_keys}
+         | {"shape": "one call, B=8 H=8 Q=14 KV=84 Dh=128 bf16 int4 rings "
+                     "(packed two a byte); no library call computes it"},
+         "engine_int4": {k: attn["engine_int4"][k] for k in attn_keys}
+         | {"shape": "one call, B=64 (engine slots) H=8 Q=14 KV=84 Dh=128 "
+                     "bf16 int4 rings; no library call computes it"}},
         {"name": "q8_matmul", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/q8_matmul.cu",
          "replaces": "nemotron_tpu/ops/quant_kernel.py:58",
@@ -2911,7 +3566,14 @@ def main() -> int:
          | {"M=672": {k: w8[(672, 1024, 1024)][k]
                       for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                 "bound_by")}
-            | {"shape": "one call, (K,N) = (1024,1024)"}}},
+            | {"shape": "one call, (K,N) = (1024,1024)"}},
+         "static_per_m": {f"M={M}": {k: v for k, v in
+                                     w8_layer(M, ("static",)).items()
+                                     if k not in ("bytes", "ops")}
+                          | {"shape": "one layer's 10 calls, bf16, static "
+                                      "activation scale (SmoothQuant); "
+                                      "library = the same _int_mm"}
+                          for M in (8, 16, 112, ENGINE_M)}},
     ]
     modes = {f"R={R}": {k: v for k, v in r.items() if k != "tokens"}
              | {"n_tokens": len(r["tokens"])} for R, r in runs.items()}
@@ -2924,6 +3586,9 @@ def main() -> int:
     log("server: " + json.dumps(server))
     log("server tones: " + json.dumps(server_tones))
     log("CLIs and entry points: " + json.dumps(clis))
+    log("quant tiers and snapshots: " + json.dumps(quant))
+    log("tones quant tiers: " + json.dumps(tones_quant))
+    log("CLIs and server with the quant flags: " + json.dumps(clis_quant))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

@@ -4,8 +4,9 @@ slab on the card.
 The counterpart of `scripts/asr_server.py`:
 
     python -m nemotron_tpu_torch.asr_server <model.gguf> [--host H]
-        [--port P] [--slots S] [--right-context R]
-        [--quantize q8_0|w8a8] [--kv-int8] [--dsp auto|numpy|device]
+        [--port P] [--slots S] [--right-context R] [--rc-by-layer 13,6,1,0]
+        [--quantize q8_0|w8a8] [--kv-int8|--kv-int4]
+        [--dsp auto|numpy|device]
         [--confidence] [--endpoint-silence S] [--endpoint-reset]
         [--tick-ms T] [--http-stats PORT] [--ws-port PORT]
         [--stats-every SECONDS] [--cpu]
@@ -20,10 +21,11 @@ The counterpart of `scripts/asr_server.py`:
     compute dtype)
   - stdout stays quiet (transcripts belong to the clients); configuration
     and periodic stats go to stderr
+  - --kv-int4 keeps int4 K/V rings (packed two a byte), --rc-by-layer a
+    right context per layer group (NeMo's per-layer lookahead)
   - --beam, --lm*, --ctc and --refine* come with the decode-variants slice
-    of this port, --kv-int4 and --rc-by-layer with the quant-tiers slice,
-    --dsp native with the native-bindings slice and --coordinator with
-    the multi-GPU slice: each exits 1
+    of this port, --dsp native with the native-bindings slice and
+    --coordinator with the multi-GPU slice: each exits 1
 """
 
 from __future__ import annotations
@@ -37,13 +39,13 @@ _LATER = {
     "--beam": "decode-variants", "--lm": "decode-variants",
     "--lm-weight": "decode-variants", "--lm-bonus": "decode-variants",
     "--ctc": "decode-variants", "--refine": "decode-variants",
-    "--refine-beam": "decode-variants", "--kv-int4": "quant-tiers",
-    "--rc-by-layer": "quant-tiers", "--coordinator": "multi-GPU",
+    "--refine-beam": "decode-variants", "--coordinator": "multi-GPU",
 }
 _VALUED = ("--host", "--port", "--slots", "--right-context", "--quantize",
            "--dsp", "--endpoint-silence", "--tick-ms", "--http-stats",
-           "--ws-port", "--stats-every")
-_SWITCHES = ("--kv-int8", "--confidence", "--endpoint-reset", "--cpu")
+           "--ws-port", "--stats-every", "--rc-by-layer")
+_SWITCHES = ("--kv-int8", "--kv-int4", "--confidence", "--endpoint-reset",
+             "--cpu")
 
 
 def later_flag(argv: list[str]) -> str | None:
@@ -110,6 +112,7 @@ def main(argv: list[str]) -> int:
     quant_mode = opt("--quantize", None, str)
     device = "cpu" if "--cpu" in argv else "cuda"
 
+    import dataclasses
     import os
 
     from .config import CacheConfig
@@ -133,6 +136,19 @@ def main(argv: list[str]) -> int:
             return 1
     cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
                      kv_cache_int8="--kv-int8" in argv)
+    if "--kv-int4" in argv:
+        cc = dataclasses.replace(cc, kv_cache_int8=False, kv_cache_int4=True)
+    rc_pat = opt("--rc-by-layer", None, str)
+    if rc_pat:
+        try:
+            cc = dataclasses.replace(
+                cc, att_right_context_by_layer=tuple(
+                    int(v) for v in rc_pat.split(",")))
+            cc.rc_schedule(cfg.n_layers)  # validate early
+        except ValueError as e:
+            print(f"error: bad --rc-by-layer pattern {rc_pat!r}: {e}",
+                  file=sys.stderr)
+            return 1
     try:
         engine = ServingEngine(params, cfg, vocab, cc, n_slots=n_slots,
                                dsp=dsp, confidence="--confidence" in argv,

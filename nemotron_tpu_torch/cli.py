@@ -6,9 +6,12 @@ argv contract (src/transcribe_stream.cpp:27-36):
     python -m nemotron_tpu_torch.cli <model.gguf> <audio.pcm|-|--stdin>
                                      [chunk_ms] [right_context]
                                      [--cpu|--cuda|--metal|--tpu]
-                                     [--quantize=q8_0|w8a8] [--kv-int8]
-                                     [--shared-cache] [--timestamps]
-                                     [--confidence] [--srt=FILE|--vtt=FILE]
+                                     [--quantize=q8_0|w8a8|w8a8-sq|
+                                                 w8a8-sq-static]
+                                     [--calib=FILE] [--kv-int8|--kv-int4]
+                                     [--shared-cache] [--rc-by-layer=13,6,1,0]
+                                     [--timestamps] [--confidence]
+                                     [--srt=FILE|--vtt=FILE]
 
   - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin;
     .wav files decode directly (PCM16 or float32, any sample rate --
@@ -20,8 +23,13 @@ argv contract (src/transcribe_stream.cpp:27-36):
     (the default), --metal and --tpu warn and are ignored, as the JAX CLI
     warns on the backends it lacks; --cpu with --cuda is an error
   - --quantize=q8_0|w8a8 requantizes the encoder matmul weights at load
-    (a Q8_0 GGUF served as W8A8), --kv-int8 keeps int8 K/V rings,
-    --shared-cache one shared x-ring per layer
+    (a Q8_0 GGUF served as W8A8); w8a8-sq folds SmoothQuant scales into
+    the dense weights first, calibrated on the input's first 20 s (or on
+    --calib=FILE, which stdin input needs), and w8a8-sq-static also
+    freezes the calibrated activation scales
+  - --kv-int8 / --kv-int4 keep int8 / int4 K/V rings, --shared-cache one
+    shared x-ring per layer, --rc-by-layer=13,6,1,0 a right context per
+    layer group (NeMo's per-layer lookahead)
   - --timestamps puts each word's start time in {seconds} before it,
     --confidence its posterior in {p=...}; --srt=FILE / --vtt=FILE write
     subtitle cues from the timed tokens at the end (=FILE is required:
@@ -37,15 +45,16 @@ import sys
 import time
 
 
-_FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--shared-cache",
-          "--timestamps", "--confidence")
+_FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--kv-int4",
+          "--shared-cache", "--timestamps", "--confidence")
+_VALUED = ("--quantize=", "--calib=", "--rc-by-layer=", "--srt", "--vtt")
+_SQ_MODES = ("w8a8-sq", "w8a8-sq-static")
 # flags of cli/transcribe_stream.py that come with later slices of the port
 _LATER = {
     "--beam": "decode-variants", "--boost": "decode-variants",
     "--ctc": "decode-variants", "--lm": "decode-variants",
     "--lm-weight": "decode-variants", "--lm-bonus": "decode-variants",
-    "--kv-int4": "quant-tiers", "--rc-by-layer": "quant-tiers",
-    "--calib": "quant-tiers", "--trace": "utils and native-bindings",
+    "--trace": "utils and native-bindings",
     "--profile": "utils and native-bindings",
 }
 
@@ -68,6 +77,42 @@ def device_from_flags(flags: list[str]) -> str | None:
     return device
 
 
+def calibrate(params, cfg, cc, quant_mode: str, calib_path: str | None,
+              audio_path: str):
+    """SmoothQuant for --quantize=w8a8-sq[-static], as
+    cli/transcribe_stream.py does it: calibrate on the first 20 s of
+    --calib=FILE, or of the input file (stdin input needs --calib), with
+    the streaming chunk's visibility; fold, W8A8-quantize and, for the
+    static mode, freeze the activation scales. Returns the params, or None
+    after printing the error."""
+    from .config import PreprocessorConfig
+    from .frontend.preprocessor import StreamingPreprocessor
+    from .ops.smoothquant import smooth_quantize
+    from .utils.audio import read_audio_file
+
+    if calib_path is None and audio_path != "-":
+        calib_path = audio_path
+    if calib_path is None:
+        print(f"error: --quantize={quant_mode} with stdin input needs "
+              "--calib=FILE (a representative audio clip)", file=sys.stderr)
+        return None
+    calib_audio = read_audio_file(calib_path)[:20 * 16000]
+    pre = StreamingPreprocessor(
+        params.preprocessor.filterbank.float().cpu().numpy(),
+        params.preprocessor.window.float().cpu().numpy(), n_streams=1,
+        cfg=PreprocessorConfig(n_mels=cfg.n_mels), device=params.device)
+    mel = pre.process(calib_audio)
+    if mel.shape[1] == 0:
+        print(f"error: calibration clip {calib_path} too short",
+              file=sys.stderr)
+        return None
+    params = smooth_quantize(params, cfg, mel, att_chunk=cc.chunk_enc_len,
+                             static_act=quant_mode.endswith("-static"))
+    print(f"runtime quantization: {quant_mode} (calibrated on "
+          f"{mel.shape[1]} mel frames of {calib_path})", file=sys.stderr)
+    return params
+
+
 def main(argv: list[str]) -> int:
     # --stdin is positional (it IS the audio argument); map it to '-'
     argv_t = ["-" if a == "--stdin" else a for a in argv[1:]]
@@ -77,18 +122,17 @@ def main(argv: list[str]) -> int:
         print(__doc__, file=sys.stderr)
         return 1
     for f in flags:
-        name = f.split("=", 1)[0]
-        later = _LATER.get(name) or ("quant-tiers" if f.startswith(
-            "--quantize=w8a8-sq") else None)
+        later = _LATER.get(f.split("=", 1)[0])
         if later:
             print(f"error: {f} comes with a later slice of this port: the "
                   f"{later} slice", file=sys.stderr)
             return 1
-    unknown = [f for f in flags if f not in _FLAGS
-               and not f.startswith(("--quantize=", "--srt", "--vtt"))]
+    unknown = [f for f in flags
+               if f not in _FLAGS and not f.startswith(_VALUED)]
     if unknown:
         print(f"error: unsupported flag(s) {' '.join(unknown)} (this port "
-              f"takes {', '.join(_FLAGS)}, --quantize=q8_0|w8a8 and "
+              f"takes {', '.join(_FLAGS)}, --quantize=q8_0|w8a8|w8a8-sq|"
+              "w8a8-sq-static, --calib=FILE, --rc-by-layer=R,.. and "
               "--srt=FILE|--vtt=FILE)", file=sys.stderr)
         return 1
     sub_fmt, sub_out = None, None
@@ -106,10 +150,14 @@ def main(argv: list[str]) -> int:
     device = device_from_flags(flags)
     if device is None:
         return 1
-    quant_mode = None
+    quant_mode, calib_path, rc_pat = None, None, None
     for f in flags:
         if f.startswith("--quantize="):
             quant_mode = f.split("=", 1)[1]
+        elif f.startswith("--calib="):
+            calib_path = f.split("=", 1)[1]
+        elif f.startswith("--rc-by-layer="):
+            rc_pat = f.split("=", 1)[1]
 
     model_path, audio_path = args[0], args[1]
     chunk_ms = int(args[2]) if len(args) > 2 else 0
@@ -119,6 +167,8 @@ def main(argv: list[str]) -> int:
     if right_context not in (0, 1, 6, 13):
         print(f"warning: right_context {right_context} is non-standard "
               "(expected 0, 1, 6 or 13)", file=sys.stderr)
+
+    import dataclasses
 
     import numpy as np
 
@@ -130,11 +180,14 @@ def main(argv: list[str]) -> int:
         print(f"error: model file not found: {model_path}", file=sys.stderr)
         return 1
     try:
-        params, cfg, vocab = load_model(model_path, device=device)
+        # SmoothQuant folds its scales into the DENSE weights
+        params, cfg, vocab = load_model(
+            model_path, device=device,
+            keep_quantized=quant_mode not in _SQ_MODES)
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    if quant_mode:
+    if quant_mode and quant_mode not in _SQ_MODES:
         try:
             params = quantize_model_params(params, mode=quant_mode)
         except KeyError:
@@ -148,8 +201,25 @@ def main(argv: list[str]) -> int:
                      shared_cache="--shared-cache" in flags)
     if cc.kv_cache_int8:
         print("int8 K/V cache rings enabled", file=sys.stderr)
+    if "--kv-int4" in flags:
+        cc = dataclasses.replace(cc, kv_cache_int8=False, kv_cache_int4=True)
+        print("int4 K/V cache rings enabled", file=sys.stderr)
     if cc.shared_cache:
         print("shared channel cache (x-ring) enabled", file=sys.stderr)
+    if rc_pat is not None:
+        try:
+            pat = tuple(int(v) for v in rc_pat.split(","))
+            cc = dataclasses.replace(cc, att_right_context_by_layer=pat)
+            cc.rc_schedule(cfg.n_layers)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print(f"per-layer right context: {pat}", file=sys.stderr)
+    if quant_mode in _SQ_MODES:
+        params = calibrate(params, cfg, cc, quant_mode, calib_path,
+                           audio_path)
+        if params is None:
+            return 1
     print(f"config: chunk={cc.chunk_mel_frames} mel frames "
           f"({cc.latency_ms} ms), shift={cc.shift_mel_frames}, "
           f"valid_out={cc.valid_out_len}, left_context={cc.att_left_context}",

@@ -15,6 +15,15 @@
 // the context stored in the compute dtype. a = pos_bias / sqrt(Dh) + mask is
 // built by the caller.
 //
+// Ring types: the compute dtype, int8, or int4 packed two a byte (the JAX
+// package's bitcast of int4[..., Dh/2, 2] to int8: element 2i in the low
+// nibble, 2i+1 in the high one, each signed). Packed rows are read as they
+// are -- Dh/2 bytes a row, 8-byte cp.async copies where a row is not a
+// whole number of 16 bytes (Dh = 16) -- and sign-extended to f32 in the
+// shared-memory loads, so an int4 call moves half the ring bytes of an int8
+// one; no pass unpacks the ring to bytes first. Nibble values are exact in
+// either compute dtype, and the scale columns apply as for int8.
+//
 // What bounds it on the card: at full width (B = 1, H = 8, Dh = 128,
 // KV = 84, Q = 14, f32) one launch moves about 0.96 MB and does about
 // 4 MFLOP: 0.29 us at 3.35 TB/s. Neither bytes nor FLOPs bound it; latency
@@ -73,6 +82,20 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v
 }
 template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) { return (float)v; }
 
+// The packed int4 ring type: a tag, never dereferenced.
+struct nib4 {};
+
+// Bytes of n consecutive elements of a row (n even for nib4).
+template <typename R> __host__ __device__ constexpr int row_bytes(int n) {
+  return n * (int)sizeof(R);
+}
+template <> __host__ __device__ constexpr int row_bytes<nib4>(int n) { return n / 2; }
+
+// The signed nibble at bits [s, s + 4) of w, as f32.
+__device__ __forceinline__ float nibble(unsigned w, int s) {
+  return (float)((int)(w << (28 - s)) >> 28);
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -102,6 +125,13 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src)
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
@@ -116,7 +146,7 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// 16 consecutive elements at p (16-byte aligned) as f32.
+// 16 consecutive elements at p (16-byte aligned; 8 for nib4) as f32.
 template <typename T> __device__ __forceinline__ void load16(const unsigned char* p, float* v);
 template <> __device__ __forceinline__ void load16<float>(const unsigned char* p, float* v) {
 #pragma unroll
@@ -144,6 +174,14 @@ template <> __device__ __forceinline__ void load16<int8_t>(const unsigned char* 
   for (int e = 0; e < 16; ++e)
     v[e] = (float)(int8_t)((w[e >> 2] >> (8 * (e & 3))) & 0xffu);
 }
+template <> __device__ __forceinline__ void load16<nib4>(const unsigned char* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    v[e] = nibble(u.x, 4 * e);
+    v[8 + e] = nibble(u.y, 4 * e);
+  }
+}
 
 // 4 consecutive elements at p (aligned to 4 elements) as f32.
 template <typename T> __device__ __forceinline__ void load4(const unsigned char* p, float* v);
@@ -163,6 +201,19 @@ template <> __device__ __forceinline__ void load4<int8_t>(const unsigned char* p
 #pragma unroll
   for (int e = 0; e < 4; ++e) v[e] = (float)(int8_t)((u >> (8 * e)) & 0xffu);
 }
+template <> __device__ __forceinline__ void load4<nib4>(const unsigned char* p, float* v) {
+  const unsigned u = *reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = nibble(u, 4 * e);
+}
+
+// Element d of a row as f32.
+template <typename T> __device__ __forceinline__ float load1(const unsigned char* row, int d) {
+  return to_f<T>(reinterpret_cast<const T*>(row)[d]);
+}
+template <> __device__ __forceinline__ float load1<nib4>(const unsigned char* row, int d) {
+  return nibble(row[d >> 1], 4 * (d & 1));
+}
 
 // f32 dot of a compute-dtype row a and a key row b (type K) of Dh
 // elements, both staged in shared memory; four interleaved accumulators.
@@ -172,8 +223,8 @@ __device__ __forceinline__ float dot_row(const unsigned char* a,
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int d = 0; d < Dh; d += 16) {
     float x[16], y[16];
-    load16<K>(b + d * sizeof(K), y);
-    load16<T>(a + d * sizeof(T), x);
+    load16<K>(b + row_bytes<K>(d), y);
+    load16<T>(a + row_bytes<T>(d), x);
 #pragma unroll
     for (int e = 0; e < 16; ++e) acc[e & 3] = fmaf(x[e], y[e], acc[e & 3]);
   }
@@ -191,9 +242,9 @@ __device__ __forceinline__ void dot_rows2(const unsigned char* a0,
   float acc0[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
   for (int d = 0; d < Dh; d += 16) {
     float x0[16], x1[16], y[16];
-    load16<K>(b + d * sizeof(K), y);
-    load16<T>(a0 + d * sizeof(T), x0);
-    load16<T>(a1 + d * sizeof(T), x1);
+    load16<K>(b + row_bytes<K>(d), y);
+    load16<T>(a0 + row_bytes<T>(d), x0);
+    load16<T>(a1 + row_bytes<T>(d), x1);
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
       acc0[e & 3] = fmaf(x0[e], y[e], acc0[e & 3]);
@@ -206,19 +257,19 @@ __device__ __forceinline__ void dot_rows2(const unsigned char* a0,
 
 // Byte offsets of one block's shared memory. Rows are padded by 16 bytes,
 // so that threads reading 16 bytes each from different rows hit different
-// banks.
+// banks; every array starts on 16 bytes.
 struct Layout {
   int rowR, rowT;                           // padded row bytes (ring, compute)
   int kr, vr, kn, vn, qs;                   // byte offsets of the row arrays
   int sc, as, kc, vc, mrem, srem, recv;     // byte offsets of f32 arrays
   int bytes;
-  __host__ __device__ Layout(int Q, int KV, int Dh, int C, int szR, int szT) {
+  __host__ __device__ Layout(int Q, int KV, int Dh, int C, int ringRow, int szT) {
     const int S = KV + Q, nj = (S + C - 1) / C, nn = nj < Q ? nj : Q;
-    rowR = Dh * szR + 16;
+    rowR = ringRow + 16;
     rowT = Dh * szT + 16;
     int o = 0;
-    kr = o; o += nj * rowR;
-    vr = o; o += nj * rowR;
+    kr = o; o += up16(nj * rowR);
+    vr = o; o += up16(nj * rowR);
     kn = o; o += nn * rowT;
     vn = o; o += nn * rowT;
     qs = o; o += Q * rowT;
@@ -233,23 +284,27 @@ struct Layout {
   }
   // n floats, rounded up to whole 16-byte chunks
   __host__ __device__ static int f32_bytes(int n) { return ((n + 3) / 4) * 16; }
+  __host__ __device__ static int up16(int n) { return (n + 15) / 16 * 16; }
 };
 
-// T: compute dtype (float or bf16). R: ring dtype (T or int8).
+// T: compute dtype (float or bf16). R: ring type (T, int8 or nib4).
 // Grid: BH * C blocks in clusters of C. Requires Q <= MAXQ, Dh % 16 == 0,
 // Dh % (4 * C) == 0 and 16-byte aligned q_u, k_new, v_new and rings.
 template <typename T, typename R>
 __global__ void __launch_bounds__(THREADS)
 ring_attn_cluster_kernel(const T* __restrict__ q_u, const T* __restrict__ k_new,
-                         const T* __restrict__ v_new, const R* __restrict__ k_ring,
-                         const R* __restrict__ v_ring, const T* __restrict__ a,
+                         const T* __restrict__ v_new,
+                         const unsigned char* __restrict__ k_ring,
+                         const unsigned char* __restrict__ v_ring,
+                         const T* __restrict__ a,
                          const float* __restrict__ k_cols,
                          const float* __restrict__ v_cols, T* __restrict__ out,
                          int layer, int BH, int Q, int KV, int Dh, int C,
                          float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Layout L(Q, KV, Dh, C, sizeof(R), sizeof(T));
+  const int RB = row_bytes<R>(Dh);                  // bytes of a ring row
+  const Layout L(Q, KV, Dh, C, RB, sizeof(T));
   const int S = KV + Q;
   const int rank = (int)cluster.block_rank();
   const int bh = blockIdx.x / C;
@@ -259,7 +314,7 @@ ring_attn_cluster_kernel(const T* __restrict__ q_u, const T* __restrict__ k_new,
   const int jn0 = j0 + nr - KV;                     // first new key's index
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t qoff = (size_t)bh * Q * Dh;                  // q/k/v_new/out
-  const size_t roff = ((size_t)layer * BH + bh) * KV * Dh;  // this layer's ring
+  const size_t roff = ((size_t)layer * BH + bh) * KV;   // this layer's ring rows
   const size_t coff = (size_t)bh * KV;                      // k/v_cols
   const size_t aoff = (size_t)bh * Q * S;
 
@@ -279,15 +334,23 @@ ring_attn_cluster_kernel(const T* __restrict__ q_u, const T* __restrict__ k_new,
 
   // every load of the block, issued at once
   {
-    const int cr = Dh * (int)sizeof(R) / 16, ct = Dh * (int)sizeof(T) / 16;
-    const unsigned char* kg = reinterpret_cast<const unsigned char*>(
-        k_ring + roff + (size_t)j0 * Dh);
-    const unsigned char* vg = reinterpret_cast<const unsigned char*>(
-        v_ring + roff + (size_t)j0 * Dh);
-    for (int c = tid; c < nr * cr; c += THREADS) {
-      const int row = c / cr, col = (c % cr) * 16;
-      cp_async16(kr + row * L.rowR + col, kg + (size_t)c * 16);
-      cp_async16(vr + row * L.rowR + col, vg + (size_t)c * 16);
+    // ring rows in 16-byte copies, or 8-byte ones where a row is not a
+    // whole number of 16 bytes (packed int4 at Dh = 16)
+    const int CB = RB % 16 ? 8 : 16, cr = RB / CB, ct = Dh * (int)sizeof(T) / 16;
+    const unsigned char* kg = k_ring + (roff + j0) * RB;
+    const unsigned char* vg = v_ring + (roff + j0) * RB;
+    if (CB == 16) {
+      for (int c = tid; c < nr * cr; c += THREADS) {
+        const int row = c / cr, col = (c % cr) * 16;
+        cp_async16(kr + row * L.rowR + col, kg + (size_t)c * 16);
+        cp_async16(vr + row * L.rowR + col, vg + (size_t)c * 16);
+      }
+    } else {
+      for (int c = tid; c < nr * cr; c += THREADS) {
+        const int row = c / cr, col = (c % cr) * 8;
+        cp_async8(kr + row * L.rowR + col, kg + (size_t)c * 8);
+        cp_async8(vr + row * L.rowR + col, vg + (size_t)c * 8);
+      }
     }
     const unsigned char* kng = reinterpret_cast<const unsigned char*>(
         k_new + qoff + (size_t)max(jn0, 0) * Dh);
@@ -388,8 +451,8 @@ ring_attn_cluster_kernel(const T* __restrict__ q_u, const T* __restrict__ k_new,
       float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
       for (int jj = 0; jj < nj; ++jj) {
         float v[4];
-        if (jj < nr) load4<R>(vr + jj * L.rowR + d * sizeof(R), v);
-        else load4<T>(vn + (jj - nr) * L.rowT + d * sizeof(T), v);
+        if (jj < nr) load4<R>(vr + jj * L.rowR + row_bytes<R>(d), v);
+        else load4<T>(vn + (jj - nr) * L.rowT + row_bytes<T>(d), v);
         const float x0 = w0[jj], x1 = w1[jj];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -410,9 +473,9 @@ ring_attn_cluster_kernel(const T* __restrict__ q_u, const T* __restrict__ k_new,
       const float* wr = sc + i * nj;
       float acc = 0.f;
       for (int jj = 0; jj < nr; ++jj)
-        acc = fmaf(wr[jj], to_f<R>(reinterpret_cast<const R*>(vr + jj * L.rowR)[d]), acc);
+        acc = fmaf(wr[jj], load1<R>(vr + jj * L.rowR, d), acc);
       for (int jj = nr; jj < nj; ++jj)
-        acc = fmaf(wr[jj], to_f<T>(reinterpret_cast<const T*>(vn + (jj - nr) * L.rowT)[d]), acc);
+        acc = fmaf(wr[jj], load1<T>(vn + (jj - nr) * L.rowT, d), acc);
       *cluster.map_shared_rank(recv + (rank * Q + i) * DC + d % DC, d / DC) = acc;
     }
   }
@@ -433,7 +496,7 @@ int launch(const void* q_u, const void* k_new, const void* v_new,
            const void* k_cols, const void* v_cols, void* out, int layer,
            int BH, int Q, int KV, int Dh, int C, float scale,
            cudaStream_t stream) {
-  const Layout L(Q, KV, Dh, C, sizeof(R), sizeof(T));
+  const Layout L(Q, KV, Dh, C, row_bytes<R>(Dh), sizeof(T));
   if (L.bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
   static int allowed = 48 * 1024;   // per instantiation
   if (L.bytes > allowed) {
@@ -458,7 +521,8 @@ int launch(const void* q_u, const void* k_new, const void* v_new,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, ring_attn_cluster_kernel<T, R>, static_cast<const T*>(q_u),
       static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<const R*>(k_ring), static_cast<const R*>(v_ring),
+      static_cast<const unsigned char*>(k_ring),
+      static_cast<const unsigned char*>(v_ring),
       static_cast<const T*>(a), static_cast<const float*>(k_cols),
       static_cast<const float*>(v_cols), static_cast<T*>(out), layer, BH, Q,
       KV, Dh, C, scale);
@@ -473,35 +537,38 @@ extern "C" {
 int ring_attn_max_q() { return MAXQ; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q_u, k_new, v_new, a, out).
-// ring_int8: 0 = rings in the compute dtype, 1 = int8 rings.
+// ring_type: 0 = rings in the compute dtype, 1 = int8 rings, 2 = int4 rings
+// packed two a byte ([L,B,H,KV,Dh/2] bytes, element 2i in the low nibble).
 // Layouts (row-major, contiguous): q_u/k_new/v_new/out [B,H,Q,Dh];
-// rings [L,B,H,KV,Dh]; a [B,H,Q,KV+Q]; k_cols/v_cols f32 [B,H,KV].
-// BH = B*H; Q <= 16; Dh a multiple of 16 and of 4 * the cluster size C
-// (1..8); q_u, k_new, v_new and the rings 16-byte aligned. Launches BH
-// clusters of C blocks. Returns the launch's CUDA error code (0 on success).
-int ring_attn_launch(int dtype, int ring_int8, const void* q_u,
+// rings [L,B,H,KV,Dh] (Dh/2 bytes a row when packed); a [B,H,Q,KV+Q];
+// k_cols/v_cols f32 [B,H,KV]. BH = B*H; Q <= 16; Dh a multiple of 16 and of
+// 4 * the cluster size C (1..8); q_u, k_new, v_new and the rings 16-byte
+// aligned. Launches BH clusters of C blocks. Returns the launch's CUDA
+// error code (0 on success).
+int ring_attn_launch(int dtype, int ring_type, const void* q_u,
                      const void* k_new, const void* v_new, const void* k_ring,
                      const void* v_ring, const void* a, const void* k_cols,
                      const void* v_cols, void* out, int layer, int BH, int Q,
                      int KV, int Dh, int C, float scale, void* stream) {
   if (Q <= 0 || Q > MAXQ || KV <= 0 || BH <= 0 || Dh <= 0 || Dh % 16 ||
-      C < 1 || C > MAXC || Dh % (4 * C) || layer < 0)
+      C < 1 || C > MAXC || Dh % (4 * C) || layer < 0 || ring_type < 0 ||
+      ring_type > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && !ring_int8)
-    return launch<float, float>(q_u, k_new, v_new, k_ring, v_ring, a, k_cols,
-                                v_cols, out, layer, BH, Q, KV, Dh, C, scale, s);
-  if (dtype == 0)
-    return launch<float, int8_t>(q_u, k_new, v_new, k_ring, v_ring, a, k_cols,
-                                 v_cols, out, layer, BH, Q, KV, Dh, C, scale, s);
-  if (dtype == 1 && !ring_int8)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q_u, k_new, v_new, k_ring,
-                                                v_ring, a, k_cols, v_cols, out,
-                                                layer, BH, Q, KV, Dh, C, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, int8_t>(q_u, k_new, v_new, k_ring, v_ring, a,
-                                         k_cols, v_cols, out, layer, BH, Q, KV,
-                                         Dh, C, scale, s);
+#define RING_LAUNCH(T, R)                                                      \
+  launch<T, R>(q_u, k_new, v_new, k_ring, v_ring, a, k_cols, v_cols, out,     \
+               layer, BH, Q, KV, Dh, C, scale, s)
+  if (dtype == 0) {
+    if (ring_type == 0) return RING_LAUNCH(float, float);
+    if (ring_type == 1) return RING_LAUNCH(float, int8_t);
+    return RING_LAUNCH(float, nib4);
+  }
+  if (dtype == 1) {
+    if (ring_type == 0) return RING_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+    if (ring_type == 1) return RING_LAUNCH(__nv_bfloat16, int8_t);
+    return RING_LAUNCH(__nv_bfloat16, nib4);
+  }
+#undef RING_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,17 @@
 // (the scale becomes NaN and so does every output of the row). The integer
 // dot is exact, so the kernel equals its plain version bit for bit.
 //
+// Static mode (SmoothQuant's calibrated activation scale, the JAX package's
+// qmm_w8a8 with act_scale, nemotron_tpu/ops/quant.py:137-148, which its
+// Pallas kernel refuses): a scalar s read from device memory replaces the
+// amax stage, xq = clip(rint(x / s), -127, 127) with x / s correctly
+// rounded (the fast product x * f32(1/s) is taken only where it cannot
+// round otherwise, as below, and clipped), no K grouping: the int32
+// partials of every block are added as int32 (exact: |acc| <= 127 * 127 *
+// 4096 < 2^31; f32 partials would not be above 2^24), and
+// out = f32(acc) * (s * col_scale[n]), the product in parentheses first.
+// One launch a call, as the dynamic mode.
+//
 // What bounds it on the card: the streaming step calls it with a skinny M
 // (8..112 rows for 8 streams; 568..672 for the shared x-ring's K/V
 // recompute). One layer's ten matmuls read 24,117,248 weight bytes: 7.2 us
@@ -151,21 +162,25 @@ __device__ __forceinline__ unsigned clip8(float r) {
 
 // The quantized bytes of 4 values of a row with a finite scale s, packed:
 // rint(v / s) with v / s correctly rounded, from y = v * rs (rs =
-// f32(1 / s)). |v| <= amax, so |v / s| <= 127 * (1 + 2^-22): the integer
-// lies in [-127, 127] with no clip, and y lies within 2.3e-5 of the
-// rounded quotient, so where y is at least 1e-3 from a half-integer both
-// round to the same integer. Returns whether any of the 4 is closer than
-// that: the caller then takes exact4 (as for every chunk of a row whose s
-// is NaN or infinite). Rounding adds and subtracts 1.5 * 2^23, which
-// leaves the integer in the low bits of the sum: no conversion instruction
-// (they run at an eighth of the FMA rate).
+// f32(1 / s)). Dynamic mode: |v| <= amax, so |v / s| <= 127 * (1 + 2^-22):
+// the integer lies in [-127, 127] with no clip, and y lies within 2.3e-5
+// of the rounded quotient, so where y is at least 1e-3 from a half-integer
+// both round to the same integer. Static mode (CLIP): y is first clipped
+// to [-127, 127]; where |v / s| >= 127 either way gives 127, and below it
+// the same bound holds. Returns whether any of the 4 is closer than that:
+// the caller then takes exact4 (as for every chunk of a row whose s is NaN
+// or infinite). Rounding adds and subtracts 1.5 * 2^23, which leaves the
+// integer in the low bits of the sum: no conversion instruction (they run
+// at an eighth of the FMA rate).
+template <bool CLIP>
 __device__ __forceinline__ bool fast4(const float* v, float rs, unsigned* packed) {
   constexpr float MAGIC = 12582912.0f;   // 1.5 * 2^23: RNE to an integer
   bool near = false;
   unsigned b[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const float y = __fmul_rn(v[c], rs);
+    float y = __fmul_rn(v[c], rs);
+    if (CLIP) y = fminf(fmaxf(y, -127.f), 127.f);
     const float t = __fadd_rn(y, MAGIC);
     near |= fabsf(__fsub_rn(y, __fsub_rn(t, MAGIC))) > 0.499f;
     b[c] = __float_as_uint(t);           // low byte: rint(y) as an int8
@@ -180,6 +195,37 @@ __device__ __forceinline__ unsigned exact4(const float* v, float s) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) p |= clip8(rintf(__fdiv_rn(v[c], s))) << (8 * c);
   return p;
+}
+
+// One thread's chunks of a row of x (cpt chunks of 4 from chunk j0 on,
+// cyclically) quantized with scale sc into qr: a loop without branches
+// over the chunks, then the correctly rounded divide for the few chunks
+// with a quotient near a half-integer (bit j % 64 of `near` marks chunk j).
+// CLIP: the static mode's clip of quotients beyond 127.
+template <typename T, bool CLIP>
+__device__ __forceinline__ void quantize_row(const T* xr, int8_t* qr, float sc,
+                                             int cpt, int j0) {
+  const float rs = __frcp_rn(sc);
+  unsigned long long near = isfinite(sc) ? 0ull : ~0ull;
+  int j = j0;
+#pragma unroll 4
+  for (int n = 0; n < cpt; ++n) {
+    float v[4];
+    load4<T>(xr + j * 4, v);
+    unsigned packed;
+    near |= (unsigned long long)fast4<CLIP>(v, rs, &packed) << (j & 63);
+    *reinterpret_cast<unsigned*>(qr + j * 4) = packed;
+    j = j + 1 == cpt ? 0 : j + 1;
+  }
+  while (near) {
+    const int b = __ffsll((long long)near) - 1;
+    near &= near - 1;
+    for (int jj = b; jj < cpt; jj += 64) {
+      float v[4];
+      load4<T>(xr + jj * 4, v);
+      *reinterpret_cast<unsigned*>(qr + jj * 4) = exact4(v, sc);
+    }
+  }
 }
 
 // Byte offsets of one block's shared memory.
@@ -230,11 +276,13 @@ __device__ __forceinline__ void load_x_tile(const T* __restrict__ x, T* xs, int 
 // Grid: ceil(N / BN) * C blocks in clusters of C along K, times
 // ceil(M / BM) along y (one M tile a cluster). Block r of a cluster takes
 // K rows [r*ks, (r+1)*ks) (ks = K / C, padded to ksp, a multiple of 32,
-// with zeros), all inside group r / (C / n_groups).
+// with zeros), all inside group r / (C / n_groups). act_scale: null for
+// the dynamic mode, else the static mode's scalar s in device memory.
 template <typename T, int BM, int BN>
 __global__ void __launch_bounds__(threads_of<BM>())
 w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
                            const float* __restrict__ col_scale,
+                           const float* __restrict__ act_scale,
                            T* __restrict__ out, int M, int K, int N, int C,
                            int ks, int ksp, int n_groups, int vec_x, int vec_w) {
   constexpr int THREADS = threads_of<BM>();
@@ -265,6 +313,7 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
   float* scale_sh = reinterpret_cast<float*>(smem + L.scale);
   float* cs_sh = reinterpret_cast<float*>(smem + L.cs);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool stat = act_scale != nullptr;
   // the x passes: thread (xm, seg) takes chunks [seg*cpt, (seg+1)*cpt) of
   // 4 elements of row xm, starting at chunk j0, which spreads the 32 lanes
   // of a warp evenly over the banks
@@ -299,8 +348,8 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
   cp_async_wait_all();
   __syncthreads();
   // 1. row amax over this block's slice, pushed into every block of the
-  //    cluster
-  {
+  //    cluster (dynamic mode)
+  if (!stat) {
     unsigned amax = 0;   // |x| >= 0, so the bit patterns order as the values
     const T* xr = xs + xm * ksp + seg * cpt * 4;
     int j = j0;
@@ -340,8 +389,14 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
     }
   }
   cluster.sync();
-  // 2. each group's scale per row: the max over the group's blocks
+  // 2. each group's scale per row: the max over the group's blocks, or
+  //    the static scale
+  const float s_static = stat ? __ldg(act_scale) : 0.f;
   for (int i = tid; i < n_groups * BM; i += THREADS) {
+    if (stat) {
+      scale_sh[i] = s_static;
+      continue;
+    }
     const int t = i / BM, m = i % BM;
     unsigned a = 0;
     for (int r = t * per_group; r < (t + 1) * per_group; ++r)
@@ -351,35 +406,13 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
     scale_sh[i] = __fmul_rn(floored, INV_QMAX);
   }
   __syncthreads();
-  // 3. quantize this block's slice into xq [BM][row]: a loop without
-  //    branches over the chunks, then the correctly rounded divide for
-  //    the few chunks with a quotient near a half-integer (bit j % 64 of
-  //    `near` marks chunk j)
+  // 3. quantize this block's slice into xq [BM][row]
   {
     const float sc = scale_sh[grp * BM + xm];
-    const float rs = __frcp_rn(sc);
     const T* xr = xs + xm * ksp + seg * cpt * 4;
     int8_t* qr = xq + xm * row + seg * cpt * 4;
-    unsigned long long near = isfinite(sc) ? 0ull : ~0ull;
-    int j = j0;
-#pragma unroll 4
-    for (int n = 0; n < cpt; ++n) {
-      float v[4];
-      load4<T>(xr + j * 4, v);
-      unsigned packed;
-      near |= (unsigned long long)fast4(v, rs, &packed) << (j & 63);
-      *reinterpret_cast<unsigned*>(qr + j * 4) = packed;
-      j = j + 1 == cpt ? 0 : j + 1;
-    }
-    while (near) {
-      const int b = __ffsll((long long)near) - 1;
-      near &= near - 1;
-      for (int jj = b; jj < cpt; jj += 64) {
-        float v[4];
-        load4<T>(xr + jj * 4, v);
-        *reinterpret_cast<unsigned*>(qr + jj * 4) = exact4(v, sc);
-      }
-    }
+    if (stat) quantize_row<T, true>(xr, qr, sc, cpt, j0);
+    else quantize_row<T, false>(xr, qr, sc, cpt, j0);
   }
   __syncthreads();
   // 4. int32 products on the tensor cores: warp (wr, wc) takes rows
@@ -422,10 +455,19 @@ w8a8_matmul_cluster_kernel(const T* __restrict__ x, const int8_t* __restrict__ q
     }
   cluster.sync();
   // 6. this block's columns: each group's partials (int32, exact), then
-  //    the f32 group loop in order
+  //    the f32 group loop in order; static mode: every block's partials
+  //    as one int32 sum, then f32(acc) * (s * col_scale)
   for (int i = tid; i < BM * cw; i += THREADS) {
     const int m = i / cw, cc = i % cw, c = rank * cw + cc;
-    if (c < BN && n0 + c < N && m0 + m < M) {
+    if (stat && c < BN && n0 + c < N && m0 + m < M) {
+      const int* pr = recv + m * cw + cc;
+      int p = 0;
+#pragma unroll
+      for (int r = 0; r < MAXC; ++r)
+        if (r < C) p += pr[r * BM * cw];
+      out[(size_t)(m0 + m) * N + n0 + c] =
+          from_f<T>(__fmul_rn((float)p, __fmul_rn(s_static, cs_sh[cc])));
+    } else if (c < BN && n0 + c < N && m0 + m < M) {
       float a = 0.f;
       for (int t = 0; t < n_groups; ++t) {
         const int* pr = recv + (t * per_group * BM + m) * cw + cc;
@@ -457,9 +499,9 @@ struct Split {
 };
 
 template <typename T, int BM, int BN>
-int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
-                  int K, int N, int C, const Split& s, int vec_x, int vec_w,
-                  cudaStream_t stream) {
+int launch_kernel(const T* x, const int8_t* q, const float* cs, const float* as,
+                  T* out, int M, int K, int N, int C, const Split& s, int vec_x,
+                  int vec_w, cudaStream_t stream) {
   const Layout L(BM, BN, s.ksp, C, s.n_groups, sizeof(T));
   if (L.bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
   static int allowed = 48 * 1024;   // per instantiation
@@ -483,7 +525,7 @@ int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, w8a8_matmul_cluster_kernel<T, BM, BN>, x, q, cs, out, M, K, N, C,
+      &cfg, w8a8_matmul_cluster_kernel<T, BM, BN>, x, q, cs, as, out, M, K, N, C,
       s.ks, s.ksp, s.n_groups, vec_x, vec_w);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -493,26 +535,28 @@ int launch_kernel(const T* x, const int8_t* q, const float* cs, T* out, int M,
 // tiles were slower); halved while the block's shared memory would not
 // let two blocks share an SM.
 template <typename T, int BN>
-int launch_bm(const T* x, const int8_t* q, const float* cs, T* out, int M,
-              int K, int N, int C, const Split& s, int vx, int vw, cudaStream_t st) {
+int launch_bm(const T* x, const int8_t* q, const float* cs, const float* as,
+              T* out, int M, int K, int N, int C, const Split& s, int vx, int vw,
+              cudaStream_t st) {
   int bm = M <= 16 ? 16 : M <= 32 ? 32 : 64;
   while (bm > 16 && Layout(bm, BN, s.ksp, C, s.n_groups, sizeof(T)).bytes > TWO_PER_SM)
     bm /= 2;
-  if (bm == 16) return launch_kernel<T, 16, BN>(x, q, cs, out, M, K, N, C, s, vx, vw, st);
-  if (bm == 32) return launch_kernel<T, 32, BN>(x, q, cs, out, M, K, N, C, s, vx, vw, st);
-  return launch_kernel<T, 64, BN>(x, q, cs, out, M, K, N, C, s, vx, vw, st);
+  if (bm == 16) return launch_kernel<T, 16, BN>(x, q, cs, as, out, M, K, N, C, s, vx, vw, st);
+  if (bm == 32) return launch_kernel<T, 32, BN>(x, q, cs, as, out, M, K, N, C, s, vx, vw, st);
+  return launch_kernel<T, 64, BN>(x, q, cs, as, out, M, K, N, C, s, vx, vw, st);
 }
 
 template <typename T>
-int launch(const void* x, const void* q, const void* cs, void* out, int M,
-           int K, int N, int bn, int C, const Split& s, int vx, int vw,
-           cudaStream_t st) {
+int launch(const void* x, const void* q, const void* cs, const void* as,
+           void* out, int M, int K, int N, int bn, int C, const Split& s, int vx,
+           int vw, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const int8_t* qt = static_cast<const int8_t*>(q);
   const float* ct = static_cast<const float*>(cs);
+  const float* at = static_cast<const float*>(as);
   T* ot = static_cast<T*>(out);
-  if (bn == 32) return launch_bm<T, 32>(xt, qt, ct, ot, M, K, N, C, s, vx, vw, st);
-  return launch_bm<T, 64>(xt, qt, ct, ot, M, K, N, C, s, vx, vw, st);
+  if (bn == 32) return launch_bm<T, 32>(xt, qt, ct, at, ot, M, K, N, C, s, vx, vw, st);
+  return launch_bm<T, 64>(xt, qt, ct, at, ot, M, K, N, C, s, vx, vw, st);
 }
 
 }  // namespace
@@ -520,7 +564,8 @@ int launch(const void* x, const void* q, const void* cs, void* out, int M,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x and out). q int8 [K, N], col_scale
-// f32 [N], all row-major and contiguous; G the K-group width
+// f32 [N], all row-major and contiguous; act_scale: null (dynamic mode) or
+// a pointer to the static mode's f32 scale on the device; G the K-group width
 // (w8a8_k_tile(K)); bn: columns of a cluster's tile (32 or 64); C: blocks
 // of a cluster along K (1..8, a multiple of K / G, each block's K slice a
 // multiple of 32 inside one group unless C = 1). vec_x = 1 when
@@ -529,16 +574,18 @@ extern "C" {
 // clusters of C blocks for each M tile. Allocates nothing. Returns the
 // launch's CUDA error code (0 on success).
 int w8a8_matmul_launch(int dtype, const void* x, const void* q,
-                       const void* col_scale, void* out, int M, int K, int N,
-                       int G, int bn, int C, int vec_x, int vec_w, void* stream) {
+                       const void* col_scale, const void* act_scale, void* out,
+                       int M, int K, int N, int G, int bn, int C, int vec_x,
+                       int vec_w, void* stream) {
   const Split s(M, K, N, G, bn, C);
   if (!s.ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, q, col_scale, out, M, K, N, bn, C, s, vec_x, vec_w, st);
+    return launch<float>(x, q, col_scale, act_scale, out, M, K, N, bn, C, s, vec_x,
+                         vec_w, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, q, col_scale, out, M, K, N, bn, C, s, vec_x,
-                                 vec_w, st);
+    return launch<__nv_bfloat16>(x, q, col_scale, act_scale, out, M, K, N, bn, C,
+                                 s, vec_x, vec_w, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -73,6 +73,16 @@ class StreamingPreprocessor:
             self.last_sample[stream] = 0.0
             self.residue[stream, :] = 0.0
 
+    def state_dict(self) -> dict:
+        """The DSP state, for a session snapshot (numpy copies)."""
+        return {"last_sample": self.last_sample.copy(),
+                "residue": self.residue.copy()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.last_sample = np.asarray(state["last_sample"],
+                                      np.float32).copy()
+        self.residue = np.asarray(state["residue"], np.float32).copy()
+
     def n_frames_for(self, n_new_samples: int) -> int:
         avail = self.residue.shape[1] + n_new_samples
         if avail < self.cfg.n_fft:

@@ -11,10 +11,14 @@ visibility, by chunks. The streaming step:
     [L, B, H, KV, Dh]; one segment is rewritten per chunk (the reference's
     concat+keep-last-70 graph rewrites the full window every chunk,
     src/nemo-stream.cpp:465-484).
-  - The rings are dense in the compute dtype, or int8 with one scale per
-    (layer, stream, head, segment) (`cc.kv_cache_int8`), or one shared
-    x-ring of post-norm activations from which each layer recomputes its
-    K/V (`cc.shared_cache`, dense or int8).
+  - The rings are dense in the compute dtype, or int8 or int4 (packed two
+    a byte) with one scale per (layer, stream, head, segment)
+    (`cc.kv_cache_int8`, `cc.kv_cache_int4`), or one shared x-ring of
+    post-norm activations from which each layer recomputes its K/V
+    (`cc.shared_cache`, dense or int8).
+  - Per-layer right context (`cc.att_right_context_by_layer`) and the
+    strict intra-chunk lookahead limit (`cc.strict_right_context`) are
+    additive masks on the attention's bias, so the kernel is unchanged.
   - Cold-cache validity masking is data (an additive mask computed from
     `valid_len`), not shape.
   - Position embeddings are projected through linear_pos once per session.
@@ -36,25 +40,30 @@ from ..ops.conv import conformer_conv_module, conv_subsampling
 from ..ops.quant import qmm
 from ..ops.rel_attention import (pos_emb_descending, project_pos,
                                  rel_pos_mha, rel_pos_mha_ring_fused)
+from ..ops.ring_attn_kernel import pack_int4
 
 
-def _conformer_block(lp, x, attention, conv_cache):
+def _conformer_block(lp, x, attention, conv_cache, ln_capture=None):
     """The residual structure of one conformer layer (reference
     src/nemo-ggml.cpp:768-813) around `attention(norm_attn) -> (out, new_k,
-    new_v)`. Returns (y, new_k, new_v, new_conv_cache, norm_attn)."""
+    new_v)`. Returns (y, new_k, new_v, new_conv_cache, norm_attn).
+    ln_capture: a dict that receives the four LayerNorm outputs that feed
+    quantized matmuls, by site name (what SmoothQuant calibrates on)."""
+    cap = {} if ln_capture is None else ln_capture
     r = x
-    cur = layer_norm(r, lp.norm_ff1_w, lp.norm_ff1_b)
+    cur = cap["norm_ff1"] = layer_norm(r, lp.norm_ff1_w, lp.norm_ff1_b)
     r = r + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2)
 
-    norm_attn = layer_norm(r, lp.norm_attn_w, lp.norm_attn_b)
+    norm_attn = cap["norm_attn"] = layer_norm(r, lp.norm_attn_w,
+                                              lp.norm_attn_b)
     attn, new_k, new_v = attention(norm_attn)
     r = r + attn
 
-    cur = layer_norm(r, lp.norm_conv_w, lp.norm_conv_b)
+    cur = cap["norm_conv"] = layer_norm(r, lp.norm_conv_w, lp.norm_conv_b)
     conv, new_conv = conformer_conv_module(lp, cur, conv_cache)
     r = r + conv
 
-    cur = layer_norm(r, lp.norm_ff2_w, lp.norm_ff2_b)
+    cur = cap["norm_ff2"] = layer_norm(r, lp.norm_ff2_w, lp.norm_ff2_b)
     r = r + 0.5 * ffn(cur, lp.ffn2_w1, lp.ffn2_w2)
     return (layer_norm(r, lp.norm_final_w, lp.norm_final_b), new_k, new_v,
             new_conv, norm_attn)
@@ -72,11 +81,12 @@ def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
 
 
 def conformer_layer_batch(lp, x, pos_heads, mask=None, *, n_heads: int,
-                          d_head: int) -> torch.Tensor:
+                          d_head: int, ln_capture=None) -> torch.Tensor:
     """One conformer layer over whole utterances (no caches; the depthwise
-    conv zero-pads its causal history): x [B, T', D] -> [B, T', D]."""
+    conv zero-pads its causal history): x [B, T', D] -> [B, T', D].
+    ln_capture: see _conformer_block."""
     return _conformer_block(lp, x, lambda a: rel_pos_mha(
-        lp, a, pos_heads, n_heads, d_head, mask=mask), None)[0]
+        lp, a, pos_heads, n_heads, d_head, mask=mask), None, ln_capture)[0]
 
 
 def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
@@ -97,6 +107,22 @@ def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
     att_chunk (encoder frames): streaming-equivalent visibility -- frame i
     attends to its own chunk [c*C, (c+1)*C) and the `att_left` frames
     before the chunk's start, as the cache-aware streaming step sees it."""
+    x, pos, mask = _batch_inputs(params, cfg, mel, enc_lengths, att_chunk,
+                                 att_left)
+    for l in range(cfg.n_layers):
+        lp = params.layers.layer(l)
+        pos_heads = project_pos(lp.attn_pos_w, pos, cfg.n_heads, cfg.d_head)
+        x = conformer_layer_batch(lp, x, pos_heads, mask,
+                                  n_heads=cfg.n_heads, d_head=cfg.d_head)
+    return x
+
+
+def _batch_inputs(params, cfg: ModelConfig, mel: torch.Tensor,
+                  enc_lengths=None, att_chunk: int | None = None,
+                  att_left: int = 70):
+    """The full-utterance encoder's layer inputs: (subsampled x [B, T', D],
+    position table [2T'-1, D] in x's dtype, additive f32 mask or None);
+    see encode_batch."""
     dev = mel.device
     x = conv_subsampling(params.subsampling, mel)
     Tp = x.shape[1]
@@ -115,13 +141,7 @@ def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
                & (j[None, :] >= start[:, None] - att_left))        # [T', T']
         cmask = torch.where(vis, 0.0, -1e9).to(f32)[None, None]
         mask = cmask if mask is None else mask + cmask
-
-    for l in range(cfg.n_layers):
-        lp = params.layers.layer(l)
-        pos_heads = project_pos(lp.attn_pos_w, pos, cfg.n_heads, cfg.d_head)
-        x = conformer_layer_batch(lp, x, pos_heads, mask,
-                                  n_heads=cfg.n_heads, d_head=cfg.d_head)
-    return x
+    return x, pos, mask
 
 
 @dataclasses.dataclass
@@ -135,7 +155,9 @@ class EncoderState:
     host-side cache_valid_len (src/nemo-stream.h:239)."""
 
     k_cache: Any      # [L, B, H, KV, Dh] ring (head-major), compute dtype,
-    v_cache: Any      #   or int8 (cc.kv_cache_int8). cc.shared_cache:
+    v_cache: Any      #   or int8 (cc.kv_cache_int8); [L, B, H, KV, Dh/2]
+    #                     int8 nibble pairs (cc.kv_cache_int4, element 2i
+    #                     in the low nibble). cc.shared_cache:
     #                     k_cache is the x-ring [L, B, 1, KV, D] of the
     #                     attention's post-norm inputs and v_cache an empty
     #                     [L, B, 1, KV, 0] placeholder (the JAX layout).
@@ -146,29 +168,23 @@ class EncoderState:
     phase: Any        # [B] int32 (next ring segment to write)
 
 
-def _refuse_int4(cc: CacheConfig) -> None:
-    if cc.kv_cache_int4:
-        raise NotImplementedError("int4 K/V rings come with a later slice of "
-                                  "the port (how nibble-packed rings reach a "
-                                  "hand-written kernel is still open)")
-
-
 def init_encoder_state(cfg: ModelConfig, cc: CacheConfig, batch: int,
                        dtype: torch.dtype, device) -> EncoderState:
     """Zeroed caches for `batch` streams on `device`: the split ring in the
-    compute dtype (f32 or bf16) or in int8, or the shared x-ring."""
+    compute dtype (f32 or bf16), in int8 or in packed int4 (Dh/2 bytes a
+    row), or the shared x-ring."""
     kv = cc.kv_len
     if kv % cc.chunk_enc_len:
         raise ValueError(f"kv_len {kv} must be a multiple of chunk_enc_len "
                          f"{cc.chunk_enc_len} for the ring cache")
-    _refuse_int4(cc)
     L, D, H, DH = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head
     n_seg = kv // cc.chunk_enc_len
-    ring_dtype = torch.int8 if cc.kv_cache_int8 else dtype
+    ring_dtype = torch.int8 if cc.kv_quant_max is not None else dtype
     if cc.shared_cache:
         k_shape, v_shape, heads = (L, batch, 1, kv, D), (L, batch, 1, kv, 0), 1
     else:
-        k_shape = v_shape = (L, batch, H, kv, DH)
+        d_ring = DH // 2 if cc.kv_cache_int4 else DH
+        k_shape = v_shape = (L, batch, H, kv, d_ring)
         heads = H
     kw = dict(device=device)
     return EncoderState(
@@ -196,15 +212,17 @@ def precompute_pos_heads(params, cfg: ModelConfig, cc: CacheConfig,
                         for l in range(cfg.n_layers)])
 
 
-def _quantize_segment(seg: torch.Tensor, qmax: int):
-    """One new ring segment [L, B, H, Q, Dh] -> (int8 values, f32 scales
-    [L, B, H]): one scale per (layer, stream, head), amax / qmax with a
-    divide, as the JAX package's quant_seg (encoder.py:478-494)."""
+def _quantize_segment(seg: torch.Tensor, qmax: int, int4: bool):
+    """One new ring segment [L, B, H, Q, Dh] -> (int8 values, or int4 pairs
+    packed into [L, B, H, Q, Dh/2] bytes; f32 scales [L, B, H]): one scale
+    per (layer, stream, head), amax / qmax with a divide, as the JAX
+    package's quant_seg (encoder.py:478-494)."""
     f32 = seg.to(torch.float32)
     amax = f32.abs().amax(dim=(-2, -1))
     sc = torch.clamp_min(amax, 1e-12) / qmax
-    q = torch.clamp(torch.round(f32 / sc[..., None, None]), -qmax, qmax)
-    return q.to(torch.int8), sc
+    q = torch.clamp(torch.round(f32 / sc[..., None, None]), -qmax,
+                    qmax).to(torch.int8)
+    return (pack_int4(q) if int4 else q), sc
 
 
 def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
@@ -225,11 +243,13 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     step_mask [B] bool (continuous batching): streams marked False do not
     advance. Their segment bytes, scales, conv cache, valid_len and phase
     come out bit-equal to what went in, and their rows of enc_out are to
-    be discarded (the layers still run over every row)."""
-    if cc.rc_schedule(cfg.n_layers) is not None or cc.strict_right_context:
-        raise NotImplementedError("per-layer and strict right context come "
-                                  "with a later slice of the port")
-    _refuse_int4(cc)
+    be discarded (the layers still run over every row).
+
+    Right context: cc.strict_right_context masks keys more than R frames
+    ahead of each query inside the chunk, and cc.att_right_context_by_layer
+    gives each layer its own limit (NeMo's per-layer-group lookahead), both
+    as the JAX package builds them (encoder.py:335-339, 383-386); the
+    masks ride the attention's additive bias into the kernel."""
     dev = mel_chunk.device
     x = conv_subsampling(params.subsampling, mel_chunk)
     x = x[:, cc.drop_extra_pre_encoded:, :]
@@ -276,8 +296,23 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
                        torch.ones((B, Q), dtype=torch.bool, device=dev)], -1)
     mask = torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None, None, :]
 
+    # distance from query i to each key: i - o_j + Q * age for ring slots,
+    # i - i' for the current chunk; a key more than R ahead is at d < -R
+    i = torch.arange(Q, device=dev)
+    d = torch.cat([i[:, None] - o_j[None, :] + Q * age[None, :],
+                   i[:, None] - i[None, :]], dim=-1)              # [Q, kv+Q]
+
+    def lookahead(r: int) -> torch.Tensor:
+        return torch.where(d < -r, -1e9, 0.0).to(torch.float32)[None, None]
+
+    if cc.strict_right_context:
+        mask = mask + lookahead(cc.att_right_context)
+    rcs = cc.rc_schedule(cfg.n_layers)
+    layer_masks = ([mask] * cfg.n_layers if rcs is None else
+                   [mask + lookahead(r) for r in rcs])
+
     H, Dh = cfg.n_heads, cfg.d_head
-    quant = cc.kv_cache_int8
+    quant = cc.kv_quant_max is not None
     shared = cc.shared_cache
     if quant:
         # per-segment dequant scales expanded to per-slot columns
@@ -305,8 +340,8 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
             k_cols, v_cols = ((k_cols_all[l], v_cols_all[l]) if quant
                               else (ones, ones))
         x, nk, nv, ncv, norm_attn = conformer_layer(
-            lp, x, pos_heads[l], mask, state.conv_cache[l], ring_l, *rings,
-            chron, k_cols, v_cols, n_heads=H, d_head=Dh)
+            lp, x, pos_heads[l], layer_masks[l], state.conv_cache[l], ring_l,
+            *rings, chron, k_cols, v_cols, n_heads=H, d_head=Dh)
         if shared:
             new_k.append(norm_attn[:, None])                        # [B,1,Q,D]
         else:
@@ -326,7 +361,8 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
             continue
         new = torch.stack(new)                              # [L,B,H,Q,Dh]
         if quant:
-            new, sc = _quantize_segment(new, cc.kv_quant_max)
+            new, sc = _quantize_segment(new, cc.kv_quant_max,
+                                        cc.kv_cache_int4)
         new = new.to(ring.dtype)
         if step_mask is not None:
             new = torch.where(step_mask[None, :, None, None, None], new,

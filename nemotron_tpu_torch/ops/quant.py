@@ -1,13 +1,16 @@
-"""Int8 encoder weights: weight-only Q8_0 and dynamic W8A8.
+"""Int8 encoder weights: weight-only Q8_0, and W8A8 with dynamic or static
+activation scales.
 
-The port's counterpart of `nemotron_tpu/ops/quant.py`, without SmoothQuant:
+The port's counterpart of `nemotron_tpu/ops/quant.py`:
 
   - A `QTensor` holds int8 values [.., in, out] plus per-block f32 scales
     [.., in//32, out] -- the 32-element blocking of Q8_0 along the
     contraction dim, transposed into x @ w orientation. Numerics match
     round-tripping through the reference's Q8_0 exactly.
   - A `QTensorW8A8` holds int8 values [.., in, out] plus one f32 scale per
-    output column; activations are quantized per row on the fly.
+    output column; activations are quantized per row on the fly, or with a
+    static per-tensor scale from SmoothQuant calibration
+    (ops/smoothquant.py) when `act_scale` is set.
   - `qmm` sends a QTensor through the Q8 matmul kernel (ops/quant_kernel.py),
     a QTensorW8A8 through the W8A8 kernel (ops/w8a8_kernel.py) and a dense
     weight through torch.matmul.
@@ -78,8 +81,10 @@ class QTensorW8A8:
 
     q:         int8 [..., in, out]
     col_scale: f32  [..., out]   (one scale per output column)
-    act_scale: a static activation scale from SmoothQuant calibration; the
-               port does not take one yet (None)."""
+    act_scale: None, or f32 [...] matching the leading (layer) dims: the
+               static activation scale from SmoothQuant calibration; then
+               x is quantized as clip(round(x / s), -127, 127), activations
+               beyond the calibration range saturating."""
 
     q: Any
     col_scale: Any
@@ -106,13 +111,9 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """x [.., in] @ w [in, out], w a dense tensor, a 2-D QTensor or a 2-D
     QTensorW8A8."""
     if isinstance(w, QTensorW8A8):
-        if w.act_scale is not None:
-            raise NotImplementedError("static activation scales (SmoothQuant) "
-                                      "come with the SmoothQuant slice of "
-                                      "the port")
         lead = x.shape[:-1]
         out = w8a8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.q,
-                          w.col_scale)
+                          w.col_scale, w.act_scale)
         return out.reshape(*lead, w.q.shape[-1])
     if not isinstance(w, QTensor):
         return x @ w.to(x.dtype)
@@ -124,9 +125,10 @@ def qmm(x: torch.Tensor, w) -> torch.Tensor:
 def qmm_shared(x: torch.Tensor, ws: list) -> list:
     """Several matmuls over the same input (the attention q/k/v
     projections). The JAX package quantizes x once for W8A8 weights; here
-    each qmm quantizes it again, per row with one group of K = d_model
-    columns, which gives the same values. Fusing the three products into
-    one kernel is later work."""
+    each qmm quantizes it again (per row with one group of K = d_model
+    columns, or with the static scale SmoothQuant gives all three), which
+    gives the same values. Fusing the three products into one kernel is
+    later work."""
     return [qmm(x, w) for w in ws]
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .quant import QTensor, QTensorW8A8, dequantize, qmm, qmm_shared
-from .ring_attn_kernel import fused_ring_attention
+from .ring_attn_kernel import fused_ring_attention, unpack_int4
 
 
 def pos_emb_descending(length_each_side: int, d_model: int) -> np.ndarray:
@@ -148,13 +148,16 @@ def rel_pos_mha(lp, x, pos_heads, n_heads: int, d_head: int,
 
 def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
                      k_ring, v_ring, chron, mask,
-                     k_scale_cols=None, v_scale_cols=None):
+                     k_scale_cols=None, v_scale_cols=None,
+                     packed_int4: bool = False):
     """Relative-position MHA over ONE layer's ring [B, H, KV, Dh]: the plain
     path (nemotron_tpu/ops/rel_attention.py:148-251), with the current
     chunk's keys/values attended as Q extra slots after the ring.
 
     chron [KV+Q] int64: the time index of each slot (see chron_to_slot).
     mask [B|1, 1, 1|Q, KV+Q]: additive validity mask in slot order.
+    packed_int4: the rings are [B, H, KV, Dh/2] nibble pairs, unpacked
+    here (nemotron_tpu/ops/rel_attention.py:135-145, 199-201).
     Returns (out [B, Q, D], k_new [B, H, Q, Dh], v_new [B, H, Q, Dh])."""
     B, Q, D = x.shape
     dt = x.dtype
@@ -162,7 +165,10 @@ def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
     q, k_new, v_new = (_heads(t, n_heads, d_head) for t in qmm_shared(
         x, [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w]))
     kv = k_ring.shape[2]
-    k_r, v_r = k_ring.to(dt), v_ring.to(dt)
+    if packed_int4:
+        k_r, v_r = unpack_int4(k_ring, dt), unpack_int4(v_ring, dt)
+    else:
+        k_r, v_r = k_ring.to(dt), v_ring.to(dt)
     q_u = q + lp.pos_bias_u.to(dt)[None, :, None, :]
     q_v = q + lp.pos_bias_v.to(dt)[None, :, None, :]
 

@@ -11,6 +11,13 @@ the function, not a tiling choice: it is the Pallas kernel's K tile
 (K % 256 == 0) this reproduces it, and where the group is the whole row it
 equals the JAX package's per-row path up to the scale's multiply-vs-divide.
 
+With a static activation scale s (SmoothQuant's calibrated scale, one f32
+scalar a weight) the function is the JAX package's static `qmm_w8a8`
+(`nemotron_tpu/ops/quant.py:137-148`), with no K grouping:
+
+out[M, N] = f32((clip(round_half_even(x / s), -127, 127) @ q)_int)
+            * (s * col_scale).
+
 The kernel (`csrc/w8a8_matmul.cu`) replaces the Pallas TPU kernel
 `nemotron_tpu/ops/w8a8_kernel.py:w8a8_matmul`. A tensor on the CPU takes
 the plain version; a CUDA tensor launches the kernel, or the wrapper raises.
@@ -60,6 +67,18 @@ def w8a8_matmul_ref(x: torch.Tensor, q: torch.Tensor,
     return (acc * col_scale.to(torch.float32)).to(x.dtype)
 
 
+def w8a8_matmul_static_ref(x: torch.Tensor, q: torch.Tensor,
+                           col_scale: torch.Tensor,
+                           act_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the static mode: x / s correctly rounded in f32,
+    the integer product exact in float64 (every partial sum is an integer
+    below 2^53), rounded to f32 as an int32 accumulator converts."""
+    s = act_scale.to(torch.float32)
+    xq = torch.clamp(torch.round(x.to(torch.float32) / s), -127.0, 127.0)
+    acc = (xq.to(torch.float64) @ q.to(torch.float64)).to(torch.float32)
+    return (acc * (s * col_scale.to(torch.float32))).to(x.dtype)
+
+
 def w8a8_launch_geometry(K: int, N: int, sms: int,
                          M: int = 1) -> tuple[int, int, int]:
     """(bn, C, blocks) of the kernel's launch for an [M, K] x [K, N] call
@@ -93,15 +112,17 @@ def _lib() -> ctypes.CDLL:
     if lib.w8a8_matmul_launch.argtypes is not None:
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.w8a8_matmul_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i,
-                                       p]
+    lib.w8a8_matmul_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
+                                       i, p]
     lib.w8a8_matmul_launch.restype = i
     return lib
 
 
-def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
-                col_scale: torch.Tensor) -> torch.Tensor:
-    """x [M, K] f32 or bf16; q int8 [K, N]; col_scale f32 [N].
+def w8a8_matmul(x: torch.Tensor, q: torch.Tensor, col_scale: torch.Tensor,
+                act_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """x [M, K] f32 or bf16; q int8 [K, N]; col_scale f32 [N]; act_scale
+    None (per-row activation scales) or a one-element f32 tensor on x's
+    device, the static scale (read by the kernel, so no host sync).
     Returns [M, N] in x's dtype.
 
     On the card: one kernel launch, nothing allocated but the output. The
@@ -110,6 +131,8 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
     in and the products run on the int8 tensor cores; each tile of 16, 32
     or 64 rows of M (4 warps, 8 above 16 rows) has its own clusters."""
     if x.device.type == "cpu":
+        if act_scale is not None:
+            return w8a8_matmul_static_ref(x, q, col_scale, act_scale)
         return w8a8_matmul_ref(x, q, col_scale)
     if x.device.type != "cuda":
         raise ValueError(f"w8a8_matmul: unsupported device {x.device}")
@@ -131,6 +154,12 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
     if not (x.is_contiguous() and q.is_contiguous()
             and col_scale.is_contiguous()):
         raise ValueError("w8a8_matmul: operands must be contiguous")
+    if act_scale is not None and (
+            act_scale.numel() != 1 or act_scale.dtype != torch.float32
+            or act_scale.device != x.device):
+        raise ValueError(f"w8a8_matmul: act_scale must be one f32 value on "
+                         f"{x.device}, got {tuple(act_scale.shape)} "
+                         f"{act_scale.dtype} on {act_scale.device}")
     bn, C, _ = w8a8_launch_geometry(K, N, sm_count(x.device), M)
     lib = _lib()
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
@@ -138,6 +167,7 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor,
     vec_w = int(N % 16 == 0 and q.data_ptr() % 16 == 0)
     rc = lib.w8a8_matmul_launch(
         _DTYPES[x.dtype], x.data_ptr(), q.data_ptr(), col_scale.data_ptr(),
+        None if act_scale is None else act_scale.data_ptr(),
         out.data_ptr(), M, K, N, G, bn, C, vec_x, vec_w,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

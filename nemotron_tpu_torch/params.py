@@ -25,7 +25,8 @@ from .device import resolve_device
 from .ops.quant import (QTensor, QTensorW8A8, quantize_tensor,
                         quantize_tensor_w8a8, should_quantize)
 
-_QUANT_FIELDS = {QTensor: ("q", "scale"), QTensorW8A8: ("q", "col_scale")}
+_QUANT_FIELDS = {QTensor: ("q", "scale"),
+                 QTensorW8A8: ("q", "col_scale", "act_scale")}
 
 
 @dataclasses.dataclass
@@ -145,15 +146,16 @@ def map_leaves(fn, params: ModelParams) -> ModelParams:
 
 def flatten(params: ModelParams) -> dict[str, Any]:
     """Field path -> leaf, e.g. 'layers.ffn1_w1.q' and '.scale' (QTensor) or
-    '.col_scale' (QTensorW8A8); the JAX package's ModelParams flattens to
-    the same paths in the tests."""
+    '.col_scale' and, where set, '.act_scale' (QTensorW8A8); the JAX
+    package's ModelParams flattens to the same paths in the tests."""
     out = {}
     for name, cls in _CONTAINERS:
         for f in dataclasses.fields(cls):
             x = getattr(getattr(params, name), f.name)
             if type(x) in _QUANT_FIELDS:
                 for part in _QUANT_FIELDS[type(x)]:
-                    out[f"{name}.{f.name}.{part}"] = getattr(x, part)
+                    if getattr(x, part) is not None:
+                        out[f"{name}.{f.name}.{part}"] = getattr(x, part)
             else:
                 out[f"{name}.{f.name}"] = x
     return out
@@ -161,15 +163,14 @@ def flatten(params: ModelParams) -> dict[str, Any]:
 
 def _map_quant(fn, x):
     """`fn` on the arrays of a QTensor or QTensorW8A8 (int8 values and f32
-    scales), on `x` itself otherwise."""
+    scales, the static activation scales too where set), on `x` itself
+    otherwise."""
     if isinstance(x, QTensor):
         return QTensor(q=fn(x.q), scale=fn(x.scale))
     if isinstance(x, QTensorW8A8):
-        if x.act_scale is not None:
-            raise NotImplementedError("static activation scales (SmoothQuant) "
-                                      "come with the SmoothQuant slice of "
-                                      "the port")
-        return QTensorW8A8(q=fn(x.q), col_scale=fn(x.col_scale))
+        return QTensorW8A8(q=fn(x.q), col_scale=fn(x.col_scale),
+                           act_scale=None if x.act_scale is None
+                           else fn(x.act_scale))
     return fn(x)
 
 
@@ -380,24 +381,23 @@ def params_from_jax_arrays(flat: dict, cfg: ModelConfig,
             key = f"{name}.{f.name}"
             if key in flat:
                 fields[f.name] = np.asarray(flat[key])
-            elif f"{key}.act_scale" in flat:
-                raise NotImplementedError(
-                    f"{key}: static activation scales (SmoothQuant) come "
-                    "with the SmoothQuant slice of the port")
             elif f"{key}.scale" in flat:
                 fields[f.name] = QTensor(q=np.asarray(flat[f"{key}.q"]),
                                          scale=np.asarray(flat[f"{key}.scale"]))
             elif f"{key}.col_scale" in flat:
+                act = flat.get(f"{key}.act_scale")
                 fields[f.name] = QTensorW8A8(
                     q=np.asarray(flat[f"{key}.q"]),
-                    col_scale=np.asarray(flat[f"{key}.col_scale"]))
+                    col_scale=np.asarray(flat[f"{key}.col_scale"]),
+                    act_scale=None if act is None
+                    else np.asarray(act, np.float32))
             else:
                 raise KeyError(f"missing parameter {key}")
         groups[name] = cls(**fields)
     return to_device(ModelParams(**groups), device)
 
 
-def load_model(path: str, device="cuda",
+def load_model(path: str, device="cuda", keep_quantized: bool = True,
                ) -> tuple[ModelParams, ModelConfig, list[str]]:
     """Load a GGUF file onto `device`: (params, config, vocab).
 
@@ -405,9 +405,11 @@ def load_model(path: str, device="cuda",
     CUDA is asked for and absent. Mirrors the reference loader's hparam
     handling, including inferring kernel_size from the depthwise weight
     (reference src/nemo-ggml.cpp:320-324) rather than trusting the stale
-    metadata value. Q8_0 and Q4_0 encoder matmul
-    weights stay int8 plus per-block f32 scales (QTensor), bit-identical to
-    the file's blocks, and go through the Q8 kernel."""
+    metadata value. With keep_quantized (the default), Q8_0 and Q4_0
+    encoder matmul weights stay int8 plus per-block f32 scales (QTensor),
+    bit-identical to the file's blocks, and go through the Q8 kernel;
+    without it every tensor is dequantized to dense f32 (what SmoothQuant
+    folds; nemotron_tpu/params.py:311-333)."""
     device = resolve_device(device)
     g = gguf_mod.read_gguf(path)
     md = g.metadata
@@ -418,7 +420,8 @@ def load_model(path: str, device="cuda",
     arrays: dict[str, object] = {}
     for name, tt in g.tensors.items():
         quantized_2d = (
-            tt.ggml_type in (gguf_mod.GGML_Q8_0, gguf_mod.GGML_Q4_0)
+            keep_quantized
+            and tt.ggml_type in (gguf_mod.GGML_Q8_0, gguf_mod.GGML_Q4_0)
             and len(tt.shape) == 2 and tt.shape[1] % 32 == 0
             and should_quantize(name, np.empty((0, 0))))
         if quantized_2d:

@@ -1,7 +1,7 @@
 """Many-stream continuous-batching serving engine (greedy RNN-T).
 
 The port's counterpart of `nemotron_tpu/streaming/serving.py` without its
-decode variants, mesh and snapshots. A fixed slab of `n_slots` stream slots
+decode variants and mesh. A fixed slab of `n_slots` stream slots
 keeps its state on the params' device; admission and eviction zero a
 slot's slices (the reference's reset semantics, src/nemo-stream.cpp:81-101,
 per slot).
@@ -16,6 +16,9 @@ so every stream's transcript equals its solo run's.
 The DSP runs on the host (`dsp="numpy"`: numpy framing per slot, one
 `torch.fft` spectral pass over every fed slot's frames) or on the device
 (`dsp="device"`: raw int16 PCM in, the whole DSP chain inside the tick).
+
+`save` / `load` snapshot the whole engine in the JAX package's .npz format:
+a fresh engine with the same slots resumes every stream exactly.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ from ..frontend.preprocessor import StreamingPreprocessor, pad_window
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..params import ModelParams, cast_params
+from ..utils import npz
 from ..utils.text import tokens_to_text
-from .session import _check_dtype, chunk_step_masked
+from .session import (_check_dtype, chunk_step_masked, restore_states,
+                      token_list, token_rows)
 
 
 class _MelBuffer:
@@ -257,9 +262,9 @@ class ServingEngine:
     (at most max_segment_s) for `poll_endpoints(with_audio=True)`.
 
     Beam search, CTC, TDT checkpoints and LM fusion (the decode-variants
-    slice), a device mesh (multi-GPU), snapshots (the snapshots slice) and
-    dsp="native" (the native-bindings slice) come with later slices of the
-    port and raise NotImplementedError."""
+    slice), a device mesh (multi-GPU) and dsp="native" (the native-bindings
+    slice) come with later slices of the port and raise
+    NotImplementedError."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -773,15 +778,147 @@ class ServingEngine:
                 self.slot_phase[consume] = self.phase_counter
         return out
 
-    # -- snapshots (a later slice) ---------------------------------------------
+    # -- checkpoint / resume ---------------------------------------------------
+
+    def _dsp_state(self, slot: int) -> dict:
+        if self.dsp_mode == "device":
+            return {"last_sample": npz.to_numpy(self.front_last[slot])[None],
+                    "residue": npz.to_numpy(self.front_res[slot])[None]}
+        return self.preprocs[slot].state_dict()
+
+    def _dsp_load_state(self, slot: int, st: dict) -> None:
+        if self.dsp_mode == "device":
+            self.front_res[slot] = torch.from_numpy(
+                np.asarray(st["residue"], np.float32).ravel().copy())
+            self.front_last[slot] = float(
+                np.asarray(st["last_sample"]).ravel()[0])
+        else:
+            self.preprocs[slot].load_state_dict(st)
 
     def save(self, path: str) -> None:
-        raise NotImplementedError("engine snapshots come with the snapshots "
-                                  "slice of the port")
+        """Snapshot the whole engine (all slots' device state, DSP state,
+        admission map, endpointing, transcripts) as an .npz with the JAX
+        package's keys (nemotron_tpu/streaming/serving.py:1351-1425).
+        Restoring into a fresh engine with the same n_slots, cache config
+        and DSP mode resumes every active stream exactly.
+
+        Device DSP (`devdsp/*`): the device mel buffer, its fill levels,
+        the first-quantum flags and the PCM FIFOs, as the JAX engine's. The
+        buffers mean the same in both packages; only the finalize differs
+        (this port decodes a partial last quantum that the JAX engine
+        drops), so a resumed stream ends as this port's engine ends it."""
+        flat = {f"enc/{k}": getattr(self.enc_state, k)
+                for k in ("k_cache", "v_cache", "conv_cache", "valid_len",
+                          "phase", "k_scale", "v_scale")}
+        flat |= {f"dec/{k}": getattr(self.dec_state, k)
+                 for k in ("h", "c", "prev_token")}
+        flat |= {
+            "active": self.active,
+            "frame_offsets": self.frame_offsets,
+            "transcripts": np.asarray(self.transcripts, dtype=object),
+            "phase_counter": np.int64(self.phase_counter),
+            "slot_phase": self.slot_phase,
+        }
+        if self._ep_frames is not None:
+            flat["ep/silence"] = self.ep_silence
+            flat["ep/emitted"] = self.ep_emitted
+            flat["ep/utt_start"] = self.ep_utt_start
+            flat["ep/pending"] = np.asarray(
+                [(s, e) for s, e, _seg in self._ep_pending],
+                np.int64).reshape(-1, 2)
+            for i, (_s, _e, seg) in enumerate(self._ep_pending):
+                if seg is not None:
+                    flat[f"ep/pending_seg/{i}"] = seg
+        if self.keep_segment_audio:
+            for s in range(self.n_slots):
+                sb = self.seg_buffers[s]
+                flat[f"seg/pcm/{s}"] = sb.compact()
+                flat[f"seg/meta/{s}"] = np.asarray(
+                    [sb.abs0, int(sb.truncated)], np.int64)
+        for s in range(self.n_slots):
+            pp = self._dsp_state(s)
+            flat[f"preproc/last_sample/{s}"] = pp["last_sample"]
+            flat[f"preproc/residue/{s}"] = pp["residue"]
+            flat[f"mel_buffer/{s}"] = self.mel_buffers[s].compact()
+            flat[f"tokens/{s}"] = token_rows(self.tokens[s], self.confidence)
+        if self.dsp_mode == "device":
+            flat["devdsp/mel_buf"] = self.mel_buf_dev
+            flat["devdsp/mel_fill"] = self.mel_fill
+            flat["devdsp/fresh"] = self.fresh
+            for s in range(self.n_slots):
+                fifo = self.pcm_fifos[s]
+                flat[f"devdsp/fifo/{s}"] = (
+                    np.concatenate(fifo.parts) if fifo.parts
+                    else np.zeros(0, np.int16))
+        npz.savez(path, flat)
 
     def load(self, path: str) -> None:
-        raise NotImplementedError("engine snapshots come with the snapshots "
-                                  "slice of the port")
+        """Restore a snapshot written by `save` (or by the JAX engine) into
+        this engine: fresh tensors on its device in its dtypes. The slot
+        count must match; a snapshot of a beam, CTC or TDT engine, or a
+        host-DSP snapshot loaded into a device-DSP engine, raises
+        ValueError."""
+        z = npz.NpzView(np.load(path, allow_pickle=True))
+        if z["active"].shape != (self.n_slots,):
+            raise ValueError(f"snapshot has {z['active'].shape[0]} slots, "
+                             f"the engine {self.n_slots}")
+        for key, what in (("tdt_skip", "TDT"), ("ctc_prev", "CTC"),
+                          ("beam/h", "beam")):
+            if key in z:
+                raise ValueError(f"snapshot/engine {what}-mode mismatch: the "
+                                 f"snapshot carries {what} state, this "
+                                 "engine decodes greedy RNN-T")
+        if self.dsp_mode == "device" and "devdsp/mel_buf" not in z:
+            raise ValueError("snapshot was saved by a host-DSP engine; "
+                             "device-DSP resume needs the device mel "
+                             "buffer/fill state")
+        self.enc_state, self.dec_state = restore_states(
+            z, self.cc, self.dtype, self.device)
+        self.active = z["active"].astype(bool)
+        self.phase_counter = int(z["phase_counter"])
+        self.slot_phase = z["slot_phase"].astype(np.int64)
+        self.frame_offsets = z["frame_offsets"].astype(np.int64)
+        if self._ep_frames is not None and "ep/silence" in z:
+            self.ep_silence = z["ep/silence"].astype(np.int64)
+            self.ep_emitted = z["ep/emitted"].astype(bool)
+            self.ep_utt_start = z["ep/utt_start"].astype(np.int64)
+            self._ep_pending = [
+                (int(s), int(e),
+                 z[f"ep/pending_seg/{i}"].astype(np.int16)
+                 if f"ep/pending_seg/{i}" in z else None)
+                for i, (s, e) in enumerate(z["ep/pending"].reshape(-1, 2))]
+        if self.keep_segment_audio:
+            for s in range(self.n_slots):
+                sb = _SegmentBuffer(self._seg_cap)
+                if f"seg/pcm/{s}" in z:
+                    pcm = z[f"seg/pcm/{s}"].astype(np.int16)
+                    meta = z[f"seg/meta/{s}"]
+                    if pcm.size:
+                        sb.parts = [pcm]
+                        sb.total = pcm.size
+                    sb.abs0 = int(meta[0])
+                    sb.truncated = bool(meta[1])
+                self.seg_buffers[s] = sb
+        self.transcripts = [str(t) for t in z["transcripts"]]
+        self.tokens = [token_list(z[f"tokens/{s}"])
+                       for s in range(self.n_slots)]
+        self.mel_buffers = [
+            _MelBuffer(np.asarray(z[f"mel_buffer/{s}"], np.float32).copy())
+            for s in range(self.n_slots)]
+        for s in range(self.n_slots):
+            self._dsp_load_state(
+                s, {"last_sample": z[f"preproc/last_sample/{s}"],
+                    "residue": z[f"preproc/residue/{s}"]})
+        if self.dsp_mode == "device":
+            self.mel_buf_dev = npz.to_tensor(z["devdsp/mel_buf"], self.dtype,
+                                             self.device)
+            self.mel_fill = z["devdsp/mel_fill"].astype(np.int64)
+            self.fresh = z["devdsp/fresh"].astype(bool)
+            self.pcm_fifos = [_PcmBuffer() for _ in range(self.n_slots)]
+            for s in range(self.n_slots):
+                blk = z[f"devdsp/fifo/{s}"].astype(np.int16)
+                if blk.size:
+                    self.pcm_fifos[s].append(blk)
 
     # -- stats -----------------------------------------------------------------
 

@@ -22,6 +22,7 @@ from ..frontend.preprocessor import StreamingPreprocessor
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..params import ModelParams, cast_params
+from ..utils import npz
 from ..utils.tones import enc_frames_of_mel
 from ..utils.text import tokens_to_text
 
@@ -217,6 +218,78 @@ class StreamSession:
     def get_transcript(self, stream: int = 0) -> str:
         return self.transcripts[stream]
 
+    # -- checkpoint / resume --------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Full session snapshot, with the JAX package's keys
+        (nemotron_tpu/streaming/session.py:689-716): encoder caches, decoder
+        state, DSP state, mel buffer, tokens, transcripts. Device leaves
+        come back as numpy arrays (bf16 upcast to f32, which is exact)."""
+        st = {f"enc/{k}": npz.to_numpy(getattr(self.enc_state, k))
+              for k in ("k_cache", "v_cache", "conv_cache", "valid_len",
+                        "phase", "k_scale", "v_scale")}
+        st |= {f"dec/{k}": npz.to_numpy(getattr(self.dec_state, k))
+               for k in ("h", "c", "prev_token")}
+        return st | {
+            "preproc": self.preproc.state_dict(),
+            "mel_buffer": self.mel_buffer.copy(),
+            "tokens": [list(t) for t in self.tokens],
+            "transcripts": list(self.transcripts),
+            "frame_offset": self.frame_offset,
+        }
+
+    def load_state_dict(self, st: dict) -> None:
+        """Restore a snapshot of `state_dict` (or of the JAX package's
+        session): fresh tensors on the session's device in its dtypes, so
+        the in-place ring writes never touch the arrays handed in. A
+        snapshot of a beam, CTC or TDT session raises ValueError, as the
+        JAX package's greedy session does."""
+        if "ctc_prev" in st:
+            raise ValueError("snapshot carries CTC collapse state but this "
+                             "session decodes RNN-T (ctc=False)")
+        if "tdt_skip" in st:
+            raise ValueError("snapshot carries TDT skip state but this "
+                             "session does not decode TDT")
+        if "beam/h" in st:
+            raise ValueError(
+                f"snapshot carries beam state (K={st['beam/h'].shape[1]}) "
+                "but this session decodes greedily (beam_size=1)")
+        self.enc_state, self.dec_state = restore_states(
+            st, self.cc, self.dtype, self.device)
+        self.preproc.load_state_dict(st["preproc"])
+        self.mel_buffer = np.asarray(st["mel_buffer"], np.float32).copy()
+        self.tokens = [[tuple(t) for t in ts] for ts in st["tokens"]]
+        self.transcripts = list(st["transcripts"])
+        self.frame_offset = int(st["frame_offset"])
+
+    def save(self, path: str) -> None:
+        """Write the snapshot as an .npz in the JAX package's format
+        (session.py:800-818): tokens/{s} int64 [n, 2], or float64 [n, 3]
+        with confidence."""
+        st = self.state_dict()
+        flat = {k: v for k, v in st.items() if isinstance(v, np.ndarray)}
+        flat["preproc/last_sample"] = st["preproc"]["last_sample"]
+        flat["preproc/residue"] = st["preproc"]["residue"]
+        flat["frame_offset"] = np.int64(st["frame_offset"])
+        for s, toks in enumerate(st["tokens"]):
+            flat[f"tokens/{s}"] = token_rows(toks, self.confidence)
+        flat["transcripts"] = np.asarray(st["transcripts"], dtype=object)
+        npz.savez(path, flat)
+
+    def load(self, path: str) -> None:
+        """Read a snapshot written by `save` (or by the JAX package)."""
+        z = npz.NpzView(np.load(path, allow_pickle=True))
+        st = {k: z[k] for k in z.files
+              if not k.startswith(("preproc/", "tokens/"))
+              and k not in ("transcripts", "frame_offset")}
+        st["preproc"] = {"last_sample": z["preproc/last_sample"],
+                         "residue": z["preproc/residue"]}
+        st["tokens"] = [token_list(z[f"tokens/{s}"])
+                        for s in range(self.n_streams)]
+        st["transcripts"] = [str(t) for t in z["transcripts"]]
+        st["frame_offset"] = int(z["frame_offset"])
+        self.load_state_dict(st)
+
     def get_tokens(self, stream: int = 0) -> list[tuple]:
         """(id, frame) pairs, or (id, frame, log_posterior) triples when
         the session was built with confidence."""
@@ -228,6 +301,37 @@ class StreamSession:
         if self.total_audio_seconds == 0:
             return 0.0
         return self.total_compute_seconds / self.total_audio_seconds
+
+
+def restore_states(st, cc: CacheConfig, dtype: torch.dtype, device):
+    """(EncoderState, DecoderState) from a snapshot's enc/* and dec/*
+    leaves: the rings in int8 when quantized (int8 or packed int4), else
+    in `dtype`, as fresh tensors on `device`."""
+    ring = torch.int8 if cc.kv_quant_max is not None else dtype
+    f32, i32 = torch.float32, torch.int32
+    enc = enc_mod.EncoderState(**{
+        k: npz.to_tensor(st[f"enc/{k}"], t, device) for k, t in (
+            ("k_cache", ring), ("v_cache", ring), ("k_scale", f32),
+            ("v_scale", f32), ("conv_cache", dtype), ("valid_len", i32),
+            ("phase", i32))})
+    dec = dec_mod.DecoderState(**{
+        k: npz.to_tensor(st[f"dec/{k}"], t, device) for k, t in (
+            ("h", dtype), ("c", dtype), ("prev_token", i32))})
+    return enc, dec
+
+
+def token_rows(toks: list, confidence: bool) -> np.ndarray:
+    """A stream's tokens as snapshot rows: int64 [n, 2] (id, frame), or
+    float64 [n, 3] (id, frame, log_posterior) with confidence."""
+    if confidence:
+        return np.asarray(toks, np.float64).reshape(-1, 3)
+    return np.asarray(toks, np.int64).reshape(-1, 2)
+
+
+def token_list(rows) -> list[tuple]:
+    """Snapshot rows back to token tuples (pairs or triples)."""
+    return [(int(r[0]), int(r[1]), float(r[2])) if len(r) == 3
+            else (int(r[0]), int(r[1])) for r in rows]
 
 
 def batch_mel(params: ModelParams, cfg: ModelConfig, utterances,

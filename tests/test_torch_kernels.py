@@ -20,6 +20,7 @@ from nemotron_tpu_torch.ops.quant_kernel import (q8_launch_geometry,
                                                  q8_matmul, q8_matmul_ref)
 from nemotron_tpu_torch.ops.ring_attn_kernel import (cluster_size,
                                                      fused_ring_attention,
+                                                     pack_int4,
                                                      ring_attention_ref)
 
 torch.set_num_threads(1)
@@ -217,6 +218,37 @@ def test_ring_attention_kernel_small_heads_on_card(cuda_device, Dh, Q, KV,
     want = call(ring_attention_ref, 2, x, ident)
     torch.cuda.synchronize()
     assert fused_ring_attention.launches == before + 1
+    scale = max(want.float().abs().max().item(), 1.0)
+    atol = 1e-5 if dt == torch.float32 else 2.0 ** -6 * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Q,KV", MODE_SHAPES)
+@pytest.mark.parametrize("Dh", [16, 128])
+def test_ring_attention_kernel_int4_rings_on_card(cuda_device, Dh, Q, KV,
+                                                  dtype):
+    """Packed int4 rings (Dh/2 bytes a row: 8-byte copies at Dh = 16) at
+    the same tolerances as the other ring types; repeated calls
+    bit-equal."""
+    dt = getattr(torch, dtype)
+    x = ring_inputs(np.random.default_rng(Dh + Q + 1), L=3, B=2, H=8, Q=Q,
+                    KV=KV, Dh=Dh, int8=True)
+    for k in ("k_ring", "v_ring"):
+        x[k] = np.clip(x[k], -7, 7)
+    x = {k: torch.tensor(v, device=cuda_device) if k in ("k_cols", "v_cols")
+         else pack_int4(torch.tensor(v, device=cuda_device))
+         if k in ("k_ring", "v_ring")
+         else torch.tensor(v, device=cuda_device).to(dt)
+         for k, v in x.items()}
+    before = fused_ring_attention.launches
+    got = call(fused_ring_attention, 2, x, ident)
+    again = call(fused_ring_attention, 2, x, ident)
+    want = call(ring_attention_ref, 2, x, ident)
+    torch.cuda.synchronize()
+    assert fused_ring_attention.launches == before + 2
+    assert torch.equal(got, again)
     scale = max(want.float().abs().max().item(), 1.0)
     atol = 1e-5 if dt == torch.float32 else 2.0 ** -6 * scale
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)

@@ -128,7 +128,10 @@ def test_cli_without_cpu_flag_refuses_when_cuda_is_absent(monkeypatch,
     gguf = os.path.join(REPO, "weights", "tones_tiny.gguf")
     assert cli.main(["cli", gguf, str(pcm)]) == 1
     assert "CUDA" in capsys.readouterr().err
-    assert cli.main(["cli", gguf, str(pcm), "--kv-int4", "--cpu"]) == 1
+    assert cli.main(["cli", gguf, str(pcm), "--kv-int4"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    assert cli.main(["cli", gguf, str(pcm), "--kv-int4", "--cpu"]) == 0
+    assert "int4 K/V cache rings enabled" in capsys.readouterr().err
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -777,14 +777,20 @@ def test_asr_server_refuses_later_flags(capsys):
             (["--lm-weight", "0.5"], "decode-variants"),
             (["--ctc"], "decode-variants"), (["--refine"], "decode-variants"),
             (["--refine-beam", "2"], "decode-variants"),
-            (["--kv-int4"], "quant-tiers"),
-            (["--rc-by-layer", "13,6,1,0"], "quant-tiers"),
             (["--dsp", "native"], "native-bindings"),
             (["--coordinator", "h:1"], "multi-GPU")):
         assert asr_server.main(["asr_server", FIXTURE, *argv]) == 1
         assert f"the {slice_name} slice" in capsys.readouterr().err
     assert asr_server.main(["asr_server", FIXTURE, "--bogus"]) == 1
     assert "unsupported flag --bogus" in capsys.readouterr().err
+    # the quant-tiers flags are ported: taken, the missing model first
+    assert asr_server.main(["asr_server", "missing.gguf", "--kv-int4",
+                            "--rc-by-layer", "13,6,1,0"]) == 1
+    err = capsys.readouterr().err
+    assert "model file not found" in err and "slice" not in err
+    assert asr_server.main(["asr_server", FIXTURE, "--cpu", "--rc-by-layer",
+                            "13,6,1"]) == 1
+    assert "bad --rc-by-layer pattern" in capsys.readouterr().err
     assert asr_server.main(["asr_server"]) == 1
     assert "--endpoint-silence" in capsys.readouterr().err
 

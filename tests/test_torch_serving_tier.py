@@ -197,9 +197,11 @@ def test_init_states_match_jax(w8a8_model, kv, dtype):
         assert str(got.dtype)[6:] == str(want.dtype), f
         np.testing.assert_array_equal(got.float().numpy(),
                                       want.astype(np.float32), f)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tenc.init_encoder_state(cfg, TCC(kv_cache_int4=True), 1,
-                                torch.float32, "cpu")
+    # int4 rings are ported (tests/test_torch_quant_tiers.py): packed
+    st4 = tenc.init_encoder_state(cfg, TCC(kv_cache_int4=True), 1,
+                                  torch.float32, "cpu")
+    assert st4.k_cache.dtype == torch.int8
+    assert st4.k_cache.shape[-1] == cfg.d_head // 2
 
 
 def test_bf16_decode_keeps_its_state_in_bf16(w8a8_model):
@@ -319,10 +321,24 @@ def test_cli_w8a8_int8_kv_stdout_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--quantize=w8a8-sq", "--kv-int4",
                                   "--rc-by-layer=13,6,1,0", "--quantize=w4"])
-def test_cli_refuses_later_slices_and_unknown_modes(flag, capsys):
+def test_cli_refuses_later_slices_and_unknown_modes(flag, capsys,
+                                                    monkeypatch):
+    """An unknown mode exits 1. The quant-tiers flags are ported: on stdin
+    input --quantize=w8a8-sq needs --calib=FILE, and --kv-int4 and
+    --rc-by-layer transcribe."""
+    import io
+
     from nemotron_tpu_torch import cli
 
-    assert cli.main(["cli", FIXTURE, "-", "80", "13", "--cpu", flag]) == 1
+    audio, _ = tones_mod.make_eval_streams(1, 2.0, 16, seed=2)
+    monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(io.BytesIO(
+        audio[0].astype("<i2").tobytes())))
+    rc = cli.main(["cli", FIXTURE, "-", "80", "13", "--cpu", flag])
     err = capsys.readouterr().err
-    assert ("later slice" in err) if flag != "--quantize=w4" else \
-        ("unknown --quantize mode 'w4'" in err)
+    assert "later slice" not in err
+    want = {"--quantize=w4": (1, "unknown --quantize mode 'w4'"),
+            "--quantize=w8a8-sq": (1, "needs --calib=FILE"),
+            "--kv-int4": (0, "int4 K/V cache rings enabled"),
+            "--rc-by-layer=13,6,1,0":
+                (0, "per-layer right context: (13, 6, 1, 0)")}[flag]
+    assert rc == want[0] and want[1] in err

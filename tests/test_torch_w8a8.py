@@ -279,10 +279,14 @@ def test_qmm_and_qmm_shared_w8a8_match_jax(w8a8_models):
             tquant.qmm(torch.tensor(x), tl.attn_k_w).numpy(),
             np.asarray(jquant.qmm(jnp.asarray(x), jws[1])), rtol=0,
             atol=flip + 1e-6)
-    with pytest.raises(NotImplementedError, match="SmoothQuant"):
-        tquant.qmm(torch.tensor(x), tquant.QTensorW8A8(
-            q=tl.attn_q_w.q, col_scale=tl.attn_q_w.col_scale,
-            act_scale=torch.tensor(0.1)))
+    # a static activation scale (SmoothQuant) takes the static product,
+    # bit-equal to the JAX package's (tests/test_torch_smoothquant.py)
+    got = tquant.qmm(torch.tensor(x), tquant.QTensorW8A8(
+        q=tl.attn_q_w.q, col_scale=tl.attn_q_w.col_scale,
+        act_scale=torch.tensor(0.1)))
+    want = jquant.qmm(jnp.asarray(x), jquant.QTensorW8A8(
+        q=jws[0].q, col_scale=jws[0].col_scale, act_scale=np.float32(0.1)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -363,6 +367,31 @@ def test_w8a8_matmul_kernel_equals_plain_on_card(cuda_device, M, K, N, dtype):
     before = w8a8_matmul.launches
     got = w8a8_matmul(x, q, cs)
     want = w8a8_matmul_ref(x, q, cs)
+    torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(8, 1024, 1024), (16, 1024, 4096),
+                                   (112, 4096, 1024), (896, 1024, 2048),
+                                   (3, 96, 56), (5, 64, 96)])
+def test_w8a8_matmul_kernel_static_mode_equals_plain_on_card(
+        cuda_device, M, K, N, dtype):
+    """The static mode (a calibrated activation scale on the card, read by
+    the kernel) bit for bit, with the scale at half the amax so that half
+    the range saturates; one launch a call."""
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul_static_ref
+
+    x, qt = w8a8_inputs(np.random.default_rng(M + 7), M, K, N)
+    x = torch.tensor(x, device=cuda_device).to(getattr(torch, dtype))
+    q = torch.tensor(qt.q, device=cuda_device)
+    cs = torch.tensor(qt.col_scale, device=cuda_device)
+    s = (x.float().abs().amax() * 0.5 / 127).reshape(1)
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, q, cs, s[0])
+    want = w8a8_matmul_static_ref(x, q, cs, s[0])
     torch.cuda.synchronize()
     assert w8a8_matmul.launches == before + 1
     torch.testing.assert_close(got, want, atol=0, rtol=0)
