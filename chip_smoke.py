@@ -364,15 +364,18 @@ def attention_phase(failures: list) -> dict:
         def rn(*s):
             return torch.randn(*s, device="cuda", generator=g).to(dt)
         if ring_dt in (torch.int8, "int4"):
-            qmax = 127 if ring_dt == torch.int8 else 7
+            # values uniform over the int range; column scales of an
+            # amax/qmax size, so that the dequantized K/V are O(1) and the
+            # ring carries most of the output
+            qmax, col = (127, 0.02) if ring_dt == torch.int8 else (7, 0.3)
 
             def ring():
                 r = torch.randint(-qmax, qmax + 1, (L, B, H, KV, dh),
                                   device="cuda", generator=g,
                                   dtype=torch.int8)
                 return r if qmax == 127 else pack_int4(r)
-            kc = torch.rand(B, H, KV, device="cuda", generator=g) * 0.02
-            vc = torch.rand(B, H, KV, device="cuda", generator=g) * 0.02
+            kc = torch.rand(B, H, KV, device="cuda", generator=g) * col
+            vc = torch.rand(B, H, KV, device="cuda", generator=g) * col
         else:
             def ring():
                 return rn(L, B, H, KV, dh)
@@ -381,12 +384,19 @@ def attention_phase(failures: list) -> dict:
         return dict(q_u=rn(B, H, Q, dh), k_new=rn(B, H, Q, dh),
                     v_new=rn(B, H, Q, dh),
                     rings=[(ring(), ring()) for _ in range(n_stacks)],
-                    a=rn(B, H, Q, KV + Q), k_cols=kc, v_cols=vc)
+                    a=rn(B, H, Q, KV + Q), k_cols=kc, v_cols=vc,
+                    int4=ring_dt == "int4")
 
     def run(fn, x, layer, stack=0):
         k_all, v_all = x["rings"][stack]
         return fn(layer, x["q_u"], x["k_new"], x["v_new"], k_all, v_all,
-                  x["a"], x["k_cols"], x["v_cols"])
+                  x["a"], x["k_cols"], x["v_cols"], packed_int4=x["int4"])
+
+    def swap_nibbles(p):
+        """Packed int4 bytes with their nibbles exchanged: what a kernel
+        that unpacked the pairs in the wrong order would read."""
+        v = p.to(torch.int32) & 0xFF
+        return (((v & 0xF) << 4) | (v >> 4)).to(torch.uint8).view(torch.int8)
 
     log("phase kernels: fused_ring_attention vs ring_attention_ref")
     for R in MODES:
@@ -450,17 +460,26 @@ def attention_phase(failures: list) -> dict:
                     got = run(fused_ring_attention, x, L - 1)
                     want = run(ring_attention_ref, x, L - 1)
                     again = run(fused_ring_attention, x, L - 1)
+                    # the check must see a nibble-order fault: the plain
+                    # version over nibble-swapped rings misses the kernel
+                    x["rings"] = [tuple(swap_nibbles(r) for r in x["rings"][0])]
+                    wrong = run(ring_attention_ref, x, L - 1)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
+                    err_swap = (got.float() - wrong.float()).abs().max().item()
                     scale = want.float().abs().max().item()
                     tol = (TOL_F32_ATTN_ABS if dt == torch.float32
                            else TOL_BF16_REL * max(scale, 1.0))
-                    check(f"attn int4 Dh={dh} R={R} B={B} {str(dt)[6:]}",
-                          err, tol, failures)
+                    name = f"attn int4 Dh={dh} R={R} B={B} {str(dt)[6:]}"
+                    check(name, err, tol, failures)
                     if not torch.equal(got, again):
-                        failures.append(f"attn int4 Dh={dh} R={R} B={B} "
-                                        f"{str(dt)[6:]}: not deterministic")
-                    del x, got, want, again
+                        failures.append(f"{name}: not deterministic")
+                    log(f"  {name}: nibble-swapped rings miss by "
+                        f"{err_swap:.3e} ({err_swap / tol:.1f}x tol)")
+                    if not err_swap > tol:
+                        failures.append(f"{name}: nibble-swapped rings within "
+                                        f"tol ({err_swap:.3e})")
+                    del x, got, want, again, wrong
 
     def timed(R, B, dt, ring_dt, with_library, n_stacks=8, iters=2000):
         cc = CacheConfig(att_right_context=R)

@@ -71,13 +71,14 @@ def _conformer_block(lp, x, attention, conv_cache, ln_capture=None):
 
 def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
                     k_ring_all, v_ring_all, chron, k_cols, v_cols, *,
-                    n_heads: int, d_head: int):
-    """One conformer layer over the ring cache. Returns
+                    n_heads: int, d_head: int, packed_int4: bool = False):
+    """One conformer layer over the ring cache (packed_int4: nibble-pair
+    rings). Returns
     (y, new_k [B, H, Q, Dh], new_v, new_conv_cache, norm_attn [B, Q, D]),
     norm_attn being the attention's input (what the shared x-ring keeps)."""
     return _conformer_block(lp, x, lambda a: rel_pos_mha_ring_fused(
         lp, a, pos_heads, n_heads, d_head, layer_idx, k_ring_all,
-        v_ring_all, chron, mask, k_cols, v_cols), conv_cache)
+        v_ring_all, chron, mask, k_cols, v_cols, packed_int4), conv_cache)
 
 
 def conformer_layer_batch(lp, x, pos_heads, mask=None, *, n_heads: int,
@@ -91,7 +92,8 @@ def conformer_layer_batch(lp, x, pos_heads, mask=None, *, n_heads: int,
 
 def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
                  enc_lengths=None, att_chunk: int | None = None,
-                 att_left: int = 70) -> torch.Tensor:
+                 att_left: int = 70, ln_capture: list | None = None
+                 ) -> torch.Tensor:
     """Full-utterance encoder (nemotron_tpu/models/encoder.py:105-156):
     mel [B, T, n_mels] -> [B, T', d_model], in mel's dtype.
 
@@ -106,23 +108,10 @@ def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
 
     att_chunk (encoder frames): streaming-equivalent visibility -- frame i
     attends to its own chunk [c*C, (c+1)*C) and the `att_left` frames
-    before the chunk's start, as the cache-aware streaming step sees it."""
-    x, pos, mask = _batch_inputs(params, cfg, mel, enc_lengths, att_chunk,
-                                 att_left)
-    for l in range(cfg.n_layers):
-        lp = params.layers.layer(l)
-        pos_heads = project_pos(lp.attn_pos_w, pos, cfg.n_heads, cfg.d_head)
-        x = conformer_layer_batch(lp, x, pos_heads, mask,
-                                  n_heads=cfg.n_heads, d_head=cfg.d_head)
-    return x
+    before the chunk's start, as the cache-aware streaming step sees it.
 
-
-def _batch_inputs(params, cfg: ModelConfig, mel: torch.Tensor,
-                  enc_lengths=None, att_chunk: int | None = None,
-                  att_left: int = 70):
-    """The full-utterance encoder's layer inputs: (subsampled x [B, T', D],
-    position table [2T'-1, D] in x's dtype, additive f32 mask or None);
-    see encode_batch."""
+    ln_capture: a list that receives one dict a layer of the LayerNorm
+    outputs that feed quantized matmuls (see _conformer_block)."""
     dev = mel.device
     x = conv_subsampling(params.subsampling, mel)
     Tp = x.shape[1]
@@ -141,7 +130,17 @@ def _batch_inputs(params, cfg: ModelConfig, mel: torch.Tensor,
                & (j[None, :] >= start[:, None] - att_left))        # [T', T']
         cmask = torch.where(vis, 0.0, -1e9).to(f32)[None, None]
         mask = cmask if mask is None else mask + cmask
-    return x, pos, mask
+
+    for l in range(cfg.n_layers):
+        lp = params.layers.layer(l)
+        pos_heads = project_pos(lp.attn_pos_w, pos, cfg.n_heads, cfg.d_head)
+        cap = None if ln_capture is None else {}
+        x = conformer_layer_batch(lp, x, pos_heads, mask,
+                                  n_heads=cfg.n_heads, d_head=cfg.d_head,
+                                  ln_capture=cap)
+        if cap is not None:
+            ln_capture.append(cap)
+    return x
 
 
 @dataclasses.dataclass
@@ -341,7 +340,8 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
                               else (ones, ones))
         x, nk, nv, ncv, norm_attn = conformer_layer(
             lp, x, pos_heads[l], layer_masks[l], state.conv_cache[l], ring_l,
-            *rings, chron, k_cols, v_cols, n_heads=H, d_head=Dh)
+            *rings, chron, k_cols, v_cols, n_heads=H, d_head=Dh,
+            packed_int4=cc.kv_cache_int4)
         if shared:
             new_k.append(norm_attn[:, None])                        # [B,1,Q,D]
         else:

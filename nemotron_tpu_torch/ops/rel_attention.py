@@ -194,7 +194,7 @@ def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
 
 def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
                            layer_idx: int, k_ring_all, v_ring_all, chron,
-                           mask, k_cols, v_cols):
+                           mask, k_cols, v_cols, packed_int4: bool = False):
     """rel_pos_mha_ring with ring reads, scores, softmax and context fused
     into one kernel (ops/ring_attn_kernel.py). The rings are the FULL
     stacked [L, B, H, KV, Dh] tensors; the kernel reads layer `layer_idx`
@@ -202,6 +202,7 @@ def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
     handed over in the compute dtype.
 
     k_cols/v_cols [B, H, KV] f32: per-slot dequant columns (ones if dense).
+    packed_int4: the rings are [L, B, H, KV, Dh/2] nibble pairs.
     Returns (out [B, Q, D], k_new [B, H, Q, Dh], v_new [B, H, Q, Dh])."""
     B, Q, D = x.shape
     dt = x.dtype
@@ -217,7 +218,8 @@ def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
     a = a.expand(B, n_heads, Q, kv + Q).contiguous()
 
     ctx = fused_ring_attention(layer_idx, q_u, k_new, v_new, k_ring_all,
-                               v_ring_all, a, k_cols, v_cols)
+                               v_ring_all, a, k_cols, v_cols,
+                               packed_int4=packed_int4)
     ctx = ctx.transpose(1, 2).reshape(B, Q, D)
     return qmm(ctx, lp.attn_out_w), k_new, v_new
 

@@ -61,19 +61,19 @@ def unpack_int4(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def ring_attention_ref(layer: int, q_u, k_new, v_new, k_ring_all, v_ring_all,
-                       a, k_cols, v_cols):
+                       a, k_cols, v_cols, *, packed_int4: bool = False):
     """Plain version, the arithmetic of the TPU kernel's body
     (nemotron_tpu/ops/ring_attn_kernel.py:52-82): f32 dots over
     compute-dtype operands, f32 softmax, value-side weights rounded to the
-    compute dtype, context stored in the compute dtype. Packed int4 rings
-    (last dim Dh/2) are unpacked first."""
+    compute dtype, context stored in the compute dtype. packed_int4: the
+    rings are [L, B, H, KV, Dh/2] nibble pairs, unpacked first."""
     dt = q_u.dtype
     f32 = torch.float32
     kv = k_ring_all.shape[3]
     scale = float(1.0 / (q_u.shape[-1] ** 0.5))
     qu = q_u.to(f32)
     k_r, v_r = k_ring_all[layer], v_ring_all[layer]
-    if k_r.shape[-1] != q_u.shape[-1]:
+    if packed_int4:
         k_r, v_r = unpack_int4(k_r, dt), unpack_int4(v_r, dt)
     k_r = k_r.to(dt).to(f32)
     v_r = v_r.to(dt).to(f32)
@@ -105,10 +105,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
-                         v_ring_all, a, k_cols, v_cols):
+                         v_ring_all, a, k_cols, v_cols, *,
+                         packed_int4: bool = False):
     """q_u/k_new/v_new [B, H, Q, Dh] f32 or bf16; k_ring_all/v_ring_all
-    [L, B, H, KV, Dh] in the compute dtype or int8, or [L, B, H, KV, Dh/2]
-    int8 of packed int4 pairs (read only);
+    [L, B, H, KV, Dh] in the compute dtype or int8, or with packed_int4
+    [L, B, H, KV, Dh/2] int8 of packed int4 pairs (read only);
     a [B, H, Q, KV+Q] in the compute dtype; k_cols/v_cols [B, H, KV] f32.
     Returns ctx [B, H, Q, Dh] in the compute dtype.
 
@@ -120,7 +121,8 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
     they are (8-byte copies at Dh = 16) and unpacked in the kernel."""
     if q_u.device.type == "cpu":
         return ring_attention_ref(layer, q_u, k_new, v_new, k_ring_all,
-                                  v_ring_all, a, k_cols, v_cols)
+                                  v_ring_all, a, k_cols, v_cols,
+                                  packed_int4=packed_int4)
     if q_u.device.type != "cuda":
         raise ValueError(f"fused_ring_attention: unsupported device "
                          f"{q_u.device}")
@@ -130,13 +132,14 @@ def fused_ring_attention(layer: int, q_u, k_new, v_new, k_ring_all,
     if dt not in _DTYPES:
         raise TypeError(f"fused_ring_attention: compute dtype {dt}")
     ring_dt = k_ring_all.dtype
-    if ring_dt not in (dt, torch.int8) or v_ring_all.dtype != ring_dt:
+    if (ring_dt not in (dt, torch.int8) or v_ring_all.dtype != ring_dt
+            or (packed_int4 and ring_dt != torch.int8)):
         raise TypeError(f"fused_ring_attention: ring dtypes {ring_dt}, "
-                        f"{v_ring_all.dtype} with compute dtype {dt}")
+                        f"{v_ring_all.dtype} with compute dtype {dt}"
+                        f"{' (packed int4)' if packed_int4 else ''}")
     # ring type: 0 compute dtype, 1 int8, 2 packed int4 (Dh/2 bytes a row)
-    ring_type = 0 if ring_dt == dt else (
-        2 if k_ring_all.shape[-1] == Dh // 2 else 1)
-    d_ring = Dh // 2 if ring_type == 2 else Dh
+    ring_type = 2 if packed_int4 else (0 if ring_dt == dt else 1)
+    d_ring = Dh // 2 if packed_int4 else Dh
     shapes = {"k_new": (k_new, (B, H, Q, Dh), dt),
               "v_new": (v_new, (B, H, Q, Dh), dt),
               "k_ring_all": (k_ring_all, (L, B, H, KV, d_ring), ring_dt),

@@ -223,6 +223,53 @@ def test_ring_attention_kernel_small_heads_on_card(cuda_device, Dh, Q, KV,
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+def int4_ring_inputs(rng, device, dtype, **shape):
+    """Ring-attention inputs over packed int4 rings: values uniform in
+    [-7, 7] and column scales of an amax/7 size, so that the dequantized
+    K/V are O(1) and the ring carries most of the output."""
+    x = ring_inputs(rng, int8=True, **shape)
+    for k in ("k_ring", "v_ring"):
+        x[k] = rng.integers(-7, 8, x[k].shape).astype(np.int8)
+    for k in ("k_cols", "v_cols"):
+        x[k] = (rng.random(x[k].shape) * 0.3).astype(np.float32)
+    return {k: torch.tensor(v, device=device) if k in ("k_cols", "v_cols")
+            else pack_int4(torch.tensor(v, device=device))
+            if k in ("k_ring", "v_ring")
+            else torch.tensor(v, device=device).to(dtype)
+            for k, v in x.items()}
+
+
+def swap_nibbles(p):
+    """Packed int4 bytes with their two nibbles exchanged: what a kernel
+    that unpacked the pairs in the wrong order would read."""
+    v = p.to(torch.int32) & 0xFF
+    return (((v & 0xF) << 4) | (v >> 4)).to(torch.uint8).view(torch.int8)
+
+
+def attn_atol(dt, want):
+    """f32: the same products summed in another order; bf16: one rounding
+    of the f32 context, two bf16 ulps of the largest output (at least 1)."""
+    scale = max(want.float().abs().max().item(), 1.0)
+    return 1e-5 if dt == torch.float32 else 2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("Dh", [16, 128])
+def test_int4_ring_inputs_see_a_nibble_swap(Dh):
+    """The int4 inputs are sensitive enough that a ring read with its
+    nibbles swapped misses the bf16 tolerance by a wide margin."""
+    Q, KV = MODE_SHAPES[-1]
+    dt = torch.bfloat16
+    x = int4_ring_inputs(np.random.default_rng(Dh), "cpu", dt, L=2, B=2,
+                         H=8, Q=Q, KV=KV, Dh=Dh)
+    want = call(ring_attention_ref, 1, x, ident, packed_int4=True)
+    swapped = dict(x, k_ring=swap_nibbles(x["k_ring"]),
+                   v_ring=swap_nibbles(x["v_ring"]))
+    assert torch.equal(swap_nibbles(swapped["k_ring"]), x["k_ring"])
+    wrong = call(ring_attention_ref, 1, swapped, ident, packed_int4=True)
+    err = (wrong.float() - want.float()).abs().max().item()
+    assert err > 4 * attn_atol(dt, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Q,KV", MODE_SHAPES)
@@ -231,27 +278,36 @@ def test_ring_attention_kernel_int4_rings_on_card(cuda_device, Dh, Q, KV,
                                                   dtype):
     """Packed int4 rings (Dh/2 bytes a row: 8-byte copies at Dh = 16) at
     the same tolerances as the other ring types; repeated calls
-    bit-equal."""
+    bit-equal; the kernel's output misses the plain version over
+    nibble-swapped rings."""
     dt = getattr(torch, dtype)
-    x = ring_inputs(np.random.default_rng(Dh + Q + 1), L=3, B=2, H=8, Q=Q,
-                    KV=KV, Dh=Dh, int8=True)
-    for k in ("k_ring", "v_ring"):
-        x[k] = np.clip(x[k], -7, 7)
-    x = {k: torch.tensor(v, device=cuda_device) if k in ("k_cols", "v_cols")
-         else pack_int4(torch.tensor(v, device=cuda_device))
-         if k in ("k_ring", "v_ring")
-         else torch.tensor(v, device=cuda_device).to(dt)
-         for k, v in x.items()}
+    x = int4_ring_inputs(np.random.default_rng(Dh + Q + 1), cuda_device, dt,
+                         L=3, B=2, H=8, Q=Q, KV=KV, Dh=Dh)
     before = fused_ring_attention.launches
-    got = call(fused_ring_attention, 2, x, ident)
-    again = call(fused_ring_attention, 2, x, ident)
-    want = call(ring_attention_ref, 2, x, ident)
+    got = call(fused_ring_attention, 2, x, ident, packed_int4=True)
+    again = call(fused_ring_attention, 2, x, ident, packed_int4=True)
+    want = call(ring_attention_ref, 2, x, ident, packed_int4=True)
+    wrong = call(ring_attention_ref, 2, dict(
+        x, k_ring=swap_nibbles(x["k_ring"]),
+        v_ring=swap_nibbles(x["v_ring"])), ident, packed_int4=True)
     torch.cuda.synchronize()
     assert fused_ring_attention.launches == before + 2
     assert torch.equal(got, again)
-    scale = max(want.float().abs().max().item(), 1.0)
-    atol = 1e-5 if dt == torch.float32 else 2.0 ** -6 * scale
+    atol = attn_atol(dt, want)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got.float() - wrong.float()).abs().max().item() > atol
+
+
+@pytest.mark.cuda
+def test_ring_attention_kernel_refuses_misshaped_int4_ring(cuda_device):
+    """The ring type is the caller's: an int8 ring of Dh bytes a row
+    handed over as packed int4 is refused, not read as nibbles."""
+    Q, KV = MODE_SHAPES[0]
+    x = ring_inputs(np.random.default_rng(2), L=2, B=1, H=8, Q=Q, KV=KV,
+                    Dh=16, int8=True)
+    x = {k: torch.tensor(v, device=cuda_device) for k, v in x.items()}
+    with pytest.raises(ValueError, match="k_ring_all"):
+        call(fused_ring_attention, 1, x, ident, packed_int4=True)
 
 
 def tone_pcm(seconds=5.0, n_tones=16, seed=7):

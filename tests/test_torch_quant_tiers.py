@@ -217,7 +217,7 @@ def test_ring_attention_ref_unpacks_packed_rings():
         args = [t.to(dt) for t in (q, kn, vn)]
         want = ring_attention_ref(1, *args, kr, vr, a.to(dt), kc, vc)
         got = ring_attention_ref(1, *args, pack_int4(kr), pack_int4(vr),
-                                 a.to(dt), kc, vc)
+                                 a.to(dt), kc, vc, packed_int4=True)
         assert torch.equal(got, want)
 
 
@@ -259,7 +259,8 @@ def test_rel_pos_mha_ring_packed_int4_matches_jax(models):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     fused, _, _ = trel.rel_pos_mha_ring_fused(
         tl, torch.tensor(x), tph, H, Dh, 1, *packed, torch.tensor(chron),
-        torch.tensor(mask), torch.tensor(cols[0]), torch.tensor(cols[1]))
+        torch.tensor(mask), torch.tensor(cols[0]), torch.tensor(cols[1]),
+        packed_int4=True)
     np.testing.assert_allclose(fused.numpy(), np.asarray(want), atol=ATOL)
 
 

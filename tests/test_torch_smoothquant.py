@@ -73,15 +73,17 @@ def test_calibrate_ln_amax_matches_jax(dense, att_chunk):
                                    err_msg=site)
 
 
-@pytest.mark.parametrize("alpha", [0.5, 0.8])
-def test_fold_matches_jax_and_is_exact(dense, alpha):
-    """The same amax give the same folded f32 weights bit for bit, and the
-    folded encoder equals the original within f32 rounding."""
+@pytest.mark.parametrize("att_chunk", [None, 4])
+def test_fold_matches_jax_and_is_exact(dense, att_chunk):
+    """The same amax (of full or chunked visibility) give the same folded
+    f32 weights bit for bit, and the folded encoder equals the original
+    within f32 rounding."""
     jp, tp, cfg = dense
     mel = _mel(cfg)
-    amax = jsq.calibrate_ln_amax(jp, cfg, mel)
-    jsm, js = jsq.smooth_params(jp, amax, alpha=alpha, return_scales=True)
-    tsm, ts = tsq.smooth_params(tp, amax, alpha=alpha, return_scales=True)
+    amax = jsq.calibrate_ln_amax(jp, cfg, mel, att_chunk=att_chunk)
+    jsm, js = jsq.smooth_params(jp, amax, alpha=tsq.ALPHA,
+                                s_clip=tsq.S_CLIP, return_scales=True)
+    tsm, ts = tsq.smooth_params(tp, amax)
     for site, names in tsq.FOLD_SITES:
         np.testing.assert_array_equal(ts[site], js[site])
         for name in (site + "_w", site + "_b") + names:
@@ -239,6 +241,6 @@ def test_sq_session_tokens_match_jax(fixture_dense, static, int4):
 def test_static_scales_need_w8a8_weights(dense):
     _jp, tp, cfg = dense
     amax = tsq.calibrate_ln_amax(tp, cfg, _mel(cfg))
-    sm, s = tsq.smooth_params(tp, amax, return_scales=True)
+    sm, s = tsq.smooth_params(tp, amax)
     with pytest.raises(TypeError, match="W8A8"):
         tsq.attach_static_act_scales(sm, amax, s)
