@@ -17,7 +17,14 @@ Phases (any failure exits non-zero):
      int8 rings, R = 13), the Q8 matmul per layer at M = 14 and M = 1, the
      W8A8 matmul per layer at M = 8, 16 and 112 and per call at M = 672;
      the Q8 matmul also at the full-utterance path's M = 17, 257 and 804
-     (checked) and per layer at M = 804 (timed).
+     (checked) and per layer at M = 804 (timed). Since slice 11 the Q8
+     matmul has two designs (split-K clusters up to M* rows, 128 x 128
+     tiles above): checked at M* - 1, M* and M* + 1 besides, repeatable bit
+     for bit at M = 896 in both dtypes, and both designs timed per layer
+     at the crossover rows M = 16, 32, 64, 96, 112, 128, 256, 804 and
+     896
+     through the same entry point (`q8_matmul_as`); the profiles count Q8
+     launches under every kernel name that starts with q8_matmul.
   4. Q8_0 main path (slice 1): a seeded full-width (0.6B) random-weight
      GGUF with Q8_0 encoder matmuls, written with the port's writer, loaded
      with load_model(device="cuda") and streamed through StreamSession
@@ -134,9 +141,11 @@ SEED = 0
 AUDIO_SECONDS = 4.0
 MODES = (0, 1, 6, 13)
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s per type. The
-# kernels' f32 paths run on the CUDA cores, their bf16 paths too (no tensor
-# cores yet), so f32 work is bounded by the f32 peak and bf16 work by the
-# bf16 tensor-core peak (the least time the card could take).
+# Q8 and attention kernels run f32 and bf16 on the CUDA cores (FFMA, f32
+# accumulation) and the W8A8 kernel its integer product on the tensor cores
+# (mma.sync s8). Each bound is the least time the card could take: f32 work
+# at the f32 peak, bf16 work at the bf16 tensor-core peak, int8 at the int8
+# peak.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # Tolerances, kernel vs plain version on the same inputs. f32: the two sum
@@ -561,12 +570,22 @@ Q8_SHAPES = {(1024, 1024): 5, (1024, 4096): 2, (4096, 1024): 2,
 #                                  ffn w1 x2, ffn w2 x2, pw1)
 
 
+# slice 11: the Q8 kernel's crossover rows, where both designs are timed
+Q8_CROSSOVER_MS = (16, 32, 64, 96, 112, 128, 256, FULL_UTT_M, ENGINE_M)
+
+
 def q8_phase(failures: list) -> dict:
     import torch
 
-    from nemotron_tpu_torch.ops.quant_kernel import q8_matmul, q8_matmul_ref
+    from nemotron_tpu_torch.ops.quant_kernel import (SPLITK_MAX_M,
+                                                     q8_launch_geometry,
+                                                     q8_matmul, q8_matmul_as,
+                                                     q8_matmul_ref, sm_count,
+                                                     splitk_geometry,
+                                                     tiled_geometry)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    sms = sm_count(torch.device("cuda"))
 
     def weights(K, N, n=1):
         return [(torch.randint(-127, 128, (K, N), device="cuda", generator=g,
@@ -574,9 +593,15 @@ def q8_phase(failures: list) -> dict:
                  torch.rand(K // 32, N, device="cuda", generator=g) * 1e-3)
                 for _ in range(n)]
 
-    log("phase kernels: q8_matmul vs q8_matmul_ref")
-    for M in (1, 14, 112, 17, 257, FULL_UTT_M, ENGINE_M):
+    # the skinny design up to M* = SPLITK_MAX_M rows, the tiled one above:
+    # both sides of M*, the streaming step's rows, the full-utterance and
+    # engine batches, ragged tiles (17, 257)
+    log(f"phase kernels: q8_matmul vs q8_matmul_ref (M* = {SPLITK_MAX_M})")
+    star = SPLITK_MAX_M
+    for M in (1, 14, 112, 17, 257, FULL_UTT_M, ENGINE_M, star - 1, star,
+              star + 1):
         for (K, N) in Q8_SHAPES:
+            design = q8_launch_geometry(M, K, N, sms).design
             for dt in (torch.float32, torch.bfloat16):
                 (q, s), = weights(K, N)
                 x = torch.randn(M, K, device="cuda", generator=g).to(dt)
@@ -587,36 +612,49 @@ def q8_phase(failures: list) -> dict:
                 scale = want.float().abs().max().item()
                 tol = (TOL_F32_Q8_REL if dt == torch.float32
                        else TOL_BF16_REL) * scale
-                check(f"q8 M={M} K={K} N={N} {str(dt)[6:]}", err, tol,
-                      failures)
+                check(f"q8 M={M} K={K} N={N} {str(dt)[6:]} {design}", err,
+                      tol, failures)
 
-    # determinism: the same inputs give the same bits (no atomics)
-    for M, (K, N) in ((14, (4096, 1024)), (1, (1024, 4096))):
-        (q, s), = weights(K, N)
-        x = torch.randn(M, K, device="cuda", generator=g)
-        first = q8_matmul(x, q, s)
-        same = all(torch.equal(q8_matmul(x, q, s), first) for _ in range(3))
-        log(f"  q8 M={M} K={K} N={N}: repeated calls bit-equal: {same}")
-        if not same:
-            failures.append(f"q8 M={M} K={K} N={N}: not deterministic")
+    # determinism: the same inputs give the same bits (no atomics), in both
+    # designs (the engine's M = 896 splits K over clusters of 4)
+    for M, (K, N) in ((14, (4096, 1024)), (1, (1024, 4096)),
+                      (ENGINE_M, (1024, 1024)), (ENGINE_M, (4096, 1024))):
+        for dt in (torch.float32, torch.bfloat16):
+            (q, s), = weights(K, N)
+            x = torch.randn(M, K, device="cuda", generator=g).to(dt)
+            first = q8_matmul(x, q, s)
+            same = all(torch.equal(q8_matmul(x, q, s), first)
+                       for _ in range(3))
+            log(f"  q8 M={M} K={K} N={N} {str(dt)[6:]} "
+                f"{q8_launch_geometry(M, K, N, sms)}: repeated calls "
+                f"bit-equal: {same}")
+            if not same:
+                failures.append(f"q8 M={M} K={K} N={N}: not deterministic")
 
     # times at the main paths' shapes: M = 14 rows (one stream, R=13), M = 1
     # (R=0), the full-utterance batch's M = 804 and the 64-slot engine's
-    # M = 896, f32; enough weight copies to exceed L2 as a chunk does
+    # M = 896, f32; enough weight copies to exceed L2 as a chunk does. At
+    # the crossover rows both designs, through the same entry point
     log("phase kernels: q8_matmul times (f32; weights cycled beyond L2)")
     out = {}
-    for M in (14, 1, FULL_UTT_M, ENGINE_M):
+    for M in sorted({1, 14, *Q8_CROSSOVER_MS}):
         iters = 500 if M <= 16 else 100
         for (K, N) in Q8_SHAPES:
             n = max(2, (192 << 20) // (K * N))
             ws = weights(K, N, n)
             x = torch.randn(M, K, device="cuda", generator=g)
+            own = q8_launch_geometry(M, K, N, sms)
+            geos = {"splitk": splitk_geometry(M, K, N, sms)}
+            if M in Q8_CROSSOVER_MS:
+                geos["tiled"] = tiled_geometry(M, K, N, sms)
             err = max((q8_matmul(x, q, s) - q8_matmul_ref(x, q, s))
                       .abs().max().item() for q, s in ws[:4])
             dense = [(q.float().reshape(K // 32, 32, N)
                       * s[:, None, :]).reshape(K, N) for q, s in ws[:8]]
-            ms = time_calls([lambda q=q, s=s: q8_matmul(x, q, s)
-                             for q, s in ws], iters)
+            design_ms = {d: time_calls([lambda q=q, s=s, geo=geo:
+                                        q8_matmul_as(x, q, s, geo)
+                                        for q, s in ws], iters)
+                         for d, geo in geos.items()}
             plain_ms = time_calls([lambda q=q, s=s: q8_matmul_ref(x, q, s)
                                    for q, s in ws[:8]], 100)
             lib_ms = time_calls([lambda w=w: torch.matmul(x, w)
@@ -625,17 +663,31 @@ def q8_phase(failures: list) -> dict:
             flops = 2 * M * K * N
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / PEAK_FLOPS["float32"]
-            out[(M, K, N)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            out[(M, K, N)] = dict(ms=design_ms[own.design], design=own.design,
+                                  split=own.split, plain_ms=plain_ms,
+                                  library_ms=lib_ms,
                                   bound_ms=max(t_bytes, t_ops) * 1e3,
                                   bytes=nbytes, flops=flops, max_abs_err=err,
                                   bound_by="bytes" if t_bytes >= t_ops
                                   else "operations")
-            log(f"  M={M} K={K} N={N}: kernel {ms * 1e3:.2f} us, plain "
-                f"{plain_ms * 1e3:.2f} us, matmul {lib_ms * 1e3:.2f} us, "
-                f"bound {max(t_bytes, t_ops) * 1e6:.3f} us, err {err:.2e}")
+            out[(M, K, N)] |= {f"{d}_ms": v for d, v in design_ms.items()}
+            log(f"  M={M} K={K} N={N}: kernel {design_ms[own.design] * 1e3:.2f}"
+                f" us ({own.design}, split {own.split}"
+                + "".join(f"; {d} {v * 1e3:.2f} us" for d, v in
+                          design_ms.items() if len(design_ms) > 1)
+                + f"), plain {plain_ms * 1e3:.2f} us, matmul "
+                f"{lib_ms * 1e3:.2f} us, bound {max(t_bytes, t_ops) * 1e6:.3f}"
+                f" us, err {err:.2e}")
             if err > TOL_F32_Q8_REL * 64:
                 failures.append(f"q8 timing inputs M={M} K={K} N={N}")
             del ws, dense
+    for M in Q8_CROSSOVER_MS:
+        layer = {d: sum(out[(M, K, N)][f"{d}_ms"] * c
+                        for (K, N), c in Q8_SHAPES.items())
+                 for d in ("splitk", "tiled")}
+        log(f"  crossover M={M}, one layer: splitk {layer['splitk'] * 1e3:.2f}"
+            f" us, tiled {layer['tiled'] * 1e3:.2f} us; the geometry takes "
+            f"{'splitk' if M <= SPLITK_MAX_M else 'tiled'}")
     return out
 
 
@@ -901,7 +953,7 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
             if name.startswith(("q8_", "ring_attn_")):
                 log(f"    {us / 1e3:8.3f} ms  {prof['count'][name]:6d} "
                     f"launches  {name}")
-        q8_k = launches_of(prof, "q8_matmul_cluster_kernel")
+        q8_k = launches_of(prof, "q8_matmul")
         attn_k = launches_of(prof, "ring_attn_cluster_kernel")
         reduce_k = launches_of(prof, "q8_reduce")
         log(f"  Q8 calls {q8_calls}, Q8 kernel launches {q8_k}, reduce "
@@ -1286,12 +1338,12 @@ def full_utterance_phase(gguf_path: str, failures: list) -> dict:
     prof = profile_window(
         lambda: sess_mod.transcribe_batch(params, cfg, vocab, utts))
     busy = prof["busy_us"] / max(prof["wall_us"], 1e-9)
-    q8_k = launches_of(prof, "q8_matmul_cluster_kernel")
+    q8_k = launches_of(prof, "q8_matmul")
     if prof["busy_us"] > 0:
         log(f"  profile of one transcribe_batch: wall "
             f"{prof['wall_us'] / 1e3:.2f} ms, device busy "
             f"{prof['busy_us'] / 1e3:.2f} ms ({100 * busy:.1f}%), "
-            f"q8_matmul_cluster_kernel launches {q8_k} (one encode_batch)")
+            f"q8_matmul* launches {q8_k} (one encode_batch)")
         for name, us in prof["by_name"][:10]:
             log(f"    {us / 1e3:8.3f} ms  {prof['count'][name]:6d} launches  "
                 f"{name}")
@@ -1885,7 +1937,7 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
     out["profile_q8"] = log_profile(
         "Q8_0 f32 R=13", prof, 3, failures, "w8a8_",
         {"ring_attn_cluster_kernel": cfg.n_layers,
-         "q8_matmul_cluster_kernel": 10 * cfg.n_layers})
+         "q8_matmul": 10 * cfg.n_layers})
 
     # streams per card: W8A8 bf16 device DSP R = 13 at 8, 64 and 256 slots,
     # every slot at the real-time rate for 8 s (7 ticks), evicted at the end
@@ -2452,7 +2504,7 @@ def server_cell(name, params, cfg, vocab, cc, dtype, dsp, failures,
                         for k in range(SERVER_TCP + SERVER_WS, n_clients)])
     busy = prof["busy_us"] / prof["wall_us"] if prof["wall_us"] else 0.0
     attn_n = launches_of(prof, "ring_attn_cluster_kernel")
-    mm_prefix = f"{kernel}_matmul_cluster_kernel"
+    mm_prefix = f"{kernel}_matmul"
     mm_n = launches_of(prof, mm_prefix)
     other = "q8" if kernel == "w8a8" else "w8a8"
     out = dict(
@@ -3445,6 +3497,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from nemotron_tpu_torch.ops import cuda_build
     from nemotron_tpu_torch.device import resolve_device
+    from nemotron_tpu_torch.ops.quant_kernel import SPLITK_MAX_M
 
     t_start = time.perf_counter()
     resolve_device("cuda")
@@ -3511,9 +3564,11 @@ def main() -> int:
     a13 = attn[13]
 
     def q8_layer(M):
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops",
+                "splitk_ms") + (("tiled_ms",) if M in Q8_CROSSOVER_MS else ())
         t = {k: sum(q8[(M, K, N)][k] * c for (K, N), c in Q8_SHAPES.items())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                       "flops")}
+             for k in keys}
+        t["design"] = q8[(M, 1024, 1024)]["design"]
         t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
                          >= t["flops"] / PEAK_FLOPS["float32"]
                          else "operations")
@@ -3565,7 +3620,11 @@ def main() -> int:
                   "2x(1024,4096) 2x(4096,1024) 1x(1024,2048)",
          "per_m": {f"M={M}": {k: v for k, v in q8_layer(M).items()
                               if k not in ("bytes", "flops")}
-                   for M in (1, 14, FULL_UTT_M, ENGINE_M)}},
+                   for M in (1, 14, *Q8_CROSSOVER_MS)},
+         "m_star": SPLITK_MAX_M,
+         "designs": "splitk (split-K cluster) for M <= m_star, tiled (128 x "
+                    "128 tiles, dequantized once a block) above; per_m gives "
+                    "both designs' layer times at the crossover rows"},
         {"name": "w8a8_matmul", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/w8a8_matmul.cu",
          "replaces": "nemotron_tpu/ops/w8a8_kernel.py:52",

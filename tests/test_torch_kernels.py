@@ -16,8 +16,13 @@ import torch
 
 from nemotron_tpu_torch.config import CacheConfig
 from nemotron_tpu_torch.ops.quant import quantize_tensor
-from nemotron_tpu_torch.ops.quant_kernel import (q8_launch_geometry,
-                                                 q8_matmul, q8_matmul_ref)
+from nemotron_tpu_torch.ops.quant_kernel import (SPLITK_MAX_M, TILED_BM,
+                                                 TILED_BN,
+                                                 q8_launch_geometry,
+                                                 q8_matmul, q8_matmul_as,
+                                                 q8_matmul_ref,
+                                                 splitk_geometry,
+                                                 tiled_geometry)
 from nemotron_tpu_torch.ops.ring_attn_kernel import (cluster_size,
                                                      fused_ring_attention,
                                                      pack_int4,
@@ -83,7 +88,7 @@ def test_ring_attention_ref_matches_pallas_interpret(int8, layer, Q, KV):
     np.testing.assert_array_equal(cpu.numpy(), got.numpy())
 
 
-@pytest.mark.parametrize("M", [1, 8, 14, 37, 300])
+@pytest.mark.parametrize("M", [1, 8, 14, 37, 300, 128, 804, 896])
 def test_q8_matmul_ref_matches_pallas_interpret(M):
     import jax.numpy as jnp
 
@@ -121,20 +126,90 @@ def test_q8_matmul_ref_rounds_weights_to_the_activation_dtype():
 
 @pytest.mark.parametrize("K,N", Q8_SHAPES)
 def test_q8_launch_geometry_fills_an_h100(K, N):
-    """One launch a call, at least one full wave of blocks on an H100 for
-    every encoder shape at any M, clusters of at most 8 blocks, whole
-    32-row scale blocks per cluster rank."""
-    tn, ck, blocks = q8_launch_geometry(K, N, H100_SMS)
-    assert blocks >= H100_SMS
-    assert tn in (32, 64) and 1 <= ck <= 8 and K // 32 >= ck
-    assert blocks == -(-N // tn) * ck
+    """The skinny design (M <= M*): one launch a call, at least one full
+    wave of blocks on an H100 for every encoder shape at any of its M,
+    clusters of at most 8 blocks, whole 32-row scale blocks per cluster
+    rank; the grid does not depend on M."""
+    grids = set()
+    for M in (1, 14, SPLITK_MAX_M):
+        g = q8_launch_geometry(M, K, N, H100_SMS)
+        assert g.design == "splitk"
+        assert g.blocks >= H100_SMS
+        assert g.bn in (32, 64) and 1 <= g.split <= 8 and K // 32 >= g.split
+        assert g.blocks == -(-N // g.bn) * g.split
+        grids.add((g.bn, g.split, g.blocks))
+    assert len(grids) == 1
 
 
 @pytest.mark.parametrize("K,N,want", [(96, 56, (32, 3, 6)),
                                       (32, 4096, (32, 1, 128)),
                                       (1024, 1024, (32, 8, 256))])
 def test_q8_launch_geometry_small_and_odd_shapes(K, N, want):
-    assert q8_launch_geometry(K, N, H100_SMS) == want
+    for M in (1, SPLITK_MAX_M):
+        g = q8_launch_geometry(M, K, N, H100_SMS)
+        assert g.design == "splitk" and (g.bn, g.split, g.blocks) == want
+
+
+@pytest.mark.parametrize("M,design,bm", [
+    (1, "splitk", 1), (2, "splitk", 2), (3, "splitk", 4), (8, "splitk", 8),
+    (9, "splitk", 16), (14, "splitk", 16), (SPLITK_MAX_M - 1, "splitk", 16),
+    (SPLITK_MAX_M, "splitk", 16), (SPLITK_MAX_M + 1, "tiled", TILED_BM),
+    (112, "tiled", TILED_BM), (804, "tiled", TILED_BM),
+    (896, "tiled", TILED_BM), (4096, "tiled", TILED_BM)])
+def test_q8_launch_geometry_picks_the_design_by_m(M, design, bm):
+    """The skinny design up to M* = 96 rows, the crossover measured on an
+    H100 (its row tile 1, 2, 4, 8 or 16), the tiled one (128 x 128 output
+    tiles) above, for every encoder shape."""
+    assert SPLITK_MAX_M == 96 and (TILED_BM, TILED_BN) == (128, 128)
+    for K, N in Q8_SHAPES:
+        g = q8_launch_geometry(M, K, N, H100_SMS)
+        assert (g.design, g.bm) == (design, bm)
+        want = (splitk_geometry if design == "splitk" else tiled_geometry)(
+            M, K, N, H100_SMS)
+        assert g == want
+
+
+@pytest.mark.parametrize("M", [804, 896])
+@pytest.mark.parametrize("K,N", Q8_SHAPES)
+def test_q8_tiled_geometry_fills_an_h100_at_large_m(K, N, M):
+    """The full-utterance encoder's M = 804 and the 64-slot engine's 896:
+    at least one block an SM for every encoder shape, with the least split
+    that gives it."""
+    g = q8_launch_geometry(M, K, N, H100_SMS)
+    tiles = -(-M // TILED_BM) * -(-N // TILED_BN)
+    assert g.design == "tiled" and (g.bm, g.bn) == (TILED_BM, TILED_BN)
+    assert g.blocks == tiles * g.split >= H100_SMS
+    assert g.split == 1 or tiles * (g.split // 2) < H100_SMS
+
+
+@pytest.mark.parametrize("K", [32, 64, 96, 160, 1024, 4096])
+@pytest.mark.parametrize("N", [56, 1024])
+def test_q8_tiled_split_takes_whole_scale_blocks(K, N):
+    """Each rank of a cluster takes a run of whole 32-row scale blocks, at
+    least one, in order (the kernel's partition r * nsb / split), and a
+    cluster has 1, 2, 4 or 8 blocks; a forced split keeps its value."""
+    nsb = K // 32
+    for M in (SPLITK_MAX_M + 1, 300, 896):
+        g = tiled_geometry(M, K, N, H100_SMS)
+        assert g.split in (1, 2, 4, 8) and g.split <= nsb
+        runs = [(r * nsb // g.split, (r + 1) * nsb // g.split)
+                for r in range(g.split)]
+        assert runs[0][0] == 0 and runs[-1][1] == nsb
+        assert all(b > a for a, b in runs)
+        assert all(runs[i][1] == runs[i + 1][0] for i in range(g.split - 1))
+    for split in (1, 2, 4, 8):
+        if split <= nsb:
+            assert tiled_geometry(896, K, N, H100_SMS, split).split == split
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (300, 96, 56, (2, 6)), (170, 64, 40, (2, 4)), (165, 32, 136, (1, 4)),
+    (200, 1024, 1024, (8, 128)), (SPLITK_MAX_M + 1, 4096, 1024, (8, 64))])
+def test_q8_tiled_geometry_small_and_odd_shapes(M, K, N, want):
+    """Small K caps the split at K/32; small grids take the largest split
+    that K allows; ragged M and N round up to whole tiles."""
+    g = q8_launch_geometry(M, K, N, H100_SMS)
+    assert g.design == "tiled" and (g.split, g.blocks) == want
 
 
 def test_ring_attention_cluster_gives_32_blocks_at_one_stream():
@@ -451,6 +526,78 @@ def test_q8_matmul_kernel_odd_shapes_on_card(cuda_device, M, K, N, offset,
     tol = 4e-6 if dt == torch.float32 else 2.0 ** -6
     torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
                                rtol=0)
+
+
+def card_q8_inputs(device, M, K, N, dtype, seed, offset=0):
+    """Seeded Q8_0 weights and activations on the card; x starts `offset`
+    elements into its buffer (offset 1: not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    qt = quantize_tensor(rng.standard_normal((K, N)).astype(np.float32))
+    xs = torch.tensor(rng.standard_normal(M * K + offset).astype(np.float32),
+                      device=device).to(getattr(torch, dtype))
+    return (xs[offset:].view(M, K), torch.tensor(qt.q, device=device),
+            torch.tensor(qt.scale, device=device))
+
+
+def assert_q8_close(got, want):
+    """f32: 4e-6 of max|out| (another summation order, K up to 4096);
+    bf16: two bf16 ulps of max|out|."""
+    scale = want.float().abs().max().item()
+    tol = 4e-6 if want.dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", Q8_SHAPES)
+@pytest.mark.parametrize("M", [SPLITK_MAX_M - 1, SPLITK_MAX_M,
+                               SPLITK_MAX_M + 1, 896, 1000])
+def test_q8_matmul_kernel_at_the_crossover_and_large_m(cuda_device, M, K, N,
+                                                       dtype):
+    """Either side of M* (the last skinny and the first tiled row count),
+    the engine's M = 896 and a ragged 1000: one launch, within tolerance
+    of the plain version."""
+    x, q, s = card_q8_inputs(cuda_device, M, K, N, dtype, M + K + N)
+    before = q8_matmul.launches
+    got = q8_matmul(x, q, s)
+    want = q8_matmul_ref(x, q, s)
+    torch.cuda.synchronize()
+    assert q8_matmul.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == (M, N)
+    assert_q8_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,offset", [
+    (300, 96, 56, 0), (70, 64, 40, 0), (65, 32, 136, 0),
+    (804, 1024, 1024, 1), (129, 1024, 4096, 1), (804, 4096, 1000, 0)])
+def test_q8_matmul_tiled_edges_on_card(cuda_device, M, K, N, offset, dtype):
+    """The tiled design at its edges, at every split K allows: ragged M
+    (804 = 12 x 64 + 36) and N (not a multiple of 16 or of the 128-column
+    tile: plain loads), K of 1-3 scale blocks, and an x that is not
+    16-byte aligned (plain loads)."""
+    x, q, s = card_q8_inputs(cuda_device, M, K, N, dtype, M * K + N, offset)
+    want = q8_matmul_ref(x, q, s)
+    for split in (1, 2, 4, 8):
+        if split <= K // 32:
+            geo = tiled_geometry(M, K, N, H100_SMS, split)
+            assert_q8_close(q8_matmul_as(x, q, s, geo), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", Q8_SHAPES)
+def test_q8_matmul_tiled_kernel_is_deterministic_at_896(cuda_device, K, N,
+                                                        dtype):
+    """No atomics: split-K partials are added in rank order, so repeated
+    calls give the same bits."""
+    x, q, s = card_q8_inputs(cuda_device, 896, K, N, dtype, 4)
+    assert q8_launch_geometry(896, K, N, H100_SMS).design == "tiled"
+    first = q8_matmul(x, q, s)
+    for _ in range(3):
+        assert torch.equal(q8_matmul(x, q, s), first)
 
 
 @pytest.mark.cuda
