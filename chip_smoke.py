@@ -117,7 +117,17 @@ Phases (any failure exits non-zero):
      with --kv-int4, --rc-by-layer and --quantize=w8a8-sq-static --calib
      on the card against --cpu, and asr_server --kv-int4 --rc-by-layer
      replayed into by asr_client.
- 11. one JSON line of kernel results, the card's name and power limit, and
+ 11. slice 12: the W8A8 matmul has two designs (split-K clusters up to M*
+     rows, 128 x 128 tiles above): the kernel phase holds both to the plain
+     versions bit for bit from M = 16 on (M* and M* + 1, 804, 896, 897 and
+     3584 besides the main paths' rows), in both modes and dtypes, checks
+     repeated calls in both, and times both designs per layer in both modes
+     at the crossover rows M = 16-3584 through the same entry point
+     (`w8a8_matmul_as`), with torch._int_mm on the [K, N] weight and on a
+     column-major copy; the profiles count W8A8 launches under every kernel
+     name that starts with w8a8_matmul, and the engine phase profiles the
+     256-slot W8A8 engine (M = 3584) beside the 64-slot one.
+ 12. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -707,14 +717,31 @@ def static_scale(x):
     return (x.float().abs().amax() * 0.8 / 127.0).reshape(1)[0].contiguous()
 
 
+# slice 12: the W8A8 kernel's crossover rows, where both designs are timed
+# per layer in both modes: the streaming rows of 1-8 streams, the shared
+# x-ring (672), the full-utterance batch, the 64- and 256-slot engines
+W8A8_CROSSOVER_MS = (16, 32, 56, 64, 96, 112, 128, 256, 288, 672,
+                     FULL_UTT_M, ENGINE_M, ENGINE_SLOT_COUNTS[-1] * 14)
+
+
 def w8a8_phase(failures: list) -> dict:
     import torch
 
-    from nemotron_tpu_torch.ops.w8a8_kernel import (w8a8_matmul,
+    from nemotron_tpu_torch.ops.quant_kernel import sm_count
+    from nemotron_tpu_torch.ops.w8a8_kernel import (SPLITK_MAX_M,
+                                                    splitk_geometry,
+                                                    tiled_geometry,
+                                                    tiled_splits,
+                                                    tiled_takes,
+                                                    w8a8_launch_geometry,
+                                                    w8a8_matmul,
+                                                    w8a8_matmul_as,
                                                     w8a8_matmul_ref,
                                                     w8a8_matmul_static_ref)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    sms = sm_count(torch.device("cuda"))
+    star = SPLITK_MAX_M
 
     def weights(K, N, n=1):
         return [(torch.randint(-127, 128, (K, N), device="cuda", generator=g,
@@ -727,110 +754,191 @@ def w8a8_phase(failures: list) -> dict:
         scale = torch.rand(M, 1, device="cuda", generator=g) * 3 + 0.1
         return (torch.randn(M, K, device="cuda", generator=g) * scale).to(dt)
 
-    log("phase kernels: w8a8_matmul vs w8a8_matmul_ref (bit for bit)")
-    shapes = [(M, K, N) for M in (1, 8, 16, 56, 112, 672, ENGINE_M,
-                                  ENGINE_SLOT_COUNTS[-1] * 14)
-              for (K, N) in Q8_SHAPES]
+    def designs(M, K, N, xsize):
+        """The launch's own geometry and, from 16 rows on where the tiled
+        design takes K, the other design's."""
+        own = w8a8_launch_geometry(M, K, N, sms, xsize)
+        geos = {own.design: own}
+        if M >= 16 and tiled_takes(K):
+            geos.setdefault("splitk", splitk_geometry(M, K, N, sms, xsize))
+            geos.setdefault("tiled", tiled_geometry(M, K, N, sms))
+        return own, geos
+
+    def exact(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want) and not err > 0:
+            err = float("inf")          # a NaN or a signed zero differs
+        return err
+
+    # the skinny design up to M* = SPLITK_MAX_M rows, the tiled one above:
+    # both designs at every M from 16 rows on, both modes (the static scale
+    # saturates the largest rows), both dtypes, bit for bit
+    log(f"phase kernels: w8a8_matmul vs its plain versions, bit for bit, "
+        f"both designs from M = 16 (M* = {star})")
     worst = 0.0
-    for M, K, N in shapes + [(3, 96, 56)]:
+    checks = [(M, K, N) for M in (1, 8, 16, 56, 112, star, star + 1, 672,
+                                  FULL_UTT_M, ENGINE_M, ENGINE_M + 1,
+                                  ENGINE_SLOT_COUNTS[-1] * 14)
+              for (K, N) in Q8_SHAPES] + [(3, 96, 56), (900, 96, 56),
+                                          (900, 512, 56)]
+    for M, K, N in checks:
         for dt in (torch.float32, torch.bfloat16):
             (q, cs), = weights(K, N)
             x = act(M, K, dt)
-            got = w8a8_matmul(x, q, cs)
+            s_act = static_scale(x)
             want = w8a8_matmul_ref(x, q, cs)
+            want_s = w8a8_matmul_static_ref(x, q, cs, s_act)
+            own, geos = designs(M, K, N, x.element_size())
+            errs = {}
+            got = w8a8_matmul(x, q, cs)
+            errs[f"{own.design} (own)"] = exact(got, want)
+            errs[f"{own.design} (own) static"] = exact(
+                w8a8_matmul(x, q, cs, s_act), want_s)
+            for d, geo in geos.items():
+                if d != own.design:
+                    errs[d] = exact(w8a8_matmul_as(x, q, cs, None, geo), want)
+                    errs[f"{d} static"] = exact(
+                        w8a8_matmul_as(x, q, cs, s_act, geo), want_s)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.equal(got, want) and not err > 0:
-                err = float("inf")          # a NaN or a signed zero differs
+            err = max(errs.values())
             worst = max(worst, err)
-            check(f"w8a8 M={M} K={K} N={N} {str(dt)[6:]}", err, 0.0, failures)
+            check(f"w8a8 M={M} K={K} N={N} {str(dt)[6:]} "
+                  f"[{', '.join(errs)}]", err, 0.0, failures)
 
-    # slice 10: the static mode (SmoothQuant's calibrated scale) at the
-    # main paths' M, bit for bit; the scale saturates the largest rows
-    log("phase kernels: w8a8_matmul static mode vs w8a8_matmul_static_ref "
-        "(bit for bit)")
-    for M in (8, 16, 112, ENGINE_M):
-        for K, N in Q8_SHAPES:
-            for dt in (torch.float32, torch.bfloat16):
-                (q, cs), = weights(K, N)
-                x = act(M, K, dt)
-                s_act = static_scale(x)
-                got = w8a8_matmul(x, q, cs, s_act)
-                want = w8a8_matmul_static_ref(x, q, cs, s_act)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                if not torch.equal(got, want) and not err > 0:
-                    err = float("inf")
-                worst = max(worst, err)
-                check(f"w8a8 static M={M} K={K} N={N} {str(dt)[6:]}", err,
-                      0.0, failures)
+    # determinism: the same inputs give the same bits (no atomics), in both
+    # designs (the engine's M = 896 splits K over clusters)
+    for M, (K, N) in ((8, (4096, 1024)), (ENGINE_M, (1024, 1024)),
+                      (ENGINE_M, (4096, 1024))):
+        (q, cs), = weights(K, N)
+        x = act(M, K, torch.bfloat16)
+        for d, geo in designs(M, K, N, 2)[1].items():
+            first = w8a8_matmul_as(x, q, cs, None, geo)
+            same = all(torch.equal(w8a8_matmul_as(x, q, cs, None, geo), first)
+                       for _ in range(3))
+            log(f"  w8a8 M={M} K={K} N={N} bf16 {geo}: repeated calls "
+                f"bit-equal: {same}")
+            if not same:
+                failures.append(f"w8a8 M={M} K={K} N={N} {d}: not "
+                                f"deterministic")
 
-    # times at the main path's shapes: M = 8 streams x 1, 2 or 14 frames
-    # (R = 0, 1, 13) for the ten weight matmuls of a layer, and M = 8 x 84
-    # ring slots for the shared x-ring's K/V recompute; bf16 activations
-    # (the serving dtype); enough weight copies to exceed L2 as a chunk does
+    # times at the main paths' shapes, bf16 activations (the serving
+    # dtype), enough weight copies to exceed L2 as a chunk does: M = 8
+    # (8 streams, R = 0), then the crossover rows with both designs through
+    # the same entry point, in both modes. The library yardstick is
+    # torch._int_mm on the pre-quantized activation (no quantize or
+    # rescale; rows padded to 32 below M = 17), on the port's [K, N] weight
+    # and on a column-major copy; library_ms is the faster of the two.
     log("phase kernels: w8a8_matmul times (bf16; weights cycled beyond L2; "
-        "library = torch._int_mm on the pre-quantized activation, without "
-        "the quantize and rescale, its rows padded to 32 below M = 17)")
+        "library = torch._int_mm on the pre-quantized activation, on the "
+        "[K, N] weight and on a column-major copy)")
     out = {}
-    for M, kn in ((8, list(Q8_SHAPES)), (16, list(Q8_SHAPES)),
-                  (112, list(Q8_SHAPES)), (672, [(1024, 1024)]),
-                  (ENGINE_M, list(Q8_SHAPES))):
-        for (K, N) in kn:
+    plain_rows = (8, 16, 112, 672, ENGINE_M, ENGINE_SLOT_COUNTS[-1] * 14)
+    for M in (8, *W8A8_CROSSOVER_MS):
+        iters = 500 if M <= 16 else 200 if M <= 256 else 100 if M <= 1000 \
+            else 30
+        for (K, N) in Q8_SHAPES:
             n = max(2, (192 << 20) // (K * N))
             ws = weights(K, N, n)
             x = act(M, K, torch.bfloat16)
-            err = max((w8a8_matmul(x, q, cs).float()
-                       - w8a8_matmul_ref(x, q, cs).float()).abs().max().item()
+            s_act = static_scale(x)
+            own, geos = designs(M, K, N, 2)
+            err = max(exact(w8a8_matmul(x, q, cs), w8a8_matmul_ref(x, q, cs))
                       for q, cs in ws[:4])
-            ms = time_calls([lambda q=q, cs=cs: w8a8_matmul(x, q, cs)
-                             for q, cs in ws], 500)
-            plain_ms = time_calls([lambda q=q, cs=cs: w8a8_matmul_ref(x, q, cs)
-                                   for q, cs in ws[:8]], 100)
+            st_err = max(exact(w8a8_matmul(x, q, cs, s_act),
+                               w8a8_matmul_static_ref(x, q, cs, s_act))
+                         for q, cs in ws[:4])
+            t = {}
+            for d, geo in geos.items():
+                t[f"{d}_ms"] = time_calls(
+                    [lambda q=q, cs=cs, geo=geo: w8a8_matmul_as(
+                        x, q, cs, None, geo) for q, cs in ws], iters)
+                t[f"static_{d}_ms"] = time_calls(
+                    [lambda q=q, cs=cs, geo=geo: w8a8_matmul_as(
+                        x, q, cs, s_act, geo) for q, cs in ws], iters)
+            if M in plain_rows:
+                t["plain_ms"] = time_calls(
+                    [lambda q=q, cs=cs: w8a8_matmul_ref(x, q, cs)
+                     for q, cs in ws[:8]], 30 if M > 1000 else 100)
+                t["static_plain_ms"] = time_calls(
+                    [lambda q=q, cs=cs: w8a8_matmul_static_ref(x, q, cs, s_act)
+                     for q, cs in ws[:8]], 30 if M > 1000 else 100)
             xq = quantize_rows(x)
             if M <= 16:                    # torch._int_mm needs M > 16
                 xq = torch.cat([xq, xq.new_zeros(32 - M, K)])
-            lib_ms = time_calls([lambda q=q: torch._int_mm(xq, q)
-                                 for q, _ in ws], 500)
+            t["int_mm_kn_ms"] = time_calls(
+                [lambda q=q: torch._int_mm(xq, q) for q, _ in ws], iters)
+            cm = [q.t().contiguous().t() for q, _ in ws]
+            t["int_mm_cm_ms"] = time_calls(
+                [lambda q=q: torch._int_mm(xq, q) for q in cm], iters)
+            del cm
             nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
             ops = 2 * M * K * N
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = ops / PEAK_FLOPS["int8"]
-            out[(M, K, N)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  bound_ms=max(t_bytes, t_ops) * 1e3,
-                                  bytes=nbytes, ops=ops, max_abs_err=err,
-                                  bound_by="bytes" if t_bytes >= t_ops
-                                  else "operations")
-            log(f"  M={M} K={K} N={N}: kernel {ms * 1e3:.2f} us, plain "
-                f"{plain_ms * 1e3:.2f} us, _int_mm {lib_ms * 1e3:.2f} us, "
-                f"bound {max(t_bytes, t_ops) * 1e6:.3f} us "
-                f"({out[(M, K, N)]['bound_by']}), err {err:.2e}")
-            if err != 0.0:
+            lib_ms = min(t["int_mm_kn_ms"], t["int_mm_cm_ms"])
+            row = dict(design=own.design, split=own.split,
+                       ms=t[f"{own.design}_ms"], library_ms=lib_ms,
+                       bound_ms=max(t_bytes, t_ops) * 1e3, bytes=nbytes,
+                       ops=ops, max_abs_err=err,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       **{k: v for k, v in t.items()
+                          if not k.startswith("static")})
+            out[(M, K, N)] = row
+            st_bytes = nbytes + 4
+            st_t_bytes = st_bytes / HBM_BYTES_PER_S
+            out[("static", M, K, N)] = dict(
+                design=own.design, split=own.split,
+                ms=t[f"static_{own.design}_ms"], library_ms=lib_ms,
+                bound_ms=max(st_t_bytes, t_ops) * 1e3, bytes=st_bytes, ops=ops,
+                max_abs_err=st_err, int_mm_kn_ms=t["int_mm_kn_ms"],
+                int_mm_cm_ms=t["int_mm_cm_ms"],
+                bound_by="bytes" if st_t_bytes >= t_ops else "operations",
+                **{k.removeprefix("static_"): v for k, v in t.items()
+                   if k.startswith("static_")})
+            log(f"  M={M} K={K} N={N}: kernel {row['ms'] * 1e3:.2f} us "
+                f"({own.design}, split {own.split}"
+                + "".join(f"; {d} {t[f'{d}_ms'] * 1e3:.2f} us"
+                          for d in geos if len(geos) > 1)
+                + f"), static {t[f'static_{own.design}_ms'] * 1e3:.2f} us"
+                + "".join(f" ({d} {t[f'static_{d}_ms'] * 1e3:.2f})"
+                          for d in geos if len(geos) > 1)
+                + (f", plain {t['plain_ms'] * 1e3:.2f} / static "
+                   f"{t['static_plain_ms'] * 1e3:.2f} us" if "plain_ms" in t
+                   else "")
+                + f", _int_mm {t['int_mm_kn_ms'] * 1e3:.2f} us ([K, N]) / "
+                f"{t['int_mm_cm_ms'] * 1e3:.2f} us (column-major), bound "
+                f"{max(t_bytes, t_ops) * 1e6:.3f} us ({row['bound_by']}), "
+                f"err {err:.2e} / static {st_err:.2e}")
+            if err != 0.0 or st_err != 0.0:
                 failures.append(f"w8a8 timing inputs M={M} K={K} N={N}")
-            if M in (8, 16, 112, ENGINE_M):
-                # slice 10: the static mode on the same weights and x
-                s_act = static_scale(x)
-                err = max((w8a8_matmul(x, q, cs, s_act).float()
-                           - w8a8_matmul_static_ref(x, q, cs, s_act).float()
-                           ).abs().max().item() for q, cs in ws[:4])
-                st_ms = time_calls([lambda q=q, cs=cs: w8a8_matmul(
-                    x, q, cs, s_act) for q, cs in ws], 500)
-                st_plain = time_calls([lambda q=q, cs=cs: w8a8_matmul_static_ref(
-                    x, q, cs, s_act) for q, cs in ws[:8]], 100)
-                st_bytes = nbytes + 4
-                t_bytes = st_bytes / HBM_BYTES_PER_S
-                out[("static", M, K, N)] = dict(
-                    ms=st_ms, plain_ms=st_plain, library_ms=lib_ms,
-                    bound_ms=max(t_bytes, t_ops) * 1e3, bytes=st_bytes,
-                    ops=ops, max_abs_err=err,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-                log(f"  static M={M} K={K} N={N}: kernel {st_ms * 1e3:.2f} "
-                    f"us (dynamic {ms * 1e3:.2f}), plain "
-                    f"{st_plain * 1e3:.2f} us, err {err:.2e}")
-                if err != 0.0:
-                    failures.append(f"w8a8 static timing inputs M={M} K={K} "
-                                    f"N={N}")
             del ws
+    for M in W8A8_CROSSOVER_MS:
+        for mode, pre in (("dynamic", ()), ("static", ("static",))):
+            layer = {d: sum(out[(*pre, M, K, N)][f"{d}_ms"] * c
+                            for (K, N), c in Q8_SHAPES.items())
+                     for d in ("splitk", "tiled")}
+            log(f"  crossover M={M} {mode}, one layer: splitk "
+                f"{layer['splitk'] * 1e3:.2f} us, tiled "
+                f"{layer['tiled'] * 1e3:.2f} us; the geometry takes "
+                f"{'splitk' if M <= star else 'tiled'}")
+    # the tiled design's every split of K at the 64-slot engine's M (the
+    # geometry takes the least split that gives a block an SM)
+    splits = {}
+    for (K, N) in Q8_SHAPES:
+        n = max(2, (192 << 20) // (K * N))
+        ws = weights(K, N, n)
+        x = act(ENGINE_M, K, torch.bfloat16)
+        splits[f"{K},{N}"] = {
+            sp: time_calls([lambda q=q, cs=cs, geo=tiled_geometry(
+                ENGINE_M, K, N, sms, sp): w8a8_matmul_as(x, q, cs, None, geo)
+                for q, cs in ws], 100) for sp in tiled_splits(K)}
+        log(f"  tiled M={ENGINE_M} K={K} N={N} dynamic by split: "
+            + ", ".join(f"{sp}: {ms * 1e3:.2f} us" for sp, ms in
+                        splits[f"{K},{N}"].items())
+            + f" (the geometry takes "
+            f"{tiled_geometry(ENGINE_M, K, N, sms).split})")
+        del ws
+    out["tiled_splits"] = splits
     out["max_abs_err"] = worst
     return out
 
@@ -1193,7 +1301,7 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
             if kname.startswith(("w8a8_", "ring_attn_", "q8_")):
                 log(f"    {us / 1e3:8.3f} ms  {prof['count'][kname]:6d} "
                     f"launches  {kname}")
-        w8_k = launches_of(prof, "w8a8_matmul_cluster_kernel")
+        w8_k = launches_of(prof, "w8a8_matmul")
         w8_other = (launches_of(prof, "w8a8_quantize")
                     + launches_of(prof, "w8a8_reduce")
                     + launches_of(prof, "w8a8_product"))
@@ -1888,7 +1996,7 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
     out["profile_w8a8"] = log_profile(
         "W8A8 bf16 R=13", prof, 3, failures, "q8_",
         {"ring_attn_cluster_kernel": cfg.n_layers,
-         "w8a8_matmul_cluster_kernel": 10 * cfg.n_layers})
+         "w8a8_matmul": 10 * cfg.n_layers})
 
     # Q8_0, f32, host DSP, 64 slots, R = 13: tokens and encoder outputs of
     # the tracked streams against solo f32 sessions
@@ -1956,6 +2064,19 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
             f"{res['tokens']} tokens, peak {res['peak_gib']:.2f} GiB (wall "
             f"{time.perf_counter() - t0:.1f} s)")
         del run
+    # slice 12: where the 256-slot tick's time goes (M = 3584 a matmul, the
+    # tiled W8A8 design)
+    slots = ENGINE_SLOT_COUNTS[-1]
+    reset_counts()
+    prof = engine_step_profile(ServingEngine(
+        w8_params, cfg, vocab, cc13, n_slots=slots, compute_dtype=bf16,
+        dsp="device"))
+    for k, v in kernel_counts().items():
+        launches[k] += v
+    out[f"profile_w8a8_{slots}"] = log_profile(
+        f"W8A8 bf16 R=13 {slots} slots", prof, 3, failures, "q8_",
+        {"ring_attn_cluster_kernel": cfg.n_layers,
+         "w8a8_matmul": 10 * cfg.n_layers})
     out["launches"] = launches
     return out
 
@@ -3159,7 +3280,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     prof, n = counted(lambda: profile_window(lambda: sess.process(pcm)))
     steps = sess.total_chunks - warm
     attn_k = launches_of(prof, "ring_attn_cluster_kernel<__nv_bfloat16, nib4")
-    w8_k = launches_of(prof, "w8a8_matmul_cluster_kernel")
+    w8_k = launches_of(prof, "w8a8_matmul")
     busy = prof["busy_us"] / max(prof["wall_us"], 1e-9)
     out["profile"] = dict(steps=steps, attn_per_step=attn_k / max(steps, 1),
                           w8a8_per_step=w8_k / max(steps, 1),
@@ -3261,7 +3382,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     res["profile"] = log_profile(
         "w8a8-sq-static + int4 bf16 R=13", prof, 3, failures, "q8_",
         {"ring_attn_cluster_kernel<__nv_bfloat16, nib4": cfg.n_layers,
-         "w8a8_matmul_cluster_kernel": 10 * cfg.n_layers})
+         "w8a8_matmul": 10 * cfg.n_layers})
     out["engine"] = res
     for name in ("sq-static int4", "int8 dynamic"):
         r = res[name]
@@ -3498,6 +3619,8 @@ def main() -> int:
     from nemotron_tpu_torch.ops import cuda_build
     from nemotron_tpu_torch.device import resolve_device
     from nemotron_tpu_torch.ops.quant_kernel import SPLITK_MAX_M
+    from nemotron_tpu_torch.ops.w8a8_kernel import \
+        SPLITK_MAX_M as W8A8_SPLITK_MAX_M
 
     t_start = time.perf_counter()
     resolve_device("cuda")
@@ -3552,12 +3675,16 @@ def main() -> int:
                 + tones_quant["launches"][k] for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
-        t = {k: sum(w8[(*mode, M, K, N)][k] * c
-                    for (K, N), c in Q8_SHAPES.items())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                       "ops")}
+        rows = [(w8[(*mode, M, K, N)], c) for (K, N), c in Q8_SHAPES.items()]
+        keys = [k for k, v in rows[0][0].items()
+                if isinstance(v, float) and k != "max_abs_err"] + ["bytes",
+                                                                   "ops"]
+        t = {k: sum(r[k] * c for r, c in rows) for k in keys}
+        # the layer's library time: the faster weight layout for the layer
+        t["library_ms"] = min(t["int_mm_kn_ms"], t["int_mm_cm_ms"])
         t["bound_by"] = ("bytes" if t["bytes"] / HBM_BYTES_PER_S
                          >= t["ops"] / PEAK_FLOPS["int8"] else "operations")
+        t["design"] = rows[0][0]["design"]
         return t
 
     w8_112 = w8_layer(112)
@@ -3637,21 +3764,31 @@ def main() -> int:
          "shape": "one layer's 10 calls, M=112 (8 streams x 14) bf16: same "
                   "(K,N); one kernel launch a call; library = torch._int_mm "
                   "on pre-quantized int8 activations, without the quantize "
-                  "and rescale (rows padded to 32 below M = 17)",
+                  "and rescale (rows padded to 32 below M = 17), the faster "
+                  "of the [K, N] weight and a column-major copy",
          "per_m": {f"M={M}": {k: v for k, v in w8_layer(M).items()
                               if k not in ("bytes", "ops")}
-                   for M in (8, 16, 112, ENGINE_M)}
-         | {"M=672": {k: w8[(672, 1024, 1024)][k]
-                      for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by")}
+                   for M in (8, *W8A8_CROSSOVER_MS)}
+         | {"M=672 call": {k: w8[(672, 1024, 1024)][k]
+                           for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "design",
+                                     "splitk_ms", "tiled_ms", "int_mm_kn_ms",
+                                     "int_mm_cm_ms")}
             | {"shape": "one call, (K,N) = (1024,1024)"}},
          "static_per_m": {f"M={M}": {k: v for k, v in
                                      w8_layer(M, ("static",)).items()
                                      if k not in ("bytes", "ops")}
-                          | {"shape": "one layer's 10 calls, bf16, static "
-                                      "activation scale (SmoothQuant); "
-                                      "library = the same _int_mm"}
-                          for M in (8, 16, 112, ENGINE_M)}},
+                          for M in (8, *W8A8_CROSSOVER_MS)},
+         "static_shape": "one layer's 10 calls, bf16, static activation "
+                         "scale (SmoothQuant); library = the same _int_mm",
+         "m_star": W8A8_SPLITK_MAX_M,
+         "tiled_splits_m896": {shape: {str(sp): ms for sp, ms in row.items()}
+                               for shape, row in w8["tiled_splits"].items()},
+         "designs": "splitk (split-K clusters of up to 8 blocks, each "
+                    "quantizing its own slice of x) for M <= m_star, tiled "
+                    "(128 x 128 tiles, x quantized once a block for 128 "
+                    "columns) above; per_m gives both designs' layer times "
+                    "at the crossover rows"},
     ]
     modes = {f"R={R}": {k: v for k, v in r.items() if k != "tokens"}
              | {"n_tokens": len(r["tokens"])} for R, r in runs.items()}

@@ -16,11 +16,19 @@ import torch
 
 from nemotron_tpu_torch import params as tparams
 from nemotron_tpu_torch.ops import quant as tquant
-from nemotron_tpu_torch.ops.w8a8_kernel import (w8a8_k_tile,
+from nemotron_tpu_torch.ops.w8a8_kernel import (SPLITK_MAX_M, TILED_BM,
+                                                TILED_BN, W8A8Geometry,
+                                                splitk_geometry,
+                                                tiled_geometry, tiled_splits,
+                                                tiled_takes, w8a8_k_tile,
                                                 w8a8_launch_geometry,
-                                                w8a8_matmul, w8a8_matmul_ref)
+                                                w8a8_matmul, w8a8_matmul_as,
+                                                w8a8_matmul_ref)
 
 torch.set_num_threads(1)
+
+# the encoder's (K, N): q/k/v/out/pw2, ffn w1, ffn w2, pw1
+ENCODER_SHAPES = [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 2048)]
 
 
 def jax_flat(params) -> dict:
@@ -130,34 +138,114 @@ def test_w8a8_matmul_ref_nan_row_and_bf16():
         got, w8a8_matmul_ref(xb.float(), q, cs).bfloat16(), atol=0, rtol=0)
 
 
+def _splitk(bm, bn, split, blocks):
+    return W8A8Geometry("splitk", bm, bn, split, blocks)
+
+
 @pytest.mark.parametrize("K,N,want", [
-    (1024, 1024, (32, 8, 256)), (1024, 4096, (64, 8, 512)),
-    (4096, 1024, (32, 8, 256)), (1024, 2048, (64, 8, 256)),
-    (96, 56, (32, 1, 2)), (32, 8, (32, 1, 1)), (64, 96, (32, 2, 6)),
-    (3072, 1024, (32, 6, 192)), (1000, 8, (32, 1, 1))])
+    (1024, 1024, _splitk(16, 32, 8, 256)), (1024, 4096, _splitk(16, 64, 8, 512)),
+    (4096, 1024, _splitk(16, 32, 8, 256)), (1024, 2048, _splitk(16, 64, 8, 256)),
+    (96, 56, _splitk(16, 32, 1, 2)), (32, 8, _splitk(16, 32, 1, 1)),
+    (64, 96, _splitk(16, 32, 2, 6)), (3072, 1024, _splitk(16, 32, 6, 192)),
+    (1000, 8, _splitk(16, 32, 1, 1))])
 def test_w8a8_launch_geometry(K, N, want):
     """Clusters of C <= 8 blocks along K, each block's slice a multiple of
     32 inside one group (C = 8 for every encoder shape: slices of 128 at
     K = 1024, 512 at K = 4096), bn = 64 only where a wave stays full; a
     single group that holds no multiple of 32 runs with C = 1."""
-    bn, C, blocks = w8a8_launch_geometry(K, N, 132)
-    assert (bn, C, blocks) == want
+    geo = w8a8_launch_geometry(1, K, N, 132)
+    assert geo == want
     G = w8a8_k_tile(K)
+    C = geo.split
     assert C % (K // G) == 0 and G % (C // (K // G)) == 0
     ks = K // C
     assert C == 1 or ks % 32 == 0
 
 
 @pytest.mark.parametrize("M,K,N,want", [
-    (16, 1024, 1024, (32, 8, 256)), (17, 1024, 1024, (64, 8, 128)),
-    (112, 1024, 4096, (64, 8, 512)), (672, 1024, 1024, (64, 8, 128)),
-    (112, 4096, 1024, (64, 8, 128)), (112, 1024, 2048, (64, 8, 256)),
-    (40, 96, 56, (64, 1, 1))])
+    (16, 1024, 1024, _splitk(16, 32, 8, 256)),
+    (17, 1024, 1024, _splitk(32, 64, 8, 128)),
+    (112, 1024, 4096, _splitk(64, 64, 8, 1024)),
+    (672, 1024, 1024, _splitk(64, 64, 8, 1408)),
+    (112, 4096, 1024, _splitk(32, 64, 8, 512)),
+    (112, 1024, 2048, _splitk(64, 64, 8, 512)),
+    (40, 96, 56, _splitk(64, 64, 1, 1))])
 def test_w8a8_launch_geometry_above_16_rows(M, K, N, want):
-    """Above 16 rows a cluster covers 64 columns at every shape: each
-    column tile quantizes its own copy of x, and the M tiles' clusters
-    fill the card."""
-    assert w8a8_launch_geometry(K, N, 132, M) == want
+    """Above 16 rows a skinny cluster covers 64 columns at every shape:
+    each column tile quantizes its own copy of x, and the M tiles'
+    clusters fill the card; 64-row tiles, halved where two bf16 blocks
+    would not share an SM (32 at K = 4096). The launch takes this design
+    up to SPLITK_MAX_M rows."""
+    assert splitk_geometry(M, K, N, 132) == want
+    if M <= SPLITK_MAX_M or not tiled_takes(K):
+        assert w8a8_launch_geometry(M, K, N, 132) == want
+
+
+@pytest.mark.parametrize("K,N", ENCODER_SHAPES)
+@pytest.mark.parametrize("M", [804, 896, 3584])
+def test_w8a8_tiled_geometry_fills_the_card(M, K, N):
+    """The full-utterance batch (804 rows), the 64-slot engine (896) and
+    the 256-slot engine (3584) take the tiled design with at least one
+    block an SM at 132 SMs; a split of K keeps every block inside one
+    group of w8a8_k_tile(K) rows (so a row's amax over a group is shared
+    only between the group's blocks) and a multiple of 64 rows."""
+    geo = w8a8_launch_geometry(M, K, N, 132)
+    tiles = -(-M // TILED_BM) * -(-N // TILED_BN)
+    assert geo.design == "tiled" and (geo.bm, geo.bn) == (128, 128)
+    assert geo.blocks == tiles * geo.split >= 132
+    G = w8a8_k_tile(K)
+    n_groups = K // G
+    assert geo.split == 1 or (geo.split % n_groups == 0
+                              and (G // (geo.split // n_groups)) % 64 == 0)
+    # the least split that fills the card
+    smaller = [s for s in tiled_splits(K) if s < geo.split]
+    assert all(tiles * s < 132 for s in smaller)
+
+
+@pytest.mark.parametrize("K,N", ENCODER_SHAPES)
+def test_w8a8_crossover_sends_m_star_to_splitk(K, N):
+    """M <= M* rows go to the skinny design, M* + 1 to the tiled one."""
+    assert w8a8_launch_geometry(SPLITK_MAX_M, K, N, 132).design == "splitk"
+    assert w8a8_launch_geometry(SPLITK_MAX_M + 1, K, N, 132).design == "tiled"
+    assert w8a8_launch_geometry(1, K, N, 132).design == "splitk"
+
+
+@pytest.mark.parametrize("M,K,N,design", [
+    (897, 96, 56, "splitk"), (3584, 36, 40, "splitk"),
+    (897, 1024, 1024, "tiled"), (804, 128, 128, "tiled"),
+    (900, 512, 56, "tiled"), (900, 256, 40, "tiled")])
+def test_w8a8_tiled_design_refuses_groups_off_its_k_step(M, K, N, design):
+    """The tiled design walks K in steps of 64 rows, so it takes K-groups
+    of a multiple of 64 (every encoder shape, the tones fixture's d_model
+    128) and any N (zero-filled past it); K = 96 or 36 go to the skinny
+    design at any M, and tiled_geometry refuses them."""
+    assert w8a8_launch_geometry(M, K, N, 132).design == design
+    if design == "splitk":
+        with pytest.raises(ValueError, match="multiple of 64"):
+            tiled_geometry(M, K, N, 132)
+
+
+def test_w8a8_tiled_splits():
+    """Split 1, or whole groups times a power of two, each block's rows a
+    multiple of 64 inside one group, at most 8 blocks."""
+    assert tiled_splits(1024) == [1, 2, 4, 8]
+    assert tiled_splits(4096) == [1, 4, 8]
+    assert tiled_splits(3072) == [1, 3, 6]
+    assert tiled_splits(128) == [1, 2]
+    assert tiled_splits(2560) == [1, 5]
+    with pytest.raises(ValueError, match="split 2 not in"):
+        tiled_geometry(896, 4096, 1024, 132, split=2)
+    assert tiled_geometry(896, 4096, 1024, 132, split=8).blocks == 448
+
+
+def test_w8a8_matmul_as_refuses_cpu_tensors():
+    """The entry point that launches a given geometry takes CUDA tensors
+    only; the CPU goes through w8a8_matmul's plain version."""
+    x, qt = w8a8_inputs(np.random.default_rng(5), 4, 64, 16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        w8a8_matmul_as(torch.tensor(x), torch.tensor(qt.q),
+                       torch.tensor(qt.col_scale), None,
+                       w8a8_launch_geometry(4, 64, 16, 132))
 
 
 def test_w8a8_launch_geometry_refuses_more_than_8_groups():
@@ -165,7 +253,9 @@ def test_w8a8_launch_geometry_refuses_more_than_8_groups():
     geometry (which the wrapper asks before any launch) raises; the plain
     version still computes it."""
     with pytest.raises(ValueError, match="9 groups of 512"):
-        w8a8_launch_geometry(4608, 64, 132)
+        w8a8_launch_geometry(1, 4608, 64, 132)
+    with pytest.raises(ValueError, match="9 groups of 512"):
+        w8a8_launch_geometry(4096, 4608, 64, 132)
     x, qt = w8a8_inputs(np.random.default_rng(9), 3, 4608, 64)
     out = w8a8_matmul(torch.tensor(x), torch.tensor(qt.q),
                       torch.tensor(qt.col_scale))        # CPU -> plain
@@ -454,11 +544,15 @@ def test_w8a8_matmul_kernel_nan_row_on_card(cuda_device, M, K, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (672, 1024, 1024)])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1024), (672, 1024, 1024),
+                                   (896, 1024, 1024), (896, 4096, 1024),
+                                   (3584, 1024, 4096)])
 def test_w8a8_matmul_kernel_is_deterministic_and_one_launch(cuda_device, M,
                                                             K, N):
     """Repeated calls give the same bits (no atomics), and one call is one
-    kernel launch (no quantize or reduce pass) and one count."""
+    kernel launch (no quantize or reduce pass) and one count, under either
+    design (kernels named w8a8_matmul_cluster_kernel and
+    w8a8_matmul_tiled_kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -476,15 +570,106 @@ def test_w8a8_matmul_kernel_is_deterministic_and_one_launch(cuda_device, M,
         torch.cuda.synchronize()
     assert w8a8_matmul.launches == before + 1
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len([n for n in names if "w8a8_matmul_cluster_kernel" in n]) == 1
+    mine = [n for n in names if "w8a8_matmul" in n]
+    assert len(mine) == 1, names
+    design = w8a8_launch_geometry(M, K, N, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count).design
+    assert ("tiled" if design == "tiled" else "cluster") in mine[0]
     assert not [n for n in names if "quantize" in n or "reduce" in n]
+
+
+def _card_inputs(device, M, K, N, dtype, seed):
+    x, qt = w8a8_inputs(np.random.default_rng(seed), M, K, N)
+    return (torch.tensor(x, device=device).to(getattr(torch, dtype)),
+            torch.tensor(qt.q, device=device),
+            torch.tensor(qt.col_scale, device=device))
+
+
+def _static_scale(x):
+    """Half the amax / 127: half the range saturates."""
+    return (x.float().abs().amax() * 0.5 / 127).reshape(1)[0].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", [(1024, 1024), (4096, 1024)])
+@pytest.mark.parametrize("M", [SPLITK_MAX_M, SPLITK_MAX_M + 1, 804, 896, 897,
+                               3584])
+def test_w8a8_matmul_kernel_around_m_star_equals_plain_on_card(
+        cuda_device, M, K, N, dtype, mode):
+    """Both sides of the crossover, the full-utterance batch, the 64-slot
+    engine (and one ragged row more) and the 256-slot engine, bit for bit,
+    one launch a call."""
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul_static_ref
+
+    x, q, cs = _card_inputs(cuda_device, M, K, N, dtype, M + K)
+    s = _static_scale(x) if mode == "static" else None
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, q, cs, s)
+    want = (w8a8_matmul_ref(x, q, cs) if s is None
+            else w8a8_matmul_static_ref(x, q, cs, s))
+    torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+@pytest.mark.parametrize("K,N", ENCODER_SHAPES)
+def test_w8a8_matmul_tiled_every_split_equals_plain_on_card(cuda_device, K,
+                                                            N, mode):
+    """The tiled design at M = 896 in bf16 with each split of K it takes
+    (inside one group, or the whole of K in one block), bit for bit."""
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul_static_ref
+
+    x, q, cs = _card_inputs(cuda_device, 896, K, N, "bfloat16", K + N)
+    s = _static_scale(x) if mode == "static" else None
+    want = (w8a8_matmul_ref(x, q, cs) if s is None
+            else w8a8_matmul_static_ref(x, q, cs, s))
+    for split in tiled_splits(K):
+        got = w8a8_matmul_as(x, q, cs, s,
+                             tiled_geometry(896, K, N, 132, split))
+        torch.testing.assert_close(got, want, atol=0, rtol=0,
+                                   msg=f"split {split}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(897, 1024, 1024), (896, 4096, 1024),
+                                   (900, 96, 56), (900, 512, 56),
+                                   (804, 256, 40)])
+def test_w8a8_matmul_large_m_edges_on_card(cuda_device, M, K, N, dtype):
+    """Above M*: an x that is not 16-byte aligned (plain loads), N off the
+    16-byte copies (56, 40), K-groups off the tiled design's step (K = 96,
+    which the skinny design takes), and a NaN row (its outputs NaN, every
+    other row bit for bit), in both modes where the design takes them."""
+    from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul_static_ref
+
+    x, q, cs = _card_inputs(cuda_device, M, K, N, dtype, M + N)
+    flat = torch.cat([x.new_zeros(1), x.ravel()])
+    xm = flat[1:].view(M, K)
+    assert xm.data_ptr() % 16
+    torch.testing.assert_close(w8a8_matmul(xm, q, cs),
+                               w8a8_matmul_ref(xm, q, cs), atol=0, rtol=0)
+    s = _static_scale(x)
+    torch.testing.assert_close(w8a8_matmul(xm, q, cs, s),
+                               w8a8_matmul_static_ref(xm, q, cs, s),
+                               atol=0, rtol=0)
+    x[M // 2, K - 3] = float("nan")
+    got = w8a8_matmul(x, q, cs)
+    want = w8a8_matmul_ref(x, q, cs)
+    assert torch.isnan(got[M // 2]).all()
+    keep = [m for m in range(M) if m != M // 2]
+    torch.testing.assert_close(got[keep], want[keep], atol=0, rtol=0)
 
 
 @pytest.mark.cuda
 def test_w8a8_matmul_wrapper_refuses_more_than_8_groups_on_card(cuda_device):
-    x = torch.zeros((2, 4608), device=cuda_device)
-    q = torch.zeros((4608, 64), dtype=torch.int8, device=cuda_device)
-    before = w8a8_matmul.launches
-    with pytest.raises(ValueError, match="9 groups"):
-        w8a8_matmul(x, q, torch.ones(64, device=cuda_device))
-    assert w8a8_matmul.launches == before
+    for M in (2, 2048):
+        x = torch.zeros((M, 4608), device=cuda_device)
+        q = torch.zeros((4608, 64), dtype=torch.int8, device=cuda_device)
+        before = w8a8_matmul.launches
+        with pytest.raises(ValueError, match="9 groups"):
+            w8a8_matmul(x, q, torch.ones(64, device=cuda_device))
+        assert w8a8_matmul.launches == before
