@@ -127,7 +127,18 @@ Phases (any failure exits non-zero):
      column-major copy; the profiles count W8A8 launches under every kernel
      name that starts with w8a8_matmul, and the engine phase profiles the
      256-slot W8A8 engine (M = 3584) beside the 64-slot one.
- 12. one JSON line of kernel results, the card's name and power limit, and
+ 12. lockstep serving (slice 13), on the full-width GGUF: the
+     LockstepEngine in Q8_0 f32 over 8 streams at R = 13, pipelined (the
+     tokens of the real-audio chunks equal to solo f32 sessions); W8A8 +
+     int8 K/V bf16 over 64 streams in the four modes beside the 64-slot
+     device-DSP ServingEngine on the same audio (tick p50/p90 against the
+     mode's limit, RTF, peak GiB, 24 attention and 240 W8A8 launches a
+     chunk, two streams against solo bf16 sessions, a profile of 3 R = 13
+     ticks) and over 256 streams; CohortScheduler and ServingCohorts (2 x
+     32, Q8_0 f32: shared weights by data_ptr, each cohort equal to a solo
+     engine); `python -m nemotron_tpu_torch.serve` with --lockstep and
+     without.
+ 13. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -351,6 +362,22 @@ def reset_counts() -> None:
 
     for fn in (fused_ring_attention, q8_matmul, w8a8_matmul):
         fn.launches = 0
+
+
+def counted(fn, launches: dict):
+    """fn() with every kernel count set to 0 just before it and read just
+    after it; the counts are added to `launches`. Returns (fn's result,
+    the counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    r = fn()
+    torch.cuda.synchronize()
+    n = kernel_counts()
+    for k in launches:
+        launches[k] += n[k]
+    return r, n
 
 
 def check(name: str, err: float, tol: float, failures: list) -> None:
@@ -3214,15 +3241,8 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     launches = {"attn": 0, "q8": 0, "w8a8": 0}
     gc.collect()
 
-    def counted(fn):
-        torch.cuda.synchronize()
-        reset_counts()
-        r = fn()
-        torch.cuda.synchronize()
-        n = kernel_counts()
-        for k in launches:
-            launches[k] += n[k]
-        return r, n
+    def count(fn):
+        return counted(fn, launches)
 
     t0 = time.perf_counter()
     dense, cfg, vocab = load_model(gguf_path, device="cuda",
@@ -3251,7 +3271,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
         run_session(sq, cfg, vocab, cc, pcm[:, :cc.chunk_samples * 2], bf16)
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
-        sess, n = counted(lambda: run_session(sq, cfg, vocab, cc, pcm, bf16))
+        sess, n = count(lambda: run_session(sq, cfg, vocab, cc, pcm, bf16))
         chunks = sess.total_chunks
         toks = [sess.get_tokens(s) for s in range(S)]
         res = dict(chunks=chunks, tokens=sum(map(len, toks)),
@@ -3277,7 +3297,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
                          compute_dtype=bf16)
     sess.process(pcm[:, :cc13.chunk_samples * 2])
     warm = sess.total_chunks
-    prof, n = counted(lambda: profile_window(lambda: sess.process(pcm)))
+    prof, n = count(lambda: profile_window(lambda: sess.process(pcm)))
     steps = sess.total_chunks - warm
     attn_k = launches_of(prof, "ring_attn_cluster_kernel<__nv_bfloat16, nib4")
     w8_k = launches_of(prof, "w8a8_matmul")
@@ -3309,7 +3329,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     for name in ("int8 dynamic", "sq-static int4", "sq-static int4",
                  "int8 dynamic"):
         p, c = (w8, cc8) if name == "int8 dynamic" else (sq, cc13)
-        dyn, _ = counted(lambda: run_session(p, cfg, vocab, c, pcm, bf16))
+        dyn, _ = count(lambda: run_session(p, cfg, vocab, c, pcm, bf16))
         side[name].append(dyn.chunk_seconds / dyn.total_chunks * 1e3)
     out["beside_int8"] = side
     log(f"  R=13 bf16 S={S} chunk ms, in turns: int8 dynamic "
@@ -3318,7 +3338,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
         f"{side['sq-static int4'][1]:.2f}")
     vs_dyn = [position_agreement(tokens13[s], dyn.get_tokens(s))
               for s in range(S)]
-    card32, _ = counted(lambda: run_session(sq, cfg, vocab, cc13, pcm, f32))
+    card32, _ = count(lambda: run_session(sq, cfg, vocab, cc13, pcm, f32))
     cpu32 = run_session(to_device(sq, "cpu"), cfg, vocab, cc13, pcm, f32)
     vs_cpu = [position_agreement(card32.get_tokens(s), cpu32.get_tokens(s))
               for s in range(S)]
@@ -3332,7 +3352,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     cpu_q8, _, _ = load_model(gguf_path, device="cpu")
     ccr = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
                       att_right_context_by_layer=RC_BY_LAYER)
-    card, n = counted(lambda: run_session(q8, cfg, vocab, ccr, pcm[:1], f32))
+    card, n = count(lambda: run_session(q8, cfg, vocab, ccr, pcm[:1], f32))
     cpu = run_session(cpu_q8, cfg, vocab, ccr, pcm[:1], f32)
     plain = run_session(cpu_q8, cfg, vocab, CacheConfig(
         att_right_context=13, n_mels=cfg.n_mels), pcm[:1], f32)
@@ -3364,7 +3384,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
         with EncoderTap() as tap:
-            run, n = counted(lambda: engine_schedule(
+            run, n = count(lambda: engine_schedule(
                 eng, lambda sid: seeded_pcm(sid, ENGINE_SECONDS),
                 **ragged_plan(n_slots, ENGINE_SECONDS, c.shift_samples)))
         check_engine_launches(f"{name} R=13", n, tap.calls, cfg, 10, "w8a8",
@@ -3376,7 +3396,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
                          tokens=sum(map(len, run["finals"].values())),
                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         del eng, run
-    prof, n = counted(lambda: engine_step_profile(ServingEngine(
+    prof, n = count(lambda: engine_step_profile(ServingEngine(
         sq, cfg, vocab, cc13, n_slots=n_slots, compute_dtype=bf16,
         dsp="device")))
     res["profile"] = log_profile(
@@ -3398,7 +3418,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
         for name, params, ccs, dtype, streams in (
                 ("Q8_0 f32 S=1", q8, cc, f32, 1),
                 ("W8A8 + int8 K/V bf16 S=8", w8, cc8, bf16, S)):
-            (ref, res_s, save_s, load_s, size), _ = counted(
+            (ref, res_s, save_s, load_s, size), _ = count(
                 lambda: snapshot_session(
                     lambda: StreamSession(params, cfg, vocab, ccs,
                                           n_streams=streams,
@@ -3429,7 +3449,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
         for name, params, ccs, dtype, dsp in (
                 ("Q8_0 f32 host DSP", q8, cc, f32, "numpy"),
                 ("W8A8 + int8 K/V bf16 device DSP", w8, cc8, bf16, "device")):
-            row, _ = counted(lambda: snapshot_engine(
+            row, _ = count(lambda: snapshot_engine(
                 lambda: ServingEngine(params, cfg, vocab, ccs,
                                       n_slots=ENGINE_SLOTS,
                                       compute_dtype=dtype, dsp=dsp), tmp))
@@ -3605,6 +3625,401 @@ def cli_quant_phase(failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 13: lockstep serving, cohorts and the serve entry point
+# ---------------------------------------------------------------------------
+
+def lockstep_run(eng, pcm, pipelined: bool = True,
+                 finalize: bool = False) -> dict:
+    """Drive a LockstepEngine over `pcm` [S, N], one chunk shift of samples
+    a tick (the last block the remainder), pipelined or plain: each tick's
+    host-clock ms (a pipelined tick also brings back the tick before it)
+    and whether it ran a chunk, the chunks, the tokens of the chunks of
+    real audio after flush_pipeline ("streamed") and, with finalize, the
+    tokens after it ("final")."""
+    import torch
+
+    q = eng.cc.shift_samples
+    tick = eng.tick_pipelined if pipelined else eng.tick
+    ms, ran = [], []
+    for ofs in range(0, pcm.shape[1], q):
+        k = eng.total_chunks
+        t0 = time.perf_counter()
+        tick(pcm[:, ofs:ofs + q])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ran.append(eng.total_chunks > k)
+    eng.flush_pipeline()
+    out = dict(tick_ms=ms, ran_chunk=ran, chunks=eng.total_chunks,
+               streamed=[list(t) for t in eng.tokens],
+               tokens=sum(map(len, eng.tokens)))
+    if finalize:
+        eng.finalize()
+        out["final"] = [list(t) for t in eng.tokens]
+    return out
+
+
+def engine_ticks(eng, pcm) -> dict:
+    """A ServingEngine fed as lockstep_run feeds a LockstepEngine: every
+    slot one chunk shift of `pcm` [S, N] a tick (a partial last block stays
+    staged), each tick's host-clock ms of its feed_audio + step and whether
+    it ran a chunk; its own step p50 (every device tick), the chunks a slot
+    and the tokens."""
+    import torch
+
+    q = eng.cc.shift_samples
+    slots = eng.add_streams(pcm.shape[0])
+    ms, ran = [], []
+    for ofs in range(0, pcm.shape[1], q):
+        k = int(eng.frame_offsets[slots[0]])
+        t0 = time.perf_counter()
+        eng.feed_audio({s: pcm[i, ofs:ofs + q] for i, s in enumerate(slots)})
+        eng.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ran.append(int(eng.frame_offsets[slots[0]]) > k)
+    out = dict(tick_ms=ms, ran_chunk=ran,
+               chunks=int(eng.frame_offsets[slots[0]]) // eng.cc.valid_out_len,
+               tokens=sum(len(eng.tokens[s]) for s in slots),
+               step_p50_ms=eng.latency_percentiles()["p50"] * 1e3)
+    for s in slots:
+        eng.remove_stream(s)
+    return out
+
+
+def tick_summary(run, cc, n_streams) -> dict:
+    """Tick p50/p90 (host clock) over the ticks that ran a chunk (a tick
+    of DSP alone, or none, takes a fraction of one) and aggregate RTF
+    (every tick's seconds over the audio all streams decoded) of a run of
+    lockstep_run or engine_ticks."""
+    t = np.asarray(run["tick_ms"])
+    chunk_t = t[np.asarray(run["ran_chunk"])]
+    audio_s = (run["chunks"] * n_streams * cc.valid_out_len
+               * cc.subsampling_factor * cc.hop_length / cc.sample_rate)
+    return dict(p50_ms=float(np.percentile(chunk_t, 50)),
+                p90_ms=float(np.percentile(chunk_t, 90)), ticks=int(t.size),
+                chunk_ticks=int(chunk_t.size), chunks=run["chunks"],
+                rtf=float(t.sum() / 1e3 / audio_s))
+
+
+def shared_weights(engines) -> bool:
+    """Every weight leaf and the position projections of each later engine
+    (and, for lockstep engines, the DSP window and filterbank) lie at
+    engine 0's data_ptr."""
+    from nemotron_tpu_torch.params import flatten
+
+    def ptrs(eng):
+        p = {k: v.data_ptr() for k, v in flatten(eng.params).items()}
+        p["pos_heads"] = eng.pos_heads.data_ptr()
+        if hasattr(eng, "filterbank"):
+            p["window"] = eng.window.data_ptr()
+            p["filterbank"] = eng.filterbank.data_ptr()
+        return p
+
+    return all(ptrs(eng) == ptrs(engines[0]) for eng in engines[1:])
+
+
+def lockstep_phase(gguf_path: str, failures: list) -> dict:
+    """Slice 13 at full width.
+    (1) Q8_0 f32, 8 streams, R = 13, tick_pipelined over 4 s of seeded PCM:
+        the tokens of the chunks of real audio equal 8 solo f32 sessions'
+        (the exact tier), 24 attention and 240 Q8 launches a chunk; the
+        finals against the sessions' as a reading (the lockstep pads
+        silence PCM where a session pads zero mel, as in JAX).
+    (2) W8A8 + int8 K/V bf16, 64 streams, the four modes, beside a 64-slot
+        device-DSP ServingEngine fed the same audio at the real-time rate,
+        in turns (lockstep, engine, engine, lockstep; each tick timed as
+        the user's call: tick_pipelined, or feed_audio + step; 2 s a stream
+        at R = 0 and 1): tick p50/p90 over the ticks that ran a chunk
+        against the mode's limit, aggregate RTF, peak GiB,
+        launches a chunk (24 attention, 240 W8A8); at R = 13 two streams
+        against solo bf16 sessions (w8a8_solo_readings, as the engine
+        phase: position agreement beside its controls, token counts
+        checked; the agreement held to 95%) and a profile of 3 ticks (busy
+        share, launches a tick by name).
+    (3) 256 streams at R = 13, one timing.
+    (4) CohortScheduler(2 x 32) and ServingCohorts(2 x 32, device DSP),
+        Q8_0 f32, R = 13: engine 1's weights at engine 0's data_ptr, each
+        cohort's tokens equal to a solo engine of its own.
+    (5) `python -m nemotron_tpu_torch.serve` with --lockstep and without on
+        the card (64 streams, W8A8 + int8 K/V): exit 0 and the summary."""
+    import gc
+
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model, quantize_model_params
+    from nemotron_tpu_torch.streaming.cohorts import (CohortScheduler,
+                                                      ServingCohorts)
+    from nemotron_tpu_torch.streaming.lockstep import LockstepEngine
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gc.collect()
+    q8_params, cfg, vocab = load_model(gguf_path, device="cuda")
+    w8_params = quantize_model_params(q8_params, mode="w8a8")
+    out = {"modes": {}}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+
+    def count(fn):
+        """counted(fn) and the encoder steps it ran."""
+        with EncoderTap() as tap:
+            r, n = counted(fn, launches)
+        return r, n, tap.calls
+
+    # (1) Q8_0 f32, 8 streams, against solo f32 sessions
+    t0 = time.perf_counter()
+    S = W8A8_STREAMS
+    cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    pcm = np.stack([seeded_pcm(s) for s in range(S)])
+    eng = LockstepEngine(q8_params, cfg, vocab, cc13, n_streams=S,
+                         compute_dtype=f32)
+    run, n, steps = count(lambda: lockstep_run(eng, pcm, finalize=True))
+    check_engine_launches("lockstep Q8_0 f32", n, steps, cfg, 10, "q8",
+                          failures)
+    solos = [solo_session(q8_params, cfg, vocab, cc13, pcm[s], f32)
+             for s in range(S)]
+    same = [run["streamed"][s] == solos[s]["streamed"]
+            and len(solos[s]["streamed"]) > 0 for s in range(S)]
+    same_final = [run["final"][s] == solos[s]["final"] for s in range(S)]
+    res = tick_summary(run, cc13, S) | dict(
+        tokens=sum(map(len, run["streamed"])), launches=n,
+        solo_tokens_equal=same, solo_finals_equal=same_final)
+    out["q8_f32_8"] = res
+    log(f"  lockstep Q8_0 f32, {S} streams, R=13, pipelined: tick p50 "
+        f"{res['p50_ms']:.2f} / p90 {res['p90_ms']:.2f} ms, RTF "
+        f"{res['rtf']:.4f}, {res['chunks']} chunks, {res['tokens']} tokens, "
+        f"launches {json.dumps(n)} in {steps} encoder steps; tokens of the "
+        f"real-audio chunks equal to solo f32 sessions {same}; finals "
+        f"(reading) {same_final} (wall {time.perf_counter() - t0:.1f} s)")
+    if not all(same):
+        failures.append(f"lockstep Q8_0 f32: tokens equal to solo sessions "
+                        f"{same}")
+    del eng, run, solos
+
+    # (2) W8A8 + int8 K/V bf16, 64 streams, four modes, beside the engine
+    # on the same audio, in turns (lockstep, engine, engine, lockstep); at
+    # R = 0 and 1 over the first 2 s (25 and 12 ticks a run: the phase's
+    # time limit, PERF.md §4)
+    n64 = ENGINE_SLOTS
+    pcm64 = np.stack([seeded_pcm(s) for s in range(n64)])
+    for R in MODES:
+        t0 = time.perf_counter()
+        cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
+                         kv_cache_int8=True)
+        pcm = pcm64[:, :pcm64.shape[1] // 2] if R < 6 else pcm64
+        res = dict(limit_ms=SHIFT_MS[R], lockstep=[], engine=[])
+        for kind in ("lockstep", "engine", "engine", "lockstep"):
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "lockstep":
+                eng = LockstepEngine(w8_params, cfg, vocab, cc, n_streams=n64)
+                run, n, steps = count(lambda: lockstep_run(eng, pcm))
+            else:
+                eng = ServingEngine(w8_params, cfg, vocab, cc, n_slots=n64,
+                                    compute_dtype=bf16, dsp="device")
+                run, n, steps = count(lambda: engine_ticks(eng, pcm))
+            check_engine_launches(f"{kind} W8A8 R={R}", n, steps, cfg, 10,
+                                  "w8a8", failures)
+            res[kind].append(tick_summary(run, cc, n64) | dict(
+                launches=n, tokens=run["tokens"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                | ({"step_p50_ms": run["step_p50_ms"]}
+                   if kind == "engine" else {}))
+            if kind == "lockstep" and not res["lockstep"][1:]:
+                first = run
+            del eng, run
+        out["modes"][f"R={R}"] = res
+        lk, en = res["lockstep"], res["engine"]
+        log(f"  W8A8 bf16 int8 K/V, {n64} streams, R={R} (limit "
+            f"{SHIFT_MS[R]} ms), in turns L E E L, ticks that ran a "
+            f"chunk: lockstep tick p50 "
+            f"{lk[0]['p50_ms']:.2f} / {lk[1]['p50_ms']:.2f} ms (p90 "
+            f"{lk[0]['p90_ms']:.2f} / {lk[1]['p90_ms']:.2f}), RTF "
+            f"{lk[0]['rtf']:.4f}, {lk[0]['ticks']} ticks "
+            f"({lk[0]['chunk_ticks']} with a chunk), {lk[0]['chunks']} "
+            f"chunks, {lk[0]['tokens']} "
+            f"tokens, peak {lk[0]['peak_gib']:.2f} "
+            f"GiB, launches {json.dumps(lk[0]['launches'])}; {n64}-slot "
+            f"engine (device DSP), feed_audio + step: p50 "
+            f"{en[0]['p50_ms']:.2f} / {en[1]['p50_ms']:.2f} ms (p90 "
+            f"{en[0]['p90_ms']:.2f} / {en[1]['p90_ms']:.2f}; its own step "
+            f"p50 {en[0]['step_p50_ms']:.2f} / {en[1]['step_p50_ms']:.2f}), "
+            f"RTF {en[0]['rtf']:.4f}, {en[0]['chunk_ticks']} ticks with a "
+            f"chunk, {en[0]['chunks']} chunks, peak "
+            f"{en[0]['peak_gib']:.2f} GiB (wall "
+            f"{time.perf_counter() - t0:.1f} s)")
+        if R == 13:
+            # the lockstep feeds a stream exactly what its solo session
+            # decodes (no masks, no realignment): held to the tier's 95%
+            res["solo"] = w8a8_solo_readings(
+                dict(pcm={s: pcm64[s] for s in range(n64)},
+                     finals={s: first["streamed"][s] for s in range(n64)}),
+                w8_params, cfg, vocab, cc, R, failures, [0, n64 - 1])
+            low = {sid: r["engine"] for sid, r in res["solo"].items()
+                   if r["engine"] < TOL_W8A8_TOKEN_AGREE}
+            if low:
+                failures.append(f"lockstep W8A8 R=13: position agreement "
+                                f"with solo bf16 sessions {low} < "
+                                f"{TOL_W8A8_TOKEN_AGREE}")
+        del first
+
+    # the busy share over 3 profiled R = 13 ticks (after 2: one chunk a
+    # tick from then on)
+    cc13_8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                         kv_cache_int8=True)
+    q = cc13_8.shift_samples
+    gc.collect()
+    eng = LockstepEngine(w8_params, cfg, vocab, cc13_8, n_streams=n64)
+    blocks = [pcm64[:, t * q:(t + 1) * q] for t in range(2)] + \
+        [np.roll(pcm64, 7 * t, axis=1)[:, :q] for t in range(3)]
+
+    def profiled():
+        for blk in blocks[:2]:
+            eng.tick(blk)
+        with EncoderTap() as tap:
+            prof = profile_window(lambda: [eng.tick(b) for b in blocks[2:]])
+        prof["encoder_steps"] = tap.calls
+        return prof
+
+    prof, _n, _steps = count(profiled)
+    out["profile"] = log_profile(
+        "lockstep W8A8 bf16 R=13 64 streams", prof, 3, failures, "q8_",
+        {"ring_attn_cluster_kernel": cfg.n_layers,
+         "w8a8_matmul": 10 * cfg.n_layers})
+    del eng
+
+    # (3) 256 streams at R = 13, one timing (8 s a stream)
+    t0 = time.perf_counter()
+    n256 = ENGINE_SLOT_COUNTS[-1]
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    eng = LockstepEngine(w8_params, cfg, vocab, cc13_8, n_streams=n256)
+    pcm256 = np.stack([seeded_pcm(s, 2 * ENGINE_SECONDS)
+                       for s in range(n256)])
+    run, n, steps = count(lambda: lockstep_run(eng, pcm256))
+    check_engine_launches("lockstep W8A8 256 streams", n, steps, cfg, 10,
+                          "w8a8", failures)
+    res = tick_summary(run, cc13_8, n256) | dict(
+        launches=n, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out["streams_256"] = res
+    log(f"  lockstep W8A8 bf16, {n256} streams, R=13: tick p50 "
+        f"{res['p50_ms']:.2f} / p90 {res['p90_ms']:.2f} ms (limit 1120 ms), "
+        f"RTF {res['rtf']:.4f}, {res['ticks']} ticks, {res['chunks']} "
+        f"chunks, peak {res['peak_gib']:.2f} GiB (wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del eng, run, pcm256
+
+    # (4) cohorts, Q8_0 f32, R = 13: shared weights, each cohort = a solo
+    # engine of its own
+    t0 = time.perf_counter()
+    B = 32
+    pcm_c = [pcm64[c * B:(c + 1) * B] for c in range(2)]
+    N = pcm64.shape[1]
+
+    def cohorts():
+        sched = CohortScheduler(q8_params, cfg, vocab, cc13, n_streams=B,
+                                n_cohorts=2, compute_dtype=f32)
+        share = shared_weights(sched.engines)
+        for ofs in range(0, N, cc13.shift_samples):
+            for c in range(2):
+                sched.tick(c, pcm_c[c][:, ofs:ofs + cc13.shift_samples],
+                           pipelined=True)
+        sched.finalize()
+        toks = [sched.engines[c].tokens for c in range(2)]
+        solo = []
+        for c in range(2):
+            e = LockstepEngine(q8_params, cfg, vocab, cc13, n_streams=B,
+                               compute_dtype=f32)
+            solo.append(lockstep_run(e, pcm_c[c], pipelined=False,
+                                     finalize=True)["final"])
+        return share, [toks[c] == solo[c] for c in range(2)], toks
+
+    def serving_cohorts():
+        rc = ServingCohorts(q8_params, cfg, vocab, cc13, n_slots=B,
+                            n_cohorts=2, compute_dtype=f32, dsp="device")
+        share = shared_weights(rc.engines)
+        solo = [ServingEngine(q8_params, cfg, vocab, cc13, n_slots=B,
+                              compute_dtype=f32, dsp="device")
+                for _ in range(2)]
+        gids = [[rc.add_stream(cohort=c) for _ in range(B)]
+                for c in range(2)]
+        for e in solo:
+            e.add_streams(B)
+        for ofs in range(0, N, cc13.shift_samples):
+            for c in range(2):
+                blk = pcm_c[c][:, ofs:ofs + cc13.shift_samples]
+                rc.feed_audio({g: blk[i] for i, g in enumerate(gids[c])})
+                rc.step(c)
+                solo[c].feed_audio({i: blk[i] for i in range(B)})
+                solo[c].step()
+        got = [rc.engines[c].finalize_streams(list(range(B)), True)
+               for c in range(2)]
+        want = [solo[c].finalize_streams(list(range(B)), True)
+                for c in range(2)]
+        return share, [got[c] == want[c] for c in range(2)], got
+
+    (share_l, eq_l, toks_l), n_l, _ = count(cohorts)
+    (share_r, eq_r, toks_r), n_r, _ = count(serving_cohorts)
+    out["cohorts"] = dict(lockstep_shared=share_l, lockstep_equal=eq_l,
+                          ragged_shared=share_r, ragged_equal=eq_r,
+                          lockstep_tokens=sum(len(t) for c in toks_l
+                                              for t in c),
+                          ragged_tokens=sum(len(t[1]) for c in toks_r
+                                            for t in c),
+                          launches={k: n_l[k] + n_r[k] for k in n_l})
+    log(f"  cohorts, Q8_0 f32 R=13, 2 x {B}: CohortScheduler weights shared "
+        f"{share_l}, cohorts equal to solo lockstep engines {eq_l} "
+        f"({out['cohorts']['lockstep_tokens']} tokens); ServingCohorts "
+        f"(device DSP) weights shared {share_r}, cohorts equal to solo "
+        f"engines {eq_r} ({out['cohorts']['ragged_tokens']} tokens) (wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not (share_l and share_r and all(eq_l) and all(eq_r)
+            and out["cohorts"]["lockstep_tokens"]
+            and out["cohorts"]["ragged_tokens"]):
+        failures.append(f"cohorts: {out['cohorts']}")
+    del q8_params, w8_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (5) the serve entry point on the card, with --lockstep and without
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "s.pcm")
+        seeded_pcm(7).tofile(path)
+        procs = {}
+        for mode in ("lockstep", "engine"):
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-m", "nemotron_tpu_torch.serve", gguf_path,
+                 path, "--streams", str(n64), "--seconds",
+                 str(AUDIO_SECONDS), "--quantize", "w8a8", "--kv-int8",
+                 *(["--lockstep"] if mode == "lockstep" else [])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=here, env=dict(os.environ, PYTHONPATH=here))
+        out["serve"] = {}
+        for mode, proc in procs.items():
+            try:
+                so, se = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                so, se = proc.communicate()
+            summary = [ln for ln in se.splitlines()
+                       if "aggregate real-time" in ln or "per-tick" in ln]
+            slots = [ln for ln in so.splitlines() if ln.startswith("[slot ")]
+            out["serve"][mode] = dict(rc=proc.returncode, summary=summary,
+                                      slot_lines=len(slots))
+            log(f"  serve --{mode} (64 streams, W8A8 + int8 K/V, both "
+                f"processes at once): exit {proc.returncode}; "
+                + " | ".join(summary))
+            if proc.returncode or not summary or len(slots) != 3:
+                failures.append(f"serve {mode}: exit {proc.returncode}, "
+                                f"stderr {se[-1500:]}")
+    log(f"  serve entry points: wall {time.perf_counter() - t0:.1f} s")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3660,6 +4075,8 @@ def main() -> int:
         server = phase("server (slice 9)", server_phase, path)
         quant = phase("quant tiers and snapshots (slice 10)",
                       quant_tier_phase, path)
+        lock = phase("lockstep, cohorts and serve (slice 13)",
+                     lockstep_phase, path)
     tones = phase("tones", tones_phase)
     engine_tones = phase("serving engine tones (slice 8)", engine_tones_phase)
     server_tones = phase("server tones (slice 9)", server_tones_phase)
@@ -3672,7 +4089,8 @@ def main() -> int:
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
     engine_n = {k: engine["launches"][k] + engine_tones["launches"][k]
                 + server_n[k] + quant["launches"][k]
-                + tones_quant["launches"][k] for k in engine["launches"]}
+                + tones_quant["launches"][k] + lock["launches"][k]
+                for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
         rows = [(w8[(*mode, M, K, N)], c) for (K, N), c in Q8_SHAPES.items()]
@@ -3804,6 +4222,7 @@ def main() -> int:
     log("quant tiers and snapshots: " + json.dumps(quant))
     log("tones quant tiers: " + json.dumps(tones_quant))
     log("CLIs and server with the quant flags: " + json.dumps(clis_quant))
+    log("lockstep, cohorts and serve: " + json.dumps(lock))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

@@ -48,13 +48,13 @@ _SWITCHES = ("--kv-int8", "--kv-int4", "--confidence", "--endpoint-reset",
              "--cpu")
 
 
-def later_flag(argv: list[str]) -> str | None:
+def later_flag(argv: list[str], later: dict = _LATER) -> str | None:
     """The error for the first flag in `argv` that comes with a later slice
-    of the port, or None."""
+    of the port (`later`: flag -> slice), or None."""
     for i, a in enumerate(argv):
         name = a.split("=", 1)[0]
-        if name in _LATER:
-            return f"{name} comes with the {_LATER[name]} slice of this port"
+        if name in later:
+            return f"{name} comes with the {later[name]} slice of this port"
         if name == "--dsp" and (a == "--dsp=native" or argv[i + 1:i + 2]
                                 == ["native"]):
             return ("--dsp native comes with the native-bindings slice of "
@@ -62,40 +62,55 @@ def later_flag(argv: list[str]) -> str | None:
     return None
 
 
+def positional_args(argv: list[str], valued, switches) -> list | None:
+    """The positional arguments of argv[1:], or None after printing the
+    error for a flag in `valued` without its value or a flag that is in
+    neither `valued` nor `switches`."""
+    args, i = [], 1
+    while i < len(argv):
+        a = argv[i]
+        if a in valued:
+            if i + 1 >= len(argv):
+                print(f"error: {a} needs a value", file=sys.stderr)
+                return None
+            i += 2
+            continue
+        if a.startswith("--") and a not in switches:
+            print(f"error: unsupported flag {a}", file=sys.stderr)
+            return None
+        if not a.startswith("--"):
+            args.append(a)
+        i += 1
+    return args
+
+
+def flag_value(argv: list[str], name: str, default, cast):
+    """The value after flag `name` in argv through `cast`, or `default`
+    when the flag is absent; an invalid value exits 1."""
+    if name not in argv:
+        return default
+    raw = argv[argv.index(name) + 1]
+    try:
+        return cast(raw)
+    except ValueError:
+        print(f"error: invalid value for {name}: {raw!r}", file=sys.stderr)
+        raise SystemExit(1)
+
+
 def main(argv: list[str]) -> int:
     refused = later_flag(argv[1:])
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 1
-    args, i = [], 1
-    while i < len(argv):
-        a = argv[i]
-        if a in _VALUED:
-            if i + 1 >= len(argv):
-                print(f"error: {a} needs a value", file=sys.stderr)
-                return 1
-            i += 2
-            continue
-        if a.startswith("--") and a not in _SWITCHES:
-            print(f"error: unsupported flag {a}", file=sys.stderr)
-            return 1
-        if not a.startswith("--"):
-            args.append(a)
-        i += 1
+    args = positional_args(argv, _VALUED, _SWITCHES)
+    if args is None:
+        return 1
     if len(args) != 1:
         print(__doc__, file=sys.stderr)
         return 1
 
     def opt(name, default, cast):
-        if name not in argv:
-            return default
-        raw = argv[argv.index(name) + 1]
-        try:
-            return cast(raw)
-        except ValueError:
-            print(f"error: invalid value for {name}: {raw!r}",
-                  file=sys.stderr)
-            raise SystemExit(1)
+        return flag_value(argv, name, default, cast)
 
     host = opt("--host", "127.0.0.1", str)
     port = opt("--port", 8765, int)
