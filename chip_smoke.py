@@ -76,7 +76,7 @@ Phases (any failure exits non-zero):
      Levenshtein 1 of its labels).
   9. network server (slice 9): an ASRServer (TCP, WebSocket and the HTTP
      sidecar) over a 64-slot ServingEngine with confidence at full width,
-     R = 13, driven by 48 TCP and 8 WebSocket clients streaming 4 s of
+     R = 13, driven by 48 TCP and 8 WebSocket clients streaming 2.5 s of
      seeded PCM each at the real-time rate and 8 POST /transcribe
      requests, in two cells: Q8_0 f32 with host DSP (every client's FINAL
      or REST tokens equal to those of the same audio through a directly
@@ -138,7 +138,26 @@ Phases (any failure exits non-zero):
      32, Q8_0 f32: shared weights by data_ptr, each cohort equal to a solo
      engine); `python -m nemotron_tpu_torch.serve` with --lockstep and
      without.
- 13. one JSON line of kernel results, the card's name and power limit, and
+ 13. the RNN-T beam family (slice 14), on the full-width GGUF with its
+     prediction side peaked so that the beams emit: K = 1 against greedy
+     in the four modes (its log-prob at least the greedy path's, the JAX
+     package's gate); a K = 4 Q8_0 f32 session over 8
+     R = 13 chunks against the port's CPU run (every hypothesis's score
+     within 1e-3, tokens equal but for near-ties, best hypothesis
+     non-empty and equal; 24 / 240 launches a chunk); beam_decode with and
+     without a label LM under torch.cuda.set_sync_debug_mode("error"); the
+     64-slot ServingEngine (K = 4, Q8_0 f32, host and device DSP, ragged)
+     and the LockstepEngine (8 streams), their beams held the same way to
+     solo K = 4 sessions; readings of
+     W8A8 + int8 K/V bf16 K = 4 sessions (S = 8, four modes), the 64-slot
+     engine with and without the LM, a 3-tick profile and the beam's own
+     device time. Then the trained fixtures against the CPU:
+     tones_tiny.gguf with tones_tiny_lm.gguf (K = 4, weight 0.3, 8
+     streams) in a session, the 64-slot engine and the lockstep engine,
+     transcribe_batch with LM rescoring and 4-best lists,
+     asr_server --refine on tones_tiny_sil.gguf and the streaming CLI with
+     --boost (greedy, and with --beam --lm).
+ 14. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -147,9 +166,11 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -238,13 +259,16 @@ SHIFT_MS = {0: 80, 1: 160, 6: 560, 13: 1120}
 # tones cell through the engine: 4 streams at the real-time rate, 3 at half
 # rate, 1 admitted late
 ENGINE_TONES_HALF, ENGINE_TONES_LATE = (4, 5, 6), 7
+# the endpointing audio's two utterances (tones_tiny_sil.gguf)
+SIL_LABELS = ([3, 11, 6, 0, 14, 9], [8, 2, 15])
 # the network server (slice 9): a 64-slot engine behind an ASRServer, 48 TCP
-# and 8 WebSocket clients streaming 4 s each at the real-time rate in
-# 100 ms blocks, and 8 POST /transcribe requests of 4 s; the clients'
-# log-posteriors against solo sessions within the Q8_0 path's card
-# tolerance (TOL_ENCODER_ABS)
+# and 8 WebSocket clients streaming 2.5 s each at the real-time rate in
+# 100 ms blocks (two R = 13 chunks of real audio, then the finalize; 4 s
+# up to PR 13, cut to keep the script within its time), and 8 POST
+# /transcribe requests of 2.5 s; the clients' log-posteriors against solo
+# sessions within the Q8_0 path's card tolerance (TOL_ENCODER_ABS)
 SERVER_SLOTS, SERVER_TCP, SERVER_WS, SERVER_REST = 64, 48, 8, 8
-SERVER_SECONDS = 4.0
+SERVER_SECONDS = 2.5
 TOL_CONF_ABS = 1e-3
 # slice 10: the quant tiers and snapshots. SmoothQuant calibrates on 4 s of
 # seeded PCM (its own stream, not one the sessions decode); per-layer right
@@ -252,6 +276,17 @@ TOL_CONF_ABS = 1e-3
 SQ_CALIB_STREAM, SQ_CALIB_SECONDS = 900, 4.0
 RC_BY_LAYER = (13, 6, 1, 0)
 SNAPSHOT_CUT = 30_000         # samples into a 4 s stream (R = 13: mid-chunk)
+# slice 14: the RNN-T beam family. K hypotheses, expansions a frame, token
+# slots a hypothesis; the card-vs-CPU session runs BEAM_CPU_CHUNKS chunks at
+# R = 13; scores card vs CPU within TOL_BEAM_SCORE (the Q8_0 path's encoder
+# tolerance: a sum of log-probs of joints over encoder outputs that agree
+# within it); the lockstep check runs BEAM_LOCK_STREAMS streams
+BEAM_K, BEAM_EXPANSIONS, BEAM_MAX_TOKENS = 4, 10, 1024
+BEAM_CPU_CHUNKS, BEAM_LOCK_STREAMS = 8, 8
+BEAM_LM_WEIGHT = 0.3
+TOL_BEAM_SCORE = 1e-3
+TONES_NBEST_KW = dict(beam_size=BEAM_K, return_nbest=BEAM_K,
+                      lm_weight=BEAM_LM_WEIGHT, lm_rescore=True)
 
 
 def log(msg: str) -> None:
@@ -1008,6 +1043,17 @@ def write_full_width_gguf(path: str):
     return len(quantize)
 
 
+@functools.lru_cache(maxsize=None)
+def full_width_model(gguf_path: str, device: str):
+    """load_model of the full-width GGUF, once a device for the whole run:
+    the phases share its weights (read-only; every variant is a new
+    object: quantize_model_params, peaked_params). main() drops them after
+    the full-width phases."""
+    from nemotron_tpu_torch.params import load_model
+
+    return load_model(gguf_path, device=device)
+
+
 def seeded_pcm(stream: int = 0, seconds: float = AUDIO_SECONDS) -> np.ndarray:
     """Tone plus noise; each stream its own pitch and noise."""
     n = int(seconds * 16000)
@@ -1025,11 +1071,10 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
     from nemotron_tpu_torch.models import encoder as enc_mod
     from nemotron_tpu_torch.ops.quant_kernel import q8_matmul
     from nemotron_tpu_torch.ops.ring_attn_kernel import fused_ring_attention
-    from nemotron_tpu_torch.params import load_model
     from nemotron_tpu_torch.streaming.session import StreamSession
 
     t0 = time.perf_counter()
-    params, cfg, vocab = load_model(gguf_path, device="cuda")
+    params, cfg, vocab = full_width_model(gguf_path, "cuda")
     torch.cuda.synchronize()
     log(f"phase main path: load_model(device='cuda') "
         f"{time.perf_counter() - t0:.1f} s, {cfg.n_layers} layers, "
@@ -1104,7 +1149,7 @@ def main_path_phase(gguf_path: str, failures: list) -> dict:
     del sess
 
     # the port's CPU run of the R=13 session: the same tokens
-    cpu_params, _, _ = load_model(gguf_path, device="cpu")
+    cpu_params, _, _ = full_width_model(gguf_path, "cpu")
     cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
     cpu_sess = StreamSession(cpu_params, cfg, vocab, cc)
     cpu_sess.process(pcm)
@@ -1346,7 +1391,7 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
 
     # f32, R = 13, the same config on the card and the port's CPU run
     cpu_params = quantize_model_params(
-        load_model(gguf_path, device="cpu")[0], mode="w8a8")
+        full_width_model(gguf_path, "cpu")[0], mode="w8a8")
     card = run_session(params, cfg, vocab, cc, pcm, f32)
     cpu = run_session(cpu_params, cfg, vocab, cc, pcm, f32)
     agree = [position_agreement(card.get_tokens(s), cpu.get_tokens(s))
@@ -1442,12 +1487,11 @@ def full_utterance_phase(gguf_path: str, failures: list) -> dict:
 
     from nemotron_tpu_torch.models import decoder as dec_mod
     from nemotron_tpu_torch.models import encoder as enc_mod
-    from nemotron_tpu_torch.params import load_model
     from nemotron_tpu_torch.streaming import session as sess_mod
     from nemotron_tpu_torch.utils.text import tokens_to_text
 
-    params, cfg, vocab = load_model(gguf_path, device="cuda")
-    cpu_params, _, _ = load_model(gguf_path, device="cpu")
+    params, cfg, vocab = full_width_model(gguf_path, "cuda")
+    cpu_params, _, _ = full_width_model(gguf_path, "cpu")
     utts = [seeded_pcm(i, s) for i, s in enumerate(FULL_UTT_SECONDS)]
     audio_s = sum(FULL_UTT_SECONDS)
     sess_mod.transcribe_batch(params, cfg, vocab, utts)        # warm-up
@@ -1723,17 +1767,19 @@ class EncoderTap:
 
 def engine_schedule(eng, pcm_of, half=(), evict=(), evict_tick=None,
                     late=(), late_tick=None, tap=None,
-                    finalize: bool = True) -> dict:
+                    finalize: bool = True, before_end=None) -> dict:
     """Drive a fresh engine through a ragged schedule, one chunk shift of
     samples a tick: every slot but `late` admitted at once, the slots in
     `half` fed every other tick, `late` admitted at `late_tick`, and the
     `evict` slots evicted at `evict_tick` (their recordings dropped from
     `tap`) and re-admitted with new streams (stream ids from n_slots up)
     of the same rate; then every slot finalized in one finalize_streams
-    call (or, finalize=False, evicted). pcm_of(stream id) gives a stream's
-    PCM. Returns the final tokens and PCM per stream id, the slot each
-    stream ended in, and the stats and latency percentiles of the
-    streaming ticks (before the finalize)."""
+    call (or, finalize=False, evicted); before_end({slot: stream id}), if
+    given, runs just before that. pcm_of(stream id) gives a stream's PCM.
+    Returns the final tokens and PCM per stream id, the slot each
+    stream ended in, the frames each had decoded before the finalize, and
+    the stats and latency percentiles of the streaming ticks (before the
+    finalize)."""
     n, q = eng.n_slots, eng.cc.shift_samples
     slots = eng.add_streams(n - len(late))
     stream_of = {s: s for s in slots}
@@ -1772,12 +1818,16 @@ def engine_schedule(eng, pcm_of, half=(), evict=(), evict_tick=None,
         tick += 1
     stats, latency = eng.stats(), eng.latency_percentiles()
     slots = list(stream_of)
+    frames = {stream_of[s]: int(eng.frame_offsets[s]) for s in slots}
+    if before_end is not None:
+        before_end(stream_of)
     ends = (eng.finalize_streams(slots, return_tokens=True) if finalize
             else [eng.remove_stream(s, return_tokens=True) for s in slots])
     finals = {stream_of[s]: toks for s, (_text, toks) in zip(slots, ends)}
     return dict(finals=finals, slot_of={sid: s for s, sid in
                                         stream_of.items()},
-                pcm=pcm, stats=stats, latency=latency, ticks=tick)
+                pcm=pcm, stats=stats, latency=latency, ticks=tick,
+                frames=frames)
 
 
 def ragged_plan(n: int, seconds: float, q: int) -> dict:
@@ -1942,11 +1992,11 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
     import torch
 
     from nemotron_tpu_torch.config import CacheConfig
-    from nemotron_tpu_torch.params import load_model, quantize_model_params
+    from nemotron_tpu_torch.params import quantize_model_params
     from nemotron_tpu_torch.streaming.serving import ServingEngine
 
     bf16, f32 = torch.bfloat16, torch.float32
-    q8_params, cfg, vocab = load_model(gguf_path, device="cuda")
+    q8_params, cfg, vocab = full_width_model(gguf_path, "cuda")
     w8_params = quantize_model_params(q8_params, mode="w8a8")
     n = ENGINE_SLOTS
 
@@ -2108,6 +2158,21 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
     return out
 
 
+def sil_pcm() -> np.ndarray:
+    """The endpointing audio (tests/test_serving.py:1363-1423): the two
+    tone utterances of SIL_LABELS, each followed by 3 s of silence."""
+    from nemotron_tpu_torch.utils.tones import render_tones
+
+    rng = np.random.default_rng(7)
+
+    def utt(labels, tail_s):
+        n = int(0.30 * len(labels) * 16000) + int(tail_s * 16000)
+        return render_tones(np.asarray(labels), np.full(len(labels), 0.25),
+                            rng, 16, n, gaps=np.full(len(labels), 0.05))
+
+    return np.concatenate([utt(SIL_LABELS[0], 3.0), utt(SIL_LABELS[1], 3.0)])
+
+
 def engine_tones_phase(failures: list) -> dict:
     """The trained fixtures through the engine: tones_tiny.gguf, 8 streams
     of 15 s at ragged rates in both DSP modes at R = 0 and 13 (tokens
@@ -2119,7 +2184,7 @@ def engine_tones_phase(failures: list) -> dict:
     from nemotron_tpu_torch.params import load_model
     from nemotron_tpu_torch.streaming.serving import ServingEngine
     from nemotron_tpu_torch.utils.text import edit_distance
-    from nemotron_tpu_torch.utils.tones import make_eval_streams, render_tones
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
 
     here = os.path.dirname(os.path.abspath(__file__))
     params, cfg, vocab = load_model(os.path.join(here, "weights",
@@ -2229,15 +2294,7 @@ def engine_tones_phase(failures: list) -> dict:
     sil, scfg, svocab = load_model(os.path.join(here, "weights",
                                                 "tones_tiny_sil.gguf"),
                                    device="cuda")
-    rng = np.random.default_rng(7)
-    truth = ([3, 11, 6, 0, 14, 9], [8, 2, 15])
-
-    def utt(labels, tail_s):
-        n = int(0.30 * len(labels) * 16000) + int(tail_s * 16000)
-        return render_tones(np.asarray(labels), np.full(len(labels), 0.25),
-                            rng, 16, n, gaps=np.full(len(labels), 0.05))
-
-    pcm = np.concatenate([utt(truth[0], 3.0), utt(truth[1], 3.0)])
+    truth, pcm = SIL_LABELS, sil_pcm()
     for dsp in ("numpy", "device"):
         cc = CacheConfig(att_right_context=13, n_mels=scfg.n_mels)
         eng = ServingEngine(sil, scfg, svocab, cc, n_slots=2,
@@ -2274,6 +2331,42 @@ def engine_tones_phase(failures: list) -> dict:
 # ---------------------------------------------------------------------------
 # phase 9: the network server (slice 9)
 # ---------------------------------------------------------------------------
+
+def start_server_module(args, env, cwd):
+    """`python -m nemotron_tpu_torch.asr_server` with `args`; returns the
+    process (read its port with server_port)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "nemotron_tpu_torch.asr_server", *args,
+         "--port", "0", "--tick-ms", "20"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=cwd)
+
+
+def server_port(proc) -> tuple[int, str]:
+    """The TCP port a server module prints on stderr when it listens, and
+    that line."""
+    head = []
+    t_end = time.time() + 300
+    while time.time() < t_end:
+        line = proc.stderr.readline()
+        if not line:
+            break
+        head.append(line)
+        if line.startswith("listening on "):
+            return int(line.split()[2].rsplit(":", 1)[1]), line.strip()
+    raise RuntimeError("asr_server did not start: " + "".join(head)[-2000:])
+
+
+def stop_process(proc) -> str:
+    """Stop a server module with SIGINT (a clean stop); returns its
+    stdout."""
+    proc.send_signal(signal.SIGINT)
+    try:
+        out, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return out
+
 
 class ServerThread:
     """An ASRServer on its own event loop in a daemon thread; the engine's
@@ -2724,11 +2817,11 @@ def server_phase(gguf_path: str, failures: list) -> dict:
     import torch
 
     from nemotron_tpu_torch.config import CacheConfig
-    from nemotron_tpu_torch.params import load_model, quantize_model_params
+    from nemotron_tpu_torch.params import quantize_model_params
     from nemotron_tpu_torch.streaming.serving import ServingEngine
     from nemotron_tpu_torch.streaming.session import StreamSession
 
-    q8_params, cfg, vocab = load_model(gguf_path, device="cuda")
+    q8_params, cfg, vocab = full_width_model(gguf_path, "cuda")
     n_clients = SERVER_TCP + SERVER_WS + SERVER_REST
     out = {}
     log(f"phase server: ASRServer over a {SERVER_SLOTS}-slot ServingEngine "
@@ -2848,7 +2941,7 @@ def server_tones_phase(failures: list) -> dict:
                                                     words_to_cues,
                                                     write_subtitles)
     from nemotron_tpu_torch.utils.text import edit_distance
-    from nemotron_tpu_torch.utils.tones import make_eval_streams, render_tones
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
 
     here = os.path.dirname(os.path.abspath(__file__))
     params, cfg, vocab = load_model(os.path.join(here, "weights",
@@ -2902,15 +2995,7 @@ def server_tones_phase(failures: list) -> dict:
     sil, scfg, svocab = load_model(os.path.join(here, "weights",
                                                 "tones_tiny_sil.gguf"),
                                    device="cuda")
-    rng = np.random.default_rng(7)
-    truth = ([3, 11, 6, 0, 14, 9], [8, 2, 15])
-
-    def utt(labels, tail_s):
-        n = int(0.30 * len(labels) * 16000) + int(tail_s * 16000)
-        return render_tones(np.asarray(labels), np.full(len(labels), 0.25),
-                            rng, 16, n, gaps=np.full(len(labels), 0.05))
-
-    pcm = np.concatenate([utt(truth[0], 3.0), utt(truth[1], 3.0)])
+    truth, pcm = SIL_LABELS, sil_pcm()
     eng = ServingEngine(sil, scfg, svocab,
                         CacheConfig(att_right_context=13, n_mels=scfg.n_mels),
                         n_slots=2, compute_dtype=torch.float32,
@@ -3044,25 +3129,10 @@ def cli_phase(failures: list) -> dict:
             failures.append(f"CLIs on the card: {out['clis']}")
 
         # the server and client modules as a user runs them
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "nemotron_tpu_torch.asr_server", fixture,
-             "--port", "0", "--slots", "4", "--confidence", "--tick-ms",
-             "20"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, env=env, cwd=here)
+        proc = start_server_module([fixture, "--slots", "4", "--confidence"],
+                                   env, here)
         try:
-            port, head = None, []
-            t_end = time.time() + 180
-            while port is None and time.time() < t_end:
-                line = proc.stderr.readline()
-                if not line:
-                    break
-                head.append(line)
-                if line.startswith("listening on "):
-                    port = int(line.split()[2].rsplit(":", 1)[1])
-                    listening = line.strip()
-            if port is None:
-                raise RuntimeError("asr_server did not start: "
-                                   + "".join(head)[-2000:])
+            port, listening = server_port(proc)
             srt = os.path.join(tmp, "client.srt")
             transcript, ct = finish(start(
                 ["-m", "nemotron_tpu_torch.asr_client", f"127.0.0.1:{port}",
@@ -3071,12 +3141,7 @@ def cli_phase(failures: list) -> dict:
             with open(srt, "rb") as f:
                 client_srt = f.read()
         finally:
-            proc.send_signal(signal.SIGINT)        # a clean stop
-            try:
-                server_out, _ = proc.communicate(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                server_out, _ = proc.communicate()
+            server_out = stop_process(proc)
         # the client's transcript against the recording's labels, and its
         # SRT against the transcript's words
         import re
@@ -3321,7 +3386,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     # and of the port's CPU run of this tier (f32 on both devices):
     # full-width W8A8 is chaotic under int8 rounding (the W8A8 path
     # phase), so these are readings
-    q8, _, _ = load_model(gguf_path, device="cuda")
+    q8, _, _ = full_width_model(gguf_path, "cuda")
     w8 = quantize_model_params(q8, mode="w8a8")
     cc8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
                       kv_cache_int8=True)
@@ -3349,7 +3414,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     del dyn, card32, cpu32
 
     # per-layer right context on the exact tier: Q8_0 f32, S = 1
-    cpu_q8, _, _ = load_model(gguf_path, device="cpu")
+    cpu_q8, _, _ = full_width_model(gguf_path, "cpu")
     ccr = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
                       att_right_context_by_layer=RC_BY_LAYER)
     card, n = count(lambda: run_session(q8, cfg, vocab, ccr, pcm[:1], f32))
@@ -3585,35 +3650,15 @@ def cli_quant_phase(failures: list) -> dict:
             if (exact and card != cpu) or not ter < TONES_TER_MAX:
                 failures.append(f"CLI {name}: {out[name]}")
 
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "nemotron_tpu_torch.asr_server", fixture,
-             "--port", "0", "--slots", "4", "--kv-int4", "--rc-by-layer",
-             "13,6,1,0", "--tick-ms", "20"], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, env=env, cwd=here)
+        proc = start_server_module([fixture, "--slots", "4", "--kv-int4",
+                                    "--rc-by-layer", "13,6,1,0"], env, here)
         try:
-            port, head = None, []
-            t_end = time.time() + 180
-            while port is None and time.time() < t_end:
-                line = proc.stderr.readline()
-                if not line:
-                    break
-                head.append(line)
-                if line.startswith("listening on "):
-                    port = int(line.split()[2].rsplit(":", 1)[1])
-                    listening = line.strip()
-            if port is None:
-                raise RuntimeError("asr_server did not start: "
-                                   + "".join(head)[-2000:])
+            port, listening = server_port(proc)
             transcript, ct = finish(run(
                 ["-m", "nemotron_tpu_torch.asr_client", f"127.0.0.1:{port}",
                  paths[1], "--rate", "max"]))
         finally:
-            proc.send_signal(signal.SIGINT)
-            try:
-                proc.communicate(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.communicate()
+            stop_process(proc)
         ter = ter_of(transcript, 1)
         out["asr_server"] = dict(ter=ter, client_wall_s=ct,
                                  on_card="device=cuda" in listening)
@@ -3748,7 +3793,7 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
     import torch
 
     from nemotron_tpu_torch.config import CacheConfig
-    from nemotron_tpu_torch.params import load_model, quantize_model_params
+    from nemotron_tpu_torch.params import quantize_model_params
     from nemotron_tpu_torch.streaming.cohorts import (CohortScheduler,
                                                       ServingCohorts)
     from nemotron_tpu_torch.streaming.lockstep import LockstepEngine
@@ -3756,7 +3801,7 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
 
     bf16, f32 = torch.bfloat16, torch.float32
     gc.collect()
-    q8_params, cfg, vocab = load_model(gguf_path, device="cuda")
+    q8_params, cfg, vocab = full_width_model(gguf_path, "cuda")
     w8_params = quantize_model_params(q8_params, mode="w8a8")
     out = {"modes": {}}
     launches = {"attn": 0, "q8": 0, "w8a8": 0}
@@ -4020,6 +4065,790 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the RNN-T beam family (beam search, LM fusion and rescoring,
+# logit boost, the two-pass refiner)
+# ---------------------------------------------------------------------------
+
+def beam_session(params, cfg, vocab, cc, pcm, dtype, lm=None, finalize=True,
+                 chunks=None, **kw):
+    """A K = BEAM_K StreamSession over `pcm` [S, N] (one chunk shift of
+    samples a call); with `chunks`, it stops once that many chunks ran."""
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    sess = StreamSession(params, cfg, vocab, cc, n_streams=pcm.shape[0],
+                         compute_dtype=dtype, beam_size=BEAM_K,
+                         beam_expansions=BEAM_EXPANSIONS,
+                         max_beam_tokens=BEAM_MAX_TOKENS, lm=lm,
+                         lm_weight=BEAM_LM_WEIGHT, **kw)
+    q = cc.shift_samples
+    for i in range(0, pcm.shape[1], q):
+        if chunks is not None and sess.total_chunks >= chunks:
+            break
+        sess.process(pcm[:, i:i + q])
+    if finalize:
+        sess.finalize()
+    return sess
+
+
+def greedy_path(params, cfg, encs):
+    """The greedy decode's path over the encoder outputs `encs` (chunks of
+    [1, T, D], the decoder state carried) and its total log-prob: each
+    emission's log softmax and each frame's closing blank (after
+    MAX_SYMBOLS_PER_STEP emissions the blank that the beam's force-finish
+    scores), the score tests/test_beam.py holds the K = 1 beam to."""
+    import torch
+
+    from nemotron_tpu_torch.config import MAX_SYMBOLS_PER_STEP
+    from nemotron_tpu_torch.models import decoder as dec_mod
+    from nemotron_tpu_torch.ops.lstm import lstm_step
+
+    dp, blank = params.decoder, cfg.blank_token
+    st = dec_mod.init_decoder_state(cfg, 1, encs[0].dtype, encs[0].device)
+    h, c, prev = st.h, st.c, torch.tensor([blank], device=encs[0].device)
+    emb = dp.embedding.to(encs[0].dtype)
+    score, tokens = 0.0, []
+    for enc in encs:
+        ep = dec_mod.joint_project_enc(params.joint, enc)[0]
+        for t in range(ep.shape[0]):
+            for sym in range(MAX_SYMBOLS_PER_STEP + 1):
+                out, h2, c2 = lstm_step(dp, emb[prev], h, c)
+                lp = torch.log_softmax(dec_mod.joint_logits(
+                    params.joint, ep[t:t + 1], out)[0].float(), -1)
+                v = int(lp.argmax())
+                if v == blank or sym == MAX_SYMBOLS_PER_STEP:
+                    score += float(lp[blank])
+                    break
+                score += float(lp[v])
+                tokens.append(v)
+                h, c, prev = h2, c2, prev.fill_(v)
+    return score, tokens
+
+
+def peaked_params(params):
+    """The full-width random model with its prediction side peaked: the
+    label embedding and the joint's prediction projection x20, the joint's
+    output layer x2. At the seed's scale the joint's log-probs are nearly
+    flat: every emission then costs more than the blank that would end the
+    frame, and every beam stays empty. Peaked, the hypotheses emit and
+    differ. The LSTM's own weights stay as they are: scaled up (as
+    tests/test_torch_beam.py's peaked_arrays does at the tiny width), the
+    640-wide recurrence amplifies rounding differences from step to step,
+    and the card, the CPU and two batch sizes of one card then decode
+    different hypotheses from equal inputs (a CPU rehearsal: f32 against
+    f64, scores 180 apart). With the LSTM as it is, f32 and f64 agree
+    token for token within 6e-5 of the scores. The encoder's Q8_0 and W8A8
+    weights are shared with the plain model."""
+    import dataclasses
+
+    dp, jp = params.decoder, params.joint
+    dec = dataclasses.replace(dp, embedding=dp.embedding * 20)
+    joint = dataclasses.replace(jp, dec_w=jp.dec_w * 20, dec_b=jp.dec_b * 20,
+                                out_w=jp.out_w * 2, out_b=jp.out_b * 2)
+    return dataclasses.replace(params, decoder=dec, joint=joint)
+
+
+def beam_rows(state, rows=None) -> list:
+    """Rows of a BeamState as plain lists: each slot's score, length and
+    tokens (cut at its length)."""
+    scores = state.scores.float().cpu().tolist()
+    lengths = state.lengths.cpu().tolist()
+    toks = state.tokens.cpu().tolist()
+    return [dict(scores=scores[r], lengths=lengths[r],
+                 tokens=[t[:n] for t, n in zip(toks[r], lengths[r])])
+            for r in (range(len(scores)) if rows is None else rows)]
+
+
+def compare_beams(name, got: list, want: list, failures: list) -> dict:
+    """Hold beams (beam_rows) to a reference's, slot by slot: every slot's
+    score within TOL_BEAM_SCORE, whether or not its tokens are equal (a
+    slot whose tokens differ can only be a near-tie, and is printed with
+    its gap); each row's best hypothesis (score / max(length, 1), as
+    best_hypothesis(length_norm=True) selects it) non-empty, and equal to
+    the reference's unless the reference's margin of the best over the
+    runner-up is under TOL_BEAM_SCORE."""
+    worst, differ, best_equal, best_len = 0.0, [], [], []
+    if len(got) != len(want):
+        failures.append(f"{name}: {len(got)} rows, reference {len(want)}")
+    for r, (g, w) in enumerate(zip(got, want)):
+        for k, (gs, ws) in enumerate(zip(g["scores"], w["scores"])):
+            gap = abs(gs - ws)
+            worst = max(worst, gap)
+            if g["tokens"][k] != w["tokens"][k]:
+                differ.append((r, k, gap))
+        wsel = [x / max(n, 1) for x, n in zip(w["scores"], w["lengths"])]
+        gsel = [x / max(n, 1) for x, n in zip(g["scores"], g["lengths"])]
+        order = sorted(range(len(wsel)), key=lambda k: -wsel[k])
+        gbest = max(range(len(gsel)), key=lambda k: gsel[k])
+        wtoks, gtoks = w["tokens"][order[0]], g["tokens"][gbest]
+        margin = wsel[order[0]] - wsel[order[1]] if len(order) > 1 else 1.0
+        best_equal.append(gtoks == wtoks)
+        best_len.append(len(wtoks))
+        if not wtoks or not gtoks:
+            failures.append(f"{name}: row {r}'s best hypothesis is empty")
+        elif gtoks != wtoks and not margin < TOL_BEAM_SCORE:
+            failures.append(f"{name}: row {r}'s best hypothesis differs "
+                            f"without a near-tie (margin {margin})")
+    for r, k, gap in differ:
+        log(f"    {name}: row {r} slot {k} tokens differ (a near-tie), "
+            f"score gap {gap:.3e}")
+    if not worst <= TOL_BEAM_SCORE:
+        failures.append(f"{name}: score gap {worst} (tol {TOL_BEAM_SCORE})")
+    return dict(score_gap=worst, slots_differ=len(differ),
+                best_equal=best_equal, best_tokens=best_len)
+
+
+def full_width_lm(cfg, device):
+    """A seeded random label LM at the decoder's width (2 LSTM layers of
+    640 over the 1025 labels)."""
+    from nemotron_tpu_torch.models.lm import (lm_params_from_arrays,
+                                              random_lm_arrays)
+
+    return lm_params_from_arrays(random_lm_arrays(
+        cfg.vocab_size, hidden=cfg.decoder_dim, n_layers=2, seed=SEED + 14,
+        scale=0.05), device=device)
+
+
+def start_cpu_job(fn: str, *args) -> subprocess.Popen:
+    """chip_smoke.<fn>(*args) in a child process on the CPU (4 threads),
+    so that a CPU reference runs while this process drives the card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); import torch; "
+            f"torch.set_num_threads(4); import chip_smoke; "
+            f"chip_smoke.{fn}(*{list(args)!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_job(proc: subprocess.Popen, out_path: str, timeout=900) -> dict:
+    """Wait for a start_cpu_job child and read the JSON it wrote."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"CPU job exit {proc.returncode}: {err[-2000:]}")
+    with open(out_path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def cpu_beam_reference(gguf_path: str, out_path: str) -> None:
+    """The K = 4 Q8_0 f32 R = 13 session of the peaked model over
+    BEAM_CPU_CHUNKS chunks on the CPU (beam_phase's reference): its beam
+    (beam_rows) and chunk count, as JSON."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model
+
+    params, cfg, vocab = load_model(gguf_path, device="cpu")
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    pcm = seeded_pcm(1, (BEAM_CPU_CHUNKS + 1) * cc.shift_samples / 16000)
+    sess = beam_session(peaked_params(params), cfg, vocab, cc, pcm[None],
+                        torch.float32, finalize=False, chunks=BEAM_CPU_CHUNKS)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(dict(rows=beam_rows(sess.beam_state),
+                       chunks=sess.total_chunks), f)
+
+
+def cpu_tones_reference(out_path: str) -> None:
+    """beam_tones_phase's CPU references: the K = 4 session with the tones
+    LM over the tones streams, and transcribe_batch's rescored n-best
+    lists, as JSON."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.models.lm import load_lm
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming.session import transcribe_batch
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    params, cfg, vocab = load_model(os.path.join(here, "weights",
+                                                 "tones_tiny.gguf"),
+                                    device="cpu")
+    lm = load_lm(os.path.join(here, "weights", "tones_tiny_lm.gguf"), "cpu")
+    audio, _ = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                 seed=TONES_SEED)
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    sess = beam_session(params, cfg, vocab, cc, audio, torch.float32, lm=lm)
+    nb = transcribe_batch(params, cfg, vocab, list(audio), lm=lm,
+                          **TONES_NBEST_KW)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(dict(tokens=[sess.get_tokens(s)
+                               for s in range(TONES_STREAMS)], nbest=nb), f)
+
+
+def beam_phase(gguf_path: str, failures: list) -> dict:
+    """Slice 14 at full width (the seeded Q8_0 GGUF, its prediction side
+    peaked by peaked_params so that the beams emit). Every beam is held to
+    its reference by compare_beams: each slot's score within
+    TOL_BEAM_SCORE, tokens equal but for near-ties, best hypotheses
+    non-empty and equal.
+    (1) K = 1 against greedy, Q8_0 f32, S = 1, the four modes: the K = 1
+        beam's best log-prob at least the greedy path's (tests/test_beam.py
+        gates the same floor: K = 1 keeps the best finished hypothesis,
+        greedy the argmax label of each step, so their tokens differ where
+        an emission costs more than its blank; on these weights K = 1
+        emits a few tokens at R = 13 and none in the shorter chunks, the
+        greedy path ten a frame); token counts and agreement printed.
+    (2) card vs CPU: a K = 4 session over BEAM_CPU_CHUNKS chunks at R = 13,
+        its beam against the CPU's; 24 attention and 240 Q8 launches a
+        chunk.
+    (3) beam_decode with and without the LM on one chunk under
+        torch.cuda.set_sync_debug_mode("error"): no host sync.
+    (4) the 64-slot ServingEngine, K = 4, Q8_0 f32, host and device DSP,
+        the engine phase's ragged schedule: each tracked slot's beam
+        against its solo K = 4 session's after the same chunks, and (host
+        DSP) its finalized best hypothesis equal to the solo session's.
+    (5) LockstepEngine, K = 4, 8 streams: each stream's beam against its
+        solo session's after the same chunks.
+    (6) readings, W8A8 + int8 K/V bf16, K = 4: mean chunk ms at S = 8 in
+        the four modes (24 / 240 launches a chunk checked), the 64-slot
+        engine's tick p50 / p90 at R = 13 with and without the LM, a
+        3-tick profile (busy share, launches a tick by kernel name) and the
+        beam's own device ms for a tick's chunk."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.models import beam as beam_mod
+    from nemotron_tpu_torch.models import encoder as enc_mod
+    from nemotron_tpu_torch.params import quantize_model_params
+    from nemotron_tpu_torch.streaming.lockstep import LockstepEngine
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tmp = tempfile.mkdtemp()
+    ref_path = os.path.join(tmp, "ref.json")
+    ref_job = start_cpu_job("cpu_beam_reference", gguf_path, ref_path)
+    q8, cfg, vocab = full_width_model(gguf_path, "cuda")
+    qp = peaked_params(q8)
+    w8 = quantize_model_params(qp, mode="w8a8")
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    out = {"k1_vs_greedy": {}, "w8a8_sessions": {}}
+    log(f"phase beam: K = {BEAM_K}, {BEAM_EXPANSIONS} expansions a frame, "
+        f"{BEAM_MAX_TOKENS} token slots a hypothesis, full width, the "
+        f"prediction side peaked")
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def want_counts(chunks, kernel):
+        other = "w8a8" if kernel == "q8" else "q8"
+        return {"attn": cfg.n_layers * chunks,
+                kernel: 10 * cfg.n_layers * chunks, other: 0}
+
+    # (1) K = 1 against greedy
+    pcm = seeded_pcm(0)
+    for R in MODES:
+        cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels)
+        pre = StreamSession(qp, cfg, vocab, cc).preproc
+        mel = pre.process(pcm[None])
+        st = enc_mod.init_encoder_state(cfg, cc, 1, f32, qp.device)
+        ph = enc_mod.precompute_pos_heads(qp, cfg, cc)
+        mel = np.concatenate([np.zeros((1, cc.pre_encode_cache_size,
+                                        cfg.n_mels), np.float32), mel], 1)
+        encs = []
+        for i in range(0, mel.shape[1] - cc.chunk_mel_frames + 1,
+                       cc.shift_mel_frames):
+            o, st = enc_mod.encode_chunk(qp, cfg, cc, torch.from_numpy(
+                np.ascontiguousarray(mel[:, i:i + cc.chunk_mel_frames]))
+                .cuda(), st, ph)
+            encs.append(o)
+        bst = beam_mod.init_beam_state(cfg, 1, 1, BEAM_MAX_TOKENS, f32,
+                                       qp.device)
+        for o in encs:
+            bst = beam_mod.beam_decode(qp, cfg, o, bst, 1, BEAM_EXPANSIONS)
+        btok, blen, bscore = beam_mod.best_hypothesis(bst)
+        beam_toks = btok[0, :int(blen[0])].tolist()
+        g_score, g_toks = greedy_path(qp, cfg, encs)
+        agree = position_agreement(beam_toks, g_toks)
+        ok = float(bscore[0]) >= g_score - TOL_BEAM_SCORE
+        out["k1_vs_greedy"][f"R={R}"] = dict(
+            beam_score=float(bscore[0]), greedy_score=g_score,
+            beam_tokens=len(beam_toks), greedy_tokens=len(g_toks),
+            agreement=agree, chunks=len(encs))
+        log(f"  K=1 vs greedy R={R} ({len(encs)} chunks): K=1 log-prob "
+            f"{float(bscore[0]):.3f} >= greedy path {g_score:.3f}: {ok}; "
+            f"tokens K=1 {len(beam_toks)}, greedy {len(g_toks)}, position "
+            f"agreement {agree:.4f}")
+        if not ok:
+            failures.append(f"beam K=1 R={R}: log-prob {float(bscore[0])} "
+                            f"below the greedy path's {g_score}")
+
+    # (2) card vs CPU, K = 4, R = 13 (the CPU's run is the child's;
+    # compared at the end of the phase)
+    cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    pcm = seeded_pcm(1, (BEAM_CPU_CHUNKS + 1) * cc13.shift_samples / 16000)
+    beam_session(qp, cfg, vocab, cc13, pcm[None, :3 * cc13.shift_samples],
+                 f32)                                          # warm-up
+    card, card_counts = counted(lambda: beam_session(
+        qp, cfg, vocab, cc13, pcm[None], f32, finalize=False,
+        chunks=BEAM_CPU_CHUNKS), launches)
+    card_chunks = card.total_chunks
+    if card_chunks != BEAM_CPU_CHUNKS or \
+            card_counts != want_counts(card_chunks, "q8"):
+        failures.append(f"beam card session: {card_chunks} chunks, launches "
+                        f"{card_counts}")
+
+    # (3) no host sync in beam_decode, with and without the LM
+    lm = full_width_lm(cfg, "cuda")
+    st = enc_mod.init_encoder_state(cfg, cc13, 8, f32, qp.device)
+    ph = enc_mod.precompute_pos_heads(qp, cfg, cc13)
+    mel = torch.randn((8, cc13.chunk_mel_frames, cfg.n_mels),
+                      generator=torch.Generator().manual_seed(SEED)).cuda()
+    enc_out, _ = enc_mod.encode_chunk(qp, cfg, cc13, mel, st, ph)
+    sync_ok = {}
+    for name, use_lm in (("no LM", None), ("LM", lm)):
+        bst = beam_mod.init_beam_state(cfg, 8, BEAM_K, BEAM_MAX_TOKENS, f32,
+                                       qp.device, lm=use_lm)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            beam_mod.beam_decode(qp, cfg, enc_out, bst, BEAM_K,
+                                 BEAM_EXPANSIONS, lm=use_lm)
+            sync_ok[name] = True
+        except RuntimeError as e:
+            sync_ok[name] = False
+            failures.append(f"beam_decode ({name}) synced with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    out["no_sync"] = sync_ok
+    log(f"  beam_decode under set_sync_debug_mode('error'), 8 streams, one "
+        f"R=13 chunk: no host sync {json.dumps(sync_ok)}")
+
+    # (4) the 64-slot engine against solo sessions, host and device DSP
+    n = ENGINE_SLOTS
+    out["engine"] = {}
+    for dsp in ("numpy", "device"):
+        t0 = time.perf_counter()
+        eng = ServingEngine(qp, cfg, vocab, cc13, n_slots=n,
+                            compute_dtype=f32, dsp=dsp, beam_size=BEAM_K,
+                            beam_expansions=BEAM_EXPANSIONS,
+                            max_beam_tokens=BEAM_MAX_TOKENS)
+        plan = ragged_plan(n, ENGINE_SECONDS, cc13.shift_samples)
+        track = tracked_streams(n)
+        rows = {}
+
+        def keep_rows(stream_of):
+            slot_of = {sid: s for s, sid in stream_of.items()}
+            got = beam_rows(eng.beam_state, [slot_of[t] for t in track])
+            rows.update(zip(track, got))
+
+        run, counts = counted(lambda: engine_schedule(
+            eng, lambda sid: seeded_pcm(sid, ENGINE_SECONDS),
+            finalize=dsp == "numpy", before_end=keep_rows, **plan),
+            launches)
+        solo_rows, finals_same = [], []
+        for sid in track:
+            p = run["pcm"][sid][None]
+            chunks = run["frames"][sid] // cc13.valid_out_len
+            # host DSP: the whole stream, as the engine had it before the
+            # finalize; device DSP: the chunks of real audio it ran
+            solo = beam_session(qp, cfg, vocab, cc13, p, f32,
+                                finalize=False,
+                                chunks=None if dsp == "numpy" else chunks)
+            if solo.total_chunks != chunks:
+                failures.append(f"beam engine {dsp} stream {sid}: "
+                                f"{chunks} chunks, solo {solo.total_chunks}")
+            solo_rows += beam_rows(solo.beam_state)
+            if dsp == "numpy":
+                solo.finalize()
+            want = solo.get_tokens(0)
+            finals_same.append(run["finals"][sid] == want and len(want) > 0)
+        cmp = compare_beams(f"beam engine {dsp}", [rows[t] for t in track],
+                            solo_rows, failures)
+        lat = run["latency"]
+        out["engine"][dsp] = cmp | dict(
+            finals_equal=finals_same, p50_ms=lat["p50"] * 1e3,
+            p90_ms=lat["p90"] * 1e3, ticks=run["ticks"], launches=counts)
+        log(f"  engine {n} slots K={BEAM_K} Q8_0 f32 {dsp} DSP R=13 "
+            f"(ragged): tracked slots' beams vs solo sessions after the same "
+            f"chunks: score max_abs_err {cmp['score_gap']:.3e} (tol "
+            f"{TOL_BEAM_SCORE:.0e}), {cmp['slots_differ']} slots with other "
+            f"tokens, best hypotheses equal {cmp['best_equal']} "
+            f"({cmp['best_tokens']} tokens); "
+            f"{'finalized' if dsp == 'numpy' else 'removed'} best hypotheses"
+            f" equal {finals_same}; step p50 {lat['p50'] * 1e3:.2f} / p90 "
+            f"{lat['p90'] * 1e3:.2f} ms, {run['ticks']} ticks, launches "
+            f"{json.dumps(counts)} (wall {time.perf_counter() - t0:.1f} s)")
+        if not all(finals_same):
+            failures.append(f"beam engine {dsp}: best hypotheses equal "
+                            f"{finals_same}")
+        del eng, run
+
+    # (5) the lockstep engine against solo sessions
+    S = BEAM_LOCK_STREAMS
+    pcm = np.stack([seeded_pcm(s) for s in range(S)])
+    eng = LockstepEngine(qp, cfg, vocab, cc13, n_streams=S, compute_dtype=f32,
+                         beam_size=BEAM_K, beam_expansions=BEAM_EXPANSIONS,
+                         max_beam_tokens=BEAM_MAX_TOKENS)
+    q = cc13.shift_samples
+
+    def lock_run():
+        for i in range(0, pcm.shape[1], q):
+            eng.tick_pipelined(pcm[:, i:i + q])
+        eng.flush_pipeline()
+        eng.refresh_transcripts()
+
+    _, counts = counted(lock_run, launches)
+    solo_rows, same = [], []
+    for s in range(S):
+        solo = beam_session(qp, cfg, vocab, cc13, pcm[s:s + 1], f32,
+                            finalize=False, chunks=eng.total_chunks)
+        solo_rows += beam_rows(solo.beam_state)
+        same.append(eng.tokens[s] == solo.get_tokens(0)
+                    and solo.total_chunks == eng.total_chunks)
+    cmp = compare_beams("beam lockstep", beam_rows(eng.beam_state),
+                        solo_rows, failures)
+    out["lockstep"] = cmp | dict(transcripts_equal=same,
+                                 chunks=eng.total_chunks, launches=counts)
+    log(f"  lockstep {S} streams K={BEAM_K} Q8_0 f32 R=13 ({eng.total_chunks} "
+        f"chunks): beams vs solo sessions: score max_abs_err "
+        f"{cmp['score_gap']:.3e}, {cmp['slots_differ']} slots with other "
+        f"tokens, best hypotheses equal {cmp['best_equal']} "
+        f"({cmp['best_tokens']} tokens); transcripts equal {same}, launches "
+        f"{json.dumps(counts)}")
+    if not all(same) or counts != want_counts(eng.total_chunks, "q8"):
+        failures.append(f"beam lockstep: transcripts equal {same}, launches "
+                        f"{counts}")
+    del eng
+
+    # (6) readings: W8A8 + int8 K/V bf16
+    card_name = gpu_name_and_power()
+    cc_w = {R: CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
+                           kv_cache_int8=True) for R in MODES}
+    pcm = np.stack([seeded_pcm(s) for s in range(W8A8_STREAMS)])
+    beam_session(w8, cfg, vocab, cc_w[13], pcm[:, :3 * q], bf16)  # warm-up
+    for R in MODES:
+        sess, counts = counted(lambda: beam_session(
+            w8, cfg, vocab, cc_w[R], pcm, bf16, finalize=False), launches)
+        chunks = sess.total_chunks
+        ms = sess.chunk_seconds / max(chunks, 1) * 1e3
+        out["w8a8_sessions"][f"R={R}"] = dict(chunk_ms=ms, chunks=chunks,
+                                              launches=counts)
+        log(f"  W8A8 + int8 K/V bf16 K={BEAM_K} S={W8A8_STREAMS} R={R}: "
+            f"mean chunk {ms:.2f} ms over {chunks} chunks, launches "
+            f"{json.dumps(counts)} ({card_name})")
+        if not chunks or counts != want_counts(chunks, "w8a8"):
+            failures.append(f"beam W8A8 R={R}: launches {counts}")
+    lm_bf16 = full_width_lm(cfg, "cuda")
+    out["w8a8_engine"] = {}
+    for name, use_lm in (("no LM", None), ("LM", lm_bf16)):
+        eng = ServingEngine(w8, cfg, vocab, cc_w[13], n_slots=n,
+                            compute_dtype=bf16, dsp="device",
+                            beam_size=BEAM_K,
+                            beam_expansions=BEAM_EXPANSIONS,
+                            max_beam_tokens=BEAM_MAX_TOKENS, lm=use_lm,
+                            lm_weight=BEAM_LM_WEIGHT)
+        run, counts = counted(lambda: engine_ticks(
+            eng, np.stack([seeded_pcm(s, 2 * ENGINE_SECONDS)
+                           for s in range(n)])), launches)
+        res = tick_summary(run, cc_w[13], n)
+        out["w8a8_engine"][name] = res | dict(launches=counts)
+        log(f"  engine {n} slots W8A8 bf16 device DSP R=13 K={BEAM_K} "
+            f"({name}): tick p50 {res['p50_ms']:.2f} / p90 "
+            f"{res['p90_ms']:.2f} ms over {res['chunk_ticks']} chunk ticks, "
+            f"aggregate RTF {res['rtf']:.4f}, launches {json.dumps(counts)} "
+            f"({card_name})")
+    eng = ServingEngine(w8, cfg, vocab, cc_w[13], n_slots=n,
+                        compute_dtype=bf16, dsp="device", beam_size=BEAM_K,
+                        beam_expansions=BEAM_EXPANSIONS,
+                        max_beam_tokens=BEAM_MAX_TOKENS)
+    reset_counts()
+    prof = engine_step_profile(eng, 3)
+    add(kernel_counts())
+    busy = prof["busy_us"] / prof["wall_us"] if prof["wall_us"] else 0.0
+    total = sum(prof["count"].values())
+    out["profile"] = dict(wall_ms=prof["wall_us"] / 1e3,
+                          busy_ms=prof["busy_us"] / 1e3, busy_share=busy,
+                          launches_per_tick=total / 3,
+                          by_name={k: prof["count"][k] / 3
+                                   for k, _ in prof["by_name"][:12]})
+    log(f"  profile engine {n} slots W8A8 bf16 R=13 K={BEAM_K}, 3 ticks: "
+        f"wall {prof['wall_us'] / 1e3:.2f} ms, device busy "
+        f"{prof['busy_us'] / 1e3:.2f} ms ({100 * busy:.1f}%), "
+        f"{total / 3:.0f} launches a tick ({card_name})")
+    for kname, us in prof["by_name"][:12]:
+        log(f"    {us / 3e3:8.3f} ms  {prof['count'][kname] / 3:8.0f} "
+            f"launches a tick  {kname}")
+    if prof["busy_us"] <= 0 or prof["encoder_steps"] != 3:
+        failures.append(f"beam engine profile: busy {prof['busy_us']}, "
+                        f"{prof['encoder_steps']} encoder steps")
+    # the beam's own device time for one tick's chunk: beam_decode over a
+    # 64-slot R = 13 chunk of encoder output, alone
+    w8p = eng.params
+    st = enc_mod.init_encoder_state(cfg, cc_w[13], n, bf16, q8.device)
+    mel = torch.randn((n, cc_w[13].chunk_mel_frames, cfg.n_mels),
+                      generator=torch.Generator().manual_seed(SEED)).cuda()
+    enc_out, _ = enc_mod.encode_chunk(w8p, cfg, cc_w[13], mel.to(bf16), st,
+                                      eng.pos_heads)
+    bst = beam_mod.init_beam_state(cfg, n, BEAM_K, BEAM_MAX_TOKENS, bf16,
+                                   q8.device)
+    beam_mod.beam_decode(w8p, cfg, enc_out, bst, BEAM_K, BEAM_EXPANSIONS)
+    bp = profile_window(lambda: beam_mod.beam_decode(
+        w8p, cfg, enc_out, bst, BEAM_K, BEAM_EXPANSIONS))
+    out["beam_alone"] = dict(wall_ms=bp["wall_us"] / 1e3,
+                             device_ms=bp["busy_us"] / 1e3,
+                             launches=sum(bp["count"].values()))
+    log(f"  beam_decode alone, {n} slots x K={BEAM_K}, one R=13 chunk "
+        f"({cc_w[13].valid_out_len} frames): wall {bp['wall_us'] / 1e3:.2f} "
+        f"ms, device {bp['busy_us'] / 1e3:.2f} ms, "
+        f"{sum(bp['count'].values())} launches ({card_name})")
+
+    # (2) the card's K = 4 session against the CPU's
+    ref = finish_job(ref_job, ref_path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if ref["chunks"] != card_chunks:
+        failures.append(f"beam card vs CPU: {card_chunks} chunks, CPU "
+                        f"{ref['chunks']}")
+    cmp = compare_beams("beam card vs CPU", beam_rows(card.beam_state),
+                        ref["rows"], failures)
+    out["card_vs_cpu"] = cmp | dict(
+        chunks=card_chunks, launches=card_counts,
+        chunk_ms=card.chunk_seconds / max(card_chunks, 1) * 1e3)
+    log(f"  K={BEAM_K} session card vs CPU, Q8_0 f32 R=13, {card_chunks} "
+        f"chunks: score max_abs_err {cmp['score_gap']:.3e} (tol "
+        f"{TOL_BEAM_SCORE:.0e}), {cmp['slots_differ']} of {BEAM_K} slots "
+        f"with other tokens, best hypothesis equal {cmp['best_equal']} "
+        f"({cmp['best_tokens']} tokens), mean chunk "
+        f"{out['card_vs_cpu']['chunk_ms']:.2f} ms, launches "
+        f"{json.dumps(card_counts)} ({card_name})")
+    out["launches"] = launches
+    return out
+
+
+def beam_tones_phase(failures: list) -> dict:
+    """The trained fixtures on the card against the port's CPU path:
+    tones_tiny.gguf with tones_tiny_lm.gguf (K = 4, lm_weight 0.3) over the
+    tones phase's 8 seeded streams at R = 13 (token error printed, tokens
+    equal); the same streams through a 64-slot ServingEngine (host DSP,
+    finalized tokens equal to the CPU session's) and a LockstepEngine, each
+    with the LM, their beams held to the card session's before its
+    finalize (compare_beams); transcribe_batch(lm_rescore=True, return_nbest=4) on the same
+    audio (texts equal, scores within TOL_BEAM_SCORE); the server module
+    with --refine on tones_tiny_sil.gguf (UTTERANCE events and their
+    "refined" texts equal to the same module run with --cpu); the
+    streaming CLI with --boost, greedy and with --beam and --lm (stdout
+    equal to --cpu). The CPU references, the CLIs and the servers run in
+    child processes from the start of the phase, beside the card work."""
+    import threading
+
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.models.lm import load_lm
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming.lockstep import LockstepEngine
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+    from nemotron_tpu_torch.streaming.session import transcribe_batch
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, "weights", "tones_tiny.gguf")
+    lm_path = os.path.join(here, "weights", "tones_tiny_lm.gguf")
+    sil = os.path.join(here, "weights", "tones_tiny_sil.gguf")
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="2")
+    audio, truths = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                      seed=TONES_SEED)
+    tmp = tempfile.mkdtemp()
+    ref_path = os.path.join(tmp, "ref.json")
+    ref_job = start_cpu_job("cpu_tones_reference", ref_path)
+    # the streaming CLI with --boost (greedy, and with --beam and --lm), on
+    # the card and with --cpu; the server module with --refine on the
+    # silence-robust fixture, on the card and with --cpu
+    pcm_path = os.path.join(tmp, "a.pcm")
+    audio[0, :8 * 16000].astype("<i2").tofile(pcm_path)
+    clis = {}
+    for name, extra in (("boost", []), ("boost beam lm",
+                                        [f"--beam={BEAM_K}",
+                                         f"--lm={lm_path}"])):
+        for dev in ("cuda", "cpu"):
+            clis[name, dev] = subprocess.Popen(
+                [sys.executable, "-m", "nemotron_tpu_torch.cli", fixture,
+                 pcm_path, "80", "13", "--boost=T3:1.5,T7:-1", *extra,
+                 *(["--cpu"] if dev == "cpu" else [])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=here)
+    servers = {dev: start_server_module(
+        [sil, "--slots", "2", "--endpoint-silence", "1", "--endpoint-reset",
+         "--refine", "--refine-beam", str(BEAM_K), "--lm", lm_path,
+         *(["--cpu"] if dev == "cpu" else [])], env, here)
+        for dev in ("cuda", "cpu")}
+
+    card = load_model(fixture, device="cuda")
+    cfg, vocab = card[1], card[2]
+    lm_card = load_lm(lm_path, "cuda")
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    out = {}
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    q = cc.shift_samples
+    beam_kw = dict(compute_dtype=torch.float32, beam_size=BEAM_K,
+                   beam_expansions=BEAM_EXPANSIONS,
+                   max_beam_tokens=BEAM_MAX_TOKENS, lm=lm_card,
+                   lm_weight=BEAM_LM_WEIGHT)
+
+    def fused():
+        """The card session, its beam kept before the finalize."""
+        sess = beam_session(card[0], cfg, vocab, cc, audio, torch.float32,
+                            lm=lm_card, finalize=False)
+        rows, chunks = beam_rows(sess.beam_state), sess.total_chunks
+        sess.finalize()
+        return sess, rows, chunks
+
+    (got, got_rows, got_chunks), counts = counted(fused, launches)
+
+    def engine_run():
+        eng = ServingEngine(card[0], cfg, vocab, cc, n_slots=ENGINE_SLOTS,
+                            dsp="numpy", **beam_kw)
+        slots = eng.add_streams(TONES_STREAMS)
+        for i in range(0, audio.shape[1], q):
+            eng.feed_audio({s: audio[k, i:i + q]
+                            for k, s in enumerate(slots)})
+            eng.step()
+        rows = beam_rows(eng.beam_state, slots)
+        chunks = [int(eng.frame_offsets[s]) // cc.valid_out_len
+                  for s in slots]
+        ends = eng.finalize_streams(slots, return_tokens=True)
+        return rows, chunks, [[list(t) for t in toks] for _, toks in ends]
+
+    (eng_rows, eng_chunks, eng_finals), eng_counts = counted(engine_run,
+                                                             launches)
+    lock = LockstepEngine(card[0], cfg, vocab, cc, n_streams=TONES_STREAMS,
+                          **beam_kw)
+
+    def lock_run():
+        for i in range(0, audio.shape[1], q):
+            lock.tick_pipelined(audio[:, i:i + q])
+        lock.flush_pipeline()
+
+    _, lock_counts = counted(lock_run, launches)
+    nb, nb_counts = counted(lambda: transcribe_batch(
+        card[0], cfg, vocab, list(audio), lm=lm_card, **TONES_NBEST_KW),
+        launches)
+
+    # the server module with --refine, card and CPU at once
+    events, errors = {}, []
+
+    def replay(dev):
+        try:
+            r = stream_client("tcp", "127.0.0.1", server_port(servers[dev])[0],
+                              sil_pcm(), 0.0, 1600, wait_utterances=2)
+            events[dev] = (r["ready"], r["utterances"])
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            errors.append(f"{dev}: {e!r}")
+
+    try:
+        threads = [threading.Thread(target=replay, args=(d,))
+                   for d in servers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        for proc in servers.values():
+            stop_process(proc)
+    cli_out = {k: p.communicate(timeout=600) + (p.returncode,)
+               for k, p in clis.items()}
+    ref = finish_job(ref_job, ref_path)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    toks = [[t for t, _ in got.get_tokens(s)] for s in range(TONES_STREAMS)]
+    same = [list(map(list, got.get_tokens(s))) for s in
+            range(TONES_STREAMS)] == ref["tokens"]
+    ter = token_error(toks, truths)
+    out["fusion"] = dict(ter=ter, same_as_cpu=same, launches=counts,
+                         chunk_ms=got.chunk_seconds
+                         / max(got.total_chunks, 1) * 1e3)
+    log(f"  tones K={BEAM_K} + tones_tiny_lm (weight {BEAM_LM_WEIGHT}) R=13 "
+        f"S={TONES_STREAMS}: token error {ter:.4f}, tokens vs CPU "
+        f"{'equal' if same else 'DIFFER'}, mean chunk "
+        f"{out['fusion']['chunk_ms']:.2f} ms, launches {json.dumps(counts)}")
+    if not same or counts["attn"] != cfg.n_layers * got.total_chunks:
+        failures.append(f"beam tones fusion: tokens vs CPU equal {same}, "
+                        f"launches {counts}")
+
+    finals_same = eng_finals == ref["tokens"]
+    cmp = compare_beams("tones engine + LM", eng_rows, got_rows, failures)
+    out["engine"] = cmp | dict(finals_equal_cpu=finals_same,
+                               chunks=eng_chunks, launches=eng_counts)
+    log(f"  tones {ENGINE_SLOTS}-slot engine K={BEAM_K} + LM, host DSP, "
+        f"{TONES_STREAMS} streams: beams vs the card session's after the "
+        f"same {got_chunks} chunks: score max_abs_err "
+        f"{cmp['score_gap']:.3e}, {cmp['slots_differ']} slots with other "
+        f"tokens, best hypotheses equal {cmp['best_equal']}; finalized "
+        f"tokens vs CPU {'equal' if finals_same else 'DIFFER'}, launches "
+        f"{json.dumps(eng_counts)}")
+    if (not finals_same or eng_chunks != [got_chunks] * TONES_STREAMS
+            or not eng_counts["attn"]):
+        failures.append(f"beam tones engine: finals vs CPU {finals_same}, "
+                        f"chunks {eng_chunks} (session {got_chunks}), "
+                        f"launches {eng_counts}")
+    cmp = compare_beams("tones lockstep + LM", beam_rows(lock.beam_state),
+                        got_rows, failures)
+    out["lockstep"] = cmp | dict(chunks=lock.total_chunks,
+                                 launches=lock_counts)
+    log(f"  tones lockstep K={BEAM_K} + LM, {TONES_STREAMS} streams "
+        f"({lock.total_chunks} chunks): beams vs the card session's: score "
+        f"max_abs_err {cmp['score_gap']:.3e}, {cmp['slots_differ']} slots "
+        f"with other tokens, best hypotheses equal {cmp['best_equal']}, "
+        f"launches {json.dumps(lock_counts)}")
+    if (lock.total_chunks != got_chunks
+            or lock_counts["attn"] != cfg.n_layers * got_chunks):
+        failures.append(f"beam tones lockstep: {lock.total_chunks} chunks "
+                        f"(session {got_chunks}), launches {lock_counts}")
+
+    nb_cpu = ref["nbest"]
+    texts_same = [[t for t, _ in a] for a in nb] == \
+        [[t for t, _ in a] for a in nb_cpu]
+    gap = max(abs(s - w) for a, b in zip(nb, nb_cpu)
+              for (_, s), (_, w) in zip(a, b))
+    best = [[vocab.index("▁" + w) for w in a[0][0].split()] for a in nb]
+    out["rescore_nbest"] = dict(texts_equal=texts_same, score_gap=gap,
+                                ter_best=token_error(best, truths),
+                                launches=nb_counts)
+    log(f"  transcribe_batch lm_rescore n-best {BEAM_K} of the "
+        f"{TONES_STREAMS} streams: texts vs CPU "
+        f"{'equal' if texts_same else 'DIFFER'}, score max_abs_err "
+        f"{gap:.3e} (tol {TOL_BEAM_SCORE:.0e}), token error of the best "
+        f"{out['rescore_nbest']['ter_best']:.4f}, launches "
+        f"{json.dumps(nb_counts)}")
+    if not texts_same or not gap <= TOL_BEAM_SCORE:
+        failures.append(f"beam tones rescoring: texts equal {texts_same}, "
+                        f"score gap {gap}")
+
+    out["cli"] = {}
+    for name in ("boost", "boost beam lm"):
+        a, b = cli_out[name, "cuda"], cli_out[name, "cpu"]
+        ok = a[2] == b[2] == 0 and a[0] == b[0] and a[0].strip() != ""
+        out["cli"][name] = ok
+        log(f"  streaming CLI --boost{' --beam --lm' if 'lm' in name else ''}"
+            f" on the card vs --cpu: stdout {'equal' if ok else 'DIFFERENT'}"
+            f" ({len(a[0].split())} words)")
+        if not ok:
+            failures.append(f"CLI {name}: card {a[2]} {a[0][:80]!r} "
+                            f"{a[1][-300:]!r}, cpu {b[2]} {b[0][:80]!r}")
+
+    utts = {d: [(u["text"], u.get("refined")) for u in e[1]]
+            for d, e in events.items()}
+    ok = (not errors and utts.get("cuda") == utts.get("cpu")
+          and len(utts["cuda"]) == 2 and all(r for _, r in utts["cuda"])
+          and events["cuda"][0]["refined"] is True)
+    out["refine"] = dict(events=utts.get("cuda"), equal_to_cpu=ok)
+    log(f"  asr_server --refine (K={BEAM_K} + LM) on tones_tiny_sil: "
+        f"UTTERANCE (online, refined) {utts.get('cuda')}, equal to --cpu "
+        f"{ok}")
+    if not ok:
+        failures.append(f"server --refine: {utts}, errors {errors}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4077,6 +4906,8 @@ def main() -> int:
                       quant_tier_phase, path)
         lock = phase("lockstep, cohorts and serve (slice 13)",
                      lockstep_phase, path)
+        beam = phase("beam family (slice 14)", beam_phase, path)
+        full_width_model.cache_clear()
     tones = phase("tones", tones_phase)
     engine_tones = phase("serving engine tones (slice 8)", engine_tones_phase)
     server_tones = phase("server tones (slice 9)", server_tones_phase)
@@ -4084,12 +4915,15 @@ def main() -> int:
     tones_quant = phase("tones quant tiers (slice 10)", tones_quant_phase)
     clis_quant = phase("CLIs and server with the quant flags (slice 10)",
                        cli_quant_phase)
+    beam_tones = phase("beam family on the trained fixtures (slice 14)",
+                       beam_tones_phase)
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
     engine_n = {k: engine["launches"][k] + engine_tones["launches"][k]
                 + server_n[k] + quant["launches"][k]
                 + tones_quant["launches"][k] + lock["launches"][k]
+                + beam["launches"][k] + beam_tones["launches"][k]
                 for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
@@ -4223,6 +5057,8 @@ def main() -> int:
     log("tones quant tiers: " + json.dumps(tones_quant))
     log("CLIs and server with the quant flags: " + json.dumps(clis_quant))
     log("lockstep, cohorts and serve: " + json.dumps(lock))
+    log("beam family: " + json.dumps(beam))
+    log("beam family on the trained fixtures: " + json.dumps(beam_tones))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

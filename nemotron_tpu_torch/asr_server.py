@@ -8,6 +8,8 @@ The counterpart of `scripts/asr_server.py`:
         [--quantize q8_0|w8a8] [--kv-int8|--kv-int4]
         [--dsp auto|numpy|device]
         [--confidence] [--endpoint-silence S] [--endpoint-reset]
+        [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B]
+        [--refine] [--refine-beam K]
         [--tick-ms T] [--http-stats PORT] [--ws-port PORT]
         [--stats-every SECONDS] [--cpu]
 
@@ -23,9 +25,15 @@ The counterpart of `scripts/asr_server.py`:
     and periodic stats go to stderr
   - --kv-int4 keeps int4 K/V rings (packed two a byte), --rc-by-layer a
     right context per layer group (NeMo's per-layer lookahead)
-  - --beam, --lm*, --ctc and --refine* come with the decode-variants slice
-    of this port, --dsp native with the native-bindings slice and
-    --coordinator with the multi-GPU slice: each exits 1
+  - --beam K decodes every tick with the batched beam search (revisable
+    PARTIAL events, replace=true), --lm adds LM shallow fusion to it
+  - --refine (two-pass serving, needs --endpoint-silence): each endpointed
+    utterance is re-decoded offline with a beam of --refine-beam
+    hypotheses (4; with the --lm, if given) and its UTTERANCE event
+    carries the result as "refined"
+  - --ctc comes with the TDT/CTC slice of this port, --dsp native with
+    the native-bindings slice and --coordinator with the multi-GPU slice:
+    each exits 1
 """
 
 from __future__ import annotations
@@ -35,17 +43,13 @@ import sys
 import time
 
 # flags of scripts/asr_server.py that come with later slices of the port
-_LATER = {
-    "--beam": "decode-variants", "--lm": "decode-variants",
-    "--lm-weight": "decode-variants", "--lm-bonus": "decode-variants",
-    "--ctc": "decode-variants", "--refine": "decode-variants",
-    "--refine-beam": "decode-variants", "--coordinator": "multi-GPU",
-}
+_LATER = {"--ctc": "TDT/CTC", "--coordinator": "multi-GPU"}
 _VALUED = ("--host", "--port", "--slots", "--right-context", "--quantize",
            "--dsp", "--endpoint-silence", "--tick-ms", "--http-stats",
-           "--ws-port", "--stats-every", "--rc-by-layer")
+           "--ws-port", "--stats-every", "--rc-by-layer", "--beam", "--lm",
+           "--lm-weight", "--lm-bonus", "--refine-beam")
 _SWITCHES = ("--kv-int8", "--kv-int4", "--confidence", "--endpoint-reset",
-             "--cpu")
+             "--cpu", "--refine")
 
 
 def later_flag(argv: list[str], later: dict = _LATER) -> str | None:
@@ -125,11 +129,20 @@ def main(argv: list[str]) -> int:
     http_stats = opt("--http-stats", -1, int)
     ws_port = opt("--ws-port", -1, int)
     quant_mode = opt("--quantize", None, str)
+    beam_k = opt("--beam", 1, int)
+    lm_path = opt("--lm", None, str)
+    lm_weight = opt("--lm-weight", 0.3, float)
+    lm_bonus = opt("--lm-bonus", 0.0, float)
+    # two-pass serving: the engine keeps each utterance's audio and the
+    # refiner re-decodes it with a beam (+ the --lm) at its endpoint
+    refine = "--refine" in argv
+    refine_beam = opt("--refine-beam", 4, int)
     device = "cpu" if "--cpu" in argv else "cuda"
 
     import dataclasses
     import os
 
+    from .cli import load_lm_flag
     from .config import CacheConfig
     from .params import load_model, quantize_model_params
     from .server import ASRServer
@@ -142,6 +155,9 @@ def main(argv: list[str]) -> int:
         params, cfg, vocab = load_model(args[0], device=device)
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
+        return 1
+    lm = load_lm_flag(lm_path, device)
+    if lm is False:
         return 1
     if quant_mode:
         try:
@@ -166,23 +182,39 @@ def main(argv: list[str]) -> int:
             return 1
     try:
         engine = ServingEngine(params, cfg, vocab, cc, n_slots=n_slots,
-                               dsp=dsp, confidence="--confidence" in argv,
+                               dsp=dsp, beam_size=beam_k,
+                               lm=None if refine else lm,
+                               lm_weight=lm_weight, lm_bonus=lm_bonus,
+                               confidence="--confidence" in argv,
                                endpoint_silence_s=ep_s if ep_s > 0 else None,
-                               endpoint_reset="--endpoint-reset" in argv)
+                               endpoint_reset="--endpoint-reset" in argv,
+                               keep_segment_audio=refine)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    refiner = None
+    if refine:
+        from .streaming.refine import SegmentRefiner
+
+        try:
+            refiner = SegmentRefiner(params, cfg, vocab,
+                                     beam_size=refine_beam, lm=lm,
+                                     lm_weight=lm_weight, lm_bonus=lm_bonus)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     server = ASRServer(engine, host=host, port=port,
                        tick_interval=tick_ms / 1000.0 if tick_ms else None,
                        http_stats_port=http_stats if http_stats >= 0
                        else None,
-                       ws_port=ws_port if ws_port >= 0 else None)
+                       ws_port=ws_port if ws_port >= 0 else None,
+                       refiner=refiner)
 
     async def run():
         await server.start()
         print(f"listening on {server.host}:{server.port}  "
               f"slots={n_slots} R={R} dsp={engine.dsp_mode} "
-              f"device={engine.device} tick="
+              f"beam={beam_k} device={engine.device} tick="
               f"{server.tick_interval * 1000:.0f}ms",
               file=sys.stderr, flush=True)
         if server.http_stats_port is not None:

@@ -11,7 +11,10 @@ argv contract (src/transcribe_stream.cpp:27-36):
                                      [--calib=FILE] [--kv-int8|--kv-int4]
                                      [--shared-cache] [--rc-by-layer=13,6,1,0]
                                      [--timestamps] [--confidence]
-                                     [--srt=FILE|--vtt=FILE]
+                                     [--srt=FILE|--vtt=FILE] [--beam=K]
+                                     [--lm=lm.gguf] [--lm-weight=W]
+                                     [--lm-bonus=B]
+                                     [--boost=piece:weight,...]
 
   - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin;
     .wav files decode directly (PCM16 or float32, any sample rate --
@@ -34,6 +37,12 @@ argv contract (src/transcribe_stream.cpp:27-36):
     --confidence its posterior in {p=...}; --srt=FILE / --vtt=FILE write
     subtitle cues from the timed tokens at the end (=FILE is required:
     stdout carries the incremental transcript)
+  - --beam=K decodes with the batched RNN-T beam search: the best
+    hypothesis may rewrite earlier text, so the whole transcript is
+    printed at the end; --lm=lm.gguf adds LM shallow fusion to it (labels
+    score log P_rnnt + W * log P_lm + B, W = 0.3 by default)
+  - --boost=piece:weight,... adds a log-space boost to those tokens'
+    logits (folded into the joint's output bias)
   - incremental text on stdout; config + stats on stderr
 """
 
@@ -47,13 +56,12 @@ import time
 
 _FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--kv-int4",
           "--shared-cache", "--timestamps", "--confidence")
-_VALUED = ("--quantize=", "--calib=", "--rc-by-layer=", "--srt", "--vtt")
+_VALUED = ("--quantize=", "--calib=", "--rc-by-layer=", "--srt", "--vtt",
+           "--beam=", "--lm=", "--lm-weight=", "--lm-bonus=", "--boost=")
 _SQ_MODES = ("w8a8-sq", "w8a8-sq-static")
 # flags of cli/transcribe_stream.py that come with later slices of the port
 _LATER = {
-    "--beam": "decode-variants", "--boost": "decode-variants",
-    "--ctc": "decode-variants", "--lm": "decode-variants",
-    "--lm-weight": "decode-variants", "--lm-bonus": "decode-variants",
+    "--ctc": "TDT/CTC",
     "--trace": "utils and native-bindings",
     "--profile": "utils and native-bindings",
 }
@@ -113,6 +121,62 @@ def calibrate(params, cfg, cc, quant_mode: str, calib_path: str | None,
     return params
 
 
+def beam_lm_flags(flags: list[str]):
+    """(beam, lm_path, lm_weight, lm_bonus) from --beam=, --lm=,
+    --lm-weight= and --lm-bonus=, or None after printing the error for a
+    value that is not a number (the JAX CLIs' message)."""
+    beam, lm_path, lm_weight, lm_bonus = 1, None, 0.3, 0.0
+    try:
+        for f in flags:
+            if f.startswith("--beam="):
+                beam = int(f.split("=", 1)[1])
+            elif f.startswith("--lm="):
+                lm_path = f.split("=", 1)[1]
+            elif f.startswith("--lm-weight="):
+                lm_weight = float(f.split("=", 1)[1])
+            elif f.startswith("--lm-bonus="):
+                lm_bonus = float(f.split("=", 1)[1])
+    except ValueError:
+        print("error: --beam takes an integer, --lm-weight a float",
+              file=sys.stderr)
+        return None
+    return beam, lm_path, lm_weight, lm_bonus
+
+
+def load_lm_flag(lm_path: str | None, device: str):
+    """The --lm file as LMParams on `device` (None without --lm), or
+    False after printing the error for a missing or foreign file."""
+    if lm_path is None:
+        return None
+    from .models.lm import load_lm
+
+    try:
+        return load_lm(lm_path, device=device)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return False
+
+
+def apply_boost_flags(params, flags: list[str], vocab, announce: bool):
+    """Fold each --boost=piece:weight,... into the joint's output bias, or
+    return None after printing the error for a bad item or an unknown
+    piece. `announce` prints the streaming CLI's stderr line."""
+    from .params import apply_logit_bias, parse_boost_spec
+
+    for f in flags:
+        if f.startswith("--boost="):
+            spec = f.split("=", 1)[1]
+            try:
+                params = apply_logit_bias(params, parse_boost_spec(spec),
+                                          vocab)
+            except ValueError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return None
+            if announce:
+                print(f"logit boost applied: {spec}", file=sys.stderr)
+    return params
+
+
 def main(argv: list[str]) -> int:
     # --stdin is positional (it IS the audio argument); map it to '-'
     argv_t = ["-" if a == "--stdin" else a for a in argv[1:]]
@@ -132,8 +196,9 @@ def main(argv: list[str]) -> int:
     if unknown:
         print(f"error: unsupported flag(s) {' '.join(unknown)} (this port "
               f"takes {', '.join(_FLAGS)}, --quantize=q8_0|w8a8|w8a8-sq|"
-              "w8a8-sq-static, --calib=FILE, --rc-by-layer=R,.. and "
-              "--srt=FILE|--vtt=FILE)", file=sys.stderr)
+              "w8a8-sq-static, --calib=FILE, --rc-by-layer=R,.., "
+              "--srt=FILE|--vtt=FILE, --beam=K, --lm=FILE, --lm-weight=W, "
+              "--lm-bonus=B and --boost=piece:weight,..)", file=sys.stderr)
         return 1
     sub_fmt, sub_out = None, None
     for f in flags:
@@ -196,6 +261,9 @@ def main(argv: list[str]) -> int:
                   file=sys.stderr)
             return 1
         print(f"runtime quantization: {quant_mode}", file=sys.stderr)
+    params = apply_boost_flags(params, flags, vocab, announce=True)
+    if params is None:
+        return 1
     cc = CacheConfig(att_right_context=right_context, n_mels=cfg.n_mels,
                      kv_cache_int8="--kv-int8" in flags,
                      shared_cache="--shared-cache" in flags)
@@ -224,9 +292,33 @@ def main(argv: list[str]) -> int:
           f"({cc.latency_ms} ms), shift={cc.shift_mel_frames}, "
           f"valid_out={cc.valid_out_len}, left_context={cc.att_left_context}",
           file=sys.stderr)
-    sess = StreamSession(params, cfg, vocab, cc,
-                         timestamp_words="--timestamps" in flags,
-                         confidence_words="--confidence" in flags)
+    beam_lm = beam_lm_flags(flags)
+    if beam_lm is None:
+        return 1
+    beam, lm_path, lm_weight, lm_bonus = beam_lm
+    if beam > 1:
+        print(f"beam search: K={beam} (incremental output disabled; "
+              "the best hypothesis may rewrite as chunks arrive)",
+              file=sys.stderr)
+        if sub_fmt is not None:
+            print("error: --srt/--vtt require greedy decode: cues need "
+                  "per-token frame alignment", file=sys.stderr)
+            return 1
+    lm = load_lm_flag(lm_path, device)
+    if lm is False:
+        return 1
+    if lm is not None:
+        print(f"LM shallow fusion: {lm_path} (weight {lm_weight})",
+              file=sys.stderr)
+    try:
+        sess = StreamSession(params, cfg, vocab, cc,
+                             timestamp_words="--timestamps" in flags,
+                             confidence_words="--confidence" in flags,
+                             beam_size=beam, lm=lm, lm_weight=lm_weight,
+                             lm_bonus=lm_bonus)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
     if audio_path == "-":
         src = sys.stdin.buffer
@@ -262,7 +354,11 @@ def main(argv: list[str]) -> int:
 
     before = len(sess.get_transcript(0))
     final = sess.finalize()
-    if len(final) > before:  # text emitted by the flush chunk
+    if beam > 1:
+        # beam transcripts may rewrite earlier text; nothing was printed
+        # incrementally, so the whole final best hypothesis goes out here
+        sys.stdout.write(final)
+    elif len(final) > before:  # text emitted by the flush chunk
         sys.stdout.write(final[before:])
     sys.stdout.write("\n")
     sys.stdout.flush()

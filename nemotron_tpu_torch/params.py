@@ -456,14 +456,68 @@ def load_model(path: str, device="cuda", keep_quantized: bool = True,
         subsampling_channels=arrays["encoder.pre_encode.conv.0.weight"].shape[0],
     )
     if md.get("nemo.tdt_durations"):
-        raise NotImplementedError("TDT checkpoints come with the decode-"
-                                  "variants slice of the port")
+        raise NotImplementedError("TDT checkpoints come with the TDT/CTC "
+                                  "slice of the port")
 
     vocab_blob = md.get("tokenizer.vocab", b"")
     if isinstance(vocab_blob, str):
         vocab_blob = vocab_blob.encode("utf-8", errors="surrogateescape")
     vocab = gguf_mod.decode_vocab(vocab_blob, cfg.vocab_size) if vocab_blob else []
     return params_from_arrays(arrays, cfg, device), cfg, vocab
+
+
+def parse_boost_spec(spec: str) -> dict:
+    """The CLIs' `--boost=piece:weight,...` as the dict `apply_logit_bias`
+    takes (nemotron_tpu/params.py:643-657): a piece is a vocab string (with
+    or without the SentencePiece prefix) or an integer token id."""
+    bias: dict = {}
+    for item in spec.split(","):
+        key, _, w = item.rpartition(":")
+        if not key:
+            raise ValueError(f"bad --boost item {item!r} "
+                             "(want piece:weight)")
+        try:
+            bias[int(key)] = float(w)
+        except ValueError:
+            bias[key] = float(w)
+    return bias
+
+
+def apply_logit_bias(params: ModelParams, bias,
+                     vocab: list[str] | None = None) -> ModelParams:
+    """Contextual biasing ("hotword boosting"): params whose joint emits
+    logits + bias (nemotron_tpu/params.py:660-700). The bias is folded into
+    the joint's output bias in f32 on the params' device, which adds it to
+    every decode step's logits: greedy, beam, the engines and confidence
+    alike.
+
+    bias: a full [vocab] array, or a dict mapping a token id (int) or a
+    vocab piece (str, matched exactly or with the "▁" prefix) to a
+    log-space boost. An unknown piece raises ValueError."""
+    out_b = params.joint.out_b.detach().to("cpu", torch.float32).numpy()
+    out_b = out_b.copy()
+    if isinstance(bias, dict):
+        for key, w in bias.items():
+            if isinstance(key, str):
+                if vocab is None:
+                    raise ValueError("string keys need the vocab")
+                if key in vocab:
+                    idx = vocab.index(key)
+                elif "▁" + key in vocab:
+                    idx = vocab.index("▁" + key)
+                else:
+                    raise ValueError(f"piece {key!r} not in the vocab")
+            else:
+                idx = int(key)
+            out_b[idx] += float(w)
+    else:
+        b = np.asarray(bias, np.float32)
+        if b.shape != out_b.shape:
+            raise ValueError(f"bias shape {b.shape} != vocab "
+                             f"{out_b.shape}")
+        out_b = out_b + b
+    return dataclasses.replace(params, joint=dataclasses.replace(
+        params.joint, out_b=torch.from_numpy(out_b).to(params.device)))
 
 
 # ---------------------------------------------------------------------------

@@ -8,20 +8,23 @@ The counterpart of `scripts/serve.py`:
         [--streams N] [--slots S] [--right-context R] [--seconds T]
         [--quantize q8_0|w8a8|w8a8-sq|w8a8-sq-static] [--kv-int8|--kv-int4]
         [--rc-by-layer 13,6,1,0] [--lockstep] [--dsp auto|numpy|device]
-        [--confidence] [--endpoint-silence S] [--endpoint-reset] [--cpu]
+        [--confidence] [--endpoint-silence S] [--endpoint-reset]
+        [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B] [--cpu]
 
   - --lockstep: every stream advances every tick through LockstepEngine
-    (DSP, encoder and greedy decode in one tick, pipelined one tick
-    deep); without it the ragged ServingEngine with S slots and --dsp
+    (DSP, encoder and decode in one tick, pipelined one tick deep);
+    without it the ragged ServingEngine with S slots and --dsp
+  - --beam K decodes with the batched beam search in either engine, --lm
+    adds LM shallow fusion to it
   - streams are staggered: each starts at another offset into the audio,
     wrapping around, and takes one chunk shift of samples a tick
   - runs on the CUDA card unless --cpu is given, in bf16; -sq modes
     calibrate SmoothQuant on the audio's first 20 s
   - the summary (aggregate real-time, tick p50/p90/p99) goes to stderr,
     the first three streams' transcripts to stdout
-  - --beam, --lm* and --ctc come with the decode-variants slice of this
-    port, --mesh and --coordinator with the multi-GPU slice and
-    --dsp native with the native-bindings slice: each exits 1
+  - --ctc comes with the TDT/CTC slice of this port, --mesh and
+    --coordinator with the multi-GPU slice and --dsp native with the
+    native-bindings slice: each exits 1
 """
 
 from __future__ import annotations
@@ -35,14 +38,13 @@ from .asr_server import flag_value, later_flag, positional_args
 
 # flags of scripts/serve.py that come with later slices of the port
 _LATER = {
-    "--beam": "decode-variants", "--lm": "decode-variants",
-    "--lm-weight": "decode-variants", "--lm-bonus": "decode-variants",
-    "--ctc": "decode-variants", "--mesh": "multi-GPU",
+    "--ctc": "TDT/CTC", "--mesh": "multi-GPU",
     "--coordinator": "multi-GPU", "--num-processes": "multi-GPU",
     "--process-id": "multi-GPU",
 }
 _VALUED = ("--streams", "--slots", "--right-context", "--seconds",
-           "--quantize", "--rc-by-layer", "--dsp", "--endpoint-silence")
+           "--quantize", "--rc-by-layer", "--dsp", "--endpoint-silence",
+           "--beam", "--lm", "--lm-weight", "--lm-bonus")
 _SWITCHES = ("--kv-int8", "--kv-int4", "--lockstep", "--confidence",
              "--endpoint-reset", "--cpu")
 _SQ_MODES = ("w8a8-sq", "w8a8-sq-static")
@@ -69,15 +71,18 @@ def main(argv: list[str]) -> int:
     seconds = opt("--seconds", 10.0, float)
     quant_mode = opt("--quantize", None, str)
     ep_s = opt("--endpoint-silence", 0.0, float)
+    beam_k = opt("--beam", 1, int)
     ep_kw = dict(confidence="--confidence" in argv,
                  endpoint_silence_s=ep_s if ep_s > 0 else None,
-                 endpoint_reset="--endpoint-reset" in argv)
+                 endpoint_reset="--endpoint-reset" in argv, beam_size=beam_k,
+                 lm_weight=opt("--lm-weight", 0.3, float),
+                 lm_bonus=opt("--lm-bonus", 0.0, float))
     device = "cpu" if "--cpu" in argv else "cuda"
 
     import dataclasses
     import os
 
-    from .cli import calibrate
+    from .cli import calibrate, load_lm_flag
     from .config import CacheConfig
     from .params import load_model, quantize_model_params
     from .streaming.lockstep import LockstepEngine
@@ -95,6 +100,9 @@ def main(argv: list[str]) -> int:
             keep_quantized=quant_mode not in _SQ_MODES)
     except (ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
+        return 1
+    ep_kw["lm"] = load_lm_flag(opt("--lm", None, str), device)
+    if ep_kw["lm"] is False:
         return 1
     if quant_mode and quant_mode not in _SQ_MODES:
         try:
@@ -205,6 +213,7 @@ def main(argv: list[str]) -> int:
         print(f"per-tick latency p50 {lat['p50']*1e3:.1f} ms  "
               f"p90 {lat['p90']*1e3:.1f} ms  p99 {lat['p99']*1e3:.1f} ms",
               file=sys.stderr)
+    eng.refresh_transcripts()
     for s in slots[:3]:
         print(f"[slot {s}] {eng.transcripts[s][:70]}")
     return 0

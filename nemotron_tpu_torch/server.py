@@ -1,8 +1,8 @@
 """Network streaming ASR server over the continuous-batching ServingEngine.
 
 The port's counterpart of `nemotron_tpu/server.py`, over the port's
-`streaming.serving.ServingEngine` (greedy RNN-T; the two-pass refiner
-comes with the decode-variants slice). The reference is a single-process
+`streaming.serving.ServingEngine` (RNN-T greedy or beam, with the
+two-pass `streaming.refine.SegmentRefiner`). The reference is a single-process
 CLI (src/transcribe_stream.cpp:52-198); its serving story ends at
 stdin/stdout. This module adds the deployment
 piece a production operator needs: an asyncio TCP server that multiplexes
@@ -35,7 +35,8 @@ server -> client:
                  utterance endpoint, when the engine was built with
                  endpoint_silence_s (greedy only): the slot emitted
                  tokens then stayed silent for the configured span;
-                 its prediction network restarts for the next utterance
+                 with a refiner it also carries "refined", the offline
+                 beam (+LM) re-decode of the utterance's audio
 
 A connection returns to the idle state after FINAL and may START again.
 All engine calls are serialized behind one lock and executed off the event
@@ -68,6 +69,7 @@ from __future__ import annotations
 import asyncio
 import json
 import struct
+import sys
 import time
 
 import numpy as np
@@ -159,19 +161,16 @@ class ASRServer:
         `self.http_stats_port` after start()); None disables.
         ws_port: additionally accept WebSocket clients (browsers) on that
         port — same semantics: 0 ephemeral, None disabled.
-        refiner: two-pass serving (a re-decode of each endpointed
-        utterance) needs the JAX package's streaming.refine, which comes
-        with the decode-variants slice of the port: any refiner raises
-        NotImplementedError (after the ValueError for an engine without
-        keep_segment_audio, which it would need)."""
+        refiner: a streaming.refine.SegmentRefiner for two-pass serving
+        (the engine must be built with endpointing and
+        keep_segment_audio): each UTTERANCE event then carries a "refined"
+        field with the offline beam (+LM) re-decode of its segment."""
         self.engine = engine
+        self.refiner = refiner
         if refiner is not None and not getattr(engine, "keep_segment_audio",
                                                False):
             raise ValueError("a refiner needs an engine built with "
                              "keep_segment_audio=True")
-        if refiner is not None:
-            raise NotImplementedError("the two-pass refiner comes with the "
-                                      "decode-variants slice of the port")
         self.host = host
         self.port = port
         self.http_stats_port = http_stats_port
@@ -192,8 +191,8 @@ class ASRServer:
         """Word timings for client-side captions, or None when the engine's
         token frames are not emission-aligned: beam mode refreshes
         transcripts from stored hypotheses whose frames are all 0, so
-        every word would get the garbage span [0.0, frame_seconds). The
-        port's engine is greedy-only for now. Clients must treat
+        every word would get the garbage span [0.0, frame_seconds).
+        Clients must treat
         a missing "words" field as "no timings available", not as silence.
 
         Uses the engine's cc-derived frame clock, matching the
@@ -318,8 +317,31 @@ class ASRServer:
         eng = self.engine
         if getattr(eng, "_ep_frames", None) is None:
             return
-        events = eng.poll_endpoints()
-        for slot, text, toks in events:
+        if self.refiner is not None:
+            polled = eng.poll_endpoints(with_audio=True)
+            # the re-decode is expensive: skip slots whose connection
+            # vanished between the endpoint firing and this tick
+            live = [ev for ev in polled
+                    if ev[0] in self._conns
+                    and self._conns[ev[0]].slot is not None]
+            refined: list = []
+            if live:
+                try:
+                    refined = await self._engine_call(
+                        self.refiner.refine, [seg for *_x, seg in live])
+                except Exception as e:  # noqa: BLE001
+                    # a refinement failure must never lose the utterance
+                    # event: deliver the online greedy text unrefined
+                    # (poll_endpoints already drained the engine's queue)
+                    print(f"refiner failed ({e!r}); delivering online "
+                          "text unrefined", file=sys.stderr, flush=True)
+                    refined = [None] * len(live)
+            events = [(s, text, toks, r) for (s, text, toks, _seg), r
+                      in zip(live, refined)]
+        else:
+            events = [(s, text, toks, None)
+                      for s, text, toks in eng.poll_endpoints()]
+        for slot, text, toks, refined_text in events:
             conn = self._conns.get(slot)
             if conn is None or conn.slot is None:
                 continue
@@ -333,6 +355,8 @@ class ASRServer:
             words = self._word_timings(toks)
             if words is not None:
                 payload["words"] = words
+            if refined_text is not None:
+                payload["refined"] = refined_text
             self._emit(conn, T_UTTERANCE, payload)
             conn.utterances += 1
 
@@ -669,7 +693,7 @@ class ASRServer:
                        else "greedy"),
             "endpointing": getattr(self.engine, "_ep_frames", None)
             is not None,
-            "refined": False,
+            "refined": self.refiner is not None,
         })
 
     async def _on_audio(self, conn: _Conn, payload: bytes) -> None:

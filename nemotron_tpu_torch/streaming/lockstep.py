@@ -1,8 +1,9 @@
 """Lockstep many-stream serving: every stream advances every tick, PCM to
 tokens on the params' device.
 
-The port's counterpart of `nemotron_tpu/streaming/lockstep.py` (greedy
-RNN-T; no beam, CTC, TDT or LM tick, no mesh). Where `ServingEngine`
+The port's counterpart of `nemotron_tpu/streaming/lockstep.py` (RNN-T
+greedy or beam, with or without LM fusion; no CTC or TDT tick, no mesh).
+Where `ServingEngine`
 (serving.py) lets slots advance at independent rates, `LockstepEngine`
 feeds one PCM block to all S streams at once and runs the whole pipeline
 on the device:
@@ -11,7 +12,8 @@ on the device:
       -> DSP (scale, pre-emphasis, frame, window, rFFT, mel, log)
       -> mel ring (9-frame overlap seed, chunk assembly)
       -> cache-aware streaming encoder
-      -> greedy RNN-T decode
+      -> greedy RNN-T decode (or the beam search, whose state stays on
+         the device)
       -> int32 tokens [k, S, valid_out, MAX]
 
 Host work a tick: upload S*N int16 samples, download the token tensor, one
@@ -34,46 +36,64 @@ from ..frontend.device_frontend import (FrontendState, frames_after,
                                         init_frontend_state,
                                         mel_frontend_step)
 from ..frontend.preprocessor import pad_window
+from ..models import beam as beam_mod
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
+from ..models.lm import lm_to_device
 from ..params import ModelParams, cast_params
 from ..utils import npz
 from ..utils.text import tokens_to_text
-from .serving import _reset_decoder_slots
-from .session import _check_dtype, restore_states, token_list, token_rows
+from .serving import _reset_decoder_slots, check_engine_snapshot
+from .session import (_check_dtype, beam_leaves, best_transcripts,
+                      restore_states, token_list, token_rows)
 
 
-def _fused_tick(cfg: ModelConfig, cc: CacheConfig, pcfg: PreprocessorConfig,
-                buf_len: int, confidence: bool, params, pcm_i16,
-                front: FrontendState, mel_buf, enc_state, dec_state,
-                pos_heads, window, filterbank):
-    """One greedy tick (nemotron_tpu/streaming/lockstep.py:46-111): the
+def _dsp_encode(cfg: ModelConfig, cc: CacheConfig, pcfg: PreprocessorConfig,
+                buf_len: int, params, pcm_i16, front: FrontendState,
+                mel_buf, enc_state, pos_heads, window, filterbank):
+    """A tick's front half (nemotron_tpu/streaming/lockstep.py:46-75): the
     DSP, the insert of the new mel frames at `buf_len` (cast to the compute
-    dtype), then for each full chunk the encoder, the greedy decode and the
-    shift of the mel ring with zero fill. Returns (tokens [k, S, valid_out,
-    MAX] int32, confs of the same shape f32 or None, front, mel_buf,
-    enc_state, dec_state). The K/V rings and the mel ring are written in
-    place; `tokens` is a fresh tensor that no later tick writes."""
-    S = pcm_i16.shape[0]
+    dtype), then for each full chunk the encoder and the shift of the mel
+    ring with zero fill. Returns (enc_outs, front, mel_buf, enc_state); the
+    K/V rings and the mel ring are written in place."""
     mel, front = mel_frontend_step(pcm_i16, front, window, filterbank, pcfg)
     f = mel.shape[1]
     if f:
         mel_buf[:, buf_len:buf_len + f] = mel.to(mel_buf.dtype)
     chunk, shift = cc.chunk_mel_frames, cc.shift_mel_frames
     fill = buf_len + f
-    tokens_out, confs_out = [], []
+    enc_outs = []
     while fill >= chunk:
         enc_out, enc_state = enc_mod.encode_chunk(
             params, cfg, cc, mel_buf[:, :chunk], enc_state, pos_heads)
+        enc_outs.append(enc_out)
+        mel_buf = torch.cat([mel_buf[:, shift:],
+                             torch.zeros_like(mel_buf[:, :shift])], dim=1)
+        fill -= shift
+    return enc_outs, front, mel_buf, enc_state
+
+
+def _fused_tick(cfg: ModelConfig, cc: CacheConfig, pcfg: PreprocessorConfig,
+                buf_len: int, confidence: bool, params, pcm_i16,
+                front: FrontendState, mel_buf, enc_state, dec_state,
+                pos_heads, window, filterbank):
+    """One greedy tick (nemotron_tpu/streaming/lockstep.py:78-111):
+    `_dsp_encode`, then the greedy decode of each chunk. Returns (tokens
+    [k, S, valid_out, MAX] int32, confs of the same shape f32 or None,
+    front, mel_buf, enc_state, dec_state); `tokens` is a fresh tensor that
+    no later tick writes."""
+    S = pcm_i16.shape[0]
+    enc_outs, front, mel_buf, enc_state = _dsp_encode(
+        cfg, cc, pcfg, buf_len, params, pcm_i16, front, mel_buf, enc_state,
+        pos_heads, window, filterbank)
+    tokens_out, confs_out = [], []
+    for enc_out in enc_outs:
         out = dec_mod.greedy_decode(params, cfg, enc_out, dec_state,
                                     with_confidence=confidence)
         tokens_out.append(out[0])
         dec_state = out[1]
         if confidence:
             confs_out.append(out[2])
-        mel_buf = torch.cat([mel_buf[:, shift:],
-                             torch.zeros_like(mel_buf[:, :shift])], dim=1)
-        fill -= shift
     if tokens_out:
         tokens = torch.stack(tokens_out)
     else:
@@ -87,9 +107,30 @@ def _fused_tick(cfg: ModelConfig, cc: CacheConfig, pcfg: PreprocessorConfig,
     return tokens, confs, front, mel_buf, enc_state, dec_state
 
 
+def _fused_tick_beam(cfg: ModelConfig, cc: CacheConfig,
+                     pcfg: PreprocessorConfig, buf_len: int, beam_size: int,
+                     expansions: int, params, pcm_i16, front: FrontendState,
+                     mel_buf, enc_state, beam_state, pos_heads, window,
+                     filterbank, lm=None, lm_weight: float = 0.3,
+                     lm_bonus: float = 0.0):
+    """One beam tick (nemotron_tpu/streaming/lockstep.py:116-137):
+    `_dsp_encode`, then the batched beam search over each chunk. No token
+    tensor leaves the device; returns (front, mel_buf, enc_state,
+    beam_state)."""
+    enc_outs, front, mel_buf, enc_state = _dsp_encode(
+        cfg, cc, pcfg, buf_len, params, pcm_i16, front, mel_buf, enc_state,
+        pos_heads, window, filterbank)
+    for enc_out in enc_outs:
+        beam_state = beam_mod.beam_decode(params, cfg, enc_out, beam_state,
+                                          beam_size, expansions, lm=lm,
+                                          lm_weight=lm_weight,
+                                          lm_bonus=lm_bonus)
+    return front, mel_buf, enc_state, beam_state
+
+
 class LockstepEngine:
     """S streams at one shared cadence on the params' device, in
-    `compute_dtype` (float32 or bfloat16), greedy RNN-T.
+    `compute_dtype` (float32 or bfloat16), RNN-T greedy or beam.
 
     Lifecycle as StreamSession's (reset / tick / finalize / transcripts),
     but `tick` takes one PCM block for ALL streams. Typical use: feed
@@ -99,27 +140,38 @@ class LockstepEngine:
     endpoint_silence_s / endpoint_reset: utterance endpointing as in
     ServingEngine (`poll_endpoints`).
 
-    Beam search, CTC, TDT checkpoints and LM fusion (the decode-variants
-    slice) and a device mesh (the multi-GPU slice) come with later slices
-    of the port and raise NotImplementedError."""
+    beam_size > 1 runs the batched beam search every tick (with LM shallow
+    fusion when `lm` is given). Beam transcripts are revisable: `tick`
+    returns {} and `refresh_transcripts` / `finalize` read the current
+    best hypotheses (their tokens carry frame 0). Endpointing and
+    confidence need greedy decode.
+
+    CTC and TDT checkpoints (the TDT/CTC slice) and a device mesh (the
+    multi-GPU slice) come with later slices of the port and raise
+    NotImplementedError."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
                  cache_config: CacheConfig | None = None,
                  n_streams: int = 256,
                  compute_dtype: torch.dtype = torch.bfloat16, mesh=None,
-                 beam_size: int = 1, confidence: bool = False,
+                 beam_size: int = 1, beam_expansions: int | None = None,
+                 max_beam_tokens: int = 4096, confidence: bool = False,
                  endpoint_silence_s: float | None = None,
-                 endpoint_reset: bool = False, ctc: bool = False, lm=None):
-        if beam_size > 1 or lm is not None:
-            raise NotImplementedError("beam search and LM fusion come with "
-                                      "the decode-variants slice of the port")
+                 endpoint_reset: bool = False, ctc: bool = False, lm=None,
+                 lm_weight: float = 0.3, lm_bonus: float = 0.0):
+        if confidence and beam_size > 1:
+            raise ValueError("confidence requires greedy decode")
+        if lm is not None and beam_size <= 1:
+            raise ValueError("LM shallow fusion requires beam_size > 1")
         if ctc:
-            raise NotImplementedError("CTC decode comes with the decode-"
-                                      "variants slice of the port")
+            raise NotImplementedError("CTC decode comes with the TDT/CTC "
+                                      "slice of the port")
         if cfg.tdt_durations:
-            raise NotImplementedError("TDT decode comes with the decode-"
-                                      "variants slice of the port")
+            raise NotImplementedError("TDT decode comes with the TDT/CTC "
+                                      "slice of the port")
+        if endpoint_silence_s is not None and beam_size > 1:
+            raise ValueError("endpointing requires greedy decode")
         if mesh is not None:
             raise NotImplementedError("a device mesh comes with the "
                                       "multi-GPU slice of the port")
@@ -132,6 +184,13 @@ class LockstepEngine:
         self.dtype = compute_dtype
         self.device = params.device
         self.confidence = bool(confidence)
+        self.beam_size = beam_size
+        self.beam_expansions = (beam_expansions if beam_expansions is not None
+                                else MAX_SYMBOLS_PER_STEP)
+        self.max_beam_tokens = max_beam_tokens
+        self.lm = None if lm is None else lm_to_device(lm, self.device)
+        self.lm_weight = float(lm_weight)
+        self.lm_bonus = float(lm_bonus)
         # utterance endpointing, as ServingEngine's; in pipelined mode the
         # decoder reset lands one tick late (tokens are collected a tick
         # behind the dispatched state), harmless unless the next utterance
@@ -159,6 +218,14 @@ class LockstepEngine:
         self.enc_state = enc_mod.init_encoder_state(cfg, cc, S, self.dtype,
                                                     dev)
         self.dec_state = dec_mod.init_decoder_state(cfg, S, self.dtype, dev)
+        self.beam_state = None
+        if self.beam_size > 1:
+            self.beam_state = beam_mod.init_beam_state(
+                cfg, S, self.beam_size, self.max_beam_tokens, self.dtype,
+                dev, lm=self.lm)
+        # transcripts are rebuilt from the beam lazily, once a tick has
+        # advanced it
+        self._beam_dirty = False
         self.front = init_frontend_state(S, dev, self.pcfg)
         # 9-frame zero-seeded overlap (reference src/nemo-stream.cpp:58-60);
         # room for one chunk plus a shift and one frame of a ragged tick
@@ -213,12 +280,23 @@ class LockstepEngine:
             f"tick of {pcm_i16.shape[1]} samples would overflow the mel ring"
             f" ({self.buf_len}+{f} > {cap}); feed at most ~shift_samples"
             " per tick")
-        (tokens, confs, self.front, self.mel_buf, self.enc_state,
-         self.dec_state) = _fused_tick(
-            self.cfg, self.cc, self.pcfg, self.buf_len, self.confidence,
-            self.params, self._put_pcm(pcm_i16), self.front, self.mel_buf,
-            self.enc_state, self.dec_state, self.pos_heads, self.window,
-            self.filterbank)
+        if self.beam_state is not None:
+            (self.front, self.mel_buf, self.enc_state,
+             self.beam_state) = _fused_tick_beam(
+                self.cfg, self.cc, self.pcfg, self.buf_len, self.beam_size,
+                self.beam_expansions, self.params, self._put_pcm(pcm_i16),
+                self.front, self.mel_buf, self.enc_state, self.beam_state,
+                self.pos_heads, self.window, self.filterbank, self.lm,
+                self.lm_weight, self.lm_bonus)
+            tokens = confs = None
+            self._beam_dirty = True
+        else:
+            (tokens, confs, self.front, self.mel_buf, self.enc_state,
+             self.dec_state) = _fused_tick(
+                self.cfg, self.cc, self.pcfg, self.buf_len, self.confidence,
+                self.params, self._put_pcm(pcm_i16), self.front,
+                self.mel_buf, self.enc_state, self.dec_state,
+                self.pos_heads, self.window, self.filterbank)
         k = self._chunks_in(self.buf_len + f)
         self.buf_len = self.buf_len + f - k * self.cc.shift_mel_frames
         self.total_chunks += k
@@ -228,8 +306,11 @@ class LockstepEngine:
 
     def _collect(self, tokens, confs, base: int) -> dict[int, str]:
         """Bring a tick's tokens to the host and fold them into the
-        transcripts; returns the new text per stream."""
+        transcripts; returns the new text per stream (nothing in beam
+        mode: its transcripts are rebuilt by refresh_transcripts)."""
         out: dict[int, str] = {}
+        if tokens is None:
+            return out
         tokens = self._fetch_block(tokens, 1)
         if confs is not None:
             confs = self._fetch_block(confs, 1)
@@ -325,8 +406,18 @@ class LockstepEngine:
         return self._collect(*prev)
 
     def refresh_transcripts(self) -> list[str]:
-        """Greedy transcripts are already incremental: a no-op (the beam
-        rewrite comes with the decode-variants slice)."""
+        """Beam mode: rewrite every stream's transcript and tokens from its
+        current best hypothesis (nemotron_tpu/streaming/lockstep.py:
+        646-664), one device call and one [S, U] download, only when a
+        tick advanced the beam since the last refresh. Greedy transcripts
+        are already incremental: a no-op."""
+        if self.beam_state is not None and self._beam_dirty:
+            for s, (toks, text) in best_transcripts(
+                    self.beam_state, self.vocab,
+                    range(self.n_streams)).items():
+                self.tokens[s] = toks
+                self.transcripts[s] = text
+            self._beam_dirty = False
         return list(self.transcripts)
 
     # -- checkpoint / resume --------------------------------------------------
@@ -335,8 +426,10 @@ class LockstepEngine:
         """Snapshot the device state, the tokens and the transcripts as an
         .npz with the JAX package's keys
         (nemotron_tpu/streaming/lockstep.py:677-733): a fresh engine of the
-        same streams resumes exactly. The mel ring is written as f32."""
+        same streams resumes exactly. The mel ring is written as f32; a beam
+        engine adds its beam/* leaves."""
         self.flush_pipeline()
+        self.refresh_transcripts()
         fetch = self._fetch_block
         flat = {f"enc/{k}": fetch(getattr(self.enc_state, k),
                                   0 if k in ("valid_len", "phase") else 1)
@@ -353,6 +446,8 @@ class LockstepEngine:
             "total_chunks": np.int64(self.total_chunks),
             "transcripts": np.asarray(self.transcripts, dtype=object),
         }
+        if self.beam_state is not None:
+            flat |= beam_leaves(self.beam_state)
         if self._ep_frames is not None:
             flat["ep/silence"] = self.ep_silence
             flat["ep/emitted"] = self.ep_emitted
@@ -366,21 +461,20 @@ class LockstepEngine:
     def load(self, path: str) -> None:
         """Restore a snapshot written by `save` (or by the JAX engine):
         fresh tensors on the engine's device in its dtypes. The stream
-        count must match; a snapshot of a beam, CTC or TDT engine raises
+        count must match; a snapshot of a CTC or TDT engine or of another
+        beam mode (greedy against beam, width, LM fusion) raises
         ValueError."""
         z = npz.NpzView(np.load(path, allow_pickle=True))
         if len(z["dec/prev_token"]) != self.n_streams:
             raise ValueError(
                 f"snapshot holds {len(z['dec/prev_token'])} stream rows, "
                 f"engine owns {self.n_streams}")
-        for key, what in (("tdt_skip", "TDT"), ("ctc_prev", "CTC"),
-                          ("beam/h", "beam")):
-            if key in z:
-                raise ValueError(f"snapshot/engine {what}-mode mismatch: the "
-                                 f"snapshot carries {what} state, this "
-                                 "engine decodes greedy RNN-T")
+        beam_state = check_engine_snapshot(z, self.beam_size, self.lm,
+                                           self.dtype, self.device)
         self.enc_state, self.dec_state = restore_states(
             z, self.cc, self.dtype, self.device)
+        self.beam_state = beam_state
+        self._beam_dirty = beam_state is not None
         f32 = torch.float32
         self.front = FrontendState(
             last_sample=npz.to_tensor(z["front/last_sample"], f32,

@@ -1,7 +1,7 @@
-"""Many-stream continuous-batching serving engine (greedy RNN-T).
+"""Many-stream continuous-batching serving engine (RNN-T greedy or beam).
 
 The port's counterpart of `nemotron_tpu/streaming/serving.py` without its
-decode variants and mesh. A fixed slab of `n_slots` stream slots
+CTC and TDT decodes and its mesh. A fixed slab of `n_slots` stream slots
 keeps its state on the params' device; admission and eviction zero a
 slot's slices (the reference's reset semantics, src/nemo-stream.cpp:81-101,
 per slot).
@@ -33,13 +33,17 @@ from ..config import CacheConfig, ModelConfig, PreprocessorConfig
 from ..frontend.device_frontend import (FrontendState, frames_after,
                                         mel_frontend_step, residue_after)
 from ..frontend.preprocessor import StreamingPreprocessor, pad_window
+from ..config import MAX_SYMBOLS_PER_STEP
+from ..models import beam as beam_mod
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
+from ..models.lm import lm_to_device
 from ..params import ModelParams, cast_params
 from ..utils import npz
 from ..utils.text import tokens_to_text
-from .session import (_check_dtype, chunk_step_masked, restore_states,
-                      token_list, token_rows)
+from .session import (_check_dtype, beam_leaves, best_transcripts,
+                      chunk_step_masked, chunk_step_masked_beam,
+                      restore_beam, restore_states, token_list, token_rows)
 
 
 class _MelBuffer:
@@ -147,6 +151,19 @@ def _reset_slots(enc_state, dec_state, mask: np.ndarray, blank_token: int):
     return enc_state, dec_state
 
 
+def _reset_beam_slots(beam_state, mask: np.ndarray, blank_token: int):
+    """Give every masked slot a fresh beam in place (hypothesis 0 live at
+    score 0, the others empty; nemotron_tpu/streaming/serving.py:175-202),
+    one index_fill_ per leaf."""
+    idx = torch.from_numpy(np.flatnonzero(mask)).to(beam_state.h.device)
+    for k, leaf in beam_mod.leaves(beam_state).items():
+        leaf.index_fill_(0, idx, {"prev_token": blank_token,
+                                  "scores": beam_mod.NEG_INF,
+                                  "tokens": blank_token}.get(k, 0))
+    beam_state.scores[:, 0].index_fill_(0, idx, 0.0)
+    return beam_state
+
+
 def _reset_slot(enc_state, dec_state, slot: int, blank_token: int):
     """_reset_slots for one slot."""
     mask = np.zeros(enc_state.valid_len.shape[0], bool)
@@ -242,9 +259,56 @@ def _device_dsp_tick(params, cfg: ModelConfig, cc: CacheConfig,
             dec_state)
 
 
+def _device_dsp_tick_beam(params, cfg: ModelConfig, cc: CacheConfig,
+                          pcfg: PreprocessorConfig, pcm_i16, front_res,
+                          front_last, mel_buf, enc_state, beam_state,
+                          pos_heads, window, filterbank, dsp_mask: np.ndarray,
+                          fresh_mask: np.ndarray, consume_mask: np.ndarray,
+                          beam_size: int, expansions: int, lm=None,
+                          lm_weight: float = 0.3, lm_bonus: float = 0.0):
+    """_device_dsp_tick with the batched beam search as the decode
+    (nemotron_tpu/streaming/serving.py:308-334): frozen slots keep their
+    whole beam. Returns (front_res, front_last, mel_buf, enc_state,
+    beam_state)."""
+    dev = mel_buf.device
+    dsp_m, fresh_m, consume_m = (torch.from_numpy(m).to(dev) for m in
+                                 (dsp_mask, fresh_mask, consume_mask))
+    front_res, front_last, mel_buf = _device_dsp_front(
+        cc, pcfg, pcm_i16, front_res, front_last, mel_buf, window,
+        filterbank, dsp_m, fresh_m)
+    if consume_mask.any():
+        enc_state, beam_state = chunk_step_masked_beam(
+            params, cfg, cc, mel_buf[:, :cc.chunk_mel_frames], enc_state,
+            beam_state, pos_heads, consume_m, beam_size, expansions, lm,
+            lm_weight, lm_bonus)
+        mel_buf = _mel_buf_shift(cc, mel_buf, consume_m)
+    return front_res, front_last, mel_buf, enc_state, beam_state
+
+
+def check_engine_snapshot(z, beam_size: int, lm, dtype: torch.dtype,
+                          device):
+    """An engine snapshot's decode mode against the engine's (the JAX
+    engines' checks): a CTC or TDT snapshot raises, as does greedy against
+    beam; returns the snapshot's BeamState (None for greedy)."""
+    for key, what in (("tdt_skip", "TDT"), ("ctc_prev", "CTC")):
+        if key in z:
+            raise ValueError(f"snapshot/engine {what}-mode mismatch: the "
+                             f"snapshot carries {what} state, this engine "
+                             "decodes RNN-T")
+    has_beam = "beam/h" in z
+    if (beam_size > 1) != has_beam:
+        raise ValueError(
+            "snapshot/engine beam-mode mismatch: snapshot "
+            f"{'carries' if has_beam else 'has no'} beam state, engine "
+            f"beam_size={beam_size}")
+    return (restore_beam(z, beam_size, lm, dtype, device, "engine")
+            if has_beam else None)
+
+
 class ServingEngine:
     """Continuous batching over `n_slots` stream slots on the params'
-    device, in `compute_dtype` (float32 or bfloat16), with greedy RNN-T.
+    device, in `compute_dtype` (float32 or bfloat16), with RNN-T greedy or
+    beam decode.
 
     dsp: "numpy" (host framing, one spectral pass a tick), "device" (the
     DSP inside the tick; the stream runs one chunk behind real time until
@@ -261,10 +325,16 @@ class ServingEngine:
     prediction network; keep_segment_audio=True keeps each utterance's PCM
     (at most max_segment_s) for `poll_endpoints(with_audio=True)`.
 
-    Beam search, CTC, TDT checkpoints and LM fusion (the decode-variants
-    slice), a device mesh (multi-GPU) and dsp="native" (the native-bindings
-    slice) come with later slices of the port and raise
-    NotImplementedError."""
+    beam_size > 1 decodes every tick with the batched beam search (with LM
+    shallow fusion when `lm` is given): frozen slots keep their whole beam,
+    so raggedness works as in greedy mode. Beam transcripts are revisable:
+    `step` returns {} and `refresh_transcripts` / `finalize_stream` read
+    the current best hypotheses. Endpointing and confidence need greedy
+    decode.
+
+    CTC and TDT checkpoints (the TDT/CTC slice), a device mesh (multi-GPU)
+    and dsp="native" (the native-bindings slice) come with later slices of
+    the port and raise NotImplementedError."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -272,21 +342,27 @@ class ServingEngine:
                  n_slots: int = 64, mesh=None,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  dsp: str = "auto", beam_size: int = 1,
+                 beam_expansions: int | None = None,
+                 max_beam_tokens: int = 4096,
                  confidence: bool = False,
                  endpoint_silence_s: float | None = None,
                  endpoint_reset: bool = False,
-                 ctc: bool = False, lm=None,
+                 ctc: bool = False, lm=None, lm_weight: float = 0.3,
+                 lm_bonus: float = 0.0,
                  keep_segment_audio: bool = False,
                  max_segment_s: float = 120.0):
-        if beam_size > 1 or lm is not None:
-            raise NotImplementedError("beam search and LM fusion come with "
-                                      "the decode-variants slice of the port")
+        if confidence and beam_size > 1:
+            raise ValueError("confidence requires greedy decode")
+        if lm is not None and beam_size <= 1:
+            raise ValueError("LM shallow fusion requires beam_size > 1")
         if ctc:
-            raise NotImplementedError("CTC decode comes with the decode-"
-                                      "variants slice of the port")
+            raise NotImplementedError("CTC decode comes with the TDT/CTC "
+                                      "slice of the port")
         if cfg.tdt_durations:
-            raise NotImplementedError("TDT decode comes with the decode-"
-                                      "variants slice of the port")
+            raise NotImplementedError("TDT decode comes with the TDT/CTC "
+                                      "slice of the port")
+        if endpoint_silence_s is not None and beam_size > 1:
+            raise ValueError("endpointing requires greedy decode")
         if mesh is not None:
             raise NotImplementedError("a device mesh comes with the "
                                       "multi-GPU slice of the port")
@@ -304,9 +380,12 @@ class ServingEngine:
         self.dtype = compute_dtype
         self.device = params.device
         self.confidence = bool(confidence)
-        # greedy only: the server reads these to pick its event semantics
-        self.beam_size = 1
-        self.beam_state = None
+        self.beam_size = beam_size
+        self.beam_expansions = (beam_expansions if beam_expansions is not None
+                                else MAX_SYMBOLS_PER_STEP)
+        self.lm = None if lm is None else lm_to_device(lm, self.device)
+        self.lm_weight = float(lm_weight)
+        self.lm_bonus = float(lm_bonus)
 
         # Utterance endpointing: silence is counted in encoder output frames
         # (subsampling * hop = 80 ms of audio by default, the reference's
@@ -341,6 +420,15 @@ class ServingEngine:
                                                     compute_dtype, dev)
         self.dec_state = dec_mod.init_decoder_state(cfg, n_slots,
                                                     compute_dtype, dev)
+        # beam mode: K hypotheses a slot (the server reads beam_state to
+        # pick its PARTIAL semantics); transcripts are rebuilt from it
+        # lazily, once a tick has advanced it (_beam_dirty)
+        self.beam_state = None
+        self._beam_dirty = False
+        if beam_size > 1:
+            self.beam_state = beam_mod.init_beam_state(
+                cfg, n_slots, beam_size, max_beam_tokens, compute_dtype, dev,
+                lm=self.lm)
 
         fb = params.preprocessor.filterbank.float().cpu().numpy()
         win = params.preprocessor.window.float().cpu().numpy()
@@ -455,6 +543,9 @@ class ServingEngine:
         mask[slots] = True
         self.enc_state, self.dec_state = _reset_slots(
             self.enc_state, self.dec_state, mask, self.cfg.blank_token)
+        if self.beam_state is not None:
+            self.beam_state = _reset_beam_slots(self.beam_state, mask,
+                                                self.cfg.blank_token)
         for s in slots:
             s = int(s)
             self.active[s] = True
@@ -468,7 +559,9 @@ class ServingEngine:
 
     def remove_stream(self, slot: int, return_tokens: bool = False):
         """Evict the slot and return its transcript (with
-        return_tokens=True: (text, [(id, frame[, log_posterior]), ...]))."""
+        return_tokens=True: (text, [(id, frame[, log_posterior]), ...]));
+        a beam slot's tokens carry frame 0."""
+        self.refresh_transcripts()
         text = self.transcripts[slot]
         toks = list(self.tokens[slot])
         self.active[slot] = False
@@ -525,6 +618,11 @@ class ServingEngine:
     def _clear_slot(self, slot: int) -> None:
         self.enc_state, self.dec_state = _reset_slot(
             self.enc_state, self.dec_state, slot, self.cfg.blank_token)
+        if self.beam_state is not None:
+            mask = np.zeros(self.n_slots, bool)
+            mask[slot] = True
+            self.beam_state = _reset_beam_slots(self.beam_state, mask,
+                                                self.cfg.blank_token)
         self._dsp_reset(slot)
         self.mel_buffers[slot] = self._fresh_mel_buffer()
         self.frames_retired += int(self.frame_offsets[slot])
@@ -607,6 +705,19 @@ class ServingEngine:
             self.transcripts[slot] += text
             out[slot] = out.get(slot, "") + text
         return emitted
+
+    def _advance(self, stepped: np.ndarray, tokens, confs, out: dict) -> None:
+        """After a chunk step of the slots in the [S] bool mask `stepped`:
+        emit a greedy step's tokens and update the endpointer (a beam step,
+        tokens None, leaves the transcripts to refresh_transcripts), then
+        advance the slots' frame offsets and chunk phase."""
+        slots = np.flatnonzero(stepped)
+        emitted = None if tokens is None else self._emit(tokens, confs, out)
+        self.frame_offsets[slots] += self.cc.valid_out_len
+        if emitted is not None:
+            self._ep_update(emitted, slots, self.cc.valid_out_len)
+        self.phase_counter = (self.phase_counter + 1) % self.n_seg
+        self.slot_phase[stepped] = self.phase_counter
 
     # -- utterance endpointing --------------------------------------------------
 
@@ -695,22 +806,28 @@ class ServingEngine:
             chunk = torch.from_numpy(chunk_np).to(self.dtype).to(self.device)
             mask = torch.from_numpy(ready).to(self.device)
             t0 = time.perf_counter()
-            res = chunk_step_masked(
-                self.params, self.cfg, cc, chunk, self.enc_state,
-                self.dec_state, self.pos_heads, mask,
-                with_confidence=self.confidence)
-            tokens, self.enc_state, self.dec_state = res[:3]
-            tokens = tokens.cpu().numpy()       # [S, valid_out, MAX]
-            confs = res[3].cpu().numpy() if self.confidence else None
+            if self.beam_state is not None:
+                self.enc_state, self.beam_state = chunk_step_masked_beam(
+                    self.params, self.cfg, cc, chunk, self.enc_state,
+                    self.beam_state, self.pos_heads, mask, self.beam_size,
+                    self.beam_expansions, self.lm, self.lm_weight,
+                    self.lm_bonus)
+                self._beam_dirty = True
+                tokens = confs = None
+                self._sync()
+            else:
+                res = chunk_step_masked(
+                    self.params, self.cfg, cc, chunk, self.enc_state,
+                    self.dec_state, self.pos_heads, mask,
+                    with_confidence=self.confidence)
+                tokens, self.enc_state, self.dec_state = res[:3]
+                tokens = tokens.cpu().numpy()   # [S, valid_out, MAX]
+                confs = res[3].cpu().numpy() if self.confidence else None
             self.step_times.append(time.perf_counter() - t0)
 
             for slot in ready_slots:
                 self.mel_buffers[slot].drop(cc.shift_mel_frames)
-            emitted = self._emit(tokens, confs, out)
-            self.frame_offsets[ready_slots] += tokens.shape[1]
-            self._ep_update(emitted, ready_slots, tokens.shape[1])
-            self.phase_counter = (self.phase_counter + 1) % self.n_seg
-            self.slot_phase[ready] = self.phase_counter
+            self._advance(ready, tokens, confs, out)
             ready = self._ready()
         return out
 
@@ -749,19 +866,32 @@ class ServingEngine:
                 pcm[s] = self.pcm_fifos[s].take(self._quantum)
             pcm = torch.from_numpy(pcm).to(self.device)
             t0 = time.perf_counter()
-            (tokens, confs, self.front_res, self.front_last,
-             self.mel_buf_dev, self.enc_state,
-             self.dec_state) = _device_dsp_tick(
-                self.params, self.cfg, cc, self._pcfg, pcm, self.front_res,
-                self.front_last, self.mel_buf_dev, self.enc_state,
-                self.dec_state, self.pos_heads, self._window,
-                self._filterbank, dsp, fresh, consume, self.confidence)
+            if self.beam_state is not None:
+                (self.front_res, self.front_last, self.mel_buf_dev,
+                 self.enc_state, self.beam_state) = _device_dsp_tick_beam(
+                    self.params, self.cfg, cc, self._pcfg, pcm,
+                    self.front_res, self.front_last, self.mel_buf_dev,
+                    self.enc_state, self.beam_state, self.pos_heads,
+                    self._window, self._filterbank, dsp, fresh, consume,
+                    self.beam_size, self.beam_expansions, self.lm,
+                    self.lm_weight, self.lm_bonus)
+                self._beam_dirty = True
+                tokens = confs = None
+            else:
+                (tokens, confs, self.front_res, self.front_last,
+                 self.mel_buf_dev, self.enc_state,
+                 self.dec_state) = _device_dsp_tick(
+                    self.params, self.cfg, cc, self._pcfg, pcm,
+                    self.front_res, self.front_last, self.mel_buf_dev,
+                    self.enc_state, self.dec_state, self.pos_heads,
+                    self._window, self._filterbank, dsp, fresh, consume,
+                    self.confidence)
             if tokens is not None:
                 tokens = tokens.cpu().numpy()
                 if confs is not None:
                     confs = confs.cpu().numpy()
-            elif self.device.type == "cuda":    # a DSP-only tick
-                torch.cuda.synchronize(self.device)
+            else:                               # a beam or DSP-only tick
+                self._sync()
             self.step_times.append(time.perf_counter() - t0)
 
             self.mel_fill = np.where(consume,
@@ -769,14 +899,29 @@ class ServingEngine:
                                      post_fill)
             self.fresh = self.fresh & ~dsp
             if consume.any():
-                emitted = self._emit(tokens, confs, out)
-                self.frame_offsets[np.flatnonzero(consume)] += \
-                    cc.valid_out_len
-                self._ep_update(emitted, np.flatnonzero(consume),
-                                cc.valid_out_len)
-                self.phase_counter = (self.phase_counter + 1) % self.n_seg
-                self.slot_phase[consume] = self.phase_counter
+                self._advance(consume, tokens, confs, out)
         return out
+
+    def _sync(self) -> None:
+        """Wait for the device, so that a tick's time covers its work (a
+        greedy tick brings its tokens to the host, which waits too)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def refresh_transcripts(self) -> list[str]:
+        """Beam mode: rewrite every active slot's transcript and tokens from
+        its current best hypothesis (nemotron_tpu/streaming/serving.py:
+        1191-1205), one device call and one [S, U] download, only when a
+        tick advanced the beam since the last refresh. Greedy transcripts
+        are already incremental: a no-op."""
+        if self.beam_state is not None and self._beam_dirty:
+            for s, (toks, text) in best_transcripts(
+                    self.beam_state, self.vocab,
+                    np.flatnonzero(self.active)).items():
+                self.tokens[s] = toks
+                self.transcripts[s] = text
+            self._beam_dirty = False
+        return list(self.transcripts)
 
     # -- checkpoint / resume ---------------------------------------------------
 
@@ -806,7 +951,10 @@ class ServingEngine:
         the first-quantum flags and the PCM FIFOs, as the JAX engine's. The
         buffers mean the same in both packages; only the finalize differs
         (this port decodes a partial last quantum that the JAX engine
-        drops), so a resumed stream ends as this port's engine ends it."""
+        drops), so a resumed stream ends as this port's engine ends it. A
+        beam engine adds its beam/* leaves (and writes the transcripts of
+        its current best hypotheses)."""
+        self.refresh_transcripts()
         flat = {f"enc/{k}": getattr(self.enc_state, k)
                 for k in ("k_cache", "v_cache", "conv_cache", "valid_len",
                           "phase", "k_scale", "v_scale")}
@@ -819,6 +967,8 @@ class ServingEngine:
             "phase_counter": np.int64(self.phase_counter),
             "slot_phase": self.slot_phase,
         }
+        if self.beam_state is not None:
+            flat |= beam_leaves(self.beam_state)
         if self._ep_frames is not None:
             flat["ep/silence"] = self.ep_silence
             flat["ep/emitted"] = self.ep_emitted
@@ -855,25 +1005,23 @@ class ServingEngine:
     def load(self, path: str) -> None:
         """Restore a snapshot written by `save` (or by the JAX engine) into
         this engine: fresh tensors on its device in its dtypes. The slot
-        count must match; a snapshot of a beam, CTC or TDT engine, or a
-        host-DSP snapshot loaded into a device-DSP engine, raises
-        ValueError."""
+        count must match; a snapshot of a CTC or TDT engine or of another
+        beam mode (greedy against beam, width, LM fusion), or a host-DSP
+        snapshot loaded into a device-DSP engine, raises ValueError."""
         z = npz.NpzView(np.load(path, allow_pickle=True))
         if z["active"].shape != (self.n_slots,):
             raise ValueError(f"snapshot has {z['active'].shape[0]} slots, "
                              f"the engine {self.n_slots}")
-        for key, what in (("tdt_skip", "TDT"), ("ctc_prev", "CTC"),
-                          ("beam/h", "beam")):
-            if key in z:
-                raise ValueError(f"snapshot/engine {what}-mode mismatch: the "
-                                 f"snapshot carries {what} state, this "
-                                 "engine decodes greedy RNN-T")
+        beam_state = check_engine_snapshot(z, self.beam_size, self.lm,
+                                           self.dtype, self.device)
         if self.dsp_mode == "device" and "devdsp/mel_buf" not in z:
             raise ValueError("snapshot was saved by a host-DSP engine; "
                              "device-DSP resume needs the device mel "
                              "buffer/fill state")
         self.enc_state, self.dec_state = restore_states(
             z, self.cc, self.dtype, self.device)
+        self.beam_state = beam_state
+        self._beam_dirty = beam_state is not None
         self.active = z["active"].astype(bool)
         self.phase_counter = int(z["phase_counter"])
         self.slot_phase = z["slot_phase"].astype(np.int64)

@@ -1,13 +1,15 @@
 """Streaming session engine and full-utterance transcription.
 
-The port's counterpart of `nemotron_tpu/streaming/session.py` (greedy
-RNN-T path) and of the reference's nemo_stream_* API
+The port's counterpart of `nemotron_tpu/streaming/session.py` (RNN-T
+greedy and beam) and of the reference's nemo_stream_* API
 (src/nemo-stream.h:176-312). One `StreamSession` manages S parallel
 streams: host-side PCM->mel frontend and mel buffer, plus `chunk_step`,
 which runs the cached encoder and the greedy decode on the params' device
-and brings back only int32 tokens. `transcribe_batch` is the reference's
+and brings back only int32 tokens (or `chunk_step_beam`, whose K
+hypotheses stay on the device). `transcribe_batch` is the reference's
 whole-file path (src/transcribe.cpp): several utterances in one
-length-masked encoder pass and one greedy decode.
+length-masked encoder pass and one greedy or beam decode, with n-best
+lists, LM shallow fusion and second-pass LM rescoring.
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ import time
 import numpy as np
 import torch
 
-from ..config import CacheConfig, ModelConfig, PreprocessorConfig
+from ..config import (MAX_SYMBOLS_PER_STEP, CacheConfig, ModelConfig,
+                      PreprocessorConfig)
 from ..frontend.preprocessor import StreamingPreprocessor
+from ..models import beam as beam_mod
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
+from ..models.lm import lm_to_device
 from ..params import ModelParams, cast_params
 from ..utils import npz
 from ..utils.tones import enc_frames_of_mel
@@ -64,6 +69,105 @@ def chunk_step_masked(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
     return (out[0], enc_state) + out[1:]
 
 
+def chunk_step_beam(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
+                    mel_chunk: torch.Tensor, enc_state, beam_state,
+                    pos_heads, beam_size: int, expansions: int, lm=None,
+                    lm_weight: float = 0.3, lm_bonus: float = 0.0):
+    """chunk_step with the batched RNN-T beam search as its decode
+    (nemotron_tpu/streaming/session.py:221-238): the K-hypothesis
+    BeamState carries across chunks in place of the greedy DecoderState.
+    Returns (enc_state', beam_state'); no token tensor leaves the device
+    (`beam.best_hypothesis` reads them)."""
+    enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
+                                              enc_state, pos_heads)
+    beam_state = beam_mod.beam_decode(params, cfg, enc_out, beam_state,
+                                      beam_size, expansions, lm=lm,
+                                      lm_weight=lm_weight, lm_bonus=lm_bonus)
+    return enc_state, beam_state
+
+
+def chunk_step_masked_beam(params: ModelParams, cfg: ModelConfig,
+                           cc: CacheConfig, mel_chunk: torch.Tensor,
+                           enc_state, beam_state, pos_heads,
+                           step_mask: torch.Tensor, beam_size: int,
+                           expansions: int, lm=None, lm_weight: float = 0.3,
+                           lm_bonus: float = 0.0):
+    """chunk_step_beam for continuous batching
+    (nemotron_tpu/streaming/session.py:243-264): slots outside `step_mask`
+    [S] keep their caches and their whole beam (a 0 frame limit in
+    beam_decode's enc_lengths)."""
+    enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
+                                              enc_state, pos_heads,
+                                              step_mask=step_mask)
+    t_lim = torch.where(step_mask, enc_out.shape[1], 0).to(torch.int32)
+    beam_state = beam_mod.beam_decode(params, cfg, enc_out, beam_state,
+                                      beam_size, expansions,
+                                      enc_lengths=t_lim, lm=lm,
+                                      lm_weight=lm_weight, lm_bonus=lm_bonus)
+    return enc_state, beam_state
+
+
+def check_beam_options(beam_size: int, lm, confidence: bool = False,
+                       timestamp_words: bool = False) -> None:
+    """The JAX package's ValueErrors for options that need greedy decode
+    or a beam."""
+    if beam_size > 1:
+        if timestamp_words:
+            raise ValueError("word timestamps require greedy decode")
+        if confidence:
+            raise ValueError("confidence requires greedy decode (beam "
+                             "hypotheses carry whole-sequence scores)")
+    if lm is not None and beam_size <= 1:
+        raise ValueError("LM shallow fusion requires beam_size > 1 "
+                         "(the LM rescored search IS the beam)")
+
+
+def best_transcripts(beam_state, vocab, rows) -> dict:
+    """{row: (tokens, text)} of each row's current best hypothesis
+    (length-normalized selection, the serving default): one device call
+    and one [S, U] download. Beam tokens carry no frame (0)."""
+    btok, blen, _ = beam_mod.best_hypothesis(beam_state, length_norm=True)
+    btok, blen = btok.cpu().numpy(), blen.cpu().numpy()
+    out = {}
+    for s in rows:
+        toks = [(int(t), 0) for t in btok[s, :blen[s]]]
+        out[int(s)] = (toks, tokens_to_text(toks, vocab))
+    return out
+
+
+def beam_leaves(beam_state) -> dict:
+    """The beam state's snapshot leaves under the JAX package's beam/*
+    keys (beam/lm_h and beam/lm_c with an LM)."""
+    return {f"beam/{k}": npz.to_numpy(v)
+            for k, v in beam_mod.leaves(beam_state).items()}
+
+
+def restore_beam(st, beam_size: int, lm, dtype: torch.dtype, device,
+                 what: str = "session"):
+    """The BeamState of a snapshot's beam/* leaves as fresh tensors on
+    `device`, after the JAX package's checks of the beam width, LM fusion
+    and beam family (a TDT beam carries beam/t). The caller has checked
+    that both sides decode with a beam."""
+    if st["beam/h"].shape[1] != beam_size:
+        raise ValueError(f"snapshot beam width K={st['beam/h'].shape[1]} != "
+                         f"{what} beam_size={beam_size}")
+    has_lm = "beam/lm_h" in st
+    if has_lm != (lm is not None):
+        raise ValueError(
+            f"snapshot/{what} LM-fusion mismatch: snapshot "
+            f"{'carries' if has_lm else 'has no'} LM state, {what} "
+            f"lm={'set' if lm is not None else 'None'}")
+    if "beam/t" in st:
+        raise ValueError(f"snapshot/{what} beam-family mismatch: snapshot is "
+                         f"TDT, {what} is RNN-T")
+    f32, i32 = torch.float32, torch.int32
+    types = {"h": dtype, "c": dtype, "prev_token": i32, "scores": f32,
+             "tokens": i32, "lengths": i32, "lm_h": dtype, "lm_c": dtype}
+    return beam_mod.BeamState(**{
+        k: npz.to_tensor(st[f"beam/{k}"], t, device)
+        for k, t in types.items() if f"beam/{k}" in st})
+
+
 class StreamSession:
     """Lifecycle mirror of nemo_stream_init / process_incremental / finalize /
     get_transcript / get_tokens / reset. Runs on the params' device in
@@ -75,7 +179,15 @@ class StreamSession:
     timestamp_words puts each word's start time ({seconds}) in the
     transcript; confidence makes the tokens (id, frame, log_posterior)
     triples; confidence_words (which implies it) also puts each word's
-    posterior ({p=...}) in the transcript."""
+    posterior ({p=...}) in the transcript.
+
+    beam_size > 1 decodes each chunk with the batched beam search
+    (beam_expansions label rounds a frame, max_beam_tokens token slots a
+    hypothesis); the K-hypothesis state carries across chunks and the
+    transcript is the current best hypothesis, so earlier text may be
+    rewritten: `process` returns "" and `get_transcript` / `finalize` read
+    it. lm (models/lm.LMParams) adds shallow fusion to that beam:
+    lm_weight * log P_lm + lm_bonus on every label."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -85,18 +197,21 @@ class StreamSession:
                  trace_dir: str | None = None,
                  timestamp_words: bool = False,
                  beam_size: int = 1,
+                 beam_expansions: int | None = None,
+                 max_beam_tokens: int = 4096,
                  confidence: bool = False,
                  confidence_words: bool = False,
-                 ctc: bool = False):
-        if beam_size > 1:
-            raise NotImplementedError("beam search comes with the decode-"
-                                      "variants slice of the port")
+                 ctc: bool = False,
+                 lm=None, lm_weight: float = 0.3,
+                 lm_bonus: float = 0.0):
         if ctc:
-            raise NotImplementedError("CTC decode comes with the decode-"
-                                      "variants slice of the port")
+            raise NotImplementedError("CTC decode comes with the TDT/CTC "
+                                      "slice of the port")
         if cfg.tdt_durations:
-            raise NotImplementedError("TDT decode comes with the decode-"
-                                      "variants slice of the port")
+            raise NotImplementedError("TDT decode comes with the TDT/CTC "
+                                      "slice of the port")
+        check_beam_options(beam_size, lm, confidence or confidence_words,
+                           timestamp_words)
         if trace_dir is not None:
             raise NotImplementedError("dump tracing comes with the utils "
                                       "slice of the port")
@@ -111,6 +226,13 @@ class StreamSession:
         self.timestamp_words = timestamp_words
         self.confidence = confidence or confidence_words
         self.confidence_words = confidence_words
+        self.beam_size = beam_size
+        self.beam_expansions = (beam_expansions if beam_expansions is not None
+                                else MAX_SYMBOLS_PER_STEP)
+        self.max_beam_tokens = max_beam_tokens
+        self.lm = None if lm is None else lm_to_device(lm, self.device)
+        self.lm_weight = float(lm_weight)
+        self.lm_bonus = float(lm_bonus)
 
         self.preproc = StreamingPreprocessor(
             params.preprocessor.filterbank.float().cpu().numpy(),
@@ -128,6 +250,11 @@ class StreamSession:
                                                     self.device)
         self.dec_state = dec_mod.init_decoder_state(cfg, S, self.dtype,
                                                     self.device)
+        self.beam_state = None
+        if self.beam_size > 1:
+            self.beam_state = beam_mod.init_beam_state(
+                cfg, S, self.beam_size, self.max_beam_tokens, self.dtype,
+                self.device, lm=self.lm)
         self.preproc.reset()
         # 9-frame zero-seeded overlap (reference src/nemo-stream.cpp:58-60)
         self.mel_buffer = np.zeros((S, cc.pre_encode_cache_size, cfg.n_mels),
@@ -175,6 +302,18 @@ class StreamSession:
                 self.mel_buffer[:, :cc.chunk_mel_frames])).to(
                     self.device, self.dtype)
             t0 = time.perf_counter()
+            if self.beam_state is not None:
+                self.enc_state, self.beam_state = chunk_step_beam(
+                    self.params, self.cfg, cc, chunk, self.enc_state,
+                    self.beam_state, self.pos_heads, self.beam_size,
+                    self.beam_expansions, self.lm, self.lm_weight,
+                    self.lm_bonus)
+                self._refresh_beam_transcripts()
+                self.chunk_seconds += time.perf_counter() - t0
+                self.total_chunks += 1
+                self.mel_buffer = self.mel_buffer[:, cc.shift_mel_frames:]
+                self.frame_offset += cc.valid_out_len
+                continue
             out = chunk_step(self.params, self.cfg, cc, chunk,
                              self.enc_state, self.dec_state, self.pos_heads,
                              with_confidence=self.confidence)
@@ -198,6 +337,14 @@ class StreamSession:
                 new_text[s] += text
             self.frame_offset += tokens.shape[1]
         return new_text
+
+    def _refresh_beam_transcripts(self) -> None:
+        """Rewrite transcripts and tokens from the current best hypothesis
+        (nemotron_tpu/streaming/session.py:660-671)."""
+        for s, (toks, text) in best_transcripts(
+                self.beam_state, self.vocab, range(self.n_streams)).items():
+            self.tokens[s] = toks
+            self.transcripts[s] = text
 
     def finalize(self) -> list[str] | str:
         """Flush: pad the remaining mel buffer out to one more chunk if any
@@ -224,12 +371,15 @@ class StreamSession:
         """Full session snapshot, with the JAX package's keys
         (nemotron_tpu/streaming/session.py:689-716): encoder caches, decoder
         state, DSP state, mel buffer, tokens, transcripts. Device leaves
-        come back as numpy arrays (bf16 upcast to f32, which is exact)."""
+        come back as numpy arrays (bf16 upcast to f32, which is exact); a
+        beam session adds its beam/* leaves."""
         st = {f"enc/{k}": npz.to_numpy(getattr(self.enc_state, k))
               for k in ("k_cache", "v_cache", "conv_cache", "valid_len",
                         "phase", "k_scale", "v_scale")}
         st |= {f"dec/{k}": npz.to_numpy(getattr(self.dec_state, k))
                for k in ("h", "c", "prev_token")}
+        if self.beam_state is not None:
+            st |= beam_leaves(self.beam_state)
         return st | {
             "preproc": self.preproc.state_dict(),
             "mel_buffer": self.mel_buffer.copy(),
@@ -242,20 +392,29 @@ class StreamSession:
         """Restore a snapshot of `state_dict` (or of the JAX package's
         session): fresh tensors on the session's device in its dtypes, so
         the in-place ring writes never touch the arrays handed in. A
-        snapshot of a beam, CTC or TDT session raises ValueError, as the
-        JAX package's greedy session does."""
+        snapshot of a CTC or TDT session, or of another beam mode (greedy
+        against beam, width, LM fusion), raises ValueError, as the JAX
+        package's session does."""
         if "ctc_prev" in st:
             raise ValueError("snapshot carries CTC collapse state but this "
                              "session decodes RNN-T (ctc=False)")
         if "tdt_skip" in st:
             raise ValueError("snapshot carries TDT skip state but this "
                              "session does not decode TDT")
-        if "beam/h" in st:
+        has_beam = "beam/h" in st
+        if self.beam_size > 1 and not has_beam:
+            raise ValueError(
+                f"session has beam_size={self.beam_size} but the snapshot "
+                "carries no beam state (saved from a greedy session)")
+        if self.beam_size <= 1 and has_beam:
             raise ValueError(
                 f"snapshot carries beam state (K={st['beam/h'].shape[1]}) "
                 "but this session decodes greedily (beam_size=1)")
+        beam_state = (restore_beam(st, self.beam_size, self.lm, self.dtype,
+                                   self.device) if has_beam else None)
         self.enc_state, self.dec_state = restore_states(
             st, self.cc, self.dtype, self.device)
+        self.beam_state = beam_state
         self.preproc.load_state_dict(st["preproc"])
         self.mel_buffer = np.asarray(st["mel_buffer"], np.float32).copy()
         self.tokens = [[tuple(t) for t in ts] for ts in st["tokens"]]
@@ -368,43 +527,55 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
                      timestamp_words: bool = False,
                      compute_dtype: torch.dtype = torch.float32,
                      beam_size: int = 1,
+                     beam_expansions: int | None = None,
                      return_confidence: bool = False,
                      return_nbest: int | None = None,
-                     ctc: bool = False, lm=None,
+                     ctc: bool = False, lm=None, lm_weight: float = 0.3,
+                     lm_bonus: float = 0.0, lm_rescore: bool = False,
                      min_mel_frames: int = 0):
-    """Offline full-utterance transcription, greedy RNN-T (the reference's
-    `transcribe` path: src/transcribe.cpp, nemo_transcribe_audio
-    src/nemo-ggml.cpp:1585-1598; nemotron_tpu/streaming/session.py:879-958,
-    1121-1133). There is no 164 s position-table cap: the table is sized
-    per call.
+    """Offline full-utterance transcription, RNN-T greedy or beam (the
+    reference's `transcribe` path: src/transcribe.cpp, nemo_transcribe_audio
+    src/nemo-ggml.cpp:1585-1598; nemotron_tpu/streaming/session.py:879-1133).
+    There is no 164 s position-table cap: the table is sized per call.
 
     audio_i16: one int16 PCM array (returns its text, a str), or a list or
     tuple of them (returns a list of texts), transcribed in one
-    length-masked encoder pass and one greedy decode. The mel runs on the
-    params' device in f32; the encoder and the decoder in compute_dtype
-    (f32 or bf16), with the params as they are (each op casts its weights
-    to the activations' dtype, as the JAX package does).
+    length-masked encoder pass and one decode. The mel runs on the params'
+    device in f32; the encoder and the decoder in compute_dtype (f32 or
+    bf16), with the params as they are (each op casts its weights to the
+    activations' dtype, as the JAX package does).
 
-    return_confidence: returns (texts, token_lists) instead (for one
-    utterance: (text, token_list)), each token list of (id, frame,
-    log_posterior) triples from the greedy loop's log softmax at the
-    emitting frame.
+    return_confidence (greedy only): returns (texts, token_lists) instead
+    (for one utterance: (text, token_list)), each token list of (id,
+    frame, log_posterior) triples from the greedy loop's log softmax at
+    the emitting frame.
+
+    beam_size > 1 decodes with the batched beam search (beam_expansions
+    label rounds a frame). return_nbest=N (beam only) returns, per
+    utterance, the N best hypotheses as (text, raw total log-prob), best
+    first by the length-normalized score. lm adds shallow fusion to the
+    search; with lm_rescore=True the search runs without it and the LM
+    reranks the finished K hypotheses by raw_score + lm_weight *
+    lm_sequence_logp + lm_bonus * length (return_nbest then reports those
+    combined scores).
 
     min_mel_frames pads the batched mel's time axis to at least this many
     frames (masked out of the attention, as the shorter utterances'
-    padding is). Beam search, n-best lists, CTC, LM fusion and TDT
-    checkpoints come with later slices of the port and raise
-    NotImplementedError."""
-    if beam_size > 1 or return_nbest is not None or lm is not None:
-        raise NotImplementedError("beam search, n-best lists and LM fusion "
-                                  "come with the decode-variants slice of "
-                                  "the port")
+    padding is). CTC and TDT checkpoints come with the TDT/CTC slice of
+    the port and raise NotImplementedError."""
+    if return_confidence and beam_size > 1:
+        raise ValueError("confidence requires greedy decode")
+    if return_nbest is not None and beam_size <= 1:
+        raise ValueError("n-best output requires beam_size > 1")
+    check_beam_options(beam_size, lm)
+    if lm_rescore and lm is None:
+        raise ValueError("lm_rescore needs an LM (lm=)")
     if ctc:
-        raise NotImplementedError("CTC decode comes with the decode-variants "
-                                  "slice of the port")
+        raise NotImplementedError("CTC decode comes with the TDT/CTC slice "
+                                  "of the port")
     if cfg.tdt_durations:
-        raise NotImplementedError("TDT decode comes with the decode-variants "
-                                  "slice of the port")
+        raise NotImplementedError("TDT decode comes with the TDT/CTC slice "
+                                  "of the port")
     _check_dtype(compute_dtype)
     single = not isinstance(audio_i16, (list, tuple))
     utterances = [audio_i16] if single else audio_i16
@@ -414,6 +585,14 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
     enc = enc_mod.encode_batch(
         params, cfg, torch.from_numpy(mel).to(dev, compute_dtype),
         enc_lengths=lengths)
+    if beam_size > 1:
+        if timestamp_words:
+            raise ValueError("word timestamps require greedy decode "
+                             "(beam hypotheses carry no frame alignment)")
+        out = _beam_texts(params, cfg, vocab, enc, lengths, compute_dtype,
+                          beam_size, beam_expansions, return_nbest, lm,
+                          lm_weight, lm_bonus, lm_rescore)
+        return out[0] if single else out
     dec_state = dec_mod.init_decoder_state(cfg, len(utterances),
                                            compute_dtype, dev)
     out = dec_mod.greedy_decode(params, cfg, enc, dec_state,
@@ -431,6 +610,53 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
     texts = [tokens_to_text(toks, vocab, timestamp_words=timestamp_words)
              for toks in dec_mod.tokens_to_list(tokens, cfg.blank_token)]
     return texts[0] if single else texts
+
+
+def _beam_texts(params, cfg, vocab, enc, lengths, dtype, beam_size,
+                beam_expansions, return_nbest, lm, lm_weight, lm_bonus,
+                lm_rescore) -> list:
+    """transcribe_batch's beam epilogue (nemotron_tpu/streaming/session.py:
+    1025-1110): each utterance's text, or its n-best list of (text,
+    score)."""
+    dev = params.device
+    B = enc.shape[0]
+    if lm is not None:
+        lm = lm_to_device(lm, dev)
+    # second-pass rescoring runs the search acoustic-only
+    lm_search = None if lm_rescore else lm
+    state = beam_mod.init_beam_state(
+        cfg, B, beam_size, max_tokens=enc.shape[1] * MAX_SYMBOLS_PER_STEP,
+        dtype=dtype, device=dev, lm=lm_search)
+    state = beam_mod.beam_decode(
+        params, cfg, enc, state, beam_size,
+        beam_expansions if beam_expansions is not None
+        else MAX_SYMBOLS_PER_STEP, lengths, lm_search, lm_weight, lm_bonus)
+
+    def text(tok_row, n) -> str:
+        return tokens_to_text([(int(t), 0) for t in tok_row[:n]], vocab)
+
+    if lm_rescore:
+        from ..models.lm import rescore_nbest
+
+        # rescore the full beam, then take the requested n
+        ntok, nlen, nsc = beam_mod.n_best(state, None, length_norm=False)
+        order, comb = rescore_nbest(lm, ntok, nlen, nsc, cfg.blank_token,
+                                    lm_weight, lm_bonus)
+        order, comb = order.cpu().numpy(), comb.cpu().numpy()
+        ntok, nlen = ntok.cpu().numpy(), nlen.cpu().numpy()
+        if return_nbest is not None:
+            return [[(text(ntok[i, j], nlen[i, j]), float(comb[i, j]))
+                     for j in order[i, :return_nbest]] for i in range(B)]
+        return [text(ntok[i, order[i, 0]], nlen[i, order[i, 0]])
+                for i in range(B)]
+    if return_nbest is not None:
+        ntok, nlen, nsc = (x.cpu().numpy() for x in beam_mod.n_best(
+            state, return_nbest, length_norm=True))
+        return [[(text(ntok[i, j], nlen[i, j]), float(nsc[i, j]))
+                 for j in range(ntok.shape[1])] for i in range(B)]
+    btok, blen, _ = beam_mod.best_hypothesis(state, length_norm=True)
+    btok, blen = btok.cpu().numpy(), blen.cpu().numpy()
+    return [text(btok[i], blen[i]) for i in range(B)]
 
 
 def transcribe_batch_with_state(params: ModelParams, cfg: ModelConfig,

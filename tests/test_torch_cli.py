@@ -151,10 +151,7 @@ def test_batch_cli_refuses_bad_subtitle_flags(capsys, flags, want):
 
 
 @pytest.mark.parametrize("flag,slice_name", [
-    ("--beam=4", "decode-variants"), ("--boost=T1:2", "decode-variants"),
-    ("--ctc", "decode-variants"), ("--lm=x.gguf", "decode-variants"),
-    ("--lm-weight=0.5", "decode-variants"),
-    ("--lm-bonus=1", "decode-variants"), ("--kv-int4", "quant-tiers"),
+    ("--ctc", "TDT/CTC"), ("--kv-int4", "quant-tiers"),
     ("--rc-by-layer=13,6,1,0", "quant-tiers"),
     ("--quantize=w8a8-sq-static", "quant-tiers"),
     ("--calib=x.pcm", "quant-tiers"),
@@ -164,7 +161,7 @@ def test_stream_cli_refuses_later_flags(capsys, flag, slice_name):
     """Each flag of cli/transcribe_stream.py out of this port's slices
     exits 1 and names the slice that brings it. The quant-tiers slice's
     flags are ported: they are taken, and a missing model is the first
-    error."""
+    error (the beam family's: tests/test_torch_refine.py)."""
     if slice_name == "quant-tiers":
         assert cli.main(["cli", "missing.gguf", "a.pcm", "--cpu", flag]) == 1
         err = capsys.readouterr().err

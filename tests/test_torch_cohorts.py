@@ -380,10 +380,7 @@ def test_serve_entry_point_matches_direct_engine(serve_files, lockstep):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--beam", "4"], "decode-variants"), (["--lm", "x.gguf"],
-                                           "decode-variants"),
-    (["--lm-weight", "0.3"], "decode-variants"), (["--ctc"],
-                                                  "decode-variants"),
+    (["--ctc"], "TDT/CTC"),
     (["--mesh", "2"], "multi-GPU"), (["--coordinator", "h:1"], "multi-GPU"),
     (["--dsp", "native"], "native-bindings")])
 def test_serve_refuses_later_slices(serve_files, flags, slice_name, capsys):

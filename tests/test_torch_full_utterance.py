@@ -318,11 +318,24 @@ def test_transcribe_batch_with_state_matches_jax(fixture_models):
                                 {"return_confidence": True, "beam_size": 4},
                                 {"tdt": True}])
 def test_transcribe_batch_refuses_later_options(fixture_models, kw):
+    """CTC and TDT name the TDT/CTC slice. The beam family is ported
+    (tests/test_torch_beam.py, tests/test_torch_lm.py): a beam decodes,
+    and n-best without a beam, an LM without a beam and confidence with a
+    beam raise the JAX package's ValueErrors."""
     _, (tp, tc, tv) = fixture_models
+    pcm = np.zeros(8000, np.int16)
     if kw.pop("tdt", False):
         tc = dataclasses.replace(tc, tdt_durations=(0, 1, 2))
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        tsession.transcribe_batch(tp, tc, tv, np.zeros(8000, np.int16), **kw)
+    if kw == {"beam_size": 4}:
+        assert isinstance(tsession.transcribe_batch(tp, tc, tv, pcm, **kw),
+                          str)
+        return
+    if "ctc" in kw or tc.tdt_durations:
+        with pytest.raises(NotImplementedError, match="TDT/CTC slice"):
+            tsession.transcribe_batch(tp, tc, tv, pcm, **kw)
+        return
+    with pytest.raises(ValueError, match="requires"):
+        tsession.transcribe_batch(tp, tc, tv, pcm, **kw)
 
 
 def test_transcribe_refuses_other_dtypes(fixture_models):

@@ -324,8 +324,8 @@ def test_lockstep_confidence_matches_jax_and_session(tiny, R):
     """tests/test_serving.py:1184-1218: confidence=True gives the plain
     engine's (id, frame) stream as triples, equal to JAX's with the
     log-posteriors within 1e-4, and to a StreamSession(confidence=True)'s;
-    every log-posterior <= 0. With beam_size=2 the port refuses beam first
-    (JAX raises ValueError for the combination)."""
+    every log-posterior <= 0. With beam_size=2 the port raises the JAX
+    package's ValueError for the combination."""
     jp, tp, cfg, vocab = tiny
     je, te = engines(tiny, R, 2, confidence=True)
     _, plain = engines(tiny, R, 2)
@@ -348,7 +348,7 @@ def test_lockstep_confidence_matches_jax_and_session(tiny, R):
                                    [t[2] for t in sess.get_tokens(s)],
                                    atol=1e-6)
     assert te.transcripts == sess.transcripts
-    with pytest.raises(NotImplementedError, match="decode-variants"):
+    with pytest.raises(ValueError, match="confidence requires greedy"):
         TLock(tp, cfg, vocab, te.cc, n_streams=2, beam_size=2,
               confidence=True)
 
@@ -363,7 +363,7 @@ def test_lockstep_endpoint_state_machine(tiny):
     from nemotron_tpu.models import decoder as jdec
 
     jp, tp, cfg, vocab = tiny
-    with pytest.raises(NotImplementedError, match="decode-variants"):
+    with pytest.raises(ValueError, match="endpointing requires greedy"):
         TLock(tp, cfg, vocab, TCC(**cc_kw(1, cfg.n_mels)), n_streams=2,
               beam_size=2, endpoint_silence_s=0.5)
     je, te = engines(tiny, 1, 2, endpoint_silence_s=0.8,
@@ -527,18 +527,21 @@ def test_lockstep_bf16_mel_ring(tiny, tmp_path):
 
 
 def test_lockstep_refuses_later_slices_and_defaults(tiny, tmp_path):
-    """Beam, LM fusion, CTC and TDT checkpoints name the decode-variants
-    slice, a mesh the multi-GPU slice; the defaults are JAX's (256 streams,
-    bf16) and the device is the params'. Snapshots of another stream
-    count or of a beam, CTC or TDT engine are refused."""
+    """CTC and TDT checkpoints name the TDT/CTC slice, a mesh the
+    multi-GPU slice; beam search is ported (tests/test_torch_beam.py) and
+    an LM without a beam raises the JAX package's ValueError. The defaults
+    are JAX's (256 streams, bf16) and the device is the params'. Snapshots
+    of another stream count or of a beam, CTC or TDT engine are refused."""
     _jp, tp, cfg, vocab = tiny
     cc = TCC(**cc_kw(1, cfg.n_mels))
-    for kw, slice_name in (({"beam_size": 4}, "decode-variants"),
-                           ({"lm": object()}, "decode-variants"),
-                           ({"ctc": True}, "decode-variants"),
+    for kw, slice_name in (({"ctc": True}, "TDT/CTC"),
                            ({"mesh": object()}, "multi-GPU")):
         with pytest.raises(NotImplementedError, match=slice_name):
             TLock(tp, cfg, vocab, cc, n_streams=2, **kw)
+    with pytest.raises(ValueError, match="LM shallow fusion requires"):
+        TLock(tp, cfg, vocab, cc, n_streams=2, lm=object())
+    assert TLock(tp, cfg, vocab, cc, n_streams=2, compute_dtype=F32,
+                 beam_size=4).beam_state.tokens.shape[:2] == (2, 4)
     with pytest.raises(NotImplementedError, match="TDT"):
         TLock(tp, dataclasses.replace(cfg, tdt_durations=(0, 1, 2)), vocab,
               cc, n_streams=2)

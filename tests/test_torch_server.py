@@ -645,14 +645,15 @@ def test_ws_disconnect_frees_slot(cc, server_factory):
 
 
 def test_refiner_requires_segment_audio_and_a_later_slice(tiny, cc):
-    """The ValueError for an engine without keep_segment_audio comes first;
-    with one, any refiner names the decode-variants slice."""
+    """A refiner needs an engine built with keep_segment_audio (the JAX
+    package's ValueError); with one, the server takes it (the refiner is
+    ported: tests/test_torch_refine.py)."""
     with pytest.raises(ValueError, match="keep_segment_audio"):
         ASRServer(make_engine(tiny, cc), refiner=object())
     eng = make_engine(tiny, cc, endpoint_silence_s=1.0,
                       keep_segment_audio=True)
-    with pytest.raises(NotImplementedError, match="decode-variants"):
-        ASRServer(eng, refiner=object())
+    refiner = object()
+    assert ASRServer(eng, refiner=refiner).refiner is refiner
 
 
 def test_endpoint_inside_finalize_is_dropped_as_in_jax():
@@ -772,20 +773,19 @@ def test_asr_server_refuses_later_flags(capsys):
     from nemotron_tpu_torch import asr_server
 
     for argv, slice_name in (
-            (["--beam", "4"], "decode-variants"),
-            (["--lm", "lm.gguf"], "decode-variants"),
-            (["--lm-weight", "0.5"], "decode-variants"),
-            (["--ctc"], "decode-variants"), (["--refine"], "decode-variants"),
-            (["--refine-beam", "2"], "decode-variants"),
+            (["--ctc"], "TDT/CTC"),
             (["--dsp", "native"], "native-bindings"),
             (["--coordinator", "h:1"], "multi-GPU")):
         assert asr_server.main(["asr_server", FIXTURE, *argv]) == 1
         assert f"the {slice_name} slice" in capsys.readouterr().err
     assert asr_server.main(["asr_server", FIXTURE, "--bogus"]) == 1
     assert "unsupported flag --bogus" in capsys.readouterr().err
-    # the quant-tiers flags are ported: taken, the missing model first
+    # the quant-tiers and beam-family flags are ported: taken, the missing
+    # model first
     assert asr_server.main(["asr_server", "missing.gguf", "--kv-int4",
-                            "--rc-by-layer", "13,6,1,0"]) == 1
+                            "--rc-by-layer", "13,6,1,0", "--beam", "4",
+                            "--lm", "lm.gguf", "--lm-weight", "0.5",
+                            "--refine", "--refine-beam", "2"]) == 1
     err = capsys.readouterr().err
     assert "model file not found" in err and "slice" not in err
     assert asr_server.main(["asr_server", FIXTURE, "--cpu", "--rc-by-layer",

@@ -731,11 +731,18 @@ def check_endpoint_events(events, eng, truth1, truth2):
 def test_engine_refuses_later_slices_and_resolves_auto(tiny, tmp_path):
     _jp, tp, cfg, vocab = tiny
     cc = TCC(**CC_KW, n_mels=cfg.n_mels)
-    for kw in ({"beam_size": 4}, {"ctc": True}, {"lm": object()},
-               {"beam_size": 4, "confidence": True}, {"mesh": object()},
-               {"dsp": "native"}):
+    for kw in ({"ctc": True}, {"mesh": object()}, {"dsp": "native"}):
         with pytest.raises(NotImplementedError):
             TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, **kw)
+    # the beam family is ported (tests/test_torch_beam.py): an LM without
+    # a beam and a beam with confidence raise the JAX package's ValueErrors
+    for kw, match in (({"lm": object()}, "LM shallow fusion requires"),
+                      ({"beam_size": 4, "confidence": True},
+                       "confidence requires greedy")):
+        with pytest.raises(ValueError, match=match):
+            TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, **kw)
+    assert TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
+                   beam_size=4).beam_state.scores.shape == (2, 4)
     with pytest.raises(NotImplementedError, match="TDT"):
         TEngine(tp, dataclasses.replace(cfg, tdt_durations=(0, 1, 2)),
                 vocab, cc, n_slots=2)

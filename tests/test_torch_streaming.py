@@ -221,11 +221,17 @@ def test_session_q8_tokens_match_jax(models):
 
 
 def test_session_refuses_other_decoders(fixture_models):
+    """CTC names the TDT/CTC slice and tracing the utils slice; a beam
+    session is built (tests/test_torch_beam.py holds it to JAX), and with
+    confidence it raises the JAX package's ValueError."""
     _, (tp, tc, tv) = fixture_models
-    for kw in ({"beam_size": 4}, {"ctc": True}, {"trace_dir": "x"},
-               {"beam_size": 4, "confidence": True}):
-        with pytest.raises(NotImplementedError):
+    for kw, match in (({"ctc": True}, "TDT/CTC"), ({"trace_dir": "x"},
+                                                   "utils")):
+        with pytest.raises(NotImplementedError, match=match):
             TSession(tp, tc, tv, **kw)
+    with pytest.raises(ValueError, match="confidence requires greedy"):
+        TSession(tp, tc, tv, beam_size=4, confidence=True)
+    assert TSession(tp, tc, tv, beam_size=4).beam_state.h.shape[1] == 4
 
 
 def test_cli_stdout_matches_jax_cli(tmp_path):
