@@ -37,7 +37,8 @@ Phases (any failure exits non-zero):
      with the CPU.
   5. W8A8 serving tier (slice 2): the same GGUF turned into W8A8 in memory
      (quantize_model_params), streamed in bf16 over 8 streams with int8 K/V
-     rings in all four modes, then with the shared x-ring at R=13; launch
+     rings in all four modes (4 s; 2 s at R = 0 and 1), then with the
+     shared x-ring at R=13; launch
      counts per chunk; the f32 R=13 session's tokens, encoder output and
      caches against the port's CPU run; bf16 against f32 on the card. In
      the profile of R=13 chunks each W8A8 call must be one kernel launch
@@ -58,8 +59,9 @@ Phases (any failure exits non-zero):
      error, its agreement with the f32 card run, chunk ms and RTF.
   8. serving engine (slice 8): the ragged ServingEngine at full width, 64
      slots (48 fed at the real-time rate, 16 at half rate, 8 evicted and
-     re-admitted, every slot finalized), 4 s of audio a stream: W8A8 +
-     int8 K/V in bf16 with the DSP on the device in all four modes (step
+     re-admitted, every slot finalized), 4 s of audio a stream (2 s at
+     R = 0 and 1, SHORT_SECONDS): W8A8 + int8 K/V in bf16 with the DSP
+     on the device in all four modes (step
      p50/p90 against the mode's shift, aggregate RTF, tokens, peak memory;
      one attention and ten W8A8 launches a layer an encoder step; four
      tracked streams against solo bf16 sessions, >= 95% of token
@@ -105,7 +107,8 @@ Phases (any failure exits non-zero):
      M = 8, 16, 112 and 896 for every (K, N) of a layer, timed per layer
      beside the dynamic mode and _int_mm. Then, on the full-width GGUF:
      SmoothQuant calibrated on the card on 4 s of seeded PCM, w8a8-sq-static
-     with int4 rings (bf16, 8 streams) in the four modes (launches a step
+     with int4 rings (bf16, 8 streams) in the four modes (2 s of audio
+     at R = 0 and 1, 4 s at 6 and 13, as the W8A8 path's; launches a step
      by name: 24 int4 attention, 240 W8A8), readings against the int8
      dynamic tier and the port's CPU run; --rc-by-layer 13,6,1,0 on Q8_0
      f32 (tokens equal to the CPU's); the 64-slot engine on the new tier
@@ -157,7 +160,26 @@ Phases (any failure exits non-zero):
      transcribe_batch with LM rescoring and 4-best lists,
      asr_server --refine on tones_tiny_sil.gguf and the streaming CLI with
      --boost (greedy, and with --beam --lm).
- 14. one JSON line of kernel results, the card's name and power limit, and
+ 14. TDT and CTC decoding (slice 15), on a second seeded full-width GGUF
+     with the TDT fixture's durations (0-4) and a CTC head, its heads
+     shaped so that the argmaxes have wide margins (shape_tdt_ctc_heads),
+     written and decoded on the CPU by a child process while the lockstep
+     and beam phases run: Q8_0 f32 S = 1 over 8 chunks in the four modes,
+     the TDT walk with confidence and ctc=True, card against CPU (tokens
+     with frames, tdt_skip and ctc_prev equal, confidences within 1e-3),
+     24 / 240 launches a chunk; the walk chunked against one call over the
+     same frames, K = 1 beam against the walk, the host syncs of a chunk;
+     the K = 4 TDT beam card against CPU (compare_beams, t and sym equal);
+     the 64-slot engine (TDT host DSP, CTC device DSP) and the lockstep
+     engine (8 streams) in both families against solo sessions; readings
+     of W8A8 + int8 K/V bf16 (S = 8 chunk ms in the four modes, the
+     64-slot engine's tick p50 / p90, a profile and the decode's device
+     ms for TDT greedy, TDT beam and CTC). Then the trained fixtures
+     against the CPU: tones_tiny_tdt.gguf (greedy, and K = 4 with
+     tones_tiny_lm.gguf) and tones_tiny_hybrid.gguf with ctc=True over the
+     tones streams, asr_server --ctc (READY's decode "ctc", FINAL equal to
+     --cpu) and cli_transcribe --ctc against --cpu.
+ 15. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -182,6 +204,11 @@ import numpy as np
 SEED = 0
 AUDIO_SECONDS = 4.0
 MODES = (0, 1, 6, 13)
+# the R = 0 and 1 runs of the four-mode readings (the W8A8 path, the
+# engine, the quant tiers, lockstep) take the first SHORT_SECONDS of each
+# stream: 25-50 chunks a stream of one kind (lockstep since PR 13, the
+# others since PR 15, to keep the script near 950 s)
+SHORT_SECONDS = 2.0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s per type. The
 # Q8 and attention kernels run f32 and bf16 on the CUDA cores (FFMA, f32
 # accumulation) and the W8A8 kernel its integer product on the tensor cores
@@ -287,6 +314,29 @@ BEAM_LM_WEIGHT = 0.3
 TOL_BEAM_SCORE = 1e-3
 TONES_NBEST_KW = dict(beam_size=BEAM_K, return_nbest=BEAM_K,
                       lm_weight=BEAM_LM_WEIGHT, lm_rescore=True)
+# slice 15: TDT and CTC. A second seeded full-width GGUF with the TDT
+# fixture's durations and a CTC head (Q8_0 encoder matmuls). At the seed's
+# scale the heads' logits are nearly flat, and the random encoder's output
+# is mostly one vector for every frame (its frame-to-frame spread is a fifth
+# of its size), so the duration head prefers duration 0 on every frame (no
+# jump) and the other argmaxes sit on small margins. Shaped: the rows of
+# the TDT_ACTIVE labels, in the token head and the CTC head, scaled by
+# TDT_HEAD_SCALE (each argmax falls among them, with wide margins; blank's
+# row stays, so labels win: with it scaled too, blank won every frame at
+# R = 1 and no token was emitted, PR 15 chip run 1), and duration TDT_JUMP
+# biased by TDT_JUMP_BIAS (the walk jumps TDT_JUMP frames and overshoots
+# the chunk's end, so the skip carry works; blank jumps are compared on
+# the trained TDT fixture). Rehearsed on the CPU at d_model 128, 24
+# layers. The LSTM
+# stays as it is (PR 14: a scaled 640-wide LSTM is chaotic). The
+# card-vs-CPU sessions run TDT_CHUNKS chunks; the W8A8 readings
+# TDT_READ_SECONDS of audio a stream.
+TDT_DURATIONS = (0, 1, 2, 3, 4)
+TDT_ACTIVE = (5, 17, 101, 257, 500, 733, 900, 1001)
+TDT_HEAD_SCALE = 8.0
+TDT_JUMP, TDT_JUMP_BIAS = 3, 6.0
+TDT_CHUNKS = 8
+TDT_READ_SECONDS = 2.0
 
 
 def log(msg: str) -> None:
@@ -1013,14 +1063,53 @@ def write_full_width_gguf(path: str):
     """Seeded full-width random-weight GGUF, encoder matmuls as Q8_0 (the
     reference converter's default selection), with the converter's conv
     weight layouts and a joint bias on token 5 so that tokens are emitted."""
-    from nemotron_tpu_torch import gguf
     from nemotron_tpu_torch.config import ModelConfig
-    from nemotron_tpu_torch.ops.quant import should_quantize
     from nemotron_tpu_torch.params import random_weight_arrays
 
     cfg = ModelConfig()
     arrays = random_weight_arrays(cfg, seed=SEED)
     arrays["joint.joint_net.2.bias"][5] = 2.0
+    return write_gguf_of(path, cfg, arrays)
+
+
+def shape_tdt_ctc_heads(arrays: dict, cfg) -> dict:
+    """The TDT_ACTIVE labels' rows of the joint's token head and of the
+    CTC head scaled by TDT_HEAD_SCALE, and duration TDT_JUMP's bias raised
+    by TDT_JUMP_BIAS (in place; returns `arrays`)."""
+    k = np.float32(TDT_HEAD_SCALE)
+    rows = list(TDT_ACTIVE)
+    for name in ("joint.joint_net.2", "ctc_decoder.decoder_layers.0"):
+        arrays[f"{name}.weight"][rows] *= k
+        arrays[f"{name}.bias"][rows] *= k
+    jump = cfg.vocab_size + list(cfg.tdt_durations).index(TDT_JUMP)
+    arrays["joint.joint_net.2.bias"][jump] += np.float32(TDT_JUMP_BIAS)
+    return arrays
+
+
+def write_tdt_ctc_gguf(path: str):
+    """The seeded full-width TDT GGUF with a CTC head (TDT_DURATIONS, heads
+    shaped by shape_tdt_ctc_heads, Q8_0 encoder matmuls), written to a
+    temporary name and renamed, so that a reader never sees it half
+    written."""
+    from nemotron_tpu_torch.config import ModelConfig
+    from nemotron_tpu_torch.params import random_weight_arrays
+
+    cfg = ModelConfig(tdt_durations=TDT_DURATIONS)
+    arrays = shape_tdt_ctc_heads(
+        random_weight_arrays(cfg, seed=SEED + 15, ctc_head=True), cfg)
+    n = write_gguf_of(path + ".part", cfg, arrays)
+    os.replace(path + ".part", path)
+    return n
+
+
+def write_gguf_of(path: str, cfg, arrays: dict):
+    """`arrays` (random_weight_arrays' names and layouts) as a GGUF in the
+    converter's conv layouts, encoder matmuls as Q8_0, with the config's
+    metadata (nemo.tdt_durations for a TDT config). Returns the number of
+    Q8_0 tensors."""
+    from nemotron_tpu_torch import gguf
+    from nemotron_tpu_torch.ops.quant import should_quantize
+
     for name, a in list(arrays.items()):
         if name.endswith(".conv.depthwise_conv.weight") and a.ndim == 3:
             arrays[name] = a.squeeze(1).T
@@ -1039,6 +1128,8 @@ def write_full_width_gguf(path: str):
         "nemo.kernel_size": cfg.kernel_size,
         "nemo.vocab_size": cfg.vocab_size,
     }
+    if cfg.tdt_durations:
+        meta["nemo.tdt_durations"] = list(cfg.tdt_durations)
     gguf.write_gguf(path, meta, arrays, quantize=quantize)
     return len(quantize)
 
@@ -1052,6 +1143,11 @@ def full_width_model(gguf_path: str, device: str):
     from nemotron_tpu_torch.params import load_model
 
     return load_model(gguf_path, device=device)
+
+
+def mode_seconds(R: int) -> float:
+    """The audio a stream of the four-mode readings takes at mode R."""
+    return SHORT_SECONDS if R < 6 else AUDIO_SECONDS
 
 
 def seeded_pcm(stream: int = 0, seconds: float = AUDIO_SECONDS) -> np.ndarray:
@@ -1324,7 +1420,8 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        sess = run_session(params, cfg, vocab, cc, pcm, bf16)
+        sess = run_session(params, cfg, vocab, cc,
+                           pcm[:, :int(mode_seconds(R) * 16000)], bf16)
         torch.cuda.synchronize()
         n = kernel_counts()
         counts = (n["attn"], n["w8a8"], n["q8"])
@@ -1851,14 +1948,14 @@ def tracked_streams(n: int) -> list:
     return [0, n - ENGINE_HALF, n, n + ENGINE_EVICT // 2]
 
 
-def solo_session(params, cfg, vocab, cc, pcm, dtype) -> dict:
-    """One StreamSession over one stream's PCM: the tokens of the chunks of
-    real audio ("streamed", before the finalize) and the frames they
-    cover, and the tokens after the finalize ("final"), whose last chunk
-    is padded with zero mel."""
+def solo_session(params, cfg, vocab, cc, pcm, dtype, **kw) -> dict:
+    """One StreamSession (options `kw`) over one stream's PCM: the tokens
+    of the chunks of real audio ("streamed", before the finalize) and the
+    frames they cover, and the tokens after the finalize ("final"), whose
+    last chunk is padded with zero mel."""
     from nemotron_tpu_torch.streaming.session import StreamSession
 
-    sess = StreamSession(params, cfg, vocab, cc, compute_dtype=dtype)
+    sess = StreamSession(params, cfg, vocab, cc, compute_dtype=dtype, **kw)
     sess.process(pcm)
     out = dict(streamed=list(sess.get_tokens(0)), frames=sess.frame_offset)
     sess.finalize()
@@ -2040,8 +2137,9 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
         t0 = time.perf_counter()
         cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
                          kv_cache_int8=True)
-        plan = ragged_plan(n, ENGINE_SECONDS, cc.shift_samples)
-        run, _ = timed_run(w8_params, cc, bf16, "device", n, plan)
+        plan = ragged_plan(n, mode_seconds(R), cc.shift_samples)
+        run, _ = timed_run(w8_params, cc, bf16, "device", n, plan,
+                           seconds=mode_seconds(R))
         res = summary(run, R)
         check_engine_launches(f"W8A8 R={R}", run["counts"],
                               run["encoder_steps"], cfg, 10, "w8a8", failures)
@@ -3336,7 +3434,8 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
         run_session(sq, cfg, vocab, cc, pcm[:, :cc.chunk_samples * 2], bf16)
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
-        sess, n = count(lambda: run_session(sq, cfg, vocab, cc, pcm, bf16))
+        sess, n = count(lambda: run_session(
+            sq, cfg, vocab, cc, pcm[:, :int(mode_seconds(R) * 16000)], bf16))
         chunks = sess.total_chunks
         toks = [sess.get_tokens(s) for s in range(S)]
         res = dict(chunks=chunks, tokens=sum(map(len, toks)),
@@ -3852,7 +3951,7 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
         t0 = time.perf_counter()
         cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
                          kv_cache_int8=True)
-        pcm = pcm64[:, :pcm64.shape[1] // 2] if R < 6 else pcm64
+        pcm = pcm64[:, :int(mode_seconds(R) * 16000)]
         res = dict(limit_ms=SHIFT_MS[R], lockstep=[], engine=[])
         for kind in ("lockstep", "engine", "engine", "lockstep"):
             gc.collect()
@@ -4318,7 +4417,6 @@ def beam_phase(gguf_path: str, failures: list) -> dict:
     from nemotron_tpu_torch.params import quantize_model_params
     from nemotron_tpu_torch.streaming.lockstep import LockstepEngine
     from nemotron_tpu_torch.streaming.serving import ServingEngine
-    from nemotron_tpu_torch.streaming.session import StreamSession
 
     f32, bf16 = torch.float32, torch.bfloat16
     tmp = tempfile.mkdtemp()
@@ -4346,19 +4444,7 @@ def beam_phase(gguf_path: str, failures: list) -> dict:
     pcm = seeded_pcm(0)
     for R in MODES:
         cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels)
-        pre = StreamSession(qp, cfg, vocab, cc).preproc
-        mel = pre.process(pcm[None])
-        st = enc_mod.init_encoder_state(cfg, cc, 1, f32, qp.device)
-        ph = enc_mod.precompute_pos_heads(qp, cfg, cc)
-        mel = np.concatenate([np.zeros((1, cc.pre_encode_cache_size,
-                                        cfg.n_mels), np.float32), mel], 1)
-        encs = []
-        for i in range(0, mel.shape[1] - cc.chunk_mel_frames + 1,
-                       cc.shift_mel_frames):
-            o, st = enc_mod.encode_chunk(qp, cfg, cc, torch.from_numpy(
-                np.ascontiguousarray(mel[:, i:i + cc.chunk_mel_frames]))
-                .cuda(), st, ph)
-            encs.append(o)
+        encs = chunk_encoder_outputs(qp, cfg, cc, pcm)
         bst = beam_mod.init_beam_state(cfg, 1, 1, BEAM_MAX_TOKENS, f32,
                                        qp.device)
         for o in encs:
@@ -4849,6 +4935,686 @@ def beam_tones_phase(failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 15: TDT and CTC decoding
+# ---------------------------------------------------------------------------
+
+def tdt_pcm(cc, stream: int = 0) -> np.ndarray:
+    """[1, N] seeded PCM for TDT_CHUNKS chunks of `cc` (and one shift
+    more)."""
+    return seeded_pcm(stream, (TDT_CHUNKS + 1) * cc.shift_samples
+                      / 16000)[None]
+
+
+def tdt_ctc_trace(params, cfg, vocab, cc, pcm, dtype, chunks=None, **kw):
+    """A StreamSession (options `kw`) over `pcm` [S, N], one chunk shift of
+    samples a call, stopped once `chunks` chunks ran (None: the whole PCM,
+    no finalize). Returns the session and, for each chunk, stream 0's new
+    tokens and its carry after the chunk (ctc_prev with ctc=True, else
+    tdt_skip)."""
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    sess = StreamSession(params, cfg, vocab, cc, n_streams=pcm.shape[0],
+                         compute_dtype=dtype, **kw)
+    q = cc.shift_samples
+    trace = []
+    for i in range(0, pcm.shape[1], q):
+        if chunks is not None and sess.total_chunks >= chunks:
+            break
+        k, n = sess.total_chunks, len(sess.get_tokens(0))
+        sess.process(pcm[:, i:i + q])
+        if sess.total_chunks > k:
+            carry = sess.ctc_prev[0] if sess.ctc else sess.tdt_skip[0]
+            trace.append(dict(tokens=[list(t) for t in sess.get_tokens(0)[n:]],
+                              carry=int(carry)))
+    return sess, trace
+
+
+def tdt_beam_rows(state, rows=None) -> list:
+    """beam_rows of a TdtBeamState with each slot's time pointer (t) and
+    symbol count (sym)."""
+    out = beam_rows(state, rows)
+    t, sym = state.t.cpu().tolist(), state.sym.cpu().tolist()
+    for r, row in zip(range(len(t)) if rows is None else rows, out):
+        row.update(t=t[r], sym=sym[r])
+    return out
+
+
+def chunk_encoder_outputs(params, cfg, cc, pcm, chunks=None) -> list:
+    """The encoder outputs [1, T, D] of a one-stream session's chunks over
+    `pcm` [N] (the 9-frame zero seed, one chunk shift a step; the first
+    `chunks` of them, or all), computed directly."""
+    import torch
+
+    from nemotron_tpu_torch.config import PreprocessorConfig
+    from nemotron_tpu_torch.frontend.preprocessor import StreamingPreprocessor
+    from nemotron_tpu_torch.models import encoder as enc_mod
+
+    pre = StreamingPreprocessor(
+        params.preprocessor.filterbank.float().cpu().numpy(),
+        params.preprocessor.window.float().cpu().numpy(),
+        cfg=PreprocessorConfig(n_mels=cfg.n_mels), device=params.device)
+    mel = np.concatenate([np.zeros((1, cc.pre_encode_cache_size, cfg.n_mels),
+                                   np.float32), pre.process(pcm[None])], 1)
+    st = enc_mod.init_encoder_state(cfg, cc, 1, torch.float32, params.device)
+    ph = enc_mod.precompute_pos_heads(params, cfg, cc)
+    outs = []
+    for i in range(0, mel.shape[1] - cc.chunk_mel_frames + 1,
+                   cc.shift_mel_frames):
+        o, st = enc_mod.encode_chunk(params, cfg, cc, torch.from_numpy(
+            np.ascontiguousarray(mel[:, i:i + cc.chunk_mel_frames])).to(
+                params.device), st, ph)
+        outs.append(o)
+        if len(outs) == chunks:
+            break
+    return outs
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): its result and
+    the host syncs it made (the warnings that mode raises), by the source
+    line that made them ({"file:line": count})."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    where: dict[str, int] = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return r, where
+
+
+def cpu_tdt_ctc_reference(tdt_path: str, out_path: str) -> None:
+    """tdt_ctc_phase's CPU references: first the phase's GGUF
+    (write_tdt_ctc_gguf; the card waits for it), then, on the CPU, the TDT
+    greedy session with confidence and the CTC session over TDT_CHUNKS
+    chunks in the four modes (tdt_ctc_trace) and the K = BEAM_K TDT beam
+    over TDT_CHUNKS chunks at R = 13 (tdt_beam_rows), as JSON."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model
+
+    write_tdt_ctc_gguf(tdt_path)
+    params, cfg, vocab = load_model(tdt_path, device="cpu")
+    out = {"tdt": {}, "ctc": {}}
+    for R in MODES:
+        cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels)
+        for fam, kw in (("tdt", dict(confidence=True)), ("ctc", dict(
+                ctc=True))):
+            _, out[fam][f"R={R}"] = tdt_ctc_trace(
+                params, cfg, vocab, cc, tdt_pcm(cc), torch.float32,
+                TDT_CHUNKS, **kw)
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    sess, _ = tdt_ctc_trace(params, cfg, vocab, cc, tdt_pcm(cc),
+                            torch.float32, TDT_CHUNKS, beam_size=BEAM_K,
+                            max_beam_tokens=BEAM_MAX_TOKENS)
+    out["beam"] = dict(rows=tdt_beam_rows(sess.beam_state),
+                       chunks=sess.total_chunks)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+
+
+def tdt_ctc_phase(tdt_path: str, ref_job, ref_path: str, w8_runs: dict,
+                  failures: list) -> dict:
+    """Slice 15 at full width: the second seeded GGUF (TDT_DURATIONS, a CTC
+    head, the heads shaped by shape_tdt_ctc_heads), written and decoded on
+    the CPU by the child `ref_job` while the earlier phases ran.
+    (1) card vs CPU, Q8_0 f32 S = 1, TDT_CHUNKS chunks, the four modes:
+        the TDT walk with confidence (each chunk's tokens with frames and
+        tdt_skip equal, confidences within TOL_CONF_ABS) and ctc=True
+        (tokens with frames and ctc_prev equal); 24 attention and 240 Q8
+        launches a chunk; what they compared printed (tokens, the walk's
+        jumps and overshoots; the CTC ids and the repeats collapsed).
+    (2) the R = 13 stream's encoder outputs: the walk chunk by chunk with
+        the skip carry equal to one call over all the chunks' frames (the
+        JAX package's streaming gate, tests/test_tdt_streaming.py) and to
+        the session's tokens; the K = 1 beam equal to the walk (tokens and
+        overshoot; tests/test_tdt.py); the host syncs of one TDT greedy
+        chunk and of one K = BEAM_K beam chunk (readings).
+    (3) card vs CPU, the K = BEAM_K TDT beam over TDT_CHUNKS chunks at
+        R = 13: compare_beams, and t and sym equal in every slot.
+    (4) the 64-slot ServingEngine, Q8_0 f32, the engine phase's ragged
+        schedule, TDT greedy with host DSP (finalized tokens of the tracked
+        streams equal to solo sessions') and CTC with device DSP (their
+        tokens over the chunks of real audio); the LockstepEngine, 8
+        streams, in both families (the real-audio chunks' tokens equal to
+        solo sessions'); every compared list non-empty.
+    (5) readings, W8A8 + int8 K/V bf16: mean chunk ms at S = 8 in the four
+        modes for TDT greedy and CTC (beside this run's RNN-T greedy), the
+        64-slot device-DSP engine's tick p50 / p90 at R = 13 for TDT
+        greedy, TDT beam K = BEAM_K and CTC, a 3-tick profile of each and
+        the decode's own device ms for a 64-slot chunk."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.models import ctc as ctc_mod
+    from nemotron_tpu_torch.models import decoder as dec_mod
+    from nemotron_tpu_torch.models import encoder as enc_mod
+    from nemotron_tpu_torch.models import tdt as tdt_mod
+    from nemotron_tpu_torch.models.beam import best_hypothesis
+    from nemotron_tpu_torch.params import quantize_model_params
+    from nemotron_tpu_torch.streaming.lockstep import LockstepEngine
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t0 = time.perf_counter()
+    t_end = time.time() + 900
+    while not os.path.exists(tdt_path):
+        if ref_job.poll() is not None:
+            finish_job(ref_job, ref_path)          # raises with its stderr
+        if time.time() > t_end:
+            raise RuntimeError("the TDT/CTC GGUF was not written in 900 s")
+        time.sleep(1.0)
+    q8, cfg, vocab = full_width_model(tdt_path, "cuda")
+    dev, blank = q8.device, cfg.blank_token
+    card_name = gpu_name_and_power()
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    out = {}
+    V, D = cfg.vocab_size, len(cfg.tdt_durations or ())
+    log(f"phase TDT/CTC: the GGUF waited for and loaded in "
+        f"{time.perf_counter() - t0:.1f} s; durations {cfg.tdt_durations}, "
+        f"joint output "
+        f"{tuple(q8.joint.out_w.shape)}, CTC head "
+        f"{None if q8.ctc is None else tuple(q8.ctc.out_w.shape)}, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {V}")
+    if (cfg.tdt_durations != TDT_DURATIONS or q8.ctc is None
+            or tuple(q8.joint.out_w.shape) != (cfg.joint_dim, V + D)):
+        failures.append(f"TDT/CTC GGUF: durations {cfg.tdt_durations}, "
+                        f"joint {tuple(q8.joint.out_w.shape)}, CTC head "
+                        f"{q8.ctc is not None}")
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def want_counts(chunks, kernel):
+        other = "w8a8" if kernel == "q8" else "q8"
+        return {"attn": cfg.n_layers * chunks,
+                kernel: 10 * cfg.n_layers * chunks, other: 0}
+
+    cc_of = {R: CacheConfig(att_right_context=R, n_mels=cfg.n_mels)
+             for R in MODES}
+    cc13 = cc_of[13]
+    families = (("tdt", dict(confidence=True)), ("ctc", dict(ctc=True)))
+
+    # (1) card sessions, the four modes (compared with the CPU at the end)
+    tdt_ctc_trace(q8, cfg, vocab, cc13, tdt_pcm(cc13)[:, :2
+                                                   * cc13.shift_samples],
+                  f32, confidence=True)                        # warm-up
+    card = {"tdt": {}, "ctc": {}}
+    for R in MODES:
+        for fam, kw in families:
+            (sess, trace), n = counted(lambda: tdt_ctc_trace(
+                q8, cfg, vocab, cc_of[R], tdt_pcm(cc_of[R]), f32,
+                TDT_CHUNKS, **kw), launches)
+            card[fam][R] = dict(trace=trace, counts=n,
+                                chunk_ms=sess.chunk_seconds
+                                / max(sess.total_chunks, 1) * 1e3)
+            if (sess.total_chunks != TDT_CHUNKS
+                    or n != want_counts(TDT_CHUNKS, "q8")):
+                failures.append(f"TDT/CTC {fam} R={R}: "
+                                f"{sess.total_chunks} chunks, launches {n}")
+
+    # (2) the walk on the R = 13 stream's encoder outputs
+    encs = chunk_encoder_outputs(q8, cfg, cc13, tdt_pcm(cc13)[0], TDT_CHUNKS)
+    T = encs[0].shape[1]
+    st, skip, walk, skips = (dec_mod.init_decoder_state(cfg, 1, f32, dev),
+                             None, [], [])
+    for i, e in enumerate(encs):
+        toks, st, skip = tdt_mod.tdt_greedy_decode(q8, cfg, e, st,
+                                                   skip_in=skip)
+        walk += [(t, f + i * T) for t, f in
+                 dec_mod.tokens_to_list(toks[0].cpu().numpy(), blank)]
+        skips.append(int(skip[0]))
+    one = tdt_mod.tdt_greedy_decode(q8, cfg, torch.cat(encs, 1),
+                                    dec_mod.init_decoder_state(cfg, 1, f32,
+                                                               dev))[0]
+    one = dec_mod.tokens_to_list(one[0].cpu().numpy(), blank)
+    sess13 = [tuple(t[:2]) for c in card["tdt"][13]["trace"]
+              for t in c["tokens"]]
+    frames = sorted({f for _, f in walk})
+    jumps = sorted(set(np.diff(frames).tolist())) if len(frames) > 1 else []
+    bst = tdt_mod.init_tdt_beam_state(cfg, 1, 1, BEAM_MAX_TOKENS, f32, dev)
+    for e in encs:
+        bst = tdt_mod.tdt_beam_decode(q8, cfg, e, bst, 1)
+    btok, blen, _ = best_hypothesis(bst)
+    k1 = btok[0, :int(blen[0])].tolist()
+    k1_same = k1 == [t for t, _ in walk] and int(bst.t[0, 0]) == skips[-1]
+    ids = ctc_mod.frame_ids(q8, torch.cat(encs, 1))[0].tolist()
+    nb = [i for i in ids if i != blank]
+    repeats = sum(a == b != blank for a, b in zip(ids, ids[1:]))
+    out["walk"] = dict(tokens=len(walk), distinct=len({t for t, _ in walk}),
+                       frames_emitting=len(frames), frames=T * len(encs),
+                       emission_gaps=jumps, skips=skips,
+                       chunked_equals_one_shot=walk == one,
+                       session_equals_walk=sess13 == walk,
+                       k1_equals_greedy=k1_same,
+                       ctc_distinct=len(set(nb)), ctc_repeats=repeats,
+                       ctc_blank_frames=len(ids) - len(nb))
+    log(f"  TDT walk R=13 over {len(encs)} chunks ({T} frames each): "
+        f"{len(walk)} tokens ({out['walk']['distinct']} ids) on "
+        f"{len(frames)} of {T * len(encs)} frames, gaps between emitting "
+        f"frames {jumps}, overshoot carried {skips}; chunked with the skip "
+        f"carry equal to one call over all frames {walk == one}, equal to "
+        f"the session's {sess13 == walk}; K=1 beam equal to it (tokens "
+        f"and overshoot) {k1_same}; CTC head on the same frames: "
+        f"{len(set(nb))} distinct non-blank ids, {repeats} repeats "
+        f"collapsed, {len(ids) - len(nb)} blank frames")
+    if not (walk and walk == one and sess13 == walk and k1_same
+            and max(jumps or [0]) > 1 and len(set(nb)) >= 2 and repeats):
+        failures.append(f"TDT walk: {out['walk']}")
+    g_out, g_syncs = count_syncs(lambda: tdt_mod.tdt_greedy_decode(
+        q8, cfg, encs[-1], st, skip_in=skip, with_iters=True))
+    bst4 = tdt_mod.init_tdt_beam_state(cfg, 1, BEAM_K, BEAM_MAX_TOKENS, f32,
+                                       dev)
+    _, b_syncs = count_syncs(lambda: tdt_mod.tdt_beam_decode(
+        q8, cfg, encs[-1], bst4, BEAM_K))
+    out["syncs"] = dict(greedy=sum(g_syncs.values()), greedy_at=g_syncs,
+                        greedy_iterations=g_out[-1],
+                        beam=sum(b_syncs.values()), beam_at=b_syncs)
+    log(f"  host syncs of one R=13 chunk ({T} frames) under "
+        f"set_sync_debug_mode('warn'): TDT greedy {sum(g_syncs.values())} "
+        f"({g_out[-1]} loop iterations; by line {json.dumps(g_syncs)}), "
+        f"TDT beam K={BEAM_K} {sum(b_syncs.values())} (by line "
+        f"{json.dumps(b_syncs)})")
+
+    # (3) the K = BEAM_K TDT beam session (compared with the CPU at the end)
+    (bsess, _), bcounts = counted(lambda: tdt_ctc_trace(
+        q8, cfg, vocab, cc13, tdt_pcm(cc13), f32, TDT_CHUNKS,
+        beam_size=BEAM_K, max_beam_tokens=BEAM_MAX_TOKENS), launches)
+    brows = tdt_beam_rows(bsess.beam_state)
+    if bcounts != want_counts(bsess.total_chunks, "q8"):
+        failures.append(f"TDT beam session: launches {bcounts}")
+
+    # (4) the engines against solo sessions
+    n = ENGINE_SLOTS
+    plan = ragged_plan(n, ENGINE_SECONDS, cc13.shift_samples)
+    out["engine"], out["lockstep"] = {}, {}
+    for (fam, kw), dsp in zip(families, ("numpy", "device")):
+        kw = {k: v for k, v in kw.items() if k == "ctc"}
+        t0 = time.perf_counter()
+        eng = ServingEngine(q8, cfg, vocab, cc13, n_slots=n,
+                            compute_dtype=f32, dsp=dsp, **kw)
+        with EncoderTap() as tap:
+            run, counts = counted(lambda: engine_schedule(
+                eng, lambda sid: seeded_pcm(sid, ENGINE_SECONDS), **plan),
+                launches)
+        check_engine_launches(f"{fam} {dsp} DSP", counts, tap.calls, cfg,
+                              10, "q8", failures)
+        same, lens = [], []
+        for sid in tracked_streams(n):
+            solo = solo_session(q8, cfg, vocab, cc13, run["pcm"][sid], f32,
+                                **kw)
+            got, want = ((run["finals"][sid], solo["final"]) if dsp == "numpy"
+                         else (streamed_part(run["finals"][sid], solo),
+                               solo["streamed"]))
+            same.append(got == want and len(want) > 0)
+            lens.append(len(want))
+        lat = run["latency"]
+        out["engine"][fam] = dict(dsp=dsp, tokens_equal=same, tokens=lens,
+                                  p50_ms=lat["p50"] * 1e3,
+                                  p90_ms=lat["p90"] * 1e3, launches=counts,
+                                  encoder_steps=tap.calls)
+        log(f"  engine {n} slots {fam.upper()} Q8_0 f32 {dsp} DSP R=13 "
+            f"(ragged): tracked streams' tokens equal to solo sessions "
+            f"{same} ({lens} tokens; {'finalized' if dsp == 'numpy' else 'the real-audio chunks'}), "
+            f"step p50 {lat['p50'] * 1e3:.2f} / p90 {lat['p90'] * 1e3:.2f} "
+            f"ms, launches {json.dumps(counts)} in {tap.calls} encoder steps "
+            f"(wall {time.perf_counter() - t0:.1f} s)")
+        if not all(same):
+            failures.append(f"engine {fam} {dsp}: tokens equal {same}")
+        del eng, run
+        S = BEAM_LOCK_STREAMS
+        pcm = np.stack([seeded_pcm(s) for s in range(S)])
+        lock = LockstepEngine(q8, cfg, vocab, cc13, n_streams=S,
+                              compute_dtype=f32, **kw)
+        with EncoderTap() as tap:
+            run, counts = counted(lambda: lockstep_run(lock, pcm), launches)
+        check_engine_launches(f"lockstep {fam}", counts, tap.calls, cfg, 10,
+                              "q8", failures)
+        solos = [solo_session(q8, cfg, vocab, cc13, pcm[s], f32, **kw)
+                 for s in range(S)]
+        same = [run["streamed"][s] == solos[s]["streamed"]
+                and len(solos[s]["streamed"]) > 0 for s in range(S)]
+        out["lockstep"][fam] = dict(tokens_equal=same, launches=counts,
+                                    chunks=run["chunks"],
+                                    tokens=run["tokens"])
+        log(f"  lockstep {S} streams {fam.upper()} Q8_0 f32 R=13 "
+            f"({run['chunks']} chunks, {run['tokens']} tokens): tokens of "
+            f"the real-audio chunks equal to solo sessions {same}, launches "
+            f"{json.dumps(counts)} in {tap.calls} encoder steps")
+        if not all(same):
+            failures.append(f"lockstep {fam}: tokens equal {same}")
+        del lock, run, solos
+
+    # (5) readings: W8A8 + int8 K/V bf16
+    w8 = quantize_model_params(q8, mode="w8a8")
+    cc_w = {R: CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
+                           kv_cache_int8=True) for R in MODES}
+    pcm8 = np.stack([seeded_pcm(s, TDT_READ_SECONDS)
+                     for s in range(W8A8_STREAMS)])
+    tdt_ctc_trace(w8, cfg, vocab, cc_w[13], pcm8, bf16)         # warm-up
+    out["w8a8_sessions"] = {}
+    for fam, kw in families:
+        kw = {k: v for k, v in kw.items() if k == "ctc"}
+        for R in MODES:
+            (sess, _), counts = counted(lambda: tdt_ctc_trace(
+                w8, cfg, vocab, cc_w[R], pcm8, bf16, **kw), launches)
+            chunks = sess.total_chunks
+            ms = sess.chunk_seconds / max(chunks, 1) * 1e3
+            rnnt = w8_runs.get(f"R={R}", {}).get("chunk_ms", float("nan"))
+            out["w8a8_sessions"][f"{fam} R={R}"] = dict(
+                chunk_ms=ms, chunks=chunks, rnnt_chunk_ms=rnnt,
+                tokens=sum(len(sess.get_tokens(s))
+                           for s in range(W8A8_STREAMS)))
+            log(f"  W8A8 + int8 K/V bf16 {fam.upper()} S={W8A8_STREAMS} "
+                f"R={R}: mean chunk {ms:.2f} ms over {chunks} chunks (RNN-T "
+                f"greedy in this run's W8A8 path phase: {rnnt:.2f} ms), "
+                f"launches {json.dumps(counts)} ({card_name})")
+            if not chunks or counts != want_counts(chunks, "w8a8"):
+                failures.append(f"TDT/CTC W8A8 {fam} R={R}: launches "
+                                f"{counts}")
+    out["w8a8_engine"] = {}
+    for name, kw in (("tdt", {}), ("tdt beam", dict(
+            beam_size=BEAM_K, max_beam_tokens=BEAM_MAX_TOKENS)),
+                     ("ctc", dict(ctc=True))):
+        eng = ServingEngine(w8, cfg, vocab, cc_w[13], n_slots=n,
+                            compute_dtype=bf16, dsp="device", **kw)
+        run, counts = counted(lambda: engine_ticks(eng, np.stack(
+            [seeded_pcm(s, 2 * ENGINE_SECONDS) for s in range(n)])),
+            launches)
+        res = tick_summary(run, cc_w[13], n)
+        eng = ServingEngine(w8, cfg, vocab, cc_w[13], n_slots=n,
+                            compute_dtype=bf16, dsp="device", **kw)
+        reset_counts()
+        prof = engine_step_profile(eng, 3)
+        add(kernel_counts())
+        busy = prof["busy_us"] / prof["wall_us"] if prof["wall_us"] else 0.0
+        # the decode alone over one 64-slot R = 13 chunk of encoder output
+        st = enc_mod.init_encoder_state(cfg, cc_w[13], n, bf16, dev)
+        mel = torch.randn((n, cc13.chunk_mel_frames, cfg.n_mels),
+                          generator=torch.Generator().manual_seed(SEED))
+        enc_out, _ = enc_mod.encode_chunk(eng.params, cfg, cc_w[13],
+                                          mel.to(dev, bf16), st,
+                                          eng.pos_heads)
+        if name == "ctc":
+            def decode():
+                return ctc_mod.frame_ids(eng.params, enc_out).cpu()
+        elif name == "tdt":
+            dst = dec_mod.init_decoder_state(cfg, n, bf16, dev)
+
+            def decode():
+                return tdt_mod.tdt_greedy_decode(eng.params, cfg, enc_out,
+                                                 dst)[0].cpu()
+        else:
+            bst = tdt_mod.init_tdt_beam_state(cfg, n, BEAM_K,
+                                              BEAM_MAX_TOKENS, bf16, dev)
+
+            def decode():
+                return tdt_mod.tdt_beam_decode(eng.params, cfg, enc_out,
+                                               bst, BEAM_K).scores.cpu()
+        decode()
+        # ten calls a window: CUPTI recorded no kernel of one CTC call (8
+        # launches, 2 ms) in two runs of three
+        reps = 10
+        for _ in range(3):
+            dp = profile_window(lambda: [decode() for _ in range(reps)])
+            if dp["busy_us"] > 0:
+                break
+        dp = dict(wall_us=dp["wall_us"] / reps, busy_us=dp["busy_us"] / reps,
+                  count={k: n / reps for k, n in dp["count"].items()})
+        out["w8a8_engine"][name] = res | dict(
+            launches=counts, busy_share=busy,
+            profile_wall_ms=prof["wall_us"] / 1e3,
+            profile_busy_ms=prof["busy_us"] / 1e3,
+            launches_per_tick=sum(prof["count"].values()) / 3,
+            decode_wall_ms=dp["wall_us"] / 1e3,
+            decode_device_ms=dp["busy_us"] / 1e3,
+            decode_launches=sum(dp["count"].values()))
+        log(f"  engine {n} slots W8A8 bf16 device DSP R=13 {name.upper()}: "
+            f"tick p50 {res['p50_ms']:.2f} / p90 {res['p90_ms']:.2f} ms over "
+            f"{res['chunk_ticks']} chunk ticks, RTF {res['rtf']:.4f}; "
+            f"3-tick profile: wall {prof['wall_us'] / 1e3:.2f} ms, busy "
+            f"{prof['busy_us'] / 1e3:.2f} ms ({100 * busy:.1f}%), "
+            f"{sum(prof['count'].values()) / 3:.0f} launches a tick; the "
+            f"decode alone for a 64-slot chunk (mean of {reps} calls): "
+            f"{dp['busy_us'] / 1e3:.3f} device ms in "
+            f"{dp['wall_us'] / 1e3:.2f} ms, "
+            f"{sum(dp['count'].values()):.0f} launches ({card_name})")
+        for kname, us in prof["by_name"][:6]:
+            log(f"    {us / 3e3:8.3f} ms  {prof['count'][kname] / 3:8.0f} "
+                f"launches a tick  {kname}")
+        if prof["busy_us"] <= 0 or prof["encoder_steps"] != 3:
+            failures.append(f"TDT/CTC engine profile {name}: busy "
+                            f"{prof['busy_us']}, {prof['encoder_steps']} "
+                            "encoder steps")
+        del eng, run
+
+    # card vs CPU
+    ref = finish_job(ref_job, ref_path)
+    out["card_vs_cpu"] = {}
+    for fam, _ in families:
+        for R in MODES:
+            got, want = card[fam][R]["trace"], ref[fam][f"R={R}"]
+            toks = [t for c in got for t in c["tokens"]]
+            same = ([[t[:2] for t in c["tokens"]] for c in got]
+                    == [[t[:2] for t in c["tokens"]] for c in want]
+                    and [c["carry"] for c in got]
+                    == [c["carry"] for c in want])
+            conf_gap = max((abs(a[2] - b[2]) for c, w in zip(got, want)
+                            for a, b in zip(c["tokens"], w["tokens"])),
+                           default=0.0) if fam == "tdt" else 0.0
+            res = dict(equal=same, conf_gap=conf_gap, tokens=len(toks),
+                       distinct=len({t[0] for t in toks}),
+                       carries=[c["carry"] for c in got],
+                       chunk_ms=card[fam][R]["chunk_ms"],
+                       launches=card[fam][R]["counts"])
+            out["card_vs_cpu"][f"{fam} R={R}"] = res
+            log(f"  {fam.upper()} Q8_0 f32 S=1 R={R}, {TDT_CHUNKS} chunks, "
+                f"card vs CPU: tokens with frames and "
+                f"{'ctc_prev' if fam == 'ctc' else 'tdt_skip'} each chunk "
+                f"{'equal' if same else 'DIFFER'} ({len(toks)} tokens, "
+                f"{res['distinct']} ids, carries {res['carries']})"
+                + (f", confidence max_abs_err {conf_gap:.3e} (tol "
+                   f"{TOL_CONF_ABS:.0e})" if fam == "tdt" else "")
+                + f", mean chunk {res['chunk_ms']:.2f} ms ({card_name})")
+            if not same or not toks or not conf_gap <= TOL_CONF_ABS:
+                failures.append(f"{fam} R={R} card vs CPU: {res}")
+    cmp = compare_beams("TDT beam card vs CPU", brows, ref["beam"]["rows"],
+                        failures)
+    ts_same = [(g["t"], g["sym"]) == (w["t"], w["sym"])
+               for g, w in zip(brows, ref["beam"]["rows"])]
+    out["beam_card_vs_cpu"] = cmp | dict(t_sym_equal=ts_same,
+                                         launches=bcounts)
+    log(f"  TDT beam K={BEAM_K} Q8_0 f32 R=13, {bsess.total_chunks} chunks, "
+        f"card vs CPU: score max_abs_err {cmp['score_gap']:.3e} (tol "
+        f"{TOL_BEAM_SCORE:.0e}), {cmp['slots_differ']} slots with other "
+        f"tokens, t and sym equal {ts_same}, best hypothesis equal "
+        f"{cmp['best_equal']} ({cmp['best_tokens']} tokens), launches "
+        f"{json.dumps(bcounts)}")
+    if not all(ts_same) or ref["beam"]["chunks"] != bsess.total_chunks:
+        failures.append(f"TDT beam card vs CPU: t/sym equal {ts_same}, "
+                        f"chunks {bsess.total_chunks} vs "
+                        f"{ref['beam']['chunks']}")
+    out["launches"] = launches
+    return out
+
+
+def cpu_tdt_ctc_tones_reference(out_path: str) -> None:
+    """tdt_ctc_tones_phase's CPU references: the tones streams (R = 13)
+    through tones_tiny_tdt.gguf greedy and K = BEAM_K with
+    tones_tiny_lm.gguf, and through tones_tiny_hybrid.gguf with ctc=True;
+    each stream's tokens, as JSON."""
+    import torch
+
+    from nemotron_tpu_torch.models.lm import load_lm
+    from nemotron_tpu_torch.params import load_model
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lm = load_lm(os.path.join(here, "weights", "tones_tiny_lm.gguf"), "cpu")
+    out = {name: fixture_tokens(load_model(os.path.join(
+        here, "weights", f"{gguf}.gguf"), device="cpu"), torch.float32, kw
+        | ({"lm": lm} if kw.get("beam_size") else {}))
+        for name, gguf, kw in TDT_FIXTURE_RUNS}
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(out, f)
+
+
+# the trained fixtures' runs: (name, GGUF, session options)
+TDT_FIXTURE_RUNS = (
+    ("tdt", "tones_tiny_tdt", {}),
+    ("tdt beam + LM", "tones_tiny_tdt", dict(
+        beam_size=BEAM_K, max_beam_tokens=BEAM_MAX_TOKENS,
+        lm_weight=BEAM_LM_WEIGHT)),
+    ("hybrid ctc", "tones_tiny_hybrid", dict(ctc=True)))
+
+
+def fixture_tokens(model, dtype, kw) -> list:
+    """The tones streams (R = 13, finalized) through `model` (load_model's
+    triple) in a session with options `kw`: each stream's tokens."""
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.streaming.session import StreamSession
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    params, cfg, vocab = model
+    audio, _ = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                 seed=TONES_SEED)
+    sess = StreamSession(params, cfg, vocab, CacheConfig(
+        att_right_context=13, n_mels=cfg.n_mels), n_streams=TONES_STREAMS,
+        compute_dtype=dtype, **kw)
+    sess.process(audio)
+    sess.finalize()
+    return [[list(t) for t in sess.get_tokens(s)]
+            for s in range(TONES_STREAMS)]
+
+
+def tdt_ctc_tones_phase(failures: list) -> dict:
+    """The trained TDT and hybrid fixtures on the card against the port's
+    CPU path, over the tones phase's 8 seeded streams at R = 13:
+    tones_tiny_tdt.gguf greedy and K = BEAM_K with tones_tiny_lm.gguf,
+    tones_tiny_hybrid.gguf with ctc=True (tokens equal to the CPU's, token
+    error printed, attention launched); the server module with --ctc on the hybrid fixture (READY's "decode" is
+    "ctc"; the FINAL equal to the same module with --cpu) and
+    cli_transcribe --ctc (stdout equal to --cpu). The CPU references, the
+    CLIs and the servers run in child processes beside the card work."""
+    import threading
+
+    import torch
+
+    from nemotron_tpu_torch.models.lm import load_lm
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.utils.tones import make_eval_streams
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    hybrid = os.path.join(here, "weights", "tones_tiny_hybrid.gguf")
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="2")
+    audio, truths = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                      seed=TONES_SEED)
+    tmp = tempfile.mkdtemp()
+    ref_path = os.path.join(tmp, "ref.json")
+    ref_job = start_cpu_job("cpu_tdt_ctc_tones_reference", ref_path)
+    paths = [os.path.join(tmp, f"{i}.pcm") for i in range(2)]
+    for i, p in enumerate(paths):
+        audio[i, :(8 - 2 * i) * 16000].astype("<i2").tofile(p)
+    clis = {dev: subprocess.Popen(
+        [sys.executable, "-m", "nemotron_tpu_torch.cli_transcribe", hybrid,
+         *paths, "--ctc", *(["--cpu"] if dev == "cpu" else [])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=here) for dev in ("cuda", "cpu")}
+    # host DSP on both (a device-DSP finalize pads silence PCM where the
+    # host pads zero mel, so their last chunks differ by design)
+    servers = {dev: start_server_module(
+        [hybrid, "--slots", "2", "--ctc", "--dsp", "numpy",
+         *(["--cpu"] if dev == "cpu" else [])], env, here)
+        for dev in ("cuda", "cpu")}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    lm = load_lm(os.path.join(here, "weights", "tones_tiny_lm.gguf"), "cuda")
+    models = {}
+    out = {}
+    got = {}
+    for name, gguf, kw in TDT_FIXTURE_RUNS:
+        if gguf not in models:
+            models[gguf] = load_model(os.path.join(here, "weights",
+                                                   f"{gguf}.gguf"),
+                                      device="cuda")
+        got[name], n = counted(lambda: fixture_tokens(
+            models[gguf], torch.float32, kw
+            | ({"lm": lm} if kw.get("beam_size") else {})), launches)
+        out[name] = dict(launches=n, tokens=sum(map(len, got[name])))
+        if not n["attn"]:
+            failures.append(f"tones {name}: no attention launch")
+
+    events, errors = {}, []
+
+    def replay(dev):
+        try:
+            events[dev] = stream_client("tcp", "127.0.0.1",
+                                        server_port(servers[dev])[0],
+                                        audio[2, :6 * 16000], 0.0, 1600)
+        except Exception as e:  # noqa: BLE001 -- reported as a failure
+            errors.append(f"{dev}: {e!r}")
+
+    try:
+        threads = [threading.Thread(target=replay, args=(d,))
+                   for d in servers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    finally:
+        for proc in servers.values():
+            stop_process(proc)
+    cli_out = {k: p.communicate(timeout=600) + (p.returncode,)
+               for k, p in clis.items()}
+    ref = finish_job(ref_job, ref_path)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    for name, _, _ in TDT_FIXTURE_RUNS:
+        ter = token_error([[t[0] for t in s] for s in got[name]], truths)
+        same = got[name] == ref[name]
+        out[name].update(ter=ter, same_as_cpu=same)
+        log(f"  tones {name} R=13 S={TONES_STREAMS}: token error {ter:.4f}, "
+            f"tokens vs CPU {'equal' if same else 'DIFFER'} "
+            f"({out[name]['tokens']} tokens), launches "
+            f"{json.dumps(out[name]['launches'])}")
+        if not same or not out[name]["tokens"]:
+            failures.append(f"tones {name}: tokens vs CPU equal {same}")
+    finals = {d: (e["ready"].get("decode"), e["final"]["text"],
+                  e["final"]["tokens"]) for d, e in events.items()}
+    ok = bool(not errors and finals.get("cuda") == finals.get("cpu")
+              and finals["cuda"][0] == "ctc" and finals["cuda"][1])
+    out["server"] = dict(decode=finals.get("cuda", (None,))[0],
+                         equal_to_cpu=ok)
+    log(f"  asr_server --ctc on tones_tiny_hybrid: READY decode "
+        f"{out['server']['decode']!r}, FINAL "
+        f"{finals.get('cuda', (None, ''))[1][:60]!r}, equal to --cpu {ok}")
+    if not ok:
+        failures.append(f"asr_server --ctc: {finals}, errors {errors}")
+    a, b = cli_out["cuda"], cli_out["cpu"]
+    ok = a[2] == b[2] == 0 and a[0] == b[0] and a[0].count("\t") == 2
+    out["cli_transcribe"] = ok
+    log(f"  cli_transcribe --ctc on tones_tiny_hybrid, 2 files, card vs "
+        f"--cpu: stdout {'equal' if ok else 'DIFFERENT'} "
+        f"({len(a[0].split())} words)")
+    if not ok:
+        failures.append(f"cli_transcribe --ctc: card {a[2]} {a[0][:80]!r} "
+                        f"{a[1][-300:]!r}, cpu {b[2]} {b[0][:80]!r}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4904,9 +5670,21 @@ def main() -> int:
         server = phase("server (slice 9)", server_phase, path)
         quant = phase("quant tiers and snapshots (slice 10)",
                       quant_tier_phase, path)
-        lock = phase("lockstep, cohorts and serve (slice 13)",
-                     lockstep_phase, path)
-        beam = phase("beam family (slice 14)", beam_phase, path)
+        # the TDT/CTC GGUF is written, and decoded on the CPU, by a child
+        # process while the lockstep and beam phases run on the card
+        tdt_path = os.path.join(tmp, "full_width_tdt_ctc.gguf")
+        tdt_ref = os.path.join(tmp, "tdt_ctc_ref.json")
+        tdt_job = start_cpu_job("cpu_tdt_ctc_reference", tdt_path, tdt_ref)
+        try:
+            lock = phase("lockstep, cohorts and serve (slice 13)",
+                         lockstep_phase, path)
+            beam = phase("beam family (slice 14)", beam_phase, path)
+            tdt = phase("TDT and CTC (slice 15)", tdt_ctc_phase, tdt_path,
+                        tdt_job, tdt_ref, w8_runs)
+        finally:
+            if tdt_job.poll() is None:
+                tdt_job.kill()
+                tdt_job.communicate()
         full_width_model.cache_clear()
     tones = phase("tones", tones_phase)
     engine_tones = phase("serving engine tones (slice 8)", engine_tones_phase)
@@ -4917,6 +5695,8 @@ def main() -> int:
                        cli_quant_phase)
     beam_tones = phase("beam family on the trained fixtures (slice 14)",
                        beam_tones_phase)
+    tdt_tones = phase("TDT and CTC on the trained fixtures (slice 15)",
+                      tdt_ctc_tones_phase)
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
@@ -4924,6 +5704,7 @@ def main() -> int:
                 + server_n[k] + quant["launches"][k]
                 + tones_quant["launches"][k] + lock["launches"][k]
                 + beam["launches"][k] + beam_tones["launches"][k]
+                + tdt["launches"][k] + tdt_tones["launches"][k]
                 for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
@@ -5059,6 +5840,8 @@ def main() -> int:
     log("lockstep, cohorts and serve: " + json.dumps(lock))
     log("beam family: " + json.dumps(beam))
     log("beam family on the trained fixtures: " + json.dumps(beam_tones))
+    log("TDT and CTC: " + json.dumps(tdt))
+    log("TDT and CTC on the trained fixtures: " + json.dumps(tdt_tones))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

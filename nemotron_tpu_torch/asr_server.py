@@ -9,7 +9,7 @@ The counterpart of `scripts/asr_server.py`:
         [--dsp auto|numpy|device]
         [--confidence] [--endpoint-silence S] [--endpoint-reset]
         [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B]
-        [--refine] [--refine-beam K]
+        [--refine] [--refine-beam K] [--ctc]
         [--tick-ms T] [--http-stats PORT] [--ws-port PORT]
         [--stats-every SECONDS] [--cpu]
 
@@ -31,9 +31,10 @@ The counterpart of `scripts/asr_server.py`:
     utterance is re-decoded offline with a beam of --refine-beam
     hypotheses (4; with the --lm, if given) and its UTTERANCE event
     carries the result as "refined"
-  - --ctc comes with the TDT/CTC slice of this port, --dsp native with
-    the native-bindings slice and --coordinator with the multi-GPU slice:
-    each exits 1
+  - --ctc decodes a hybrid checkpoint with its CTC head; a TDT checkpoint
+    decodes with the duration-aware walk (or beam) with no flag
+  - --dsp native comes with the native-bindings slice of this port and
+    --coordinator with the multi-GPU slice: each exits 1
 """
 
 from __future__ import annotations
@@ -43,13 +44,13 @@ import sys
 import time
 
 # flags of scripts/asr_server.py that come with later slices of the port
-_LATER = {"--ctc": "TDT/CTC", "--coordinator": "multi-GPU"}
+_LATER = {"--coordinator": "multi-GPU"}
 _VALUED = ("--host", "--port", "--slots", "--right-context", "--quantize",
            "--dsp", "--endpoint-silence", "--tick-ms", "--http-stats",
            "--ws-port", "--stats-every", "--rc-by-layer", "--beam", "--lm",
            "--lm-weight", "--lm-bonus", "--refine-beam")
 _SWITCHES = ("--kv-int8", "--kv-int4", "--confidence", "--endpoint-reset",
-             "--cpu", "--refine")
+             "--cpu", "--refine", "--ctc")
 
 
 def later_flag(argv: list[str], later: dict = _LATER) -> str | None:
@@ -186,6 +187,7 @@ def main(argv: list[str]) -> int:
                                lm=None if refine else lm,
                                lm_weight=lm_weight, lm_bonus=lm_bonus,
                                confidence="--confidence" in argv,
+                               ctc="--ctc" in argv,
                                endpoint_silence_s=ep_s if ep_s > 0 else None,
                                endpoint_reset="--endpoint-reset" in argv,
                                keep_segment_audio=refine)

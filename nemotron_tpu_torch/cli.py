@@ -14,7 +14,7 @@ argv contract (src/transcribe_stream.cpp:27-36):
                                      [--srt=FILE|--vtt=FILE] [--beam=K]
                                      [--lm=lm.gguf] [--lm-weight=W]
                                      [--lm-bonus=B]
-                                     [--boost=piece:weight,...]
+                                     [--boost=piece:weight,...] [--ctc]
 
   - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin;
     .wav files decode directly (PCM16 or float32, any sample rate --
@@ -43,6 +43,9 @@ argv contract (src/transcribe_stream.cpp:27-36):
     score log P_rnnt + W * log P_lm + B, W = 0.3 by default)
   - --boost=piece:weight,... adds a log-space boost to those tokens'
     logits (folded into the joint's output bias)
+  - --ctc decodes a hybrid checkpoint with its CTC head (greedy collapse)
+    instead of the transducer; a TDT checkpoint decodes with the
+    duration-aware walk (or beam) with no flag
   - incremental text on stdout; config + stats on stderr
 """
 
@@ -55,13 +58,12 @@ import time
 
 
 _FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--kv-int4",
-          "--shared-cache", "--timestamps", "--confidence")
+          "--shared-cache", "--timestamps", "--confidence", "--ctc")
 _VALUED = ("--quantize=", "--calib=", "--rc-by-layer=", "--srt", "--vtt",
            "--beam=", "--lm=", "--lm-weight=", "--lm-bonus=", "--boost=")
 _SQ_MODES = ("w8a8-sq", "w8a8-sq-static")
 # flags of cli/transcribe_stream.py that come with later slices of the port
 _LATER = {
-    "--ctc": "TDT/CTC",
     "--trace": "utils and native-bindings",
     "--profile": "utils and native-bindings",
 }
@@ -314,8 +316,8 @@ def main(argv: list[str]) -> int:
         sess = StreamSession(params, cfg, vocab, cc,
                              timestamp_words="--timestamps" in flags,
                              confidence_words="--confidence" in flags,
-                             beam_size=beam, lm=lm, lm_weight=lm_weight,
-                             lm_bonus=lm_bonus)
+                             beam_size=beam, ctc="--ctc" in flags, lm=lm,
+                             lm_weight=lm_weight, lm_bonus=lm_bonus)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -7,7 +7,7 @@ The counterpart of `cli/transcribe.py` (reference src/transcribe.cpp):
         [--cpu|--cuda|--metal|--tpu] [--timestamps] [--confidence]
         [--srt[=FILE]|--vtt[=FILE]] [--beam=K] [--nbest=N]
         [--lm=lm.gguf] [--lm-weight=W] [--lm-bonus=B] [--lm-rescore]
-        [--boost=piece:weight,...]
+        [--boost=piece:weight,...] [--ctc]
 
   - input: raw s16le 16 kHz mono PCM, or WAV (PCM16 or float32, any sample
     rate -- polyphase-resampled, stereo averaged)
@@ -18,7 +18,9 @@ The counterpart of `cli/transcribe.py` (reference src/transcribe.cpp):
     (implies --beam=N without --beam); --lm=lm.gguf adds LM shallow fusion
     (labels score log P_rnnt + W * log P_lm + B, W = 0.3 by default),
     --lm-rescore reranks the finished beam with the LM instead;
-    --boost=piece:weight,... adds a log-space boost to those tokens' logits
+    --boost=piece:weight,... adds a log-space boost to those tokens' logits;
+    --ctc decodes a hybrid checkpoint with its CTC head (greedy; a TDT
+    checkpoint decodes with the duration-aware walk or beam with no flag)
   - stdout: the text for one file, `path<TAB>text` lines for several;
     --timestamps puts each word's start time in {seconds} before it,
     --confidence its posterior in {p=...} (exp of the least log-posterior
@@ -26,7 +28,7 @@ The counterpart of `cli/transcribe.py` (reference src/transcribe.cpp):
   - --srt / --vtt write subtitle cues (words grouped at silence gaps, a
     maximum duration and line length) next to each audio file, or to
     FILE when given with a single input; they, --timestamps and
-    --confidence need greedy decode
+    --confidence need greedy decode, and the subtitles refuse --ctc
   - runs on the CUDA card unless --cpu is given; --cuda asks for the card
     (the default), --metal and --tpu warn and are ignored; --cpu with
     --cuda is an error
@@ -42,11 +44,9 @@ import time
 from .cli import apply_boost_flags, device_from_flags, load_lm_flag
 
 _FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--timestamps",
-          "--confidence", "--lm-rescore")
+          "--confidence", "--lm-rescore", "--ctc")
 _VALUED = ("--srt", "--vtt", "--beam", "--nbest", "--lm", "--lm-weight",
            "--lm-bonus", "--boost")
-# flags of cli/transcribe.py that come with later slices of the port
-_LATER = {"--ctc": "TDT/CTC"}
 
 
 def main(argv: list[str]) -> int:
@@ -57,10 +57,6 @@ def main(argv: list[str]) -> int:
         return 1
     for f in flags:
         name = f.split("=", 1)[0]
-        if name in _LATER:
-            print(f"error: {name} comes with the {_LATER[name]} slice of "
-                  "this port", file=sys.stderr)
-            return 1
         if f not in _FLAGS and name not in _VALUED:
             print(f"error: unsupported flag {f} (this port takes "
                   f"{', '.join(_FLAGS)}, --srt[=FILE], --vtt[=FILE], "
@@ -113,7 +109,8 @@ def main(argv: list[str]) -> int:
         return 1
     sub_fmt = subs[-1][2:5] if subs else None
     sub_out = subs[-1].split("=", 1)[1] if subs and "=" in subs[-1] else None
-    if sub_fmt is not None and (beam != 1 or nbest is not None):
+    ctc = "--ctc" in flags
+    if sub_fmt is not None and (beam != 1 or nbest is not None or ctc):
         print("error: --srt/--vtt require greedy decode (no --beam/"
               "--nbest/--ctc): cues need per-token frame alignment",
               file=sys.stderr)
@@ -150,13 +147,14 @@ def main(argv: list[str]) -> int:
         print("error: confidence requires greedy decode", file=sys.stderr)
         return 1
     # as in cli/transcribe.py, the confidence and subtitle outputs take
-    # the greedy path whatever the LM flags say
+    # the greedy transducer path whatever the LM and --ctc flags say
     if ("--confidence" not in flags and sub_fmt is None
-            and (beam > 1 or lm is not None or "--lm-rescore" in flags)):
+            and (beam > 1 or lm is not None or "--lm-rescore" in flags
+                 or ctc)):
         try:
             texts = transcribe_batch(params, cfg, vocab, audios,
                                      timestamp_words="--timestamps" in flags,
-                                     beam_size=beam, **lm_kw)
+                                     beam_size=beam, ctc=ctc, **lm_kw)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1

@@ -59,12 +59,11 @@ class BeamState:
     lm_c: Any = None
 
 
-FIELDS = tuple(f.name for f in dataclasses.fields(BeamState))
-
-
-def leaves(st: BeamState) -> dict:
-    """The state's set fields (lm_h/lm_c only with an LM)."""
-    return {k: getattr(st, k) for k in FIELDS if getattr(st, k) is not None}
+def leaves(st) -> dict:
+    """The state's set fields (lm_h/lm_c only with an LM), of a BeamState
+    or of a models/tdt.TdtBeamState (which adds t and sym)."""
+    return {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
+            if getattr(st, f.name) is not None}
 
 
 def init_beam_state(cfg: ModelConfig, batch: int, beam_size: int,

@@ -116,12 +116,23 @@ class PreprocessorParams:
 
 
 @dataclasses.dataclass
+class CtcParams:
+    """The auxiliary CTC head of a hybrid RNNT-CTC checkpoint
+    (`ctc_decoder.decoder_layers.0.{weight,bias}`, a 1x1 conv: a Linear
+    d_model -> vocab with blank; models/ctc.py decodes with it)."""
+
+    out_w: Any   # [D, V]
+    out_b: Any   # [V]
+
+
+@dataclasses.dataclass
 class ModelParams:
     subsampling: SubsamplingParams
     layers: ConformerLayerParams     # stacked [L, ...]
     decoder: DecoderParams
     joint: JointParams
     preprocessor: PreprocessorParams
+    ctc: Any = None                  # CtcParams | None (hybrid checkpoints)
 
     @property
     def device(self) -> torch.device:
@@ -132,7 +143,15 @@ _CONTAINERS = (("subsampling", SubsamplingParams),
                ("layers", ConformerLayerParams),
                ("decoder", DecoderParams),
                ("joint", JointParams),
-               ("preprocessor", PreprocessorParams))
+               ("preprocessor", PreprocessorParams),
+               ("ctc", CtcParams))
+
+
+def _containers(params: ModelParams):
+    """(name, class) of each container the params hold (the CTC head only
+    where there is one)."""
+    return [(name, cls) for name, cls in _CONTAINERS
+            if getattr(params, name) is not None]
 
 
 def map_leaves(fn, params: ModelParams) -> ModelParams:
@@ -141,7 +160,7 @@ def map_leaves(fn, params: ModelParams) -> ModelParams:
     return ModelParams(**{
         name: cls(**{f.name: fn(getattr(getattr(params, name), f.name))
                      for f in dataclasses.fields(cls)})
-        for name, cls in _CONTAINERS})
+        for name, cls in _containers(params)})
 
 
 def flatten(params: ModelParams) -> dict[str, Any]:
@@ -149,7 +168,7 @@ def flatten(params: ModelParams) -> dict[str, Any]:
     '.col_scale' and, where set, '.act_scale' (QTensorW8A8); the JAX
     package's ModelParams flattens to the same paths in the tests."""
     out = {}
-    for name, cls in _CONTAINERS:
+    for name, cls in _containers(params):
         for f in dataclasses.fields(cls):
             x = getattr(getattr(params, name), f.name)
             if type(x) in _QUANT_FIELDS:
@@ -355,7 +374,15 @@ def _numpy_params(t: dict, cfg: ModelConfig) -> ModelParams:
             .reshape(cfg.n_mels, 257)),
         window=t["preprocessor.featurizer.window"].reshape(-1),
     )
-    return ModelParams(sub, layers, decoder, joint, pre)
+    ctc = None
+    cw = "ctc_decoder.decoder_layers.0.weight"
+    if cw in t:
+        w = t[cw]
+        if not isinstance(w, QTensor) and w.ndim == 3:   # 1x1 conv (V, D, 1)
+            w = w.squeeze(2)
+        ctc = CtcParams(out_w=_linear(w),
+                        out_b=t["ctc_decoder.decoder_layers.0.bias"])
+    return ModelParams(sub, layers, decoder, joint, pre, ctc)
 
 
 def params_from_arrays(t: dict, cfg: ModelConfig,
@@ -371,11 +398,14 @@ def params_from_jax_arrays(flat: dict, cfg: ModelConfig,
     """Carry the JAX package's ModelParams across onto `device` (the card
     unless the caller asks for the CPU): `flat` maps each field path of the
     JAX pytree ('layers.ffn1_w1', or 'layers.ffn1_w1.q' with '.scale' for a
-    QTensor or '.col_scale' for a QTensorW8A8) to a numpy array."""
+    QTensor or '.col_scale' for a QTensorW8A8) to a numpy array. The CTC
+    head ('ctc.out_w', 'ctc.out_b') comes along where `flat` has it."""
     del cfg  # the shapes are in the arrays
     device = resolve_device(device)
     groups = {}
     for name, cls in _CONTAINERS:
+        if name == "ctc" and "ctc.out_w" not in flat:
+            continue
         fields = {}
         for f in dataclasses.fields(cls):
             key = f"{name}.{f.name}"
@@ -405,7 +435,11 @@ def load_model(path: str, device="cuda", keep_quantized: bool = True,
     CUDA is asked for and absent. Mirrors the reference loader's hparam
     handling, including inferring kernel_size from the depthwise weight
     (reference src/nemo-ggml.cpp:320-324) rather than trusting the stale
-    metadata value. With keep_quantized (the default), Q8_0 and Q4_0
+    metadata value. A TDT checkpoint's `nemo.tdt_durations` becomes
+    cfg.tdt_durations (its joint then emits V + len(durations) logits, the
+    trailing ones the duration head), and a hybrid checkpoint's
+    `ctc_decoder.*` tensors become params.ctc. With keep_quantized (the
+    default), Q8_0 and Q4_0
     encoder matmul weights stay int8 plus per-block f32 scales (QTensor),
     bit-identical to the file's blocks, and go through the Q8 kernel;
     without it every tensor is dequantized to dense f32 (what SmoothQuant
@@ -455,9 +489,10 @@ def load_model(path: str, device="cuda", keep_quantized: bool = True,
         joint_dim=arrays["joint.enc.weight"].shape[0],
         subsampling_channels=arrays["encoder.pre_encode.conv.0.weight"].shape[0],
     )
-    if md.get("nemo.tdt_durations"):
-        raise NotImplementedError("TDT checkpoints come with the TDT/CTC "
-                                  "slice of the port")
+    td = md.get("nemo.tdt_durations")
+    if td:  # TDT checkpoint: the trailing joint logits are the duration head
+        cfg = dataclasses.replace(
+            cfg, tdt_durations=tuple(int(x) for x in td))
 
     vocab_blob = md.get("tokenizer.vocab", b"")
     if isinstance(vocab_blob, str):
@@ -525,11 +560,14 @@ def apply_logit_bias(params: ModelParams, bias,
 # ---------------------------------------------------------------------------
 
 def random_weight_arrays(cfg: ModelConfig, seed: int = 0,
-                         scale: float = 0.05) -> dict[str, np.ndarray]:
+                         scale: float = 0.05,
+                         ctc_head: bool = False) -> dict[str, np.ndarray]:
     """Random weights in the *reference's* name/shape convention
     (docs/TENSOR_SHAPES.md), so they round-trip through GGUF: every weight
     ~ N(0, scale^2), norms at identity. The same numbers as the JAX
-    package's `random_weight_arrays` (init='bench') for the same seed."""
+    package's `random_weight_arrays` (init='bench') for the same seed. A
+    TDT config widens the joint's output by its duration head; ctc_head
+    adds a hybrid checkpoint's CTC head (drawn last, as JAX draws it)."""
     rng = np.random.default_rng(seed)
     D, FF, H, DH = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.d_head
     V, DD = cfg.vocab_size, cfg.decoder_dim
@@ -600,9 +638,13 @@ def random_weight_arrays(cfg: ModelConfig, seed: int = 0,
     t["joint.enc.bias"] = w(cfg.joint_dim)
     t["joint.pred.weight"] = w(cfg.joint_dim, DD)
     t["joint.pred.bias"] = w(cfg.joint_dim)
-    t["joint.joint_net.2.weight"] = w(V, cfg.joint_dim)
-    t["joint.joint_net.2.bias"] = w(V)
+    V_out = V + len(cfg.tdt_durations or ())
+    t["joint.joint_net.2.weight"] = w(V_out, cfg.joint_dim)
+    t["joint.joint_net.2.bias"] = w(V_out)
 
     t["preprocessor.featurizer.fb"] = np.abs(w(cfg.n_mels, 257))
     t["preprocessor.featurizer.window"] = np.hanning(400).astype(np.float32)
+    if ctc_head:
+        t["ctc_decoder.decoder_layers.0.weight"] = w(V, D)
+        t["ctc_decoder.decoder_layers.0.bias"] = w(V)
     return t

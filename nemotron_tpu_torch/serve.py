@@ -9,22 +9,23 @@ The counterpart of `scripts/serve.py`:
         [--quantize q8_0|w8a8|w8a8-sq|w8a8-sq-static] [--kv-int8|--kv-int4]
         [--rc-by-layer 13,6,1,0] [--lockstep] [--dsp auto|numpy|device]
         [--confidence] [--endpoint-silence S] [--endpoint-reset]
-        [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B] [--cpu]
+        [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B] [--ctc]
+        [--cpu]
 
   - --lockstep: every stream advances every tick through LockstepEngine
     (DSP, encoder and decode in one tick, pipelined one tick deep);
     without it the ragged ServingEngine with S slots and --dsp
   - --beam K decodes with the batched beam search in either engine, --lm
-    adds LM shallow fusion to it
+    adds LM shallow fusion to it; --ctc decodes a hybrid checkpoint with
+    its CTC head (a TDT checkpoint decodes TDT with no flag)
   - streams are staggered: each starts at another offset into the audio,
     wrapping around, and takes one chunk shift of samples a tick
   - runs on the CUDA card unless --cpu is given, in bf16; -sq modes
     calibrate SmoothQuant on the audio's first 20 s
   - the summary (aggregate real-time, tick p50/p90/p99) goes to stderr,
     the first three streams' transcripts to stdout
-  - --ctc comes with the TDT/CTC slice of this port, --mesh and
-    --coordinator with the multi-GPU slice and --dsp native with the
-    native-bindings slice: each exits 1
+  - --mesh and --coordinator come with the multi-GPU slice of this port
+    and --dsp native with the native-bindings slice: each exits 1
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from .asr_server import flag_value, later_flag, positional_args
 
 # flags of scripts/serve.py that come with later slices of the port
 _LATER = {
-    "--ctc": "TDT/CTC", "--mesh": "multi-GPU",
+    "--mesh": "multi-GPU",
     "--coordinator": "multi-GPU", "--num-processes": "multi-GPU",
     "--process-id": "multi-GPU",
 }
@@ -46,7 +47,7 @@ _VALUED = ("--streams", "--slots", "--right-context", "--seconds",
            "--quantize", "--rc-by-layer", "--dsp", "--endpoint-silence",
            "--beam", "--lm", "--lm-weight", "--lm-bonus")
 _SWITCHES = ("--kv-int8", "--kv-int4", "--lockstep", "--confidence",
-             "--endpoint-reset", "--cpu")
+             "--endpoint-reset", "--cpu", "--ctc")
 _SQ_MODES = ("w8a8-sq", "w8a8-sq-static")
 
 
@@ -72,7 +73,7 @@ def main(argv: list[str]) -> int:
     quant_mode = opt("--quantize", None, str)
     ep_s = opt("--endpoint-silence", 0.0, float)
     beam_k = opt("--beam", 1, int)
-    ep_kw = dict(confidence="--confidence" in argv,
+    ep_kw = dict(confidence="--confidence" in argv, ctc="--ctc" in argv,
                  endpoint_silence_s=ep_s if ep_s > 0 else None,
                  endpoint_reset="--endpoint-reset" in argv, beam_size=beam_k,
                  lm_weight=opt("--lm-weight", 0.3, float),

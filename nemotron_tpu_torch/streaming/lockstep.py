@@ -2,8 +2,8 @@
 tokens on the params' device.
 
 The port's counterpart of `nemotron_tpu/streaming/lockstep.py` (RNN-T
-greedy or beam, with or without LM fusion; no CTC or TDT tick, no mesh).
-Where `ServingEngine`
+greedy or beam, with or without LM fusion, the TDT walk or beam, the CTC
+head; no mesh). Where `ServingEngine`
 (serving.py) lets slots advance at independent rates, `LockstepEngine`
 feeds one PCM block to all S streams at once and runs the whole pipeline
 on the device:
@@ -12,9 +12,9 @@ on the device:
       -> DSP (scale, pre-emphasis, frame, window, rFFT, mel, log)
       -> mel ring (9-frame overlap seed, chunk assembly)
       -> cache-aware streaming encoder
-      -> greedy RNN-T decode (or the beam search, whose state stays on
-         the device)
-      -> int32 tokens [k, S, valid_out, MAX]
+      -> greedy RNN-T or TDT decode (or a beam search, whose state stays
+         on the device; or the CTC head's per-frame argmax)
+      -> int32 tokens [k, S, valid_out, MAX] (CTC: ids [k, S, valid_out])
 
 Host work a tick: upload S*N int16 samples, download the token tensor, one
 vectorized detokenization. The JAX package compiles the tick into one
@@ -37,15 +37,18 @@ from ..frontend.device_frontend import (FrontendState, frames_after,
                                         mel_frontend_step)
 from ..frontend.preprocessor import pad_window
 from ..models import beam as beam_mod
+from ..models import ctc as ctc_mod
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
+from ..models import tdt as tdt_mod
 from ..models.lm import lm_to_device
 from ..params import ModelParams, cast_params
 from ..utils import npz
 from ..utils.text import tokens_to_text
 from .serving import _reset_decoder_slots, check_engine_snapshot
 from .session import (_check_dtype, beam_leaves, best_transcripts,
-                      restore_states, token_list, token_rows)
+                      check_decode_options, init_beam, restore_states,
+                      token_list, token_rows)
 
 
 def _dsp_encode(cfg: ModelConfig, cc: CacheConfig, pcfg: PreprocessorConfig,
@@ -94,16 +97,10 @@ def _fused_tick(cfg: ModelConfig, cc: CacheConfig, pcfg: PreprocessorConfig,
         dec_state = out[1]
         if confidence:
             confs_out.append(out[2])
-    if tokens_out:
-        tokens = torch.stack(tokens_out)
-    else:
-        tokens = torch.zeros((0, S, cc.valid_out_len, MAX_SYMBOLS_PER_STEP),
-                             dtype=torch.int32, device=mel_buf.device)
-    confs = None
-    if confidence:
-        confs = (torch.stack(confs_out) if confs_out
-                 else torch.zeros(tokens.shape, dtype=torch.float32,
-                                  device=mel_buf.device))
+    tokens, confs = _stack_chunks(tokens_out, confs_out if confidence
+                                  else None, (S, cc.valid_out_len,
+                                              MAX_SYMBOLS_PER_STEP),
+                                  mel_buf.device)
     return tokens, confs, front, mel_buf, enc_state, dec_state
 
 
@@ -128,9 +125,103 @@ def _fused_tick_beam(cfg: ModelConfig, cc: CacheConfig,
     return front, mel_buf, enc_state, beam_state
 
 
+def _fused_tick_tdt(cfg: ModelConfig, cc: CacheConfig,
+                    pcfg: PreprocessorConfig, buf_len: int, confidence: bool,
+                    params, pcm_i16, front: FrontendState, mel_buf,
+                    enc_state, dec_state, pos_heads, window, filterbank,
+                    skip):
+    """One TDT tick (nemotron_tpu/streaming/lockstep.py:142-180):
+    `_dsp_encode`, then the duration-aware greedy walk over each chunk,
+    threading the jump carry `skip` [S] through the tick's chunks. Returns
+    (tokens [k, S, valid_out, MAX], confs or None, front, mel_buf,
+    enc_state, dec_state, skip)."""
+    S = pcm_i16.shape[0]
+    enc_outs, front, mel_buf, enc_state = _dsp_encode(
+        cfg, cc, pcfg, buf_len, params, pcm_i16, front, mel_buf, enc_state,
+        pos_heads, window, filterbank)
+    tokens_out, confs_out = [], []
+    for enc_out in enc_outs:
+        out = tdt_mod.tdt_greedy_decode(params, cfg, enc_out, dec_state,
+                                        skip_in=skip,
+                                        with_confidence=confidence)
+        tokens_out.append(out[0])
+        if confidence:
+            confs_out.append(out[1])
+        dec_state, skip = out[-2:]
+    tokens, confs = _stack_chunks(tokens_out, confs_out if confidence
+                                  else None, (S, cc.valid_out_len,
+                                              MAX_SYMBOLS_PER_STEP),
+                                  mel_buf.device)
+    return tokens, confs, front, mel_buf, enc_state, dec_state, skip
+
+
+def _fused_tick_tdt_beam(cfg: ModelConfig, cc: CacheConfig,
+                         pcfg: PreprocessorConfig, buf_len: int,
+                         beam_size: int, params, pcm_i16,
+                         front: FrontendState, mel_buf, enc_state,
+                         beam_state, pos_heads, window, filterbank, lm=None,
+                         lm_weight: float = 0.3, lm_bonus: float = 0.0):
+    """One TDT beam tick (nemotron_tpu/streaming/lockstep.py:183-204):
+    `_dsp_encode`, then the duration-aware beam search over each chunk; the
+    TdtBeamState carries each hypothesis's overshoot between chunks.
+    Returns (front, mel_buf, enc_state, beam_state)."""
+    enc_outs, front, mel_buf, enc_state = _dsp_encode(
+        cfg, cc, pcfg, buf_len, params, pcm_i16, front, mel_buf, enc_state,
+        pos_heads, window, filterbank)
+    for enc_out in enc_outs:
+        beam_state = tdt_mod.tdt_beam_decode(params, cfg, enc_out,
+                                             beam_state, beam_size, lm=lm,
+                                             lm_weight=lm_weight,
+                                             lm_bonus=lm_bonus)
+    return front, mel_buf, enc_state, beam_state
+
+
+def _fused_tick_ctc(cfg: ModelConfig, cc: CacheConfig,
+                    pcfg: PreprocessorConfig, buf_len: int, confidence: bool,
+                    params, pcm_i16, front: FrontendState, mel_buf,
+                    enc_state, pos_heads, window, filterbank):
+    """One CTC tick (nemotron_tpu/streaming/lockstep.py:207-238):
+    `_dsp_encode`, then the CTC head's per-frame argmax of each chunk (the
+    collapse carry lives on the host). Returns (ids [k, S, valid_out]
+    int32, the argmaxes' log-posteriors or None, front, mel_buf,
+    enc_state)."""
+    S = pcm_i16.shape[0]
+    enc_outs, front, mel_buf, enc_state = _dsp_encode(
+        cfg, cc, pcfg, buf_len, params, pcm_i16, front, mel_buf, enc_state,
+        pos_heads, window, filterbank)
+    ids_out, lp_out = [], []
+    for enc_out in enc_outs:
+        if confidence:
+            ids, lp = ctc_mod.frame_log_posteriors(params, enc_out)
+            lp_out.append(lp)
+        else:
+            ids = ctc_mod.frame_ids(params, enc_out)
+        ids_out.append(ids)
+    ids, logp = _stack_chunks(ids_out, lp_out if confidence else None,
+                              (S, cc.valid_out_len), mel_buf.device)
+    return ids, logp, front, mel_buf, enc_state
+
+
+def _stack_chunks(firsts: list, seconds: list | None, shape: tuple, device):
+    """A tick's per-chunk outputs stacked along a leading chunk axis
+    ([0, *shape] int32 when the tick decoded no chunk), and the f32
+    companions (confidences) likewise, or None."""
+    if firsts:
+        first = torch.stack(firsts)
+    else:
+        first = torch.zeros((0,) + shape, dtype=torch.int32, device=device)
+    if seconds is None:
+        return first, None
+    return first, (torch.stack(seconds) if seconds
+                   else torch.zeros(first.shape, dtype=torch.float32,
+                                    device=device))
+
+
 class LockstepEngine:
     """S streams at one shared cadence on the params' device, in
-    `compute_dtype` (float32 or bfloat16), RNN-T greedy or beam.
+    `compute_dtype` (float32 or bfloat16), RNN-T greedy or beam, TDT greedy
+    or beam (each stream carries its jump overshoot, `tdt_skip`), or the
+    CTC head with ctc=True (the collapse carry `ctc_prev` on the host).
 
     Lifecycle as StreamSession's (reset / tick / finalize / transcripts),
     but `tick` takes one PCM block for ALL streams. Typical use: feed
@@ -146,9 +237,8 @@ class LockstepEngine:
     best hypotheses (their tokens carry frame 0). Endpointing and
     confidence need greedy decode.
 
-    CTC and TDT checkpoints (the TDT/CTC slice) and a device mesh (the
-    multi-GPU slice) come with later slices of the port and raise
-    NotImplementedError."""
+    A device mesh (the multi-GPU slice) comes with a later slice of the
+    port and raises NotImplementedError."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -164,12 +254,8 @@ class LockstepEngine:
             raise ValueError("confidence requires greedy decode")
         if lm is not None and beam_size <= 1:
             raise ValueError("LM shallow fusion requires beam_size > 1")
-        if ctc:
-            raise NotImplementedError("CTC decode comes with the TDT/CTC "
-                                      "slice of the port")
-        if cfg.tdt_durations:
-            raise NotImplementedError("TDT decode comes with the TDT/CTC "
-                                      "slice of the port")
+        self.ctc, self.tdt = check_decode_options(params, cfg, ctc,
+                                                  beam_size, endpoint_reset)
         if endpoint_silence_s is not None and beam_size > 1:
             raise ValueError("endpointing requires greedy decode")
         if mesh is not None:
@@ -220,9 +306,13 @@ class LockstepEngine:
         self.dec_state = dec_mod.init_decoder_state(cfg, S, self.dtype, dev)
         self.beam_state = None
         if self.beam_size > 1:
-            self.beam_state = beam_mod.init_beam_state(
-                cfg, S, self.beam_size, self.max_beam_tokens, self.dtype,
-                dev, lm=self.lm)
+            self.beam_state = init_beam(cfg, self.tdt, S, self.beam_size,
+                                        self.max_beam_tokens, self.dtype,
+                                        dev, lm=self.lm)
+        # the TDT jump carry (device) and the CTC collapse carry (host)
+        self.tdt_skip = (torch.zeros((S,), dtype=torch.int32, device=dev)
+                         if self.tdt else None)
+        self.ctc_prev = np.full(S, -1, np.int64) if self.ctc else None
         # transcripts are rebuilt from the beam lazily, once a tick has
         # advanced it
         self._beam_dirty = False
@@ -270,8 +360,10 @@ class LockstepEngine:
         return k
 
     def _issue(self, pcm_i16: np.ndarray):
-        """Run one tick on the device; returns (tokens, confs, frame offset
-        base) for `_collect`."""
+        """Run one tick on the device; returns (result, frame offset base)
+        for `_collect`: result is (tokens, confs or None) for greedy RNN-T
+        and TDT, (ids, log-posteriors or None) for CTC, None for a
+        beam."""
         assert pcm_i16.shape[0] == self.n_streams
         cap = self.mel_buf.shape[1]
         f = frames_after(self.front.residue.shape[1], pcm_i16.shape[1],
@@ -280,46 +372,73 @@ class LockstepEngine:
             f"tick of {pcm_i16.shape[1]} samples would overflow the mel ring"
             f" ({self.buf_len}+{f} > {cap}); feed at most ~shift_samples"
             " per tick")
+        common = (self.cfg, self.cc, self.pcfg, self.buf_len)
+        pcm = self._put_pcm(pcm_i16)
+        tail = (self.pos_heads, self.window, self.filterbank)
+        result = None
         if self.beam_state is not None:
-            (self.front, self.mel_buf, self.enc_state,
-             self.beam_state) = _fused_tick_beam(
-                self.cfg, self.cc, self.pcfg, self.buf_len, self.beam_size,
-                self.beam_expansions, self.params, self._put_pcm(pcm_i16),
-                self.front, self.mel_buf, self.enc_state, self.beam_state,
-                self.pos_heads, self.window, self.filterbank, self.lm,
-                self.lm_weight, self.lm_bonus)
-            tokens = confs = None
+            lm = (self.lm, self.lm_weight, self.lm_bonus)
+            if self.tdt:
+                (self.front, self.mel_buf, self.enc_state,
+                 self.beam_state) = _fused_tick_tdt_beam(
+                    *common, self.beam_size, self.params, pcm, self.front,
+                    self.mel_buf, self.enc_state, self.beam_state, *tail,
+                    *lm)
+            else:
+                (self.front, self.mel_buf, self.enc_state,
+                 self.beam_state) = _fused_tick_beam(
+                    *common, self.beam_size, self.beam_expansions,
+                    self.params, pcm, self.front, self.mel_buf,
+                    self.enc_state, self.beam_state, *tail, *lm)
             self._beam_dirty = True
+        elif self.ctc:
+            (ids, logp, self.front, self.mel_buf,
+             self.enc_state) = _fused_tick_ctc(
+                *common, self.confidence, self.params, pcm, self.front,
+                self.mel_buf, self.enc_state, *tail)
+            result = (ids, logp)
+        elif self.tdt:
+            (tokens, confs, self.front, self.mel_buf, self.enc_state,
+             self.dec_state, self.tdt_skip) = _fused_tick_tdt(
+                *common, self.confidence, self.params, pcm, self.front,
+                self.mel_buf, self.enc_state, self.dec_state, *tail,
+                self.tdt_skip)
+            result = (tokens, confs)
         else:
             (tokens, confs, self.front, self.mel_buf, self.enc_state,
              self.dec_state) = _fused_tick(
-                self.cfg, self.cc, self.pcfg, self.buf_len, self.confidence,
-                self.params, self._put_pcm(pcm_i16), self.front,
-                self.mel_buf, self.enc_state, self.dec_state,
-                self.pos_heads, self.window, self.filterbank)
+                *common, self.confidence, self.params, pcm, self.front,
+                self.mel_buf, self.enc_state, self.dec_state, *tail)
+            result = (tokens, confs)
         k = self._chunks_in(self.buf_len + f)
         self.buf_len = self.buf_len + f - k * self.cc.shift_mel_frames
         self.total_chunks += k
         base = self.frame_offset
         self.frame_offset += k * self.cc.valid_out_len
-        return tokens, confs, base
+        return result, base
 
-    def _collect(self, tokens, confs, base: int) -> dict[int, str]:
-        """Bring a tick's tokens to the host and fold them into the
-        transcripts; returns the new text per stream (nothing in beam
+    def _collect(self, result, base: int) -> dict[int, str]:
+        """Bring a tick's tokens (or CTC ids) to the host and fold them into
+        the transcripts; returns the new text per stream (nothing in beam
         mode: its transcripts are rebuilt by refresh_transcripts)."""
         out: dict[int, str] = {}
-        if tokens is None:
+        if result is None:
             return out
-        tokens = self._fetch_block(tokens, 1)
-        if confs is not None:
-            confs = self._fetch_block(confs, 1)
+        first = self._fetch_block(result[0], 1)
+        second = (None if result[1] is None
+                  else self._fetch_block(result[1], 1))
         V = self.cc.valid_out_len
-        for i in range(tokens.shape[0]):
-            emitted = dec_mod.extract_emitted(
-                tokens[i], self.cfg.blank_token,
-                np.full(self.n_streams, base + i * V, np.int64),
-                confs=confs[i] if confs is not None else None)
+        for i in range(first.shape[0]):
+            if self.ctc:
+                emitted = ctc_mod.collapse_chunk(
+                    first[i].astype(np.int64), self.ctc_prev,
+                    range(self.n_streams), self.cfg.blank_token,
+                    base + i * V, None if second is None else second[i])
+            else:
+                emitted = dec_mod.extract_emitted(
+                    first[i], self.cfg.blank_token,
+                    np.full(self.n_streams, base + i * V, np.int64),
+                    confs=None if second is None else second[i])
             for s, toks in emitted.items():
                 self.tokens[s].extend(toks)
                 text = tokens_to_text(toks, self.vocab)
@@ -427,7 +546,8 @@ class LockstepEngine:
         .npz with the JAX package's keys
         (nemotron_tpu/streaming/lockstep.py:677-733): a fresh engine of the
         same streams resumes exactly. The mel ring is written as f32; a beam
-        engine adds its beam/* leaves."""
+        engine adds its beam/* leaves, a TDT engine its tdt_skip, a CTC
+        engine its ctc_prev."""
         self.flush_pipeline()
         self.refresh_transcripts()
         fetch = self._fetch_block
@@ -448,6 +568,10 @@ class LockstepEngine:
         }
         if self.beam_state is not None:
             flat |= beam_leaves(self.beam_state)
+        if self.tdt_skip is not None:
+            flat["tdt_skip"] = fetch(self.tdt_skip, 0)
+        if self.ctc_prev is not None:
+            flat["ctc_prev"] = self.ctc_prev
         if self._ep_frames is not None:
             flat["ep/silence"] = self.ep_silence
             flat["ep/emitted"] = self.ep_emitted
@@ -461,8 +585,8 @@ class LockstepEngine:
     def load(self, path: str) -> None:
         """Restore a snapshot written by `save` (or by the JAX engine):
         fresh tensors on the engine's device in its dtypes. The stream
-        count must match; a snapshot of a CTC or TDT engine or of another
-        beam mode (greedy against beam, width, LM fusion) raises
+        count must match; a snapshot of another decode mode (TDT, CTC,
+        greedy against beam, width, LM fusion, beam family) raises
         ValueError."""
         z = npz.NpzView(np.load(path, allow_pickle=True))
         if len(z["dec/prev_token"]) != self.n_streams:
@@ -470,11 +594,17 @@ class LockstepEngine:
                 f"snapshot holds {len(z['dec/prev_token'])} stream rows, "
                 f"engine owns {self.n_streams}")
         beam_state = check_engine_snapshot(z, self.beam_size, self.lm,
-                                           self.dtype, self.device)
+                                           self.dtype, self.device,
+                                           self.ctc, self.tdt)
         self.enc_state, self.dec_state = restore_states(
             z, self.cc, self.dtype, self.device)
         self.beam_state = beam_state
         self._beam_dirty = beam_state is not None
+        if self.tdt:
+            self.tdt_skip = npz.to_tensor(z["tdt_skip"], torch.int32,
+                                          self.device)
+        if self.ctc:
+            self.ctc_prev = z["ctc_prev"].astype(np.int64)
         f32 = torch.float32
         self.front = FrontendState(
             last_sample=npz.to_tensor(z["front/last_sample"], f32,

@@ -1,7 +1,7 @@
-"""Many-stream continuous-batching serving engine (RNN-T greedy or beam).
+"""Many-stream continuous-batching serving engine (RNN-T, TDT and CTC).
 
 The port's counterpart of `nemotron_tpu/streaming/serving.py` without its
-CTC and TDT decodes and its mesh. A fixed slab of `n_slots` stream slots
+mesh. A fixed slab of `n_slots` stream slots
 keeps its state on the params' device; admission and eviction zero a
 slot's slices (the reference's reset semantics, src/nemo-stream.cpp:81-101,
 per slot).
@@ -9,9 +9,12 @@ per slot).
 Each engine tick runs ONE step-masked chunk step over all slots: slots
 without a full chunk buffered are masked out (their device state frozen,
 not fed padding), so streams arrive and advance at independent rates and
-join and leave while the others run. Ring phases are kept in lockstep; a
-slot that skipped ticks has its ring realigned (rolled) when it resumes,
-so every stream's transcript equals its solo run's.
+join and leave while the others run. The chunk step is the decode family's
+(`ServingEngine._decode`: greedy or beam RNN-T, the TDT walk or beam, the
+CTC head); one shared tail (`_advance`) turns its output into text. Ring
+phases are kept in lockstep; a slot that skipped ticks has its ring
+realigned (rolled) when it resumes, so every stream's transcript equals
+its solo run's.
 
 The DSP runs on the host (`dsp="numpy"`: numpy framing per slot, one
 `torch.fft` spectral pass over every fed slot's frames) or on the device
@@ -35,6 +38,7 @@ from ..frontend.device_frontend import (FrontendState, frames_after,
 from ..frontend.preprocessor import StreamingPreprocessor, pad_window
 from ..config import MAX_SYMBOLS_PER_STEP
 from ..models import beam as beam_mod
+from ..models import ctc as ctc_mod
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..models.lm import lm_to_device
@@ -42,7 +46,9 @@ from ..params import ModelParams, cast_params
 from ..utils import npz
 from ..utils.text import tokens_to_text
 from .session import (_check_dtype, beam_leaves, best_transcripts,
+                      check_decode_options, chunk_step_ctc,
                       chunk_step_masked, chunk_step_masked_beam,
+                      chunk_step_tdt, chunk_step_tdt_beam, init_beam,
                       restore_beam, restore_states, token_list, token_rows)
 
 
@@ -153,8 +159,9 @@ def _reset_slots(enc_state, dec_state, mask: np.ndarray, blank_token: int):
 
 def _reset_beam_slots(beam_state, mask: np.ndarray, blank_token: int):
     """Give every masked slot a fresh beam in place (hypothesis 0 live at
-    score 0, the others empty; nemotron_tpu/streaming/serving.py:175-202),
-    one index_fill_ per leaf."""
+    score 0, the others empty, a TDT beam's t and sym 0;
+    nemotron_tpu/streaming/serving.py:175-202), one index_fill_ per
+    leaf."""
     idx = torch.from_numpy(np.flatnonzero(mask)).to(beam_state.h.device)
     for k, leaf in beam_mod.leaves(beam_state).items():
         leaf.index_fill_(0, idx, {"prev_token": blank_token,
@@ -221,15 +228,15 @@ def _mel_buf_shift(cc: CacheConfig, mel_buf, consume_mask):
     return torch.where(consume_mask[:, None, None], shifted, mel_buf)
 
 
-def _device_dsp_tick(params, cfg: ModelConfig, cc: CacheConfig,
-                     pcfg: PreprocessorConfig, pcm_i16, front_res,
-                     front_last, mel_buf, enc_state, dec_state, pos_heads,
-                     window, filterbank, dsp_mask: np.ndarray,
-                     fresh_mask: np.ndarray, consume_mask: np.ndarray,
-                     confidence: bool = False):
-    """One ragged tick with the DSP on the device: the DSP for every
+def _device_dsp_tick(cc: CacheConfig, pcfg: PreprocessorConfig, pcm_i16,
+                     front_res, front_last, mel_buf, window, filterbank,
+                     dsp_mask: np.ndarray, fresh_mask: np.ndarray,
+                     consume_mask: np.ndarray, decode):
+    """One ragged tick with the DSP on the device
+    (nemotron_tpu/streaming/serving.py:269-496): the DSP for every
     DSP-advancing slot, the two-offset mel-buffer insert, then ONE masked
-    encoder + decode chunk step for the consuming slots.
+    chunk step, `decode(mel_chunk, consume)`, for the consuming slots (the
+    engine's decode family: greedy or beam, RNN-T, TDT or CTC).
 
     Three host masks carry the raggedness: `dsp_mask` (the slot consumes
     one PCM quantum), `fresh_mask` (its first quantum since admission: the
@@ -237,71 +244,40 @@ def _device_dsp_tick(params, cfg: ModelConfig, cc: CacheConfig,
     frames[1:] at the fresh offset; ServingEngine._RCAP) and `consume_mask`
     (a full chunk is buffered after the insert). Frozen slots' DSP state,
     mel buffer, caches and decoder state pass through unchanged. A tick in
-    which no slot consumes runs no encoder (tokens None): a fully masked
-    chunk step changes nothing. Returns (tokens, confs, front_res,
-    front_last, mel_buf, enc_state, dec_state); confs (the emissions'
-    log-posteriors) is None unless `confidence`."""
+    which no slot consumes runs no encoder (result None): a fully masked
+    chunk step changes nothing. Returns (decode's result, front_res,
+    front_last, mel_buf)."""
     dev = mel_buf.device
     dsp_m, fresh_m, consume_m = (torch.from_numpy(m).to(dev) for m in
                                  (dsp_mask, fresh_mask, consume_mask))
     front_res, front_last, mel_buf = _device_dsp_front(
         cc, pcfg, pcm_i16, front_res, front_last, mel_buf, window,
         filterbank, dsp_m, fresh_m)
-    tokens = confs = None
+    result = None
     if consume_mask.any():
-        out = chunk_step_masked(
-            params, cfg, cc, mel_buf[:, :cc.chunk_mel_frames], enc_state,
-            dec_state, pos_heads, consume_m, with_confidence=confidence)
-        tokens, enc_state, dec_state = out[:3]
-        confs = out[3] if confidence else None
+        result = decode(mel_buf[:, :cc.chunk_mel_frames], consume_m)
         mel_buf = _mel_buf_shift(cc, mel_buf, consume_m)
-    return (tokens, confs, front_res, front_last, mel_buf, enc_state,
-            dec_state)
-
-
-def _device_dsp_tick_beam(params, cfg: ModelConfig, cc: CacheConfig,
-                          pcfg: PreprocessorConfig, pcm_i16, front_res,
-                          front_last, mel_buf, enc_state, beam_state,
-                          pos_heads, window, filterbank, dsp_mask: np.ndarray,
-                          fresh_mask: np.ndarray, consume_mask: np.ndarray,
-                          beam_size: int, expansions: int, lm=None,
-                          lm_weight: float = 0.3, lm_bonus: float = 0.0):
-    """_device_dsp_tick with the batched beam search as the decode
-    (nemotron_tpu/streaming/serving.py:308-334): frozen slots keep their
-    whole beam. Returns (front_res, front_last, mel_buf, enc_state,
-    beam_state)."""
-    dev = mel_buf.device
-    dsp_m, fresh_m, consume_m = (torch.from_numpy(m).to(dev) for m in
-                                 (dsp_mask, fresh_mask, consume_mask))
-    front_res, front_last, mel_buf = _device_dsp_front(
-        cc, pcfg, pcm_i16, front_res, front_last, mel_buf, window,
-        filterbank, dsp_m, fresh_m)
-    if consume_mask.any():
-        enc_state, beam_state = chunk_step_masked_beam(
-            params, cfg, cc, mel_buf[:, :cc.chunk_mel_frames], enc_state,
-            beam_state, pos_heads, consume_m, beam_size, expansions, lm,
-            lm_weight, lm_bonus)
-        mel_buf = _mel_buf_shift(cc, mel_buf, consume_m)
-    return front_res, front_last, mel_buf, enc_state, beam_state
+    return result, front_res, front_last, mel_buf
 
 
 def check_engine_snapshot(z, beam_size: int, lm, dtype: torch.dtype,
-                          device):
+                          device, ctc: bool = False, tdt: bool = False):
     """An engine snapshot's decode mode against the engine's (the JAX
-    engines' checks): a CTC or TDT snapshot raises, as does greedy against
-    beam; returns the snapshot's BeamState (None for greedy)."""
-    for key, what in (("tdt_skip", "TDT"), ("ctc_prev", "CTC")):
-        if key in z:
+    engines' checks): TDT against not, CTC against not, greedy against
+    beam; returns the snapshot's beam state (None for greedy)."""
+    for key, what, mine in (("tdt_skip", "TDT", tdt), ("ctc_prev", "CTC",
+                                                         ctc)):
+        if (key in z) != mine:
             raise ValueError(f"snapshot/engine {what}-mode mismatch: the "
-                             f"snapshot carries {what} state, this engine "
-                             "decodes RNN-T")
+                             f"snapshot {'carries' if key in z else 'has no'}"
+                             f" {what} state")
     has_beam = "beam/h" in z
     if (beam_size > 1) != has_beam:
         raise ValueError(
             "snapshot/engine beam-mode mismatch: snapshot "
             f"{'carries' if has_beam else 'has no'} beam state, engine "
             f"beam_size={beam_size}")
-    return (restore_beam(z, beam_size, lm, dtype, device, "engine")
+    return (restore_beam(z, beam_size, lm, dtype, device, "engine", tdt=tdt)
             if has_beam else None)
 
 
@@ -332,9 +308,12 @@ class ServingEngine:
     the current best hypotheses. Endpointing and confidence need greedy
     decode.
 
-    CTC and TDT checkpoints (the TDT/CTC slice), a device mesh (multi-GPU)
-    and dsp="native" (the native-bindings slice) come with later slices of
-    the port and raise NotImplementedError."""
+    A TDT checkpoint decodes with the duration-aware walk (each slot
+    carries its jump overshoot, `tdt_skip`) or beam; ctc=True decodes a
+    hybrid checkpoint with its CTC head (the collapse carry `ctc_prev` on
+    the host). A device mesh (the multi-GPU slice) and dsp="native" (the
+    native-bindings slice) come with later slices of the port and raise
+    NotImplementedError."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -355,12 +334,8 @@ class ServingEngine:
             raise ValueError("confidence requires greedy decode")
         if lm is not None and beam_size <= 1:
             raise ValueError("LM shallow fusion requires beam_size > 1")
-        if ctc:
-            raise NotImplementedError("CTC decode comes with the TDT/CTC "
-                                      "slice of the port")
-        if cfg.tdt_durations:
-            raise NotImplementedError("TDT decode comes with the TDT/CTC "
-                                      "slice of the port")
+        self.ctc, self.tdt = check_decode_options(params, cfg, ctc,
+                                                  beam_size, endpoint_reset)
         if endpoint_silence_s is not None and beam_size > 1:
             raise ValueError("endpointing requires greedy decode")
         if mesh is not None:
@@ -426,9 +401,13 @@ class ServingEngine:
         self.beam_state = None
         self._beam_dirty = False
         if beam_size > 1:
-            self.beam_state = beam_mod.init_beam_state(
-                cfg, n_slots, beam_size, max_beam_tokens, compute_dtype, dev,
-                lm=self.lm)
+            self.beam_state = init_beam(cfg, self.tdt, n_slots, beam_size,
+                                        max_beam_tokens, compute_dtype, dev,
+                                        lm=self.lm)
+        # the TDT jump carry (device) and the CTC collapse carry (host)
+        self.tdt_skip = (torch.zeros((n_slots,), dtype=torch.int32,
+                                     device=dev) if self.tdt else None)
+        self.ctc_prev = np.full(n_slots, -1, np.int64) if self.ctc else None
 
         fb = params.preprocessor.filterbank.float().cpu().numpy()
         win = params.preprocessor.window.float().cpu().numpy()
@@ -543,9 +522,7 @@ class ServingEngine:
         mask[slots] = True
         self.enc_state, self.dec_state = _reset_slots(
             self.enc_state, self.dec_state, mask, self.cfg.blank_token)
-        if self.beam_state is not None:
-            self.beam_state = _reset_beam_slots(self.beam_state, mask,
-                                                self.cfg.blank_token)
+        self._reset_decode_carries(mask)
         for s in slots:
             s = int(s)
             self.active[s] = True
@@ -615,14 +592,24 @@ class ServingEngine:
                 self.step()
         return [self.remove_stream(s, return_tokens) for s in slots]
 
+    def _reset_decode_carries(self, mask: np.ndarray) -> None:
+        """A fresh beam, TDT jump carry and CTC collapse carry for the
+        masked slots (nemotron_tpu/streaming/serving.py:836-844)."""
+        if self.beam_state is not None:
+            self.beam_state = _reset_beam_slots(self.beam_state, mask,
+                                                self.cfg.blank_token)
+        if self.tdt_skip is not None:
+            self.tdt_skip.index_fill_(
+                0, torch.from_numpy(np.flatnonzero(mask)).to(self.device), 0)
+        if self.ctc_prev is not None:
+            self.ctc_prev[mask] = -1
+
     def _clear_slot(self, slot: int) -> None:
         self.enc_state, self.dec_state = _reset_slot(
             self.enc_state, self.dec_state, slot, self.cfg.blank_token)
-        if self.beam_state is not None:
-            mask = np.zeros(self.n_slots, bool)
-            mask[slot] = True
-            self.beam_state = _reset_beam_slots(self.beam_state, mask,
-                                                self.cfg.blank_token)
+        mask = np.zeros(self.n_slots, bool)
+        mask[slot] = True
+        self._reset_decode_carries(mask)
         self._dsp_reset(slot)
         self.mel_buffers[slot] = self._fresh_mel_buffer()
         self.frames_retired += int(self.frame_offsets[slot])
@@ -693,12 +680,64 @@ class ServingEngine:
                     self.enc_state, int(s), delta, self.cc.chunk_enc_len)
                 self.slot_phase[s] = self.phase_counter
 
-    def _emit(self, tokens: np.ndarray, confs, out: dict[int, str]) -> dict:
-        """Append each slot's emitted tokens (with confs [S, T, MAX] f32:
-        triples with their log-posteriors) and text; returns them per slot.
-        Masked slots emit only blanks."""
-        emitted = dec_mod.extract_emitted(tokens, self.cfg.blank_token,
-                                          self.frame_offsets, confs=confs)
+    def _decode(self, chunk: torch.Tensor, mask: torch.Tensor):
+        """ONE masked chunk step of the engine's decode family over all
+        slots (`mask` [S] bool on the device: the advancing ones), the
+        device state updated. Returns its host half: (tokens [S, T, MAX],
+        confs or None) for greedy RNN-T and TDT, (ids [S, T], log-posteriors
+        or None) for CTC, None for a beam (its transcripts are refreshed
+        lazily; the device is synchronized, so the tick's time covers its
+        work)."""
+        p, cfg, cc = self.params, self.cfg, self.cc
+        if self.beam_state is not None:
+            if self.tdt:
+                self.enc_state, self.beam_state = chunk_step_tdt_beam(
+                    p, cfg, cc, chunk, self.enc_state, self.beam_state,
+                    self.pos_heads, self.beam_size, self.lm, self.lm_weight,
+                    self.lm_bonus, step_mask=mask)
+            else:
+                self.enc_state, self.beam_state = chunk_step_masked_beam(
+                    p, cfg, cc, chunk, self.enc_state, self.beam_state,
+                    self.pos_heads, mask, self.beam_size,
+                    self.beam_expansions, self.lm, self.lm_weight,
+                    self.lm_bonus)
+            self._beam_dirty = True
+            self._sync()
+            return None
+        if self.ctc:
+            out, extra, self.enc_state = chunk_step_ctc(
+                p, cfg, cc, chunk, self.enc_state, self.pos_heads,
+                step_mask=mask, with_confidence=self.confidence)
+        elif self.tdt:
+            (out, self.enc_state, self.dec_state, self.tdt_skip,
+             extra) = chunk_step_tdt(
+                p, cfg, cc, chunk, self.enc_state, self.dec_state,
+                self.pos_heads, self.tdt_skip, step_mask=mask,
+                with_confidence=self.confidence)
+        else:
+            res = chunk_step_masked(p, cfg, cc, chunk, self.enc_state,
+                                    self.dec_state, self.pos_heads, mask,
+                                    with_confidence=self.confidence)
+            out, self.enc_state, self.dec_state = res[:3]
+            extra = res[3] if self.confidence else None
+        return (out.cpu().numpy(),
+                None if extra is None else extra.cpu().numpy())
+
+    def _emit(self, result, slots: np.ndarray, out: dict[int, str]) -> dict:
+        """Append each advancing slot's emitted tokens and text from a
+        `_decode` result (with confidence: triples with their
+        log-posteriors); returns them per slot. Masked slots emit nothing:
+        a greedy step leaves them blank, the CTC collapse reads only
+        `slots`."""
+        first, second = result
+        if self.ctc:
+            emitted = ctc_mod.collapse_chunk(
+                first.astype(np.int64), self.ctc_prev, slots,
+                self.cfg.blank_token, self.frame_offsets, second)
+        else:
+            emitted = dec_mod.extract_emitted(first, self.cfg.blank_token,
+                                              self.frame_offsets,
+                                              confs=second)
         for slot, toks in emitted.items():
             self.tokens[slot].extend(toks)
             text = tokens_to_text(toks, self.vocab)
@@ -706,13 +745,14 @@ class ServingEngine:
             out[slot] = out.get(slot, "") + text
         return emitted
 
-    def _advance(self, stepped: np.ndarray, tokens, confs, out: dict) -> None:
+    def _advance(self, stepped: np.ndarray, result, out: dict) -> None:
         """After a chunk step of the slots in the [S] bool mask `stepped`:
-        emit a greedy step's tokens and update the endpointer (a beam step,
-        tokens None, leaves the transcripts to refresh_transcripts), then
-        advance the slots' frame offsets and chunk phase."""
+        emit a greedy or CTC step's tokens and update the endpointer (a
+        beam step, result None, leaves the transcripts to
+        refresh_transcripts), then advance the slots' frame offsets and
+        chunk phase."""
         slots = np.flatnonzero(stepped)
-        emitted = None if tokens is None else self._emit(tokens, confs, out)
+        emitted = None if result is None else self._emit(result, slots, out)
         self.frame_offsets[slots] += self.cc.valid_out_len
         if emitted is not None:
             self._ep_update(emitted, slots, self.cc.valid_out_len)
@@ -806,28 +846,12 @@ class ServingEngine:
             chunk = torch.from_numpy(chunk_np).to(self.dtype).to(self.device)
             mask = torch.from_numpy(ready).to(self.device)
             t0 = time.perf_counter()
-            if self.beam_state is not None:
-                self.enc_state, self.beam_state = chunk_step_masked_beam(
-                    self.params, self.cfg, cc, chunk, self.enc_state,
-                    self.beam_state, self.pos_heads, mask, self.beam_size,
-                    self.beam_expansions, self.lm, self.lm_weight,
-                    self.lm_bonus)
-                self._beam_dirty = True
-                tokens = confs = None
-                self._sync()
-            else:
-                res = chunk_step_masked(
-                    self.params, self.cfg, cc, chunk, self.enc_state,
-                    self.dec_state, self.pos_heads, mask,
-                    with_confidence=self.confidence)
-                tokens, self.enc_state, self.dec_state = res[:3]
-                tokens = tokens.cpu().numpy()   # [S, valid_out, MAX]
-                confs = res[3].cpu().numpy() if self.confidence else None
+            result = self._decode(chunk, mask)
             self.step_times.append(time.perf_counter() - t0)
 
             for slot in ready_slots:
                 self.mel_buffers[slot].drop(cc.shift_mel_frames)
-            self._advance(ready, tokens, confs, out)
+            self._advance(ready, result, out)
             ready = self._ready()
         return out
 
@@ -866,31 +890,12 @@ class ServingEngine:
                 pcm[s] = self.pcm_fifos[s].take(self._quantum)
             pcm = torch.from_numpy(pcm).to(self.device)
             t0 = time.perf_counter()
-            if self.beam_state is not None:
-                (self.front_res, self.front_last, self.mel_buf_dev,
-                 self.enc_state, self.beam_state) = _device_dsp_tick_beam(
-                    self.params, self.cfg, cc, self._pcfg, pcm,
-                    self.front_res, self.front_last, self.mel_buf_dev,
-                    self.enc_state, self.beam_state, self.pos_heads,
-                    self._window, self._filterbank, dsp, fresh, consume,
-                    self.beam_size, self.beam_expansions, self.lm,
-                    self.lm_weight, self.lm_bonus)
-                self._beam_dirty = True
-                tokens = confs = None
-            else:
-                (tokens, confs, self.front_res, self.front_last,
-                 self.mel_buf_dev, self.enc_state,
-                 self.dec_state) = _device_dsp_tick(
-                    self.params, self.cfg, cc, self._pcfg, pcm,
-                    self.front_res, self.front_last, self.mel_buf_dev,
-                    self.enc_state, self.dec_state, self.pos_heads,
-                    self._window, self._filterbank, dsp, fresh, consume,
-                    self.confidence)
-            if tokens is not None:
-                tokens = tokens.cpu().numpy()
-                if confs is not None:
-                    confs = confs.cpu().numpy()
-            else:                               # a beam or DSP-only tick
+            (result, self.front_res, self.front_last,
+             self.mel_buf_dev) = _device_dsp_tick(
+                cc, self._pcfg, pcm, self.front_res, self.front_last,
+                self.mel_buf_dev, self._window, self._filterbank, dsp, fresh,
+                consume, self._decode)
+            if not consume.any():               # a DSP-only tick
                 self._sync()
             self.step_times.append(time.perf_counter() - t0)
 
@@ -899,7 +904,7 @@ class ServingEngine:
                                      post_fill)
             self.fresh = self.fresh & ~dsp
             if consume.any():
-                self._advance(consume, tokens, confs, out)
+                self._advance(consume, result, out)
         return out
 
     def _sync(self) -> None:
@@ -953,7 +958,8 @@ class ServingEngine:
         (this port decodes a partial last quantum that the JAX engine
         drops), so a resumed stream ends as this port's engine ends it. A
         beam engine adds its beam/* leaves (and writes the transcripts of
-        its current best hypotheses)."""
+        its current best hypotheses); a TDT engine its tdt_skip, a CTC
+        engine its ctc_prev."""
         self.refresh_transcripts()
         flat = {f"enc/{k}": getattr(self.enc_state, k)
                 for k in ("k_cache", "v_cache", "conv_cache", "valid_len",
@@ -969,6 +975,10 @@ class ServingEngine:
         }
         if self.beam_state is not None:
             flat |= beam_leaves(self.beam_state)
+        if self.tdt_skip is not None:
+            flat["tdt_skip"] = self.tdt_skip
+        if self.ctc_prev is not None:
+            flat["ctc_prev"] = self.ctc_prev
         if self._ep_frames is not None:
             flat["ep/silence"] = self.ep_silence
             flat["ep/emitted"] = self.ep_emitted
@@ -1005,15 +1015,16 @@ class ServingEngine:
     def load(self, path: str) -> None:
         """Restore a snapshot written by `save` (or by the JAX engine) into
         this engine: fresh tensors on its device in its dtypes. The slot
-        count must match; a snapshot of a CTC or TDT engine or of another
-        beam mode (greedy against beam, width, LM fusion), or a host-DSP
+        count must match; a snapshot of another decode mode (TDT, CTC,
+        greedy against beam, width, LM fusion, beam family), or a host-DSP
         snapshot loaded into a device-DSP engine, raises ValueError."""
         z = npz.NpzView(np.load(path, allow_pickle=True))
         if z["active"].shape != (self.n_slots,):
             raise ValueError(f"snapshot has {z['active'].shape[0]} slots, "
                              f"the engine {self.n_slots}")
         beam_state = check_engine_snapshot(z, self.beam_size, self.lm,
-                                           self.dtype, self.device)
+                                           self.dtype, self.device,
+                                           self.ctc, self.tdt)
         if self.dsp_mode == "device" and "devdsp/mel_buf" not in z:
             raise ValueError("snapshot was saved by a host-DSP engine; "
                              "device-DSP resume needs the device mel "
@@ -1022,6 +1033,11 @@ class ServingEngine:
             z, self.cc, self.dtype, self.device)
         self.beam_state = beam_state
         self._beam_dirty = beam_state is not None
+        if self.tdt:
+            self.tdt_skip = npz.to_tensor(z["tdt_skip"], torch.int32,
+                                          self.device)
+        if self.ctc:
+            self.ctc_prev = z["ctc_prev"].astype(np.int64)
         self.active = z["active"].astype(bool)
         self.phase_counter = int(z["phase_counter"])
         self.slot_phase = z["slot_phase"].astype(np.int64)

@@ -1,15 +1,18 @@
 """Streaming session engine and full-utterance transcription.
 
-The port's counterpart of `nemotron_tpu/streaming/session.py` (RNN-T
-greedy and beam) and of the reference's nemo_stream_* API
+The port's counterpart of `nemotron_tpu/streaming/session.py` (RNN-T,
+TDT and CTC decoding) and of the reference's nemo_stream_* API
 (src/nemo-stream.h:176-312). One `StreamSession` manages S parallel
 streams: host-side PCM->mel frontend and mel buffer, plus `chunk_step`,
 which runs the cached encoder and the greedy decode on the params' device
 and brings back only int32 tokens (or `chunk_step_beam`, whose K
-hypotheses stay on the device). `transcribe_batch` is the reference's
-whole-file path (src/transcribe.cpp): several utterances in one
-length-masked encoder pass and one greedy or beam decode, with n-best
-lists, LM shallow fusion and second-pass LM rescoring.
+hypotheses stay on the device). A TDT checkpoint decodes with the
+duration-aware walk or beam (`chunk_step_tdt`, `chunk_step_tdt_beam`), a
+hybrid checkpoint with ctc=True with its CTC head (`chunk_step_ctc`, the
+collapse on the host). `transcribe_batch` is the reference's whole-file
+path (src/transcribe.cpp): several utterances in one length-masked
+encoder pass and one greedy or beam decode, with n-best lists, LM shallow
+fusion and second-pass LM rescoring.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ from ..config import (MAX_SYMBOLS_PER_STEP, CacheConfig, ModelConfig,
                       PreprocessorConfig)
 from ..frontend.preprocessor import StreamingPreprocessor
 from ..models import beam as beam_mod
+from ..models import ctc as ctc_mod
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
+from ..models import tdt as tdt_mod
 from ..models.lm import lm_to_device
 from ..params import ModelParams, cast_params
 from ..utils import npz
@@ -107,6 +112,96 @@ def chunk_step_masked_beam(params: ModelParams, cfg: ModelConfig,
     return enc_state, beam_state
 
 
+def chunk_step_tdt(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
+                   mel_chunk: torch.Tensor, enc_state, dec_state, pos_heads,
+                   skip: torch.Tensor, step_mask: torch.Tensor | None = None,
+                   with_confidence: bool = False):
+    """chunk_step for TDT checkpoints (nemotron_tpu/streaming/session.py:
+    284-313, serving.py:340-364): the cached encoder, then the
+    duration-aware greedy walk. `skip` [S] int32 carries a jump that
+    overshot the previous chunk into this one; `step_mask` [S] freezes the
+    masked streams (caches, decoder state and skip). Returns (tokens
+    [S, valid_out, MAX] int32, enc_state', dec_state', skip', confs
+    [S, valid_out, MAX] f32 or None)."""
+    enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
+                                              enc_state, pos_heads,
+                                              step_mask=step_mask)
+    out = tdt_mod.tdt_greedy_decode(params, cfg, enc_out, dec_state,
+                                    skip_in=skip, step_mask=step_mask,
+                                    with_confidence=with_confidence)
+    tokens, confs = (out[0], out[1]) if with_confidence else (out[0], None)
+    dec_state, skip = out[-2:]
+    return tokens, enc_state, dec_state, skip, confs
+
+
+def chunk_step_tdt_beam(params: ModelParams, cfg: ModelConfig,
+                        cc: CacheConfig, mel_chunk: torch.Tensor, enc_state,
+                        beam_state, pos_heads, beam_size: int, lm=None,
+                        lm_weight: float = 0.3, lm_bonus: float = 0.0,
+                        step_mask: torch.Tensor | None = None):
+    """chunk_step with the duration-aware TDT beam search as its decode
+    (nemotron_tpu/streaming/session.py:316-336, serving.py:367-385): the
+    TdtBeamState carries each hypothesis's overshoot across chunks, and
+    masked streams keep their caches and whole beam. Returns (enc_state',
+    beam_state')."""
+    enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
+                                              enc_state, pos_heads,
+                                              step_mask=step_mask)
+    beam_state = tdt_mod.tdt_beam_decode(params, cfg, enc_out, beam_state,
+                                         beam_size, step_mask=step_mask,
+                                         lm=lm, lm_weight=lm_weight,
+                                         lm_bonus=lm_bonus)
+    return enc_state, beam_state
+
+
+def chunk_step_ctc(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
+                   mel_chunk: torch.Tensor, enc_state, pos_heads,
+                   step_mask: torch.Tensor | None = None,
+                   with_confidence: bool = False):
+    """chunk_step decoding with a hybrid checkpoint's CTC head
+    (nemotron_tpu/streaming/session.py:267-281, 339-352, serving.py:
+    388-409): the cached encoder and the head's per-frame argmax. CTC has
+    no decoder state; the host carries each stream's last frame id for a
+    repeat spanning two chunks. Returns (ids [S, valid_out] int32, logp
+    [S, valid_out] f32 (the argmax's log-posterior) or None, enc_state')."""
+    enc_out, enc_state = enc_mod.encode_chunk(params, cfg, cc, mel_chunk,
+                                              enc_state, pos_heads,
+                                              step_mask=step_mask)
+    if with_confidence:
+        ids, logp = ctc_mod.frame_log_posteriors(params, enc_out)
+        return ids, logp, enc_state
+    return ctc_mod.frame_ids(params, enc_out), None, enc_state
+
+
+def check_decode_options(params, cfg: ModelConfig, ctc: bool, beam_size: int,
+                         endpoint_reset: bool = False,
+                         excludes: str = "beam") -> tuple[bool, bool]:
+    """The JAX package's checks of ctc=True (a CTC head, no beam, no
+    decoder reset: CTC has no prediction network); `excludes` names what
+    the message says CTC excludes (the session's "beam/tracing"). Returns
+    (ctc, tdt): a TDT checkpoint decodes TDT unless ctc=True."""
+    if ctc:
+        if params.ctc is None:
+            raise ValueError("ctc=True needs a model with a CTC head "
+                             "(ctc_decoder.* tensors)")
+        if beam_size > 1:
+            raise ValueError(f"ctc decode excludes {excludes} (CTC beam "
+                             "would be a prefix search; decode the hybrid's "
+                             "RNN-T head for beam)")
+        if endpoint_reset:
+            raise ValueError("endpoint_reset resets the prediction network; "
+                             "CTC decode has none")
+    return bool(ctc), bool(cfg.tdt_durations) and not ctc
+
+
+def init_beam(cfg: ModelConfig, tdt: bool, batch: int, beam_size: int,
+              max_tokens: int, dtype: torch.dtype, device, lm=None):
+    """A fresh beam of the decode family: TdtBeamState for TDT, else
+    BeamState."""
+    init = tdt_mod.init_tdt_beam_state if tdt else beam_mod.init_beam_state
+    return init(cfg, batch, beam_size, max_tokens, dtype, device, lm=lm)
+
+
 def check_beam_options(beam_size: int, lm, confidence: bool = False,
                        timestamp_words: bool = False) -> None:
     """The JAX package's ValueErrors for options that need greedy decode
@@ -143,11 +238,12 @@ def beam_leaves(beam_state) -> dict:
 
 
 def restore_beam(st, beam_size: int, lm, dtype: torch.dtype, device,
-                 what: str = "session"):
-    """The BeamState of a snapshot's beam/* leaves as fresh tensors on
-    `device`, after the JAX package's checks of the beam width, LM fusion
-    and beam family (a TDT beam carries beam/t). The caller has checked
-    that both sides decode with a beam."""
+                 what: str = "session", tdt: bool = False):
+    """The BeamState (TdtBeamState when `tdt`) of a snapshot's beam/*
+    leaves as fresh tensors on `device`, after the JAX package's checks of
+    the beam width, LM fusion and beam family (a TDT beam carries beam/t
+    and beam/sym). The caller has checked that both sides decode with a
+    beam."""
     if st["beam/h"].shape[1] != beam_size:
         raise ValueError(f"snapshot beam width K={st['beam/h'].shape[1]} != "
                          f"{what} beam_size={beam_size}")
@@ -157,15 +253,19 @@ def restore_beam(st, beam_size: int, lm, dtype: torch.dtype, device,
             f"snapshot/{what} LM-fusion mismatch: snapshot "
             f"{'carries' if has_lm else 'has no'} LM state, {what} "
             f"lm={'set' if lm is not None else 'None'}")
-    if "beam/t" in st:
-        raise ValueError(f"snapshot/{what} beam-family mismatch: snapshot is "
-                         f"TDT, {what} is RNN-T")
+    if ("beam/t" in st) != tdt:
+        family = ("TDT", "RNN-T")
+        raise ValueError(
+            f"snapshot/{what} beam-family mismatch: snapshot is "
+            f"{family['beam/t' not in st]}, {what} is {family[not tdt]}")
     f32, i32 = torch.float32, torch.int32
     types = {"h": dtype, "c": dtype, "prev_token": i32, "scores": f32,
              "tokens": i32, "lengths": i32, "lm_h": dtype, "lm_c": dtype}
-    return beam_mod.BeamState(**{
-        k: npz.to_tensor(st[f"beam/{k}"], t, device)
-        for k, t in types.items() if f"beam/{k}" in st})
+    if tdt:
+        types |= {"t": i32, "sym": i32}
+    cls = tdt_mod.TdtBeamState if tdt else beam_mod.BeamState
+    return cls(**{k: npz.to_tensor(st[f"beam/{k}"], t, device)
+                  for k, t in types.items() if f"beam/{k}" in st})
 
 
 class StreamSession:
@@ -187,7 +287,13 @@ class StreamSession:
     transcript is the current best hypothesis, so earlier text may be
     rewritten: `process` returns "" and `get_transcript` / `finalize` read
     it. lm (models/lm.LMParams) adds shallow fusion to that beam:
-    lm_weight * log P_lm + lm_bonus on every label."""
+    lm_weight * log P_lm + lm_bonus on every label.
+
+    A TDT checkpoint (cfg.tdt_durations) decodes with the duration-aware
+    walk, carrying each stream's jump overshoot (`tdt_skip`), or with the
+    duration-aware beam; ctc=True decodes a hybrid checkpoint with its CTC
+    head (greedy, with confidence and word timestamps; the collapse carries
+    each stream's last frame id across chunks, `ctc_prev`)."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -204,15 +310,18 @@ class StreamSession:
                  ctc: bool = False,
                  lm=None, lm_weight: float = 0.3,
                  lm_bonus: float = 0.0):
-        if ctc:
-            raise NotImplementedError("CTC decode comes with the TDT/CTC "
-                                      "slice of the port")
-        if cfg.tdt_durations:
-            raise NotImplementedError("TDT decode comes with the TDT/CTC "
-                                      "slice of the port")
         check_beam_options(beam_size, lm, confidence or confidence_words,
                            timestamp_words)
+        self.ctc, self.tdt = check_decode_options(params, cfg, ctc, beam_size,
+                                                  excludes="beam/tracing")
         if trace_dir is not None:
+            # the JAX package's refusals of tracing a CTC or TDT decode
+            if self.ctc:
+                raise ValueError("ctc decode excludes beam/tracing (CTC beam "
+                                 "would be a prefix search; decode the "
+                                 "hybrid's RNN-T head for beam)")
+            if self.tdt:
+                raise ValueError("tracing supports greedy decode only")
             raise NotImplementedError("dump tracing comes with the utils "
                                       "slice of the port")
         _check_dtype(compute_dtype)
@@ -252,9 +361,15 @@ class StreamSession:
                                                     self.device)
         self.beam_state = None
         if self.beam_size > 1:
-            self.beam_state = beam_mod.init_beam_state(
-                cfg, S, self.beam_size, self.max_beam_tokens, self.dtype,
-                self.device, lm=self.lm)
+            self.beam_state = init_beam(cfg, self.tdt, S, self.beam_size,
+                                        self.max_beam_tokens, self.dtype,
+                                        self.device, lm=self.lm)
+        # the CTC collapse carry: each stream's raw last frame id of the
+        # previous chunk (-1 at the start: matches nothing); the TDT jump
+        # carry: frames to skip at the start of the next chunk
+        self.ctc_prev = np.full(S, -1, np.int64)
+        self.tdt_skip = torch.zeros((S,), dtype=torch.int32,
+                                    device=self.device)
         self.preproc.reset()
         # 9-frame zero-seeded overlap (reference src/nemo-stream.cpp:58-60)
         self.mel_buffer = np.zeros((S, cc.pre_encode_cache_size, cfg.n_mels),
@@ -303,31 +418,56 @@ class StreamSession:
                     self.device, self.dtype)
             t0 = time.perf_counter()
             if self.beam_state is not None:
-                self.enc_state, self.beam_state = chunk_step_beam(
-                    self.params, self.cfg, cc, chunk, self.enc_state,
-                    self.beam_state, self.pos_heads, self.beam_size,
-                    self.beam_expansions, self.lm, self.lm_weight,
-                    self.lm_bonus)
+                if self.tdt:
+                    self.enc_state, self.beam_state = chunk_step_tdt_beam(
+                        self.params, self.cfg, cc, chunk, self.enc_state,
+                        self.beam_state, self.pos_heads, self.beam_size,
+                        self.lm, self.lm_weight, self.lm_bonus)
+                else:
+                    self.enc_state, self.beam_state = chunk_step_beam(
+                        self.params, self.cfg, cc, chunk, self.enc_state,
+                        self.beam_state, self.pos_heads, self.beam_size,
+                        self.beam_expansions, self.lm, self.lm_weight,
+                        self.lm_bonus)
                 self._refresh_beam_transcripts()
                 self.chunk_seconds += time.perf_counter() - t0
                 self.total_chunks += 1
                 self.mel_buffer = self.mel_buffer[:, cc.shift_mel_frames:]
                 self.frame_offset += cc.valid_out_len
                 continue
-            out = chunk_step(self.params, self.cfg, cc, chunk,
-                             self.enc_state, self.dec_state, self.pos_heads,
-                             with_confidence=self.confidence)
-            tokens, self.enc_state, self.dec_state = out[:3]
-            tokens = tokens.cpu().numpy()   # [S, valid_out, MAX]
-            confs = out[3].cpu().numpy() if self.confidence else None
+            if self.ctc:
+                ids, logp, self.enc_state = chunk_step_ctc(
+                    self.params, self.cfg, cc, chunk, self.enc_state,
+                    self.pos_heads, with_confidence=self.confidence)
+                ids = ids.cpu().numpy()                 # [S, valid_out]
+                emitted = ctc_mod.collapse_chunk(
+                    ids, self.ctc_prev, range(self.n_streams),
+                    self.cfg.blank_token, self.frame_offset,
+                    None if logp is None else logp.cpu().numpy())
+                n_frames = ids.shape[1]
+            else:
+                if self.tdt:
+                    (tokens, self.enc_state, self.dec_state, self.tdt_skip,
+                     confs) = chunk_step_tdt(
+                        self.params, self.cfg, cc, chunk, self.enc_state,
+                        self.dec_state, self.pos_heads, self.tdt_skip,
+                        with_confidence=self.confidence)
+                else:
+                    out = chunk_step(self.params, self.cfg, cc, chunk,
+                                     self.enc_state, self.dec_state,
+                                     self.pos_heads,
+                                     with_confidence=self.confidence)
+                    tokens, self.enc_state, self.dec_state = out[:3]
+                    confs = out[3] if self.confidence else None
+                tokens = tokens.cpu().numpy()   # [S, valid_out, MAX]
+                emitted = dec_mod.extract_emitted(
+                    tokens, self.cfg.blank_token,
+                    np.full(self.n_streams, self.frame_offset, np.int64),
+                    confs=None if confs is None else confs.cpu().numpy())
+                n_frames = tokens.shape[1]
             self.chunk_seconds += time.perf_counter() - t0
             self.total_chunks += 1
             self.mel_buffer = self.mel_buffer[:, cc.shift_mel_frames:]
-
-            emitted = dec_mod.extract_emitted(
-                tokens, self.cfg.blank_token,
-                np.full(self.n_streams, self.frame_offset, np.int64),
-                confs=confs)
             for s, toks in emitted.items():
                 self.tokens[s].extend(toks)
                 text = tokens_to_text(toks, self.vocab,
@@ -335,7 +475,7 @@ class StreamSession:
                                       confidence_words=self.confidence_words)
                 self.transcripts[s] += text
                 new_text[s] += text
-            self.frame_offset += tokens.shape[1]
+            self.frame_offset += n_frames
         return new_text
 
     def _refresh_beam_transcripts(self) -> None:
@@ -372,7 +512,8 @@ class StreamSession:
         (nemotron_tpu/streaming/session.py:689-716): encoder caches, decoder
         state, DSP state, mel buffer, tokens, transcripts. Device leaves
         come back as numpy arrays (bf16 upcast to f32, which is exact); a
-        beam session adds its beam/* leaves."""
+        beam session adds its beam/* leaves (beam/t and beam/sym for TDT), a
+        CTC session its ctc_prev and a TDT session its tdt_skip."""
         st = {f"enc/{k}": npz.to_numpy(getattr(self.enc_state, k))
               for k in ("k_cache", "v_cache", "conv_cache", "valid_len",
                         "phase", "k_scale", "v_scale")}
@@ -380,6 +521,10 @@ class StreamSession:
                for k in ("h", "c", "prev_token")}
         if self.beam_state is not None:
             st |= beam_leaves(self.beam_state)
+        if self.ctc:
+            st["ctc_prev"] = self.ctc_prev.copy()
+        if self.tdt:
+            st["tdt_skip"] = npz.to_numpy(self.tdt_skip)
         return st | {
             "preproc": self.preproc.state_dict(),
             "mel_buffer": self.mel_buffer.copy(),
@@ -392,13 +537,20 @@ class StreamSession:
         """Restore a snapshot of `state_dict` (or of the JAX package's
         session): fresh tensors on the session's device in its dtypes, so
         the in-place ring writes never touch the arrays handed in. A
-        snapshot of a CTC or TDT session, or of another beam mode (greedy
-        against beam, width, LM fusion), raises ValueError, as the JAX
+        snapshot of another decode mode (CTC, TDT, greedy against beam,
+        width, LM fusion, beam family) raises ValueError, as the JAX
         package's session does."""
-        if "ctc_prev" in st:
+        if self.ctc and "ctc_prev" not in st:
+            raise ValueError("session decodes with ctc=True but the "
+                             "snapshot carries no ctc_prev (saved from an "
+                             "RNN-T-decode session)")
+        if not self.ctc and "ctc_prev" in st:
             raise ValueError("snapshot carries CTC collapse state but this "
                              "session decodes RNN-T (ctc=False)")
-        if "tdt_skip" in st:
+        if self.tdt and "tdt_skip" not in st:
+            raise ValueError("session decodes TDT but the snapshot carries "
+                             "no tdt_skip (saved from another decode mode)")
+        if not self.tdt and "tdt_skip" in st:
             raise ValueError("snapshot carries TDT skip state but this "
                              "session does not decode TDT")
         has_beam = "beam/h" in st
@@ -411,10 +563,16 @@ class StreamSession:
                 f"snapshot carries beam state (K={st['beam/h'].shape[1]}) "
                 "but this session decodes greedily (beam_size=1)")
         beam_state = (restore_beam(st, self.beam_size, self.lm, self.dtype,
-                                   self.device) if has_beam else None)
+                                   self.device, tdt=self.tdt)
+                      if has_beam else None)
         self.enc_state, self.dec_state = restore_states(
             st, self.cc, self.dtype, self.device)
         self.beam_state = beam_state
+        if self.ctc:
+            self.ctc_prev = np.asarray(st["ctc_prev"], np.int64).copy()
+        if self.tdt:
+            self.tdt_skip = npz.to_tensor(st["tdt_skip"], torch.int32,
+                                          self.device)
         self.preproc.load_state_dict(st["preproc"])
         self.mel_buffer = np.asarray(st["mel_buffer"], np.float32).copy()
         self.tokens = [[tuple(t) for t in ts] for ts in st["tokens"]]
@@ -533,7 +691,7 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
                      ctc: bool = False, lm=None, lm_weight: float = 0.3,
                      lm_bonus: float = 0.0, lm_rescore: bool = False,
                      min_mel_frames: int = 0):
-    """Offline full-utterance transcription, RNN-T greedy or beam (the
+    """Offline full-utterance transcription, greedy or beam (the
     reference's `transcribe` path: src/transcribe.cpp, nemo_transcribe_audio
     src/nemo-ggml.cpp:1585-1598; nemotron_tpu/streaming/session.py:879-1133).
     There is no 164 s position-table cap: the table is sized per call.
@@ -559,10 +717,15 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
     lm_sequence_logp + lm_bonus * length (return_nbest then reports those
     combined scores).
 
+    A TDT checkpoint decodes with the duration-aware walk, or with the
+    duration-aware beam for beam_size > 1 (the same n-best and rescoring
+    epilogue). ctc=True decodes a hybrid checkpoint with its CTC head
+    (greedy; return_confidence gives each token the argmax log-posterior
+    at its first frame).
+
     min_mel_frames pads the batched mel's time axis to at least this many
     frames (masked out of the attention, as the shorter utterances'
-    padding is). CTC and TDT checkpoints come with the TDT/CTC slice of
-    the port and raise NotImplementedError."""
+    padding is)."""
     if return_confidence and beam_size > 1:
         raise ValueError("confidence requires greedy decode")
     if return_nbest is not None and beam_size <= 1:
@@ -570,12 +733,11 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
     check_beam_options(beam_size, lm)
     if lm_rescore and lm is None:
         raise ValueError("lm_rescore needs an LM (lm=)")
-    if ctc:
-        raise NotImplementedError("CTC decode comes with the TDT/CTC slice "
-                                  "of the port")
-    if cfg.tdt_durations:
-        raise NotImplementedError("TDT decode comes with the TDT/CTC slice "
-                                  "of the port")
+    if ctc and (beam_size > 1 or timestamp_words):
+        raise ValueError("ctc decode is plain greedy (no beam or word "
+                         "timestamps; confidence IS supported)")
+    if ctc and params.ctc is None:
+        raise ValueError("model has no CTC head (ctc_decoder.* tensors)")
     _check_dtype(compute_dtype)
     single = not isinstance(audio_i16, (list, tuple))
     utterances = [audio_i16] if single else audio_i16
@@ -585,6 +747,21 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
     enc = enc_mod.encode_batch(
         params, cfg, torch.from_numpy(mel).to(dev, compute_dtype),
         enc_lengths=lengths)
+    if ctc:
+        blank = cfg.blank_token
+        if return_confidence:
+            ids, lps = (x.cpu().numpy()
+                        for x in ctc_mod.frame_log_posteriors(params, enc))
+            token_lists = [ctc_mod.collapse_with_confidence(
+                ids[i], lps[i], blank, int(enc_lengths[i]))
+                for i in range(len(utterances))]
+            texts = [tokens_to_text(tl, vocab) for tl in token_lists]
+            return ((texts[0], token_lists[0]) if single
+                    else (texts, token_lists))
+        texts = [tokens_to_text([(i, 0) for i in ids], vocab)
+                 for ids in ctc_mod.ctc_greedy_decode(
+                     params, cfg, enc, enc_lengths=enc_lengths)]
+        return texts[0] if single else texts
     if beam_size > 1:
         if timestamp_words:
             raise ValueError("word timestamps require greedy decode "
@@ -595,13 +772,20 @@ def transcribe_batch(params: ModelParams, cfg: ModelConfig,
         return out[0] if single else out
     dec_state = dec_mod.init_decoder_state(cfg, len(utterances),
                                            compute_dtype, dev)
-    out = dec_mod.greedy_decode(params, cfg, enc, dec_state,
-                                enc_lengths=lengths,
-                                with_confidence=return_confidence)
+    if cfg.tdt_durations:
+        out = tdt_mod.tdt_greedy_decode(params, cfg, enc, dec_state,
+                                        enc_lengths=lengths,
+                                        with_confidence=return_confidence)
+        confs = out[1] if return_confidence else None
+    else:
+        out = dec_mod.greedy_decode(params, cfg, enc, dec_state,
+                                    enc_lengths=lengths,
+                                    with_confidence=return_confidence)
+        confs = out[2] if return_confidence else None
     tokens = out[0].cpu().numpy()
     if return_confidence:
         emitted = dec_mod.extract_emitted(tokens, cfg.blank_token,
-                                          confs=out[2].cpu().numpy())
+                                          confs=confs.cpu().numpy())
         token_lists = [emitted.get(i, []) for i in range(len(utterances))]
         texts = [tokens_to_text(tl, vocab, timestamp_words=timestamp_words)
                  for tl in token_lists]
@@ -617,20 +801,27 @@ def _beam_texts(params, cfg, vocab, enc, lengths, dtype, beam_size,
                 lm_rescore) -> list:
     """transcribe_batch's beam epilogue (nemotron_tpu/streaming/session.py:
     1025-1110): each utterance's text, or its n-best list of (text,
-    score)."""
+    score). A TDT checkpoint searches with the duration-aware beam."""
     dev = params.device
     B = enc.shape[0]
     if lm is not None:
         lm = lm_to_device(lm, dev)
     # second-pass rescoring runs the search acoustic-only
     lm_search = None if lm_rescore else lm
-    state = beam_mod.init_beam_state(
-        cfg, B, beam_size, max_tokens=enc.shape[1] * MAX_SYMBOLS_PER_STEP,
-        dtype=dtype, device=dev, lm=lm_search)
-    state = beam_mod.beam_decode(
-        params, cfg, enc, state, beam_size,
-        beam_expansions if beam_expansions is not None
-        else MAX_SYMBOLS_PER_STEP, lengths, lm_search, lm_weight, lm_bonus)
+    tdt = bool(cfg.tdt_durations)
+    state = init_beam(cfg, tdt, B, beam_size,
+                      enc.shape[1] * MAX_SYMBOLS_PER_STEP, dtype, dev,
+                      lm=lm_search)
+    if tdt:
+        state = tdt_mod.tdt_beam_decode(params, cfg, enc, state, beam_size,
+                                        lengths, None, lm_search, lm_weight,
+                                        lm_bonus)
+    else:
+        state = beam_mod.beam_decode(
+            params, cfg, enc, state, beam_size,
+            beam_expansions if beam_expansions is not None
+            else MAX_SYMBOLS_PER_STEP, lengths, lm_search, lm_weight,
+            lm_bonus)
 
     def text(tok_row, n) -> str:
         return tokens_to_text([(int(t), 0) for t in tok_row[:n]], vocab)

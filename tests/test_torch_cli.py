@@ -159,10 +159,11 @@ def test_batch_cli_refuses_bad_subtitle_flags(capsys, flags, want):
     ("--profile=d", "utils and native-bindings")])
 def test_stream_cli_refuses_later_flags(capsys, flag, slice_name):
     """Each flag of cli/transcribe_stream.py out of this port's slices
-    exits 1 and names the slice that brings it. The quant-tiers slice's
-    flags are ported: they are taken, and a missing model is the first
-    error (the beam family's: tests/test_torch_refine.py)."""
-    if slice_name == "quant-tiers":
+    exits 1 and names the slice that brings it. The quant-tiers and
+    TDT/CTC slices' flags are ported: they are taken, and a missing model
+    is the first error (the beam family's: tests/test_torch_refine.py;
+    --ctc against the JAX CLI: tests/test_torch_ctc.py)."""
+    if slice_name in ("quant-tiers", "TDT/CTC"):
         assert cli.main(["cli", "missing.gguf", "a.pcm", "--cpu", flag]) == 1
         err = capsys.readouterr().err
         assert "model file not found: missing.gguf" in err

@@ -318,20 +318,29 @@ def test_transcribe_batch_with_state_matches_jax(fixture_models):
                                 {"return_confidence": True, "beam_size": 4},
                                 {"tdt": True}])
 def test_transcribe_batch_refuses_later_options(fixture_models, kw):
-    """CTC and TDT name the TDT/CTC slice. The beam family is ported
-    (tests/test_torch_beam.py, tests/test_torch_lm.py): a beam decodes,
-    and n-best without a beam, an LM without a beam and confidence with a
-    beam raise the JAX package's ValueErrors."""
-    _, (tp, tc, tv) = fixture_models
+    """The beam family is ported (tests/test_torch_beam.py,
+    tests/test_torch_lm.py): a beam decodes, and n-best without a beam, an
+    LM without a beam and confidence with a beam raise the JAX package's
+    ValueErrors. So is the TDT/CTC slice (tests/test_torch_tdt.py,
+    tests/test_torch_ctc.py): ctc=True on a model without a CTC head
+    raises JAX's ValueError, and a config with TDT durations decodes with
+    the duration-aware walk, as JAX's does."""
+    (jp, jc, jv), (tp, tc, tv) = fixture_models
     pcm = np.zeros(8000, np.int16)
     if kw.pop("tdt", False):
         tc = dataclasses.replace(tc, tdt_durations=(0, 1, 2))
+        jc = dataclasses.replace(jc, tdt_durations=(0, 1, 2))
+        assert tsession.transcribe_batch(tp, tc, tv, pcm) == \
+            jsession.transcribe_batch(jp, jc, jv, pcm)
+        return
     if kw == {"beam_size": 4}:
         assert isinstance(tsession.transcribe_batch(tp, tc, tv, pcm, **kw),
                           str)
         return
-    if "ctc" in kw or tc.tdt_durations:
-        with pytest.raises(NotImplementedError, match="TDT/CTC slice"):
+    if "ctc" in kw:
+        with pytest.raises(ValueError, match="no CTC head"):
+            jsession.transcribe_batch(jp, jc, jv, pcm, **kw)
+        with pytest.raises(ValueError, match="no CTC head"):
             tsession.transcribe_batch(tp, tc, tv, pcm, **kw)
         return
     with pytest.raises(ValueError, match="requires"):

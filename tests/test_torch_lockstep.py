@@ -527,24 +527,26 @@ def test_lockstep_bf16_mel_ring(tiny, tmp_path):
 
 
 def test_lockstep_refuses_later_slices_and_defaults(tiny, tmp_path):
-    """CTC and TDT checkpoints name the TDT/CTC slice, a mesh the
-    multi-GPU slice; beam search is ported (tests/test_torch_beam.py) and
-    an LM without a beam raises the JAX package's ValueError. The defaults
-    are JAX's (256 streams, bf16) and the device is the params'. Snapshots
-    of another stream count or of a beam, CTC or TDT engine are refused."""
+    """A mesh names the multi-GPU slice; beam search is ported
+    (tests/test_torch_beam.py) and an LM without a beam raises the JAX
+    package's ValueError; so is the TDT/CTC slice (tests/test_torch_tdt.py,
+    tests/test_torch_ctc.py): ctc=True without a CTC head raises JAX's
+    ValueError, and a TDT config builds a TDT engine. The defaults are
+    JAX's (256 streams, bf16) and the device is the params'. Snapshots of
+    another stream count or of a beam, CTC or TDT engine are refused."""
     _jp, tp, cfg, vocab = tiny
     cc = TCC(**cc_kw(1, cfg.n_mels))
-    for kw, slice_name in (({"ctc": True}, "TDT/CTC"),
-                           ({"mesh": object()}, "multi-GPU")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            TLock(tp, cfg, vocab, cc, n_streams=2, **kw)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        TLock(tp, cfg, vocab, cc, n_streams=2, mesh=object())
+    with pytest.raises(ValueError, match="needs a model with a CTC head"):
+        TLock(tp, cfg, vocab, cc, n_streams=2, ctc=True)
     with pytest.raises(ValueError, match="LM shallow fusion requires"):
         TLock(tp, cfg, vocab, cc, n_streams=2, lm=object())
     assert TLock(tp, cfg, vocab, cc, n_streams=2, compute_dtype=F32,
                  beam_size=4).beam_state.tokens.shape[:2] == (2, 4)
-    with pytest.raises(NotImplementedError, match="TDT"):
-        TLock(tp, dataclasses.replace(cfg, tdt_durations=(0, 1, 2)), vocab,
-              cc, n_streams=2)
+    tdt = TLock(tp, dataclasses.replace(cfg, tdt_durations=(0, 1, 2)),
+                vocab, cc, n_streams=2)
+    assert tdt.tdt and not tdt.ctc and tdt.tdt_skip.shape == (2,)
     with pytest.raises(ValueError, match="compute_dtype"):
         TLock(tp, cfg, vocab, cc, n_streams=2, compute_dtype=torch.float16)
     defaults = inspect.signature(TLock).parameters

@@ -773,11 +773,16 @@ def test_asr_server_refuses_later_flags(capsys):
     from nemotron_tpu_torch import asr_server
 
     for argv, slice_name in (
-            (["--ctc"], "TDT/CTC"),
             (["--dsp", "native"], "native-bindings"),
             (["--coordinator", "h:1"], "multi-GPU")):
         assert asr_server.main(["asr_server", FIXTURE, *argv]) == 1
         assert f"the {slice_name} slice" in capsys.readouterr().err
+    # --ctc is ported (tests/test_torch_ctc.py serves a hybrid model): on
+    # a model without a CTC head the engine refuses it, as JAX's does
+    assert asr_server.main(["asr_server", FIXTURE, "--cpu", "--ctc"]) == 1
+    err = capsys.readouterr().err
+    assert "ctc=True needs a model with a CTC head" in err
+    assert "slice" not in err
     assert asr_server.main(["asr_server", FIXTURE, "--bogus"]) == 1
     assert "unsupported flag --bogus" in capsys.readouterr().err
     # the quant-tiers and beam-family flags are ported: taken, the missing

@@ -731,9 +731,14 @@ def check_endpoint_events(events, eng, truth1, truth2):
 def test_engine_refuses_later_slices_and_resolves_auto(tiny, tmp_path):
     _jp, tp, cfg, vocab = tiny
     cc = TCC(**CC_KW, n_mels=cfg.n_mels)
-    for kw in ({"ctc": True}, {"mesh": object()}, {"dsp": "native"}):
+    for kw in ({"mesh": object()}, {"dsp": "native"}):
         with pytest.raises(NotImplementedError):
             TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, **kw)
+    # the TDT/CTC slice is ported (tests/test_torch_tdt.py,
+    # tests/test_torch_ctc.py): ctc=True without a CTC head raises the JAX
+    # package's ValueError, and a TDT config builds a TDT engine
+    with pytest.raises(ValueError, match="needs a model with a CTC head"):
+        TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, ctc=True)
     # the beam family is ported (tests/test_torch_beam.py): an LM without
     # a beam and a beam with confidence raise the JAX package's ValueErrors
     for kw, match in (({"lm": object()}, "LM shallow fusion requires"),
@@ -743,9 +748,9 @@ def test_engine_refuses_later_slices_and_resolves_auto(tiny, tmp_path):
             TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, **kw)
     assert TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
                    beam_size=4).beam_state.scores.shape == (2, 4)
-    with pytest.raises(NotImplementedError, match="TDT"):
-        TEngine(tp, dataclasses.replace(cfg, tdt_durations=(0, 1, 2)),
-                vocab, cc, n_slots=2)
+    tdt = TEngine(tp, dataclasses.replace(cfg, tdt_durations=(0, 1, 2)),
+                  vocab, cc, n_slots=2)
+    assert tdt.tdt and not tdt.ctc and tdt.tdt_skip.shape == (2,)
     with pytest.raises(ValueError, match="endpointing"):
         TEngine(tp, cfg, vocab, cc, n_slots=2, keep_segment_audio=True)
     with pytest.raises(ValueError, match="dsp"):

@@ -221,14 +221,16 @@ def test_session_q8_tokens_match_jax(models):
 
 
 def test_session_refuses_other_decoders(fixture_models):
-    """CTC names the TDT/CTC slice and tracing the utils slice; a beam
-    session is built (tests/test_torch_beam.py holds it to JAX), and with
-    confidence it raises the JAX package's ValueError."""
+    """Tracing names the utils slice; a beam session is built
+    (tests/test_torch_beam.py holds it to JAX), and with confidence it
+    raises the JAX package's ValueError; ctc=True on a model without a CTC
+    head raises JAX's ValueError (tests/test_torch_ctc.py decodes a hybrid
+    model)."""
     _, (tp, tc, tv) = fixture_models
-    for kw, match in (({"ctc": True}, "TDT/CTC"), ({"trace_dir": "x"},
-                                                   "utils")):
-        with pytest.raises(NotImplementedError, match=match):
-            TSession(tp, tc, tv, **kw)
+    with pytest.raises(NotImplementedError, match="utils"):
+        TSession(tp, tc, tv, trace_dir="x")
+    with pytest.raises(ValueError, match="needs a model with a CTC head"):
+        TSession(tp, tc, tv, ctc=True)
     with pytest.raises(ValueError, match="confidence requires greedy"):
         TSession(tp, tc, tv, beam_size=4, confidence=True)
     assert TSession(tp, tc, tv, beam_size=4).beam_state.h.shape[1] == 4
