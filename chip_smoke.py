@@ -179,7 +179,23 @@ Phases (any failure exits non-zero):
      tones_tiny_lm.gguf) and tones_tiny_hybrid.gguf with ctc=True over the
      tones streams, asr_server --ctc (READY's decode "ctc", FINAL equal to
      --cpu) and cli_transcribe --ctc against --cpu.
- 15. one JSON line of kernel results, the card's name and power limit, and
+ 15. training (slice 16), on dense f32 parameters (no kernel of the port
+     launches: the three counts stay 0): the full-width GGUF cut to 2
+     layers, loss and every leaf's gradient on a fixed batch (4
+     utterances of 4 s, 20 labels each, R = 13's chunked attention)
+     against the port's CPU run of the same cut (a child process), and one
+     train step; the 24 layers on the card alone: remat against no remat,
+     5 steps whose loss falls, step ms with and without remat, peak GiB,
+     utterance-seconds trained a second, one step each with the delay
+     penalty, TDT (sigma 0.05) and the CTC term on the phase-14 GGUF.
+     Then weights/tones_tiny.gguf fine-tuned 30 steps on fresh tones
+     batches, saved with save_model and streamed at R = 13 (token error
+     < 10%, tokens equal to the CPU's run of the saved file); the tiny
+     config trained from scratch for 150 steps (the loss halves); the
+     train entry point on the card against --cpu, --checkpoint then
+     --resume against an uninterrupted run, its saved GGUF through the
+     streaming CLI (card against --cpu), and train_lm (the NLL falls).
+ 16. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -337,6 +353,35 @@ TDT_HEAD_SCALE = 8.0
 TDT_JUMP, TDT_JUMP_BIAS = 3, 6.0
 TDT_CHUNKS = 8
 TDT_READ_SECONDS = 2.0
+# slice 16: training. The full-width phase trains the seeded GGUF dense on
+# a fixed batch of TRAIN_BATCH utterances of TRAIN_SECONDS with TRAIN_LABELS
+# labels each, with the chunked attention of R = 13 (TRAIN_CHUNK, its
+# chunk_enc_len); its card-vs-CPU check runs a TRAIN_CUT_LAYERS-layer cut
+# (full width, reduced depth, to keep the CPU's share short). Loss, card vs
+# CPU: f32 sums in another order through two layers and the lattice, 1e-4
+# relative; gradients: 1e-3 of each leaf's max |g|. Remat against no remat
+# on the card: the same kernels recomputed, the JAX package's own bounds
+# (tests/test_training.py::test_remat_gradients_match).
+TRAIN_BATCH, TRAIN_SECONDS, TRAIN_LABELS = 4, 4.0, 20
+TRAIN_CHUNK = 14
+TRAIN_CUT_LAYERS = 2
+TRAIN_LR = 5e-5
+TRAIN_STEPS, TRAIN_REMAT_STEPS = 5, 3
+TOL_TRAIN_LOSS_REL, TOL_TRAIN_GRAD_REL = 1e-4, 1e-3
+TOL_REMAT_LOSS_REL, TOL_REMAT_GRAD_REL, TOL_REMAT_GRAD_ABS = 1e-6, 1e-4, 1e-6
+# the fine-tune of the tones fixture (the recipe's sampler, warm-up
+# history 192), the entry points' runs and the tiny model trained from
+# scratch (no warm-up history: its 64-192 extra LSTM steps a batch set the
+# step's time, and these runs check the entry points, not the stream
+# behaviour the history trains)
+FT_STEPS, FT_BATCH, FT_LR = 30, 8, 1e-5
+ENTRY_VAL = 16
+SCRATCH_STEPS = 150
+SCRATCH_FLAGS = ["--lr", "1e-3", "--batch", "8", "--history-max", "0",
+                 "--utt-tones", "8", "--val", "8"]
+# the device the training phases run on (a CPU rehearsal of the phases
+# sets "cpu" and stubs torch.cuda's synchronize and memory calls)
+CARD = "cuda"
 
 
 def log(msg: str) -> None:
@@ -379,6 +424,14 @@ def time_calls(calls, iters: int, replays: int = 5) -> float:
     return ms
 
 
+# a profile window waits this long after it opens before the work it
+# measures starts: CUPTI lost, in bursts of consecutive windows, the
+# records of kernels that ran in the first milliseconds of a window, and
+# none of a kernel started 20 ms in (chip_profile_probe.py; PERF.md
+# section 7)
+PROFILE_HEAD_S = 0.02
+
+
 def profile_window(fn) -> dict:
     """Device time and launch count by kernel name and the device's busy
     share over one call of `fn`, from torch.profiler (CUPTI). Kernels run
@@ -389,6 +442,7 @@ def profile_window(fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_HEAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -398,15 +452,18 @@ def profile_window(fn) -> dict:
 
 def profile_summary(prof, wall_us: float) -> dict:
     """Device time and launches by kernel name, and the busy time, of a
-    finished torch.profiler run over `wall_us` of wall time. Reads the raw
-    activity records (`prof.events()` would build an event tree first, a
-    minute for a few hundred thousand launches)."""
+    finished torch.profiler run over `wall_us` of wall time, user
+    annotations on the device timeline (record_function ranges such as
+    the optimizer's step) left out. Reads the raw activity records
+    (`prof.events()` would build an event tree first, a minute for a few
+    hundred thousand launches)."""
     from torch.autograd import DeviceType
 
     raw_ns: dict[str, int] = {}
     raw_n: dict[str, int] = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
+        if (e.device_type() == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", bool)()):
             raw = e.name()
             raw_ns[raw] = raw_ns.get(raw, 0) + e.duration_ns()
             raw_n[raw] = raw_n.get(raw, 0) + 1
@@ -1062,14 +1119,15 @@ def w8a8_phase(failures: list) -> dict:
 def write_full_width_gguf(path: str):
     """Seeded full-width random-weight GGUF, encoder matmuls as Q8_0 (the
     reference converter's default selection), with the converter's conv
-    weight layouts and a joint bias on token 5 so that tokens are emitted."""
+    weight layouts and a joint bias on token 5 so that tokens are emitted.
+    Returns the number of Q8_0 tensors."""
     from nemotron_tpu_torch.config import ModelConfig
     from nemotron_tpu_torch.params import random_weight_arrays
 
     cfg = ModelConfig()
     arrays = random_weight_arrays(cfg, seed=SEED)
     arrays["joint.joint_net.2.bias"][5] = 2.0
-    return write_gguf_of(path, cfg, arrays)
+    return save_q8_model(path, cfg, arrays)
 
 
 def shape_tdt_ctc_heads(arrays: dict, cfg) -> dict:
@@ -1097,41 +1155,24 @@ def write_tdt_ctc_gguf(path: str):
     cfg = ModelConfig(tdt_durations=TDT_DURATIONS)
     arrays = shape_tdt_ctc_heads(
         random_weight_arrays(cfg, seed=SEED + 15, ctc_head=True), cfg)
-    n = write_gguf_of(path + ".part", cfg, arrays)
+    n = save_q8_model(path + ".part", cfg, arrays)
     os.replace(path + ".part", path)
     return n
 
 
-def write_gguf_of(path: str, cfg, arrays: dict):
-    """`arrays` (random_weight_arrays' names and layouts) as a GGUF in the
-    converter's conv layouts, encoder matmuls as Q8_0, with the config's
-    metadata (nemo.tdt_durations for a TDT config). Returns the number of
-    Q8_0 tensors."""
-    from nemotron_tpu_torch import gguf
+def save_q8_model(path: str, cfg, arrays: dict) -> int:
+    """`arrays` (random_weight_arrays' names and layouts) as parameters on
+    the CPU, written by params.save_model with Q8_0 encoder matmuls and the
+    vocab t0, t1, ... (the config's metadata, nemo.tdt_durations for a TDT
+    config). Returns the number of Q8_0 tensors."""
     from nemotron_tpu_torch.ops.quant import should_quantize
+    from nemotron_tpu_torch.params import params_from_arrays, save_model
 
-    for name, a in list(arrays.items()):
-        if name.endswith(".conv.depthwise_conv.weight") and a.ndim == 3:
-            arrays[name] = a.squeeze(1).T
-        elif name.endswith((".conv.pointwise_conv1.weight",
-                            ".conv.pointwise_conv2.weight")) and a.ndim == 3:
-            arrays[name] = a.squeeze(2)
-    quantize = {n: gguf.GGML_Q8_0 for n, a in arrays.items()
-                if should_quantize(n, a)}
-    vocab = [f"t{i}" for i in range(cfg.vocab_size)]
-    meta = {
-        "general.architecture": "nemo",
-        "tokenizer.vocab": gguf.encode_vocab(vocab),
-        "nemo.n_mels": cfg.n_mels, "nemo.d_model": cfg.d_model,
-        "nemo.n_heads": cfg.n_heads, "nemo.d_head": cfg.d_head,
-        "nemo.d_ff": cfg.d_ff, "nemo.n_layers": cfg.n_layers,
-        "nemo.kernel_size": cfg.kernel_size,
-        "nemo.vocab_size": cfg.vocab_size,
-    }
-    if cfg.tdt_durations:
-        meta["nemo.tdt_durations"] = list(cfg.tdt_durations)
-    gguf.write_gguf(path, meta, arrays, quantize=quantize)
-    return len(quantize)
+    params = params_from_arrays(arrays, cfg, device="cpu")
+    save_model(path, params, cfg,
+               vocab=[f"t{i}" for i in range(cfg.vocab_size)],
+               quantize_mode="q8_0")
+    return sum(should_quantize(n, a) for n, a in arrays.items())
 
 
 @functools.lru_cache(maxsize=None)
@@ -2807,6 +2848,7 @@ def server_cell(name, params, cfg, vocab, cc, dtype, dsp, failures,
             # trace the summary walks
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.start()
+            time.sleep(PROFILE_HEAD_S)
             t0 = time.perf_counter()
             loader = threading.Thread(target=load, daemon=True)
             loader.start()
@@ -5366,13 +5408,9 @@ def tdt_ctc_phase(tdt_path: str, ref_job, ref_path: str, w8_runs: dict,
                 return tdt_mod.tdt_beam_decode(eng.params, cfg, enc_out,
                                                bst, BEAM_K).scores.cpu()
         decode()
-        # ten calls a window: CUPTI recorded no kernel of one CTC call (8
-        # launches, 2 ms) in two runs of three
+        # ten calls a window, for a mean
         reps = 10
-        for _ in range(3):
-            dp = profile_window(lambda: [decode() for _ in range(reps)])
-            if dp["busy_us"] > 0:
-                break
+        dp = profile_window(lambda: [decode() for _ in range(reps)])
         dp = dict(wall_us=dp["wall_us"] / reps, busy_us=dp["busy_us"] / reps,
                   count={k: n / reps for k, n in dp["count"].items()})
         out["w8a8_engine"][name] = res | dict(
@@ -5615,6 +5653,524 @@ def tdt_ctc_tones_phase(failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 16: training
+# ---------------------------------------------------------------------------
+
+def cut_layers(params, cfg, n: int):
+    """The first n conformer layers of `params` (full width, reduced depth)
+    and the config that says so."""
+    import dataclasses
+
+    layers = params.layers
+    cut = dataclasses.replace(layers, **{
+        f.name: getattr(layers, f.name)[:n]
+        for f in dataclasses.fields(layers)})
+    return (dataclasses.replace(params, layers=cut),
+            dataclasses.replace(cfg, n_layers=n))
+
+
+def train_batch(params, cfg) -> dict:
+    """The fixed batch of the full-width training phase: TRAIN_BATCH
+    utterances of TRAIN_SECONDS of seeded PCM through the params' own
+    frontend on the host, TRAIN_LABELS seeded labels each."""
+    from nemotron_tpu_torch.config import PreprocessorConfig
+    from nemotron_tpu_torch.frontend.preprocessor import \
+        StreamingPreprocessor
+    from nemotron_tpu_torch.utils.tones import enc_frames_of_mel
+
+    pre = StreamingPreprocessor(
+        params.preprocessor.filterbank.detach().cpu().numpy(),
+        params.preprocessor.window.detach().cpu().numpy(),
+        n_streams=TRAIN_BATCH,
+        cfg=PreprocessorConfig(n_mels=cfg.n_mels), device="cpu")
+    pcm = np.stack([seeded_pcm(s, TRAIN_SECONDS) for s in range(TRAIN_BATCH)])
+    mel = pre.process(pcm)
+    rng = np.random.default_rng(SEED + 16)
+    return {"mel": mel,
+            "labels": rng.integers(0, cfg.vocab_size - 1,
+                                   (TRAIN_BATCH, TRAIN_LABELS)),
+            "mel_lengths": np.full(TRAIN_BATCH, enc_frames_of_mel(
+                mel.shape[1])),
+            "label_lengths": np.full(TRAIN_BATCH, TRAIN_LABELS)}
+
+
+def loss_and_grads(params, cfg, batch, **kw):
+    """loss_fn and the gradient of every leaf (zeros where the loss does
+    not reach it), as (float, {path: tensor})."""
+    from nemotron_tpu_torch.params import flatten
+    from nemotron_tpu_torch.training import loss_fn
+
+    import torch
+
+    leaves = flatten(params)
+    for v in leaves.values():
+        v.grad = None
+    loss = loss_fn(params, cfg, batch, **kw)
+    loss.backward()
+    return loss.item(), {k: (v.grad if v.grad is not None
+                             else torch.zeros_like(v))
+                         for k, v in leaves.items()}
+
+
+def cpu_training_reference(gguf_path: str, out_path: str) -> None:
+    """training_phase's CPU reference: the full-width GGUF dense on the CPU,
+    cut to TRAIN_CUT_LAYERS layers; loss_fn and every leaf's gradient on
+    the fixed batch (att_chunk TRAIN_CHUNK), then one train step at the
+    constant TRAIN_LR and the loss at the updated params. Gradients to
+    out_path + '.npz', the losses as JSON."""
+    import torch
+
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.training import (loss_fn, make_optimizer,
+                                             make_train_step, trainable)
+
+    while not os.path.exists(gguf_path):
+        time.sleep(1.0)
+    full, cfg, _ = load_model(gguf_path, device="cpu", keep_quantized=False)
+    params, cut = cut_layers(full, cfg, TRAIN_CUT_LAYERS)
+    params = trainable(params)
+    del full
+    batch = train_batch(params, cut)
+    loss, grads = loss_and_grads(params, cut, batch, att_chunk=TRAIN_CHUNK)
+    np.savez(out_path + ".npz", **{k: g.numpy() for k, g in grads.items()})
+    opt, sched = make_optimizer(params, TRAIN_LR)
+    step = make_train_step(cut, opt, sched, att_chunk=TRAIN_CHUNK)
+    step_loss = float(step(params, batch))
+    with torch.no_grad():
+        after = float(loss_fn(params, cut, batch, att_chunk=TRAIN_CHUNK))
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(dict(loss=loss, step_loss=step_loss, after=after), f)
+
+
+def grad_gaps(got: dict, want: dict) -> dict:
+    """Per leaf: max |got - want| over the leaf's max |want| (0 where both
+    are zero)."""
+    out = {}
+    for k, w in want.items():
+        g = got[k].detach().float().cpu().numpy()
+        scale = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        out[k] = err / scale if scale > 0 else err
+    return out
+
+
+def finite_grads(grads: dict) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+def training_phase(gguf_path: str, tdt_path: str, ref_job, ref_path: str,
+                   failures: list) -> dict:
+    """Slice 16 at full width, on dense f32 parameters (load_model(...,
+    keep_quantized=False)) and the fixed batch (train_batch: TRAIN_BATCH
+    utterances of TRAIN_SECONDS, TRAIN_LABELS labels each, chunked
+    attention at R = 13's chunk).
+    (a) a TRAIN_CUT_LAYERS-layer cut of the full-width GGUF: loss_fn and
+        every leaf's gradient against the port's CPU run of the same cut
+        (the child `ref_job`), within TOL_TRAIN_LOSS_REL and
+        TOL_TRAIN_GRAD_REL of the leaf's max |g|; one train step at the
+        constant TRAIN_LR, the loss at the updated params against the
+        CPU's; no CUDA kernel of the port launches (the three counts stay
+        0 through the phase's card work).
+    (b) the 24 layers, on the card only: remat against no remat (loss and
+        every gradient within TOL_REMAT_*); TRAIN_STEPS steps (the loss
+        falls), step ms with and without remat, peak GiB, utterance-seconds
+        trained a second; one step each with delay_penalty 0.01, on the
+        phase-14 GGUF (TDT durations, a CTC head) with sigma 0.05, and
+        with the CTC term at weight 0.3: finite losses and gradients."""
+    import torch
+
+    from nemotron_tpu_torch.params import flatten, load_model
+    from nemotron_tpu_torch.training import (loss_fn, make_optimizer,
+                                             make_train_step, trainable)
+
+    from nemotron_tpu_torch.config import CacheConfig
+
+    assert CacheConfig(att_right_context=13).chunk_enc_len == TRAIN_CHUNK
+    out: dict = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    full, cfg, _ = load_model(gguf_path, device=CARD, keep_quantized=False)
+    batch = train_batch(full, cfg)
+    log(f"phase training: {TRAIN_BATCH} utterances of {TRAIN_SECONDS:g} s "
+        f"({batch['mel'].shape[1]} mel frames, {int(batch['mel_lengths'][0])}"
+        f" encoder frames), {TRAIN_LABELS} labels each, att_chunk "
+        f"{TRAIN_CHUNK}, f32")
+
+    # (a) the cut against the CPU
+    cut_params, cut = cut_layers(full, cfg, TRAIN_CUT_LAYERS)
+    cut_params = trainable(cut_params)
+    loss, grads = loss_and_grads(cut_params, cut, batch,
+                                 att_chunk=TRAIN_CHUNK)
+    opt, sched = make_optimizer(cut_params, TRAIN_LR)
+    step_loss = float(make_train_step(cut, opt, sched,
+                                      att_chunk=TRAIN_CHUNK)(cut_params,
+                                                             batch))
+    with torch.no_grad():
+        after = float(loss_fn(cut_params, cut, batch, att_chunk=TRAIN_CHUNK))
+    del opt, sched
+    ref = finish_job(ref_job, ref_path)
+    want = dict(np.load(ref_path + ".npz"))
+    gaps = grad_gaps(grads, want)
+    worst = max(gaps, key=gaps.get)
+    loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    after_rel = abs(after - ref["after"]) / abs(ref["after"])
+    out["cut"] = dict(layers=TRAIN_CUT_LAYERS, loss=loss, cpu_loss=ref["loss"],
+                      loss_rel=loss_rel, step_loss=step_loss,
+                      after=after, cpu_after=ref["after"],
+                      after_rel=after_rel, worst_grad=worst,
+                      worst_grad_rel=gaps[worst])
+    log(f"  {TRAIN_CUT_LAYERS}-layer cut vs CPU: loss {loss:.6f} (CPU "
+        f"{ref['loss']:.6f}, rel {loss_rel:.2e}, tol {TOL_TRAIN_LOSS_REL:g});"
+        f" worst gradient {worst} {gaps[worst]:.2e} of its max (tol "
+        f"{TOL_TRAIN_GRAD_REL:g}, {len(gaps)} leaves); after one step at lr "
+        f"{TRAIN_LR:g}: {after:.6f} (CPU {ref['after']:.6f}, rel "
+        f"{after_rel:.2e})")
+    if (not loss_rel <= TOL_TRAIN_LOSS_REL or not after_rel
+            <= TOL_TRAIN_LOSS_REL or not gaps[worst] <= TOL_TRAIN_GRAD_REL
+            or not after < loss or set(gaps) != set(grads)):
+        failures.append(f"training cut vs CPU: loss rel {loss_rel:.2e}, "
+                        f"after-step rel {after_rel:.2e}, gradient {worst} "
+                        f"{gaps[worst]:.2e}, loss {loss} -> {after}")
+    del cut_params, grads, want
+
+    # (b) the 24 layers on the card
+    params = trainable(full)
+    del full
+    torch.cuda.empty_cache()
+    l0, g0 = loss_and_grads(params, cfg, batch, att_chunk=TRAIN_CHUNK)
+    g0 = {k: v.clone() for k, v in g0.items()}
+    l1, g1 = loss_and_grads(params, cfg, batch, att_chunk=TRAIN_CHUNK,
+                            remat=True)
+    remat_gap = max(float(((a - g1[k]).abs()
+                           - TOL_REMAT_GRAD_REL * g1[k].abs()).max())
+                    for k, a in g0.items())
+    out["remat"] = dict(loss=l0, remat_loss=l1, grad_excess=remat_gap)
+    log(f"  24 layers: loss {l0:.6f}, with remat {l1:.6f}; gradients "
+        f"within rtol {TOL_REMAT_GRAD_REL:g} + atol {TOL_REMAT_GRAD_ABS:g} "
+        f"(largest excess over rtol {remat_gap:.2e})")
+    if (abs(l0 - l1) > TOL_REMAT_LOSS_REL * abs(l0)
+            or remat_gap > TOL_REMAT_GRAD_ABS):
+        failures.append(f"training remat: loss {l0} vs {l1}, gradient "
+                        f"excess {remat_gap:.2e}")
+    del g0, g1
+    opt, sched = make_optimizer(params, TRAIN_LR)
+    times = {}
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for remat, n in ((False, TRAIN_STEPS), (True, TRAIN_REMAT_STEPS)):
+        step = make_train_step(cfg, opt, sched, remat=remat,
+                               att_chunk=TRAIN_CHUNK)
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(params, batch)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        # the first no-remat step also warms the allocator and cuBLAS
+        times["remat" if remat else "plain"] = walls[1:]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # where a step's time goes: one no-remat step under the profiler
+    step = make_train_step(cfg, opt, sched, att_chunk=TRAIN_CHUNK)
+    prof = profile_window(lambda: losses.append(float(step(params, batch))))
+    out["profile"] = dict(wall_ms=prof["wall_us"] / 1e3,
+                          busy_ms=prof["busy_us"] / 1e3,
+                          busy_share=prof["busy_us"] / prof["wall_us"],
+                          launches=sum(prof["count"].values()),
+                          top=[(k, us / 1e3, prof["count"][k])
+                               for k, us in prof["by_name"][:8]])
+    log(f"  one step profiled: wall {prof['wall_us'] / 1e3:.2f} ms, busy "
+        f"{prof['busy_us'] / 1e3:.2f} ms "
+        f"({100 * out['profile']['busy_share']:.1f}%), "
+        f"{out['profile']['launches']} launches")
+    for kname, ms, n in out["profile"]["top"]:
+        log(f"    {ms:8.3f} ms  {n:6d} launches  {kname}")
+    plain_ms = float(np.mean(times["plain"]) * 1e3)
+    remat_ms = float(np.mean(times["remat"]) * 1e3)
+    utt_s = TRAIN_BATCH * TRAIN_SECONDS / (plain_ms / 1e3)
+    out["steps"] = dict(losses=losses, step_ms=plain_ms,
+                        remat_step_ms=remat_ms, peak_gib=peak,
+                        utterance_s_per_s=utt_s,
+                        utterance_s_per_s_remat=TRAIN_BATCH * TRAIN_SECONDS
+                        / (remat_ms / 1e3))
+    log(f"  {TRAIN_STEPS} steps at lr {TRAIN_LR:g} (then "
+        f"{TRAIN_REMAT_STEPS} with remat, and one profiled): losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; step {plain_ms:.2f} ms, "
+        f"with remat {remat_ms:.2f} ms; peak {peak:.2f} GiB; "
+        f"{utt_s:.2f} utterance-seconds trained a second")
+    if not (all(np.isfinite(losses))
+            and losses[TRAIN_STEPS - 1] < losses[0]):
+        failures.append(f"training 24 layers: losses {losses} do not fall")
+
+    # the variants: one train step each, finite loss and gradients
+    def one_step(p, c, opt, sched, **kw):
+        loss = float(make_train_step(c, opt, sched, att_chunk=TRAIN_CHUNK,
+                                     **kw)(p, batch))
+        return loss, {k: v.grad for k, v in flatten(p).items()}
+
+    variants = {}
+    loss, grads = one_step(params, cfg, opt, sched, delay_penalty=0.01)
+    variants["delay_penalty=0.01"] = (loss, finite_grads(grads))
+    del params, opt, sched, grads
+    torch.cuda.empty_cache()
+    tdt, tcfg, _ = load_model(tdt_path, device=CARD, keep_quantized=False)
+    tdt = trainable(tdt)
+    opt, sched = make_optimizer(tdt, TRAIN_LR)
+    for name, vkw in (("TDT sigma=0.05", dict(tdt_sigma=0.05)),
+                      ("TDT + CTC weight=0.3", dict(tdt_sigma=0.05,
+                                                     ctc_weight=0.3))):
+        loss, grads = one_step(tdt, tcfg, opt, sched, **vkw)
+        ok = finite_grads(grads)
+        if "CTC" in name:       # the head takes a gradient from the term
+            ok = ok and float(grads["ctc.out_w"].abs().max()) > 0
+        variants[name] = (loss, ok)
+    del tdt, opt, sched, grads
+    torch.cuda.empty_cache()
+    out["variants"] = {k: dict(loss=v[0], finite=v[1])
+                       for k, v in variants.items()}
+    for name, (loss, ok) in variants.items():
+        log(f"  one step, {name}: loss {loss:.4f}, gradients "
+            f"{'finite' if ok else 'NOT finite (or no CTC gradient)'}")
+        if not (np.isfinite(loss) and ok):
+            failures.append(f"training {name}: loss {loss}, gradients ok "
+                            f"{ok}")
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    out["launches"] = counts
+    log(f"  kernel launches through the phase: {json.dumps(counts)} (want "
+        f"none: training runs no kernel of the port)")
+    if any(counts.values()):
+        failures.append(f"training launched a kernel of the port: {counts}")
+    return out
+
+
+def start_module(module: str, args: list, env: dict, cwd: str):
+    """`python -m nemotron_tpu_torch.<module> args` in a child process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"nemotron_tpu_torch.{module}", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=cwd)
+
+
+def finish_module(proc, name: str, failures: list,
+                  timeout: float = 600) -> tuple[str, str]:
+    """Wait for a start_module child; (stdout, stderr). A non-zero exit or
+    a timeout is a failure."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        failures.append(f"{name}: timed out after {timeout:g} s")
+        return out, err
+    if proc.returncode:
+        failures.append(f"{name}: exit {proc.returncode}: {err[-1500:]}")
+    return out, err
+
+
+def step_lines(stderr: str) -> dict:
+    """{step: the line without its wall-time field}."""
+    out = {}
+    for line in stderr.splitlines():
+        if line.startswith("step ") and "  [" in line:
+            head, tail = line.split("  [", 1)
+            out[int(head.split()[1])] = head + tail.split("]", 1)[1]
+    return out
+
+
+def training_tones_phase(failures: list) -> dict:
+    """Slice 16 on the trained tones fixture and the tiny config, on the
+    card:
+    (c) weights/tones_tiny.gguf fine-tuned FT_STEPS steps on TonesSampler
+        batches at the constant lr FT_LR with the fixture recipe's sampler
+        (docs/TRAINING.md: 16 tones, 16 an utterance, 4 at the least,
+        history 192, chunks 14 and 1 in turn), saved with save_model,
+        loaded on the card and streamed over the tones phase's 8 streams
+        at R = 13: token error < TONES_TER_MAX and the tokens equal to the
+        port's CPU run of the saved file.
+    (d) `python -m nemotron_tpu_torch.train --random --config tiny --task
+        tones` for SCRATCH_STEPS steps: the last loss below half of step
+        0's.
+    (e) the entry points on the card against --cpu: train on the fixture
+        (step 0's line equal to --cpu's, the val TER included), --checkpoint
+        at step 2 then --resume to step 4 (the lines of the uninterrupted
+        card run), its --save GGUF through `python -m nemotron_tpu_torch.cli`
+        (stdout equal to --cpu's), and train_lm --steps 40 --save (its NLL
+        falls; the saved LM, read with load_lm, scores held-out grammar
+        sequences below the untrained LM)."""
+    import concurrent.futures
+
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.frontend.preprocessor import mel_filterbank_slaney
+    from nemotron_tpu_torch.models import lm as lm_mod
+    from nemotron_tpu_torch.params import load_model, save_model
+    from nemotron_tpu_torch.training import (make_optimizer, make_train_step,
+                                             trainable)
+    from nemotron_tpu_torch.utils.tones import (TonesSampler,
+                                                grammar_transitions,
+                                                make_eval_streams,
+                                                markov_labels)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, "weights", "tones_tiny.gguf")
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="2")
+    tmp = tempfile.mkdtemp()
+    out: dict = {}
+
+    # the entry points start first and run beside the fine-tune
+    ck, out_a, lm_path = (os.path.join(tmp, n)
+                          for n in ("ck.pt", "a.gguf", "lm.gguf"))
+    base = ["--task", "tones", "--eval-every", "1", "--val", str(ENTRY_VAL),
+            "--batch", "4", "--history-max", "0"]
+    jobs = {
+        "train A": start_module("train", [fixture, *base, "--steps", "4",
+                                          "--save", out_a], env, here),
+        "train B": start_module("train", [fixture, *base, "--steps", "2",
+                                          "--checkpoint", ck], env, here),
+        "train --cpu": start_module("train", [fixture, *base, "--steps",
+                                              "1", "--cpu"], env, here),
+        "scratch": start_module("train", [
+            "--random", "--config", "tiny", "--task", "tones", "--steps",
+            str(SCRATCH_STEPS), "--eval-every", str(SCRATCH_STEPS - 1),
+            *SCRATCH_FLAGS], env, here),
+        "train_lm": start_module("train_lm", ["--steps", "40", "--save",
+                                              lm_path], env, here),
+    }
+
+    # (c) the fine-tune, in this process
+    params, cfg, vocab = load_model(fixture, device=CARD,
+                                    keep_quantized=False)
+    params = trainable(params)
+    fb = mel_filterbank_slaney(cfg.n_mels).astype(np.float32)
+    win = np.hanning(400).astype(np.float32)
+    samplers = [TonesSampler(fb, win, cfg.n_mels, 16, 16, FT_BATCH,
+                             seed=SEED + 1, tones_per_utt_min=4,
+                             history_max=192, device="cpu")
+                for _ in range(2)]
+    opt, sched = make_optimizer(params, FT_LR)
+    chunks = (14, 1)
+    steps = {c: make_train_step(cfg, opt, sched, att_chunk=c)
+             for c in chunks}
+    losses = []
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        pending = {i: pool.submit(samplers[i % 2].sample, i)
+                   for i in range(2)}
+        t0 = time.perf_counter()
+        for i in range(FT_STEPS):
+            b = pending.pop(i).result()
+            if i + 2 < FT_STEPS:
+                pending[i + 2] = pool.submit(samplers[i % 2].sample, i + 2)
+            losses.append(steps[chunks[i % 2]](params, b))
+        losses = [float(x) for x in losses]
+        ft_s = time.perf_counter() - t0
+    saved = os.path.join(tmp, "finetuned.gguf")
+    save_model(saved, params, cfg, vocab=vocab)
+    del params, opt, sched, steps
+    audio, truths = make_eval_streams(TONES_STREAMS, TONES_SECONDS, TONES_N,
+                                      seed=TONES_SEED)
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    tokens = {}
+    for name, dev in (("card", CARD), ("cpu", "cpu")):
+        p, c, v = load_model(saved, device=dev)
+        sess = run_session(p, c, v, cc, audio, torch.float32)
+        tokens[name] = [[t for t, _ in sess.get_tokens(s)]
+                        for s in range(TONES_STREAMS)]
+    ter = token_error(tokens["card"], truths)
+    same = tokens["card"] == tokens["cpu"]
+    out["finetune"] = dict(steps=FT_STEPS, batch=FT_BATCH, lr=FT_LR,
+                           first_loss=losses[0], last_loss=losses[-1],
+                           wall_s=ft_s, ter=ter, same_as_cpu=same)
+    log(f"  fine-tune of {os.path.basename(fixture)}: {FT_STEPS} steps of "
+        f"{FT_BATCH} fresh utterances at lr {FT_LR:g} in {ft_s:.1f} s "
+        f"(losses {losses[0]:.4f} .. {losses[-1]:.4f}); saved, loaded on "
+        f"the card, {TONES_STREAMS} streams at R = 13: token error "
+        f"{ter:.4f}, tokens vs CPU {'equal' if same else 'DIFFER'}")
+    if not (ter < TONES_TER_MAX and same and all(np.isfinite(losses))):
+        failures.append(f"training fine-tune: token error {ter:.4f}, tokens "
+                        f"vs CPU equal {same}, losses {losses}")
+
+    # (e) resume from B's checkpoint; the CLI on A's saved GGUF
+    _, err_b = finish_module(jobs.pop("train B"), "train B", failures)
+    jobs["train C"] = start_module("train", [fixture, *base, "--steps", "4",
+                                             "--resume", ck], env, here)
+    _, err_a = finish_module(jobs.pop("train A"), "train A", failures)
+    pcm = os.path.join(tmp, "a.pcm")
+    audio[0, :8 * 16000].astype("<i2").tofile(pcm)
+    cli_args = [out_a, pcm, "80", "13"]
+    jobs["cli"] = start_module("cli", cli_args, env, here)
+    jobs["cli --cpu"] = start_module("cli", cli_args + ["--cpu"], env, here)
+    res = {name: finish_module(proc, name, failures)
+           for name, proc in jobs.items()}
+
+    a, b_, c_ = (step_lines(e) for e in (err_a, err_b, res["train C"][1]))
+    cpu0 = step_lines(res["train --cpu"][1]).get(0)
+    resumed = {**b_, **c_}
+    out["entry"] = dict(card_step0=a.get(0), cpu_step0=cpu0,
+                        uninterrupted=a, resumed=resumed,
+                        cli_same=res["cli"][0] == res["cli --cpu"][0])
+    log(f"  train (card): {a.get(0)!r}; --cpu: {cpu0!r}")
+    log(f"  --checkpoint at 2 and --resume to 4: "
+        f"{'equal to' if resumed == a else 'DIFFER from'} the uninterrupted "
+        f"run's lines ({len(a)} lines)")
+    log(f"  cli on the saved GGUF (card vs --cpu): "
+        f"{'equal' if out['entry']['cli_same'] else 'DIFFER'} "
+        f"({len(res['cli'][0].split())} words)")
+    if a.get(0) is None or a.get(0) != cpu0:
+        failures.append(f"train entry step 0: card {a.get(0)!r} vs CPU "
+                        f"{cpu0!r}")
+    if resumed != a or len(a) != 4:
+        failures.append(f"train --resume: {resumed} vs {a}")
+    if not out["entry"]["cli_same"] or not res["cli"][0].strip():
+        failures.append("cli on the trained GGUF: card vs --cpu differ or "
+                        "empty")
+
+    # (d) from scratch
+    lines = step_lines(res["scratch"][1])
+    first, last = (float(lines[i].split()[3]) if i in lines else None
+                   for i in (0, SCRATCH_STEPS - 1))
+    out["scratch"] = dict(steps=SCRATCH_STEPS, first_loss=first,
+                          last_loss=last, flags=SCRATCH_FLAGS, lines=lines)
+    log(f"  from scratch, tiny, {SCRATCH_STEPS} steps "
+        f"({' '.join(SCRATCH_FLAGS)}): loss {first} -> {last}; "
+        f"{list(lines.values())}")
+    if first is None or last is None or not last < 0.5 * first:
+        failures.append(f"training from scratch: loss {first} -> {last}")
+
+    # train_lm: the NLL falls, and the saved LM beats the untrained one
+    nll = {int(f[1].rstrip(":")): float(f[3]) for f in (
+        line.split() for line in res["train_lm"][1].splitlines())
+        if len(f) == 4 and f[0] == "step" and f[2] == "nll"}
+    _, lcfg, _ = load_model(fixture, device="cpu", keep_quantized=False)
+    trans = grammar_transitions(16, 3, 17)
+    rng = np.random.default_rng(SEED + 999)
+    labels = torch.tensor(np.stack([markov_labels(rng, 64, trans)
+                                    for _ in range(16)]), device=CARD)
+    lengths = torch.full((16,), 64, device=CARD)
+    held = {}
+    for name, lm in (("trained", lm_mod.load_lm(lm_path, device=CARD)),
+                     ("untrained", lm_mod.lm_params_from_arrays(
+                         lm_mod.random_lm_arrays(lcfg.vocab_size, hidden=48,
+                                                 seed=0, scale=0.08),
+                         device=CARD))):
+        with torch.no_grad():
+            held[name] = float(lm_mod.lm_sequence_nll(
+                lm, labels, lengths, lcfg.blank_token))
+    out["train_lm"] = dict(nll=nll, heldout=held)
+    log(f"  train_lm --steps 40: nll {nll.get(0)} -> {nll.get(39)}; the "
+        f"saved LM on held-out grammar sequences {held['trained']:.4f} "
+        f"(untrained {held['untrained']:.4f})")
+    if not (nll.get(39, np.inf) < nll.get(0, -np.inf)
+            and held["trained"] < held["untrained"]):
+        failures.append(f"train_lm: nll {nll}, held-out {held}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5652,17 +6208,22 @@ def main() -> int:
         log(f"phase {name}: wall {time.perf_counter() - t0:.1f} s")
         return out
 
-    attn = phase("attention kernel", attention_phase)
-    q8 = phase("Q8 kernel", q8_phase)
-    w8 = phase("W8A8 kernel", w8a8_phase)
-
     with tempfile.TemporaryDirectory() as tmp:
+        # the full-width GGUF is written by a child process while the
+        # kernel phases run on the card
         path = os.path.join(tmp, "full_width_q8.gguf")
         t0 = time.perf_counter()
-        n_q = write_full_width_gguf(path)
-        log(f"phase main path: wrote {os.path.getsize(path) / 2 ** 30:.2f} "
-            f"GiB GGUF ({n_q} Q8_0 tensors) in "
-            f"{time.perf_counter() - t0:.1f} s")
+        gguf_job = start_cpu_job("write_full_width_gguf", path)
+        attn = phase("attention kernel", attention_phase)
+        q8 = phase("Q8 kernel", q8_phase)
+        w8 = phase("W8A8 kernel", w8a8_phase)
+        _, err = gguf_job.communicate()
+        if gguf_job.returncode:
+            raise RuntimeError(f"writing the GGUF: exit "
+                               f"{gguf_job.returncode}: {err[-2000:]}")
+        log(f"phase main path: {os.path.getsize(path) / 2 ** 30:.2f} GiB "
+            f"GGUF written by a child process beside the kernel phases, "
+            f"ready {time.perf_counter() - t0:.1f} s after its start")
         runs = phase("Q8_0 main path", main_path_phase, path)
         w8_runs = phase("W8A8 path", w8a8_path_phase, path)
         full = phase("full utterance", full_utterance_phase, path)
@@ -5675,16 +6236,26 @@ def main() -> int:
         tdt_path = os.path.join(tmp, "full_width_tdt_ctc.gguf")
         tdt_ref = os.path.join(tmp, "tdt_ctc_ref.json")
         tdt_job = start_cpu_job("cpu_tdt_ctc_reference", tdt_path, tdt_ref)
+        train_job = None
         try:
             lock = phase("lockstep, cohorts and serve (slice 13)",
                          lockstep_phase, path)
             beam = phase("beam family (slice 14)", beam_phase, path)
+            # the training phase's CPU reference (a 2-layer cut of the
+            # same GGUF) runs beside the TDT and CTC phase
+            train_ref = os.path.join(tmp, "training_ref.json")
+            train_job = start_cpu_job("cpu_training_reference", path,
+                                      train_ref)
             tdt = phase("TDT and CTC (slice 15)", tdt_ctc_phase, tdt_path,
                         tdt_job, tdt_ref, w8_runs)
+            full_width_model.cache_clear()
+            train = phase("training (slice 16)", training_phase, path,
+                          tdt_path, train_job, train_ref)
         finally:
-            if tdt_job.poll() is None:
-                tdt_job.kill()
-                tdt_job.communicate()
+            for job in (tdt_job, train_job):
+                if job is not None and job.poll() is None:
+                    job.kill()
+                    job.communicate()
         full_width_model.cache_clear()
     tones = phase("tones", tones_phase)
     engine_tones = phase("serving engine tones (slice 8)", engine_tones_phase)
@@ -5697,6 +6268,8 @@ def main() -> int:
                        beam_tones_phase)
     tdt_tones = phase("TDT and CTC on the trained fixtures (slice 15)",
                       tdt_ctc_tones_phase)
+    train_tones = phase("training on the trained fixture and the tiny "
+                        "config (slice 16)", training_tones_phase)
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
@@ -5842,6 +6415,9 @@ def main() -> int:
     log("beam family on the trained fixtures: " + json.dumps(beam_tones))
     log("TDT and CTC: " + json.dumps(tdt))
     log("TDT and CTC on the trained fixtures: " + json.dumps(tdt_tones))
+    log("training: " + json.dumps(train))
+    log("training on the trained fixture and the tiny config: "
+        + json.dumps(train_tones))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

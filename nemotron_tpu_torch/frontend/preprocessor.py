@@ -42,6 +42,58 @@ def pad_window(window: np.ndarray, n_fft: int) -> np.ndarray:
     return out
 
 
+def hann_window(n: int) -> np.ndarray:
+    """Symmetric Hann (torch.hann_window(n, periodic=False))."""
+    return (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / (n - 1))).astype(
+        np.float32)
+
+
+def mel_filterbank_slaney(n_mels: int = 128, n_fft: int = 512,
+                          sample_rate: int = 16000, fmin: float = 0.0,
+                          fmax: float | None = None) -> np.ndarray:
+    """Slaney-style mel filterbank (librosa.filters.mel(htk=False,
+    norm='slaney')), the construction NeMo's FilterbankFeatures uses
+    (nemotron_tpu/frontend/preprocessor.py:53-95). Only needed without a
+    GGUF: the tones training task builds its frontend with it, and the
+    saved GGUF then carries it (reference src/nemo-ggml.cpp:354-356)."""
+    if fmax is None:
+        fmax = sample_rate / 2.0
+
+    def hz_to_mel(f):
+        f = np.asarray(f, dtype=np.float64)
+        f_sp = 200.0 / 3
+        mel = f / f_sp
+        min_log_hz = 1000.0
+        min_log_mel = min_log_hz / f_sp
+        logstep = np.log(6.4) / 27.0
+        return np.where(f >= min_log_hz,
+                        min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                        mel)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, dtype=np.float64)
+        f_sp = 200.0 / 3
+        freqs = f_sp * m
+        min_log_hz = 1000.0
+        min_log_mel = min_log_hz / f_sp
+        logstep = np.log(6.4) / 27.0
+        return np.where(m >= min_log_mel,
+                        min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                        freqs)
+
+    n_freqs = n_fft // 2 + 1
+    fftfreqs = np.linspace(0, sample_rate / 2.0, n_freqs)
+    mel_pts = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2))
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    fb = np.maximum(0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_pts[2 : n_mels + 2] - mel_pts[:n_mels])
+    fb *= enorm[:, None]
+    return fb.astype(np.float32)
+
+
 class StreamingPreprocessor:
     """Stateful PCM -> log-mel for S parallel streams. All S streams advance
     by the same number of samples per call. The FFT runs on `device`: the

@@ -377,6 +377,29 @@ def write_gguf(
 VOCAB_ENTRY_SIZE = 8
 
 
+def fit_vocab_token(tok: str) -> str:
+    """Fit a token into the fixed 8-byte vocab slot (7 content bytes + NUL,
+    reference scripts/convert_to_gguf.py:252-260): truncate by encoded UTF-8
+    byte length, never mid-codepoint, warning when lossy."""
+    enc = tok.encode("utf-8")
+    if len(enc) <= VOCAB_ENTRY_SIZE - 1:
+        return tok
+    cut = enc[: VOCAB_ENTRY_SIZE - 1]
+    short = ""
+    while cut:
+        try:
+            short = cut.decode("utf-8")
+            break
+        except UnicodeDecodeError:
+            cut = cut[:-1]
+    import warnings
+
+    warnings.warn(f"vocab token {tok!r} exceeds the "
+                  f"{VOCAB_ENTRY_SIZE - 1}-byte GGUF entry; "
+                  f"truncated to {short!r}")
+    return short
+
+
 def encode_vocab(vocab: list[str]) -> bytes:
     blob = bytearray(len(vocab) * VOCAB_ENTRY_SIZE)
     for i, tok in enumerate(vocab):

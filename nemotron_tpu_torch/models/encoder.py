@@ -1,10 +1,11 @@
 """FastConformer encoder: full utterance (`encode_batch`) and the
 cache-aware streaming step (`encode_chunk`).
 
-The port's counterpart of `nemotron_tpu/models/encoder.py` (no
-rematerialisation). The full-utterance encoder attends over the whole
-utterance, masked by per-utterance lengths and, for streaming-equivalent
-visibility, by chunks. The streaming step:
+The port's counterpart of `nemotron_tpu/models/encoder.py`. The
+full-utterance encoder attends over the whole utterance, masked by
+per-utterance lengths and, for streaming-equivalent visibility, by chunks;
+for training it can recompute each layer in the backward pass (`remat`).
+The streaming step:
 
   - All streaming state is an explicit `EncoderState` of fixed-shape
     tensors. The K/V attention window is a head-major RING buffer
@@ -33,6 +34,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..config import CacheConfig, ModelConfig
 from ..ops.basic import ffn, layer_norm
@@ -92,8 +94,8 @@ def conformer_layer_batch(lp, x, pos_heads, mask=None, *, n_heads: int,
 
 def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
                  enc_lengths=None, att_chunk: int | None = None,
-                 att_left: int = 70, ln_capture: list | None = None
-                 ) -> torch.Tensor:
+                 att_left: int = 70, ln_capture: list | None = None,
+                 remat: bool = False) -> torch.Tensor:
     """Full-utterance encoder (nemotron_tpu/models/encoder.py:105-156):
     mel [B, T, n_mels] -> [B, T', d_model], in mel's dtype.
 
@@ -111,7 +113,13 @@ def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
     before the chunk's start, as the cache-aware streaming step sees it.
 
     ln_capture: a list that receives one dict a layer of the LayerNorm
-    outputs that feed quantized matmuls (see _conformer_block)."""
+    outputs that feed quantized matmuls (see _conformer_block).
+
+    remat: with gradients on, each layer (its position projection
+    included, as the JAX package's checkpointed scan body) runs under
+    torch.utils.checkpoint and is recomputed in the backward pass, so the
+    activations kept for it are one layer's input, not all its
+    intermediates."""
     dev = mel.device
     x = conv_subsampling(params.subsampling, mel)
     Tp = x.shape[1]
@@ -131,13 +139,23 @@ def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
         cmask = torch.where(vis, 0.0, -1e9).to(f32)[None, None]
         mask = cmask if mask is None else mask + cmask
 
-    for l in range(cfg.n_layers):
-        lp = params.layers.layer(l)
+    lps = params.layers.unstack(cfg.n_layers)
+
+    def layer(x, l, cap=None):
+        lp = lps[l]
         pos_heads = project_pos(lp.attn_pos_w, pos, cfg.n_heads, cfg.d_head)
+        return conformer_layer_batch(lp, x, pos_heads, mask,
+                                     n_heads=cfg.n_heads, d_head=cfg.d_head,
+                                     ln_capture=cap)
+
+    checkpointed = remat and torch.is_grad_enabled()
+    for l in range(cfg.n_layers):
+        if checkpointed:
+            x = torch.utils.checkpoint.checkpoint(layer, x, l,
+                                                  use_reentrant=False)
+            continue
         cap = None if ln_capture is None else {}
-        x = conformer_layer_batch(lp, x, pos_heads, mask,
-                                  n_heads=cfg.n_heads, d_head=cfg.d_head,
-                                  ln_capture=cap)
+        x = layer(x, l, cap)
         if cap is not None:
             ln_capture.append(cap)
     return x

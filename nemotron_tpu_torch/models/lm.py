@@ -74,6 +74,35 @@ def lm_logp(lm: LMParams, prev_token: torch.Tensor, h: torch.Tensor,
     return torch.log_softmax(logits, dim=-1), h2, c2
 
 
+def lm_sequence_nll(lm: LMParams, labels: torch.Tensor,
+                    lengths: torch.Tensor, blank: int,
+                    inputs: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-label negative log-likelihood over a batch of sequences,
+    a scalar f32 (nemotron_tpu/models/lm.py:77-110): the LM training
+    objective. labels [B, U] int (positions >= lengths ignored); the input
+    at step 0 is blank (<bos>) and at step t > 0 the previous label, with
+    the distribution lm_logp serves at decode time. `inputs` [B, U]
+    overrides the teacher-forced history (a corrupted copy of the shifted
+    labels keeps the LM calibrated on the erroneous hypotheses it scores
+    during beam fusion). Differentiable."""
+    B, U = labels.shape
+    dev = labels.device
+    h, c = init_lm_state(lm, (B,), torch.float32, dev)
+    if inputs is None:
+        inputs = torch.cat([torch.full((B, 1), blank, dtype=labels.dtype,
+                                       device=dev), labels[:, :-1]], dim=1)
+    lengths = lengths.to(dev)
+    nlls, valids = [], []
+    for t in range(U):
+        logp, h, c = lm_logp(lm, inputs[:, t], h, c, blank)
+        nll = -torch.gather(logp, 1, labels[:, t:t + 1].long())[:, 0]
+        valid = (t < lengths).to(torch.float32)
+        nlls.append(nll * valid)
+        valids.append(valid)
+    return (torch.sum(torch.stack(nlls))
+            / torch.clamp(torch.sum(torch.stack(valids)), min=1.0))
+
+
 def lm_sequence_logp(lm: LMParams, labels: torch.Tensor,
                      lengths: torch.Tensor, blank: int) -> torch.Tensor:
     """Total label log-likelihood per sequence, [B] f32

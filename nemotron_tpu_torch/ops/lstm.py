@@ -13,8 +13,10 @@ import torch
 def lstm_step(dp, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     """One step through all LSTM layers of DecoderParams `dp`.
 
-    x: [B, in]; h, c: [B, L, H]. Returns (top hidden [B, H], h', c')."""
-    n_layers = dp.w_ih.shape[0]
+    x: [B, in]; h, c: [B, L, H]. Returns (top hidden [B, H], h', c').
+    The weights are stacked [L, ...] tensors or sequences of L tensors
+    (unbound once by a caller that steps many times under autograd)."""
+    n_layers = len(dp.w_ih)
     H = h.shape[-1]
     dt = x.dtype
     hs, cs = [], []

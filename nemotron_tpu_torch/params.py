@@ -84,6 +84,19 @@ class ConformerLayerParams:
         return ConformerLayerParams(**{
             f.name: getattr(self, f.name)[i] for f in dataclasses.fields(self)})
 
+    def unstack(self, n: int) -> list["ConformerLayerParams"]:
+        """The n layers' views at once. A tensor leaf is unbound along its
+        layer axis, so its gradient is one stack of the layers' gradients
+        (indexed layer by layer, each layer's backward would add a
+        full-size [L, ...] gradient into it); a quantized leaf is
+        indexed."""
+        cols = {f.name: (x.unbind(0) if isinstance(x, torch.Tensor)
+                         else [x[i] for i in range(n)])
+                for f in dataclasses.fields(self)
+                for x in (getattr(self, f.name),)}
+        return [ConformerLayerParams(**{k: v[i] for k, v in cols.items()})
+                for i in range(n)]
+
 
 @dataclasses.dataclass
 class DecoderParams:
@@ -501,6 +514,131 @@ def load_model(path: str, device="cuda", keep_quantized: bool = True,
     return params_from_arrays(arrays, cfg, device), cfg, vocab
 
 
+def params_to_arrays(params: ModelParams, cfg: ModelConfig,
+                     ) -> dict[str, np.ndarray]:
+    """Inverse of params_from_arrays (nemotron_tpu/params.py:382-475): the
+    parameters as reference-named f32 numpy arrays in the PyTorch layouts,
+    conv weights in the converter's 2-D storage, ready for
+    gguf.write_gguf. Quantized leaves are dequantized first (Q8_0 as
+    q * scale, W8A8 as q * col_scale, in f32)."""
+    def dense(w) -> np.ndarray:
+        if isinstance(w, QTensor):
+            *lead, n_in, n_out = w.q.shape
+            w = (w.q.to(torch.float32).reshape(*lead, n_in // 32, 32, n_out)
+                 * w.scale.to(torch.float32)[..., :, None, :]
+                 ).reshape(w.q.shape)
+        elif isinstance(w, QTensorW8A8):
+            w = w.q.to(torch.float32) * w.col_scale.to(torch.float32)[
+                ..., None, :]
+        return w.detach().to("cpu", torch.float32).numpy()
+
+    def lin(w) -> np.ndarray:      # [in, out] -> [out, in]
+        return np.ascontiguousarray(dense(w).T)
+
+    def conv(w) -> np.ndarray:     # HWIO -> OIHW
+        return np.ascontiguousarray(dense(w).transpose(3, 2, 0, 1))
+
+    t: dict[str, np.ndarray] = {}
+    s = params.subsampling
+    for i, (wf, bf) in ((0, ("conv0_w", "conv0_b")),
+                        (2, ("conv2_w", "conv2_b")),
+                        (3, ("conv3_w", "conv3_b")),
+                        (5, ("conv5_w", "conv5_b")),
+                        (6, ("conv6_w", "conv6_b"))):
+        t[f"encoder.pre_encode.conv.{i}.weight"] = conv(getattr(s, wf))
+        t[f"encoder.pre_encode.conv.{i}.bias"] = dense(getattr(s, bf))
+    t["encoder.pre_encode.out.weight"] = lin(s.out_w)
+    t["encoder.pre_encode.out.bias"] = dense(s.out_b)
+
+    for i in range(cfg.n_layers):
+        lp = params.layers.layer(i)
+        p = f"encoder.layers.{i}"
+        t[f"{p}.norm_feed_forward1.weight"] = dense(lp.norm_ff1_w)
+        t[f"{p}.norm_feed_forward1.bias"] = dense(lp.norm_ff1_b)
+        t[f"{p}.feed_forward1.linear1.weight"] = lin(lp.ffn1_w1)
+        t[f"{p}.feed_forward1.linear2.weight"] = lin(lp.ffn1_w2)
+        t[f"{p}.norm_self_att.weight"] = dense(lp.norm_attn_w)
+        t[f"{p}.norm_self_att.bias"] = dense(lp.norm_attn_b)
+        t[f"{p}.self_attn.linear_q.weight"] = lin(lp.attn_q_w)
+        t[f"{p}.self_attn.linear_k.weight"] = lin(lp.attn_k_w)
+        t[f"{p}.self_attn.linear_v.weight"] = lin(lp.attn_v_w)
+        t[f"{p}.self_attn.linear_pos.weight"] = lin(lp.attn_pos_w)
+        t[f"{p}.self_attn.linear_out.weight"] = lin(lp.attn_out_w)
+        t[f"{p}.self_attn.pos_bias_u"] = dense(lp.pos_bias_u)
+        t[f"{p}.self_attn.pos_bias_v"] = dense(lp.pos_bias_v)
+        t[f"{p}.norm_conv.weight"] = dense(lp.norm_conv_w)
+        t[f"{p}.norm_conv.bias"] = dense(lp.norm_conv_b)
+        t[f"{p}.conv.pointwise_conv1.weight"] = lin(lp.conv_pw1_w)
+        t[f"{p}.conv.depthwise_conv.weight"] = dense(lp.conv_dw_w)
+        t[f"{p}.conv.batch_norm.weight"] = dense(lp.conv_ln_w)
+        t[f"{p}.conv.batch_norm.bias"] = dense(lp.conv_ln_b)
+        t[f"{p}.conv.pointwise_conv2.weight"] = lin(lp.conv_pw2_w)
+        t[f"{p}.norm_feed_forward2.weight"] = dense(lp.norm_ff2_w)
+        t[f"{p}.norm_feed_forward2.bias"] = dense(lp.norm_ff2_b)
+        t[f"{p}.feed_forward2.linear1.weight"] = lin(lp.ffn2_w1)
+        t[f"{p}.feed_forward2.linear2.weight"] = lin(lp.ffn2_w2)
+        t[f"{p}.norm_out.weight"] = dense(lp.norm_final_w)
+        t[f"{p}.norm_out.bias"] = dense(lp.norm_final_b)
+
+    dp = "decoder.prediction"
+    d = params.decoder
+    t[f"{dp}.embed.weight"] = dense(d.embedding)
+    for i in (0, 1):
+        t[f"{dp}.dec_rnn.lstm.weight_ih_l{i}"] = lin(d.w_ih[i])
+        t[f"{dp}.dec_rnn.lstm.weight_hh_l{i}"] = lin(d.w_hh[i])
+        t[f"{dp}.dec_rnn.lstm.bias_ih_l{i}"] = dense(d.b_ih[i])
+        t[f"{dp}.dec_rnn.lstm.bias_hh_l{i}"] = dense(d.b_hh[i])
+
+    j = params.joint
+    t["joint.enc.weight"] = lin(j.enc_w)
+    t["joint.enc.bias"] = dense(j.enc_b)
+    t["joint.pred.weight"] = lin(j.dec_w)
+    t["joint.pred.bias"] = dense(j.dec_b)
+    t["joint.joint_net.2.weight"] = lin(j.out_w)
+    t["joint.joint_net.2.bias"] = dense(j.out_b)
+
+    pre = params.preprocessor
+    t["preprocessor.featurizer.fb"] = dense(pre.filterbank)
+    t["preprocessor.featurizer.window"] = dense(pre.window)
+
+    if params.ctc is not None:
+        t["ctc_decoder.decoder_layers.0.weight"] = lin(params.ctc.out_w)
+        t["ctc_decoder.decoder_layers.0.bias"] = dense(params.ctc.out_b)
+    return t
+
+
+def save_model(path: str, params: ModelParams, cfg: ModelConfig,
+               vocab: list[str] | None = None,
+               quantize_mode: str | None = None) -> None:
+    """Write the parameters to a GGUF that this port, the JAX package and
+    the reference loader read (nemotron_tpu/params.py:478-507): dense f32
+    tensors, or the encoder matmul weights as Q8_0 / Q4_0 blocks with
+    quantize_mode 'q8_0' / 'q4_0'; a TDT config's durations in
+    `nemo.tdt_durations`; the CTC head where there is one; vocab entries
+    cut to the 7-byte slot (gguf.fit_vocab_token)."""
+    arrays = params_to_arrays(params, cfg)
+    meta: dict[str, object] = {"general.architecture": "nemo"}
+    if vocab:
+        meta["tokenizer.vocab"] = gguf_mod.encode_vocab(
+            [gguf_mod.fit_vocab_token(v) for v in vocab])
+    meta.update({
+        "nemo.n_mels": cfg.n_mels, "nemo.d_model": cfg.d_model,
+        "nemo.n_heads": cfg.n_heads, "nemo.d_head": cfg.d_head,
+        "nemo.d_ff": cfg.d_ff, "nemo.n_layers": cfg.n_layers,
+        "nemo.kernel_size": cfg.kernel_size,
+        "nemo.vocab_size": cfg.vocab_size,
+    })
+    if cfg.tdt_durations:
+        meta["nemo.tdt_durations"] = [int(d) for d in cfg.tdt_durations]
+    quantize = {}
+    if quantize_mode:
+        gtype = {"q8_0": gguf_mod.GGML_Q8_0,
+                 "q4_0": gguf_mod.GGML_Q4_0}[quantize_mode]
+        quantize = {n: gtype for n, a in arrays.items()
+                    if should_quantize(n, a)}
+    gguf_mod.write_gguf(path, meta, arrays, quantize=quantize)
+
+
 def parse_boost_spec(spec: str) -> dict:
     """The CLIs' `--boost=piece:weight,...` as the dict `apply_logit_bias`
     takes (nemotron_tpu/params.py:643-657): a piece is a vocab string (with
@@ -560,20 +698,41 @@ def apply_logit_bias(params: ModelParams, bias,
 # ---------------------------------------------------------------------------
 
 def random_weight_arrays(cfg: ModelConfig, seed: int = 0,
-                         scale: float = 0.05,
+                         scale: float = 0.05, init: str = "bench",
                          ctc_head: bool = False) -> dict[str, np.ndarray]:
     """Random weights in the *reference's* name/shape convention
-    (docs/TENSOR_SHAPES.md), so they round-trip through GGUF: every weight
-    ~ N(0, scale^2), norms at identity. The same numbers as the JAX
-    package's `random_weight_arrays` (init='bench') for the same seed. A
-    TDT config widens the joint's output by its duration head; ctc_head
+    (docs/TENSOR_SHAPES.md), so they round-trip through GGUF, norms at
+    identity. The same numbers as the JAX package's `random_weight_arrays`
+    for the same seed and init (nemotron_tpu/params.py:514-632):
+
+      'bench'  -- every weight ~ N(0, scale^2).
+      'glorot' -- fan-scaled Glorot/Xavier (std = sqrt(2 / (fan_in +
+                  fan_out)), conv fans include the kernel taps), zero
+                  biases, LSTM forget-gate biases 1.0: what training from
+                  scratch needs (the flat 0.05 starves the subsampling
+                  convs, fan_in 9).
+
+    A TDT config widens the joint's output by its duration head; ctc_head
     adds a hybrid checkpoint's CTC head (drawn last, as JAX draws it)."""
+    if init not in ("bench", "glorot"):
+        raise ValueError(f"unknown init {init!r} (bench | glorot)")
     rng = np.random.default_rng(seed)
     D, FF, H, DH = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.d_head
     V, DD = cfg.vocab_size, cfg.decoder_dim
     K = cfg.kernel_size
 
     def w(*shape):
+        if init == "glorot":
+            if len(shape) == 1:
+                return np.zeros(shape, dtype=np.float32)   # biases
+            if len(shape) == 2:                            # [out, in]
+                fan_in, fan_out = shape[1], shape[0]
+            else:                                          # [Co, Ci, *k]
+                rf = int(np.prod(shape[2:]))
+                fan_in, fan_out = shape[1] * rf, shape[0] * rf
+            std = np.sqrt(2.0 / (fan_in + fan_out))
+            return rng.standard_normal(shape, dtype=np.float32) \
+                * np.float32(std)
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
 
     def ones(*shape):
@@ -633,6 +792,10 @@ def random_weight_arrays(cfg: ModelConfig, seed: int = 0,
         t[f"{dp}.dec_rnn.lstm.weight_hh_l{i}"] = w(4 * DD, DD)
         t[f"{dp}.dec_rnn.lstm.bias_ih_l{i}"] = w(4 * DD)
         t[f"{dp}.dec_rnn.lstm.bias_hh_l{i}"] = w(4 * DD)
+    if init == "glorot":
+        for i in (0, 1):
+            # forget-gate bias 1.0 (gate order [i, f, g, o], ops/lstm.py)
+            t[f"{dp}.dec_rnn.lstm.bias_ih_l{i}"][DD:2 * DD] = 1.0
 
     t["joint.enc.weight"] = w(cfg.joint_dim, D)
     t["joint.enc.bias"] = w(cfg.joint_dim)
