@@ -1,7 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase NAME ...]
+
+With no argument every phase runs, as below; `--phase NAME` (repeatable;
+the names are PHASES' keys, e.g. multi-gpu, lockstep, q8) runs the chosen
+phases alone (with the GGUFs and CPU references they need), and prints
+the last two lines of a whole run without the kernels line. Since slice
+17 the engine, quant-tier, lockstep and beam phases run the full-width
+model cut to COMPARE_LAYERS (4) layers (but for two checks that stay at
+24), the W8A8 path's and the full utterance's CPU runs are child
+processes started with the main path (whose host-clock readings now run
+beside them), and the kernel phases time both matmul designs only at
+the main paths' rows.
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; no CUDA -> exit 2, no result.
@@ -20,10 +31,11 @@ Phases (any failure exits non-zero):
      (checked) and per layer at M = 804 (timed). Since slice 11 the Q8
      matmul has two designs (split-K clusters up to M* rows, 128 x 128
      tiles above): checked at M* - 1, M* and M* + 1 besides, repeatable bit
-     for bit at M = 896 in both dtypes, and both designs timed per layer
-     at the crossover rows M = 16, 32, 64, 96, 112, 128, 256, 804 and
-     896
-     through the same entry point (`q8_matmul_as`); the profiles count Q8
+     for bit at M = 896 in both dtypes, checked at the crossover sweep's
+     rows M = 16, 32, 64, 128 and 256, and both designs timed per layer
+     at M = 804 and 896 through the same entry point (`q8_matmul_as`;
+     since slice 17, the sweep's timings are chip_q8_sweep.py's); the
+     profiles count Q8
      launches under every kernel name that starts with q8_matmul.
   4. Q8_0 main path (slice 1): a seeded full-width (0.6B) random-weight
      GGUF with Q8_0 encoder matmuls, written with the port's writer, loaded
@@ -78,8 +90,8 @@ Phases (any failure exits non-zero):
      Levenshtein 1 of its labels).
   9. network server (slice 9): an ASRServer (TCP, WebSocket and the HTTP
      sidecar) over a 64-slot ServingEngine with confidence at full width,
-     R = 13, driven by 48 TCP and 8 WebSocket clients streaming 2.5 s of
-     seeded PCM each at the real-time rate and 8 POST /transcribe
+     R = 13, driven by 24 TCP and 4 WebSocket clients streaming 2.5 s of
+     seeded PCM each at the real-time rate and 4 POST /transcribe
      requests, in two cells: Q8_0 f32 with host DSP (every client's FINAL
      or REST tokens equal to those of the same audio through a directly
      driven engine, and 8 clients' to solo sessions', log-posteriors
@@ -122,10 +134,11 @@ Phases (any failure exits non-zero):
      replayed into by asr_client.
  11. slice 12: the W8A8 matmul has two designs (split-K clusters up to M*
      rows, 128 x 128 tiles above): the kernel phase holds both to the plain
-     versions bit for bit from M = 16 on (M* and M* + 1, 804, 896, 897 and
-     3584 besides the main paths' rows), in both modes and dtypes, checks
-     repeated calls in both, and times both designs per layer in both modes
-     at the crossover rows M = 16-3584 through the same entry point
+     versions bit for bit from M = 16 on (M* and M* + 1, 804, 896, 897,
+     3584 and the crossover sweep's 32, 64, 96, 128, 288 besides the main
+     paths' rows), in both modes and dtypes, checks repeated calls in
+     both, and times both designs per layer in both modes at M = 16, 112,
+     672, 804, 896 and 3584 (since slice 17) through the same entry point
      (`w8a8_matmul_as`), with torch._int_mm on the [K, N] weight and on a
      column-major copy; the profiles count W8A8 launches under every kernel
      name that starts with w8a8_matmul, and the engine phase profiles the
@@ -195,7 +208,26 @@ Phases (any failure exits non-zero):
      train entry point on the card against --cpu, --checkpoint then
      --resume against an uninterrupted run, its saved GGUF through the
      streaming CLI (card against --cpu), and train_lm (the NLL falls).
- 16. one JSON line of kernel results, the card's name and power limit, and
+ 16. multi-GPU (slice 17), at full width: (a) a one-rank NCCL mesh --
+     ServingEngine(mesh=) (64 slots, W8A8 + int8 K/V bf16, device DSP,
+     R = 13, in turns with the unsharded engine: its tick p50 beside
+     it), LockstepEngine(mesh=) (64 streams) and the Q8_0 f32 engine, each
+     bit-equal to the unsharded engine in tokens, every state leaf and
+     launches; (b) two ranks sharing the card over gloo at model-parallel
+     2 -- the Q8_0 f32 engine's tokens equal to (a)'s, encode_chunk within
+     4x a two-ulp control, the W8A8 bf16 engine's token counts, a profiled
+     tick (24 attention and 240 Q8 launches at the rank's shapes), the
+     all_reduce calls and bytes of a tick; (c) data-parallel 2 --
+     MultihostLockstep and MultihostServing (32 rows a rank) bit-equal to
+     one-process engines of the same rows, a per-rank save / load resume;
+     (d) a model-parallel-2 train step on the 2-layer cut against one
+     rank; (e) serve --mesh 1 / --mesh 2 / --lockstep --coordinator (two
+     processes) and train --model-parallel 2 exit 0 with their summaries.
+     The kernel phase checks and times the rank's shapes: attention at
+     H = 4 of 8, Q8 at (K, N) = (1024, 2048), (2048, 1024), (1024, 512),
+     (512, 1024), W8A8 at the FFN's two. No number here is a multi-GPU
+     speed: the machine has one card.
+ 17. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -225,6 +257,18 @@ MODES = (0, 1, 6, 13)
 # stream: 25-50 chunks a stream of one kind (lockstep since PR 13, the
 # others since PR 15, to keep the script near 950 s)
 SHORT_SECONDS = 2.0
+# the comparison phases of slices 8, 10, 13 and 14 (the engine, the quant
+# tiers and snapshots, lockstep, the beam family: engines held to solo
+# sessions, the card held to the CPU) run the full-width model cut to
+# COMPARE_LAYERS layers (full width, reduced depth: cut_layers), since
+# slice 17, to keep the script within its time with the multi-GPU phase;
+# but for two checks the tier's chaos fails at 4 layers (lockstep's W8A8
+# streams against solo sessions at R = 13, the beam's card-vs-CPU
+# scores), which stay at 24, as do the main paths, the full
+# utterance, the server (its time is the engine lock's, not the depth's),
+# TDT/CTC and the serve entry points. Four layers keep --rc-by-layer's
+# four groups whole.
+COMPARE_LAYERS = 4
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s per type. The
 # Q8 and attention kernels run f32 and bf16 on the CUDA cores (FFMA, f32
 # accumulation) and the W8A8 kernel its integer product on the tensor cores
@@ -304,13 +348,16 @@ SHIFT_MS = {0: 80, 1: 160, 6: 560, 13: 1120}
 ENGINE_TONES_HALF, ENGINE_TONES_LATE = (4, 5, 6), 7
 # the endpointing audio's two utterances (tones_tiny_sil.gguf)
 SIL_LABELS = ([3, 11, 6, 0, 14, 9], [8, 2, 15])
-# the network server (slice 9): a 64-slot engine behind an ASRServer, 48 TCP
-# and 8 WebSocket clients streaming 2.5 s each at the real-time rate in
+# the network server (slice 9): a 64-slot engine behind an ASRServer, 24 TCP
+# and 4 WebSocket clients streaming 2.5 s each at the real-time rate in
 # 100 ms blocks (two R = 13 chunks of real audio, then the finalize; 4 s
-# up to PR 13, cut to keep the script within its time), and 8 POST
-# /transcribe requests of 2.5 s; the clients' log-posteriors against solo
-# sessions within the Q8_0 path's card tolerance (TOL_ENCODER_ABS)
-SERVER_SLOTS, SERVER_TCP, SERVER_WS, SERVER_REST = 64, 48, 8, 8
+# up to PR 13, cut to keep the script within its time), and 4 POST
+# /transcribe requests of 2.5 s (48, 8 and 8 up to slice 17: each END
+# steps the whole slab under the engine lock, so the cell's wall grows
+# with the streaming clients; the engine keeps its 64 slots); the
+# clients' log-posteriors against solo sessions within the Q8_0 path's
+# card tolerance (TOL_ENCODER_ABS)
+SERVER_SLOTS, SERVER_TCP, SERVER_WS, SERVER_REST = 64, 24, 4, 4
 SERVER_SECONDS = 2.5
 TOL_CONF_ABS = 1e-3
 # slice 10: the quant tiers and snapshots. SmoothQuant calibrates on 4 s of
@@ -547,8 +594,9 @@ def attention_phase(failures: list) -> dict:
     L, H, Dh = cfg.n_layers, cfg.n_heads, cfg.d_head
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def inputs(B, Q, KV, dt, ring_dt, n_stacks=1, dh=Dh):
-        """ring_dt: the compute dtype, torch.int8, or "int4" (packed)."""
+    def inputs(B, Q, KV, dt, ring_dt, n_stacks=1, dh=Dh, H=H):
+        """ring_dt: the compute dtype, torch.int8, or "int4" (packed); H:
+        the heads (a model-parallel rank's share)."""
         def rn(*s):
             return torch.randn(*s, device="cuda", generator=g).to(dt)
         if ring_dt in (torch.int8, "int4"):
@@ -621,6 +669,25 @@ def attention_phase(failures: list) -> dict:
                   f"(engine slots)", err, tol, failures)
             del x, got, want
 
+    # slice 17: a model-parallel-2 rank's heads (H = 4 of 8) at the
+    # engine's 64 slots, R = 13: f32 dense rings (the Q8_0 engine) and bf16
+    # int8 rings (the W8A8 tier)
+    for dt, ring_dt in ((torch.float32, torch.float32),
+                        (torch.bfloat16, torch.int8)):
+        x = inputs(ENGINE_SLOTS, cc.chunk_enc_len, cc.kv_len, dt, ring_dt,
+                   H=H // 2)
+        got = run(fused_ring_attention, x, L - 1)
+        want = run(ring_attention_ref, x, L - 1)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = (TOL_F32_ATTN_ABS if dt == torch.float32
+               else TOL_BF16_REL * max(scale, 1.0))
+        check(f"attn R=13 B={ENGINE_SLOTS} H={H // 2} {str(dt)[6:]} "
+              f"ring={str(ring_dt)[6:]} (a model-parallel-2 rank)", err, tol,
+              failures)
+        del x, got, want
+
     # determinism: the same inputs give the same bits (no atomics)
     for B, dt, ring_dt in ((1, torch.float32, torch.float32),
                            (8, torch.bfloat16, torch.int8)):
@@ -669,10 +736,11 @@ def attention_phase(failures: list) -> dict:
                                         f"tol ({err_swap:.3e})")
                     del x, got, want, again, wrong
 
-    def timed(R, B, dt, ring_dt, with_library, n_stacks=8, iters=2000):
+    def timed(R, B, dt, ring_dt, with_library, n_stacks=8, iters=2000,
+              H=H):
         cc = CacheConfig(att_right_context=R)
         Q, KV = cc.chunk_enc_len, cc.kv_len
-        x = inputs(B, Q, KV, dt, ring_dt, n_stacks=n_stacks)
+        x = inputs(B, Q, KV, dt, ring_dt, n_stacks=n_stacks, H=H)
         pairs = [(run(fused_ring_attention, x, l, s).float(),
                   run(ring_attention_ref, x, l, s).float())
                  for s in range(n_stacks) for l in (0, L - 1)]
@@ -706,14 +774,14 @@ def attention_phase(failures: list) -> dict:
         flops = 2 * 2 * B * H * Q * (KV + Q) * Dh
         peak = PEAK_FLOPS[str(dt)[6:]]
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
-        r = dict(Q=Q, KV=KV, B=B, ms=ms, plain_ms=plain_ms,
+        r = dict(Q=Q, KV=KV, B=B, H=H, ms=ms, plain_ms=plain_ms,
                  library_ms=lib_ms, bound_ms=bound_ms, bytes=nbytes,
                  flops=flops, max_abs_err=err,
                  bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
                            >= flops / peak else "operations"))
         lib_txt = f"sdpa {lib_ms * 1e3:.2f} us, " if with_library else ""
         ring_name = ring_dt if isinstance(ring_dt, str) else str(ring_dt)[6:]
-        log(f"  R={R} Q={Q} KV={KV} B={B} {str(dt)[6:]} ring="
+        log(f"  R={R} Q={Q} KV={KV} B={B} H={H} {str(dt)[6:]} ring="
             f"{ring_name}: kernel {ms * 1e3:.2f} us, plain "
             f"{plain_ms * 1e3:.2f} us, {lib_txt}bound {bound_ms * 1e3:.3f} us "
             f"({nbytes} B, {flops} FLOP), err {err:.2e}")
@@ -741,6 +809,11 @@ def attention_phase(failures: list) -> dict:
     per_mode["int4"] = timed(13, 8, torch.bfloat16, "int4", False)
     per_mode["engine_int4"] = timed(13, B, torch.bfloat16, "int4", False,
                                     n_stacks=1, iters=480)
+    # slice 17: a model-parallel-2 rank's 4 heads at the engine's 64 slots,
+    # f32 dense rings (the Q8_0 engine over two ranks; two stacks of 0.53
+    # GB exceed L2)
+    per_mode["mp2_f32"] = timed(13, B, torch.float32, torch.float32, True,
+                                n_stacks=2, iters=480, H=H // 2)
     return per_mode
 
 
@@ -749,8 +822,22 @@ Q8_SHAPES = {(1024, 1024): 5, (1024, 4096): 2, (4096, 1024): 2,
 #                                  ffn w1 x2, ffn w2 x2, pw1)
 
 
-# slice 11: the Q8 kernel's crossover rows, where both designs are timed
-Q8_CROSSOVER_MS = (16, 32, 64, 96, 112, 128, 256, FULL_UTT_M, ENGINE_M)
+# slice 17: a model-parallel-2 rank's (K, N) at full width: the FFN's w1
+# and w2 split along N and K, the attention's q/k/v/pos along N and
+# attn_out along K (the conv module stays whole)
+LOCAL_SHAPES = {(1024, 2048): "w1", (2048, 1024): "w2",
+                (1024, 512): "q/k/v/pos", (512, 1024): "attn_out"}
+# the W8A8 tier splits the FFNs only: attn_out's local K (512) would take
+# its own activation groups, not the whole weight's 1024 (parallel/mesh.py)
+W8A8_LOCAL_SHAPES = {(1024, 2048): "w1", (2048, 1024): "w2"}
+
+
+# the rows where both designs of the Q8 kernel are timed: the full
+# utterance and the 64-slot engine (the crossover sweep at M = 16-256,
+# which fixed M* = 96, is timed by chip_q8_sweep.py, no longer here; its
+# rows are still checked against the plain version: Q8_SWEEP_MS)
+Q8_CROSSOVER_MS = (FULL_UTT_M, ENGINE_M)
+Q8_SWEEP_MS = (16, 32, 64, 128, 256)
 
 
 def q8_phase(failures: list) -> dict:
@@ -774,11 +861,11 @@ def q8_phase(failures: list) -> dict:
 
     # the skinny design up to M* = SPLITK_MAX_M rows, the tiled one above:
     # both sides of M*, the streaming step's rows, the full-utterance and
-    # engine batches, ragged tiles (17, 257)
+    # engine batches, ragged tiles (17, 257), the crossover sweep's rows
     log(f"phase kernels: q8_matmul vs q8_matmul_ref (M* = {SPLITK_MAX_M})")
     star = SPLITK_MAX_M
     for M in (1, 14, 112, 17, 257, FULL_UTT_M, ENGINE_M, star - 1, star,
-              star + 1):
+              star + 1, *Q8_SWEEP_MS):
         for (K, N) in Q8_SHAPES:
             design = q8_launch_geometry(M, K, N, sms).design
             for dt in (torch.float32, torch.bfloat16):
@@ -793,6 +880,21 @@ def q8_phase(failures: list) -> dict:
                        else TOL_BF16_REL) * scale
                 check(f"q8 M={M} K={K} N={N} {str(dt)[6:]} {design}", err,
                       tol, failures)
+
+    # slice 17: a model-parallel-2 rank's shapes at the session's, 8
+    # streams' and the engine's rows
+    for M in (14, 112, ENGINE_M):
+        for (K, N), what in LOCAL_SHAPES.items():
+            for dt in (torch.float32, torch.bfloat16):
+                (q, s), = weights(K, N)
+                x = torch.randn(M, K, device="cuda", generator=g).to(dt)
+                err = (q8_matmul(x, q, s).float()
+                       - q8_matmul_ref(x, q, s).float()).abs().max().item()
+                scale = q8_matmul_ref(x, q, s).float().abs().max().item()
+                tol = (TOL_F32_Q8_REL if dt == torch.float32
+                       else TOL_BF16_REL) * scale
+                check(f"q8 M={M} K={K} N={N} {str(dt)[6:]} (a "
+                      f"model-parallel-2 rank's {what})", err, tol, failures)
 
     # determinism: the same inputs give the same bits (no atomics), in both
     # designs (the engine's M = 896 splits K over clusters of 4)
@@ -816,50 +918,54 @@ def q8_phase(failures: list) -> dict:
     # the crossover rows both designs, through the same entry point
     log("phase kernels: q8_matmul times (f32; weights cycled beyond L2)")
     out = {}
-    for M in sorted({1, 14, *Q8_CROSSOVER_MS}):
+    timed_shapes = [(M, K, N) for M in sorted({1, 14, *Q8_CROSSOVER_MS})
+                    for (K, N) in Q8_SHAPES]
+    # slice 17: the model-parallel-2 rank's shapes at the engine's rows
+    timed_shapes += [(ENGINE_M, K, N) for (K, N) in LOCAL_SHAPES
+                     if (K, N) not in Q8_SHAPES]
+    for M, K, N in timed_shapes:
         iters = 500 if M <= 16 else 100
-        for (K, N) in Q8_SHAPES:
-            n = max(2, (192 << 20) // (K * N))
-            ws = weights(K, N, n)
-            x = torch.randn(M, K, device="cuda", generator=g)
-            own = q8_launch_geometry(M, K, N, sms)
-            geos = {"splitk": splitk_geometry(M, K, N, sms)}
-            if M in Q8_CROSSOVER_MS:
-                geos["tiled"] = tiled_geometry(M, K, N, sms)
-            err = max((q8_matmul(x, q, s) - q8_matmul_ref(x, q, s))
-                      .abs().max().item() for q, s in ws[:4])
-            dense = [(q.float().reshape(K // 32, 32, N)
-                      * s[:, None, :]).reshape(K, N) for q, s in ws[:8]]
-            design_ms = {d: time_calls([lambda q=q, s=s, geo=geo:
-                                        q8_matmul_as(x, q, s, geo)
-                                        for q, s in ws], iters)
-                         for d, geo in geos.items()}
-            plain_ms = time_calls([lambda q=q, s=s: q8_matmul_ref(x, q, s)
-                                   for q, s in ws[:8]], 100)
-            lib_ms = time_calls([lambda w=w: torch.matmul(x, w)
-                                 for w in dense], iters)
-            nbytes = M * K * 4 + K * N + (K // 32) * N * 4 + M * N * 4
-            flops = 2 * M * K * N
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS["float32"]
-            out[(M, K, N)] = dict(ms=design_ms[own.design], design=own.design,
-                                  split=own.split, plain_ms=plain_ms,
-                                  library_ms=lib_ms,
-                                  bound_ms=max(t_bytes, t_ops) * 1e3,
-                                  bytes=nbytes, flops=flops, max_abs_err=err,
-                                  bound_by="bytes" if t_bytes >= t_ops
-                                  else "operations")
-            out[(M, K, N)] |= {f"{d}_ms": v for d, v in design_ms.items()}
-            log(f"  M={M} K={K} N={N}: kernel {design_ms[own.design] * 1e3:.2f}"
-                f" us ({own.design}, split {own.split}"
-                + "".join(f"; {d} {v * 1e3:.2f} us" for d, v in
-                          design_ms.items() if len(design_ms) > 1)
-                + f"), plain {plain_ms * 1e3:.2f} us, matmul "
-                f"{lib_ms * 1e3:.2f} us, bound {max(t_bytes, t_ops) * 1e6:.3f}"
-                f" us, err {err:.2e}")
-            if err > TOL_F32_Q8_REL * 64:
-                failures.append(f"q8 timing inputs M={M} K={K} N={N}")
-            del ws, dense
+        n = max(2, (192 << 20) // (K * N))
+        ws = weights(K, N, n)
+        x = torch.randn(M, K, device="cuda", generator=g)
+        own = q8_launch_geometry(M, K, N, sms)
+        geos = {"splitk": splitk_geometry(M, K, N, sms)}
+        if M in Q8_CROSSOVER_MS:
+            geos["tiled"] = tiled_geometry(M, K, N, sms)
+        err = max((q8_matmul(x, q, s) - q8_matmul_ref(x, q, s))
+                  .abs().max().item() for q, s in ws[:4])
+        dense = [(q.float().reshape(K // 32, 32, N)
+                  * s[:, None, :]).reshape(K, N) for q, s in ws[:8]]
+        design_ms = {d: time_calls([lambda q=q, s=s, geo=geo:
+                                    q8_matmul_as(x, q, s, geo)
+                                    for q, s in ws], iters)
+                     for d, geo in geos.items()}
+        plain_ms = time_calls([lambda q=q, s=s: q8_matmul_ref(x, q, s)
+                               for q, s in ws[:8]], 100)
+        lib_ms = time_calls([lambda w=w: torch.matmul(x, w)
+                             for w in dense], iters)
+        nbytes = M * K * 4 + K * N + (K // 32) * N * 4 + M * N * 4
+        flops = 2 * M * K * N
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS["float32"]
+        out[(M, K, N)] = dict(ms=design_ms[own.design], design=own.design,
+                              split=own.split, plain_ms=plain_ms,
+                              library_ms=lib_ms,
+                              bound_ms=max(t_bytes, t_ops) * 1e3,
+                              bytes=nbytes, flops=flops, max_abs_err=err,
+                              bound_by="bytes" if t_bytes >= t_ops
+                              else "operations")
+        out[(M, K, N)] |= {f"{d}_ms": v for d, v in design_ms.items()}
+        log(f"  M={M} K={K} N={N}: kernel {design_ms[own.design] * 1e3:.2f}"
+            f" us ({own.design}, split {own.split}"
+            + "".join(f"; {d} {v * 1e3:.2f} us" for d, v in
+                      design_ms.items() if len(design_ms) > 1)
+            + f"), plain {plain_ms * 1e3:.2f} us, matmul "
+            f"{lib_ms * 1e3:.2f} us, bound {max(t_bytes, t_ops) * 1e6:.3f}"
+            f" us, err {err:.2e}")
+        if err > TOL_F32_Q8_REL * 64:
+            failures.append(f"q8 timing inputs M={M} K={K} N={N}")
+        del ws, dense
     for M in Q8_CROSSOVER_MS:
         layer = {d: sum(out[(M, K, N)][f"{d}_ms"] * c
                         for (K, N), c in Q8_SHAPES.items())
@@ -886,11 +992,15 @@ def static_scale(x):
     return (x.float().abs().amax() * 0.8 / 127.0).reshape(1)[0].contiguous()
 
 
-# slice 12: the W8A8 kernel's crossover rows, where both designs are timed
-# per layer in both modes: the streaming rows of 1-8 streams, the shared
-# x-ring (672), the full-utterance batch, the 64- and 256-slot engines
-W8A8_CROSSOVER_MS = (16, 32, 56, 64, 96, 112, 128, 256, 288, 672,
-                     FULL_UTT_M, ENGINE_M, ENGINE_SLOT_COUNTS[-1] * 14)
+# the rows where both designs of the W8A8 kernel are timed per layer in
+# both modes: the streaming rows of 1-8 streams, the shared x-ring (672),
+# the full-utterance batch, the 64- and 256-slot engines (the crossover
+# sweep at M = 32-288 and the tiled splits at M = 896, which fixed M* =
+# 256 and the split, are no longer timed; the sweep's rows are still
+# checked bit for bit: W8A8_SWEEP_MS)
+W8A8_CROSSOVER_MS = (16, 112, 672, FULL_UTT_M, ENGINE_M,
+                     ENGINE_SLOT_COUNTS[-1] * 14)
+W8A8_SWEEP_MS = (32, 64, 96, 128, 288)
 
 
 def w8a8_phase(failures: list) -> dict:
@@ -900,7 +1010,6 @@ def w8a8_phase(failures: list) -> dict:
     from nemotron_tpu_torch.ops.w8a8_kernel import (SPLITK_MAX_M,
                                                     splitk_geometry,
                                                     tiled_geometry,
-                                                    tiled_splits,
                                                     tiled_takes,
                                                     w8a8_launch_geometry,
                                                     w8a8_matmul,
@@ -947,9 +1056,13 @@ def w8a8_phase(failures: list) -> dict:
     worst = 0.0
     checks = [(M, K, N) for M in (1, 8, 16, 56, 112, star, star + 1, 672,
                                   FULL_UTT_M, ENGINE_M, ENGINE_M + 1,
-                                  ENGINE_SLOT_COUNTS[-1] * 14)
+                                  ENGINE_SLOT_COUNTS[-1] * 14,
+                                  *W8A8_SWEEP_MS)
               for (K, N) in Q8_SHAPES] + [(3, 96, 56), (900, 96, 56),
                                           (900, 512, 56)]
+    # slice 17: a model-parallel-2 rank's FFN shapes
+    checks += [(M, K, N) for M in (8, 112, ENGINE_M)
+               for (K, N) in W8A8_LOCAL_SHAPES if (K, N) not in Q8_SHAPES]
     for M, K, N in checks:
         for dt in (torch.float32, torch.bfloat16):
             (q, cs), = weights(K, N)
@@ -1002,85 +1115,89 @@ def w8a8_phase(failures: list) -> dict:
         "[K, N] weight and on a column-major copy)")
     out = {}
     plain_rows = (8, 16, 112, 672, ENGINE_M, ENGINE_SLOT_COUNTS[-1] * 14)
-    for M in (8, *W8A8_CROSSOVER_MS):
+    timed_shapes = [(M, K, N) for M in (8, *W8A8_CROSSOVER_MS)
+                    for (K, N) in Q8_SHAPES]
+    # slice 17: the model-parallel-2 rank's FFN shapes at the engine's rows
+    timed_shapes += [(ENGINE_M, K, N) for (K, N) in W8A8_LOCAL_SHAPES
+                     if (K, N) not in Q8_SHAPES]
+    for M, K, N in timed_shapes:
         iters = 500 if M <= 16 else 200 if M <= 256 else 100 if M <= 1000 \
             else 30
-        for (K, N) in Q8_SHAPES:
-            n = max(2, (192 << 20) // (K * N))
-            ws = weights(K, N, n)
-            x = act(M, K, torch.bfloat16)
-            s_act = static_scale(x)
-            own, geos = designs(M, K, N, 2)
-            err = max(exact(w8a8_matmul(x, q, cs), w8a8_matmul_ref(x, q, cs))
-                      for q, cs in ws[:4])
-            st_err = max(exact(w8a8_matmul(x, q, cs, s_act),
-                               w8a8_matmul_static_ref(x, q, cs, s_act))
-                         for q, cs in ws[:4])
-            t = {}
-            for d, geo in geos.items():
-                t[f"{d}_ms"] = time_calls(
-                    [lambda q=q, cs=cs, geo=geo: w8a8_matmul_as(
-                        x, q, cs, None, geo) for q, cs in ws], iters)
-                t[f"static_{d}_ms"] = time_calls(
-                    [lambda q=q, cs=cs, geo=geo: w8a8_matmul_as(
-                        x, q, cs, s_act, geo) for q, cs in ws], iters)
-            if M in plain_rows:
-                t["plain_ms"] = time_calls(
-                    [lambda q=q, cs=cs: w8a8_matmul_ref(x, q, cs)
-                     for q, cs in ws[:8]], 30 if M > 1000 else 100)
-                t["static_plain_ms"] = time_calls(
-                    [lambda q=q, cs=cs: w8a8_matmul_static_ref(x, q, cs, s_act)
-                     for q, cs in ws[:8]], 30 if M > 1000 else 100)
-            xq = quantize_rows(x)
-            if M <= 16:                    # torch._int_mm needs M > 16
-                xq = torch.cat([xq, xq.new_zeros(32 - M, K)])
-            t["int_mm_kn_ms"] = time_calls(
-                [lambda q=q: torch._int_mm(xq, q) for q, _ in ws], iters)
-            cm = [q.t().contiguous().t() for q, _ in ws]
-            t["int_mm_cm_ms"] = time_calls(
-                [lambda q=q: torch._int_mm(xq, q) for q in cm], iters)
-            del cm
-            nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
-            ops = 2 * M * K * N
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = ops / PEAK_FLOPS["int8"]
-            lib_ms = min(t["int_mm_kn_ms"], t["int_mm_cm_ms"])
-            row = dict(design=own.design, split=own.split,
-                       ms=t[f"{own.design}_ms"], library_ms=lib_ms,
-                       bound_ms=max(t_bytes, t_ops) * 1e3, bytes=nbytes,
-                       ops=ops, max_abs_err=err,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       **{k: v for k, v in t.items()
-                          if not k.startswith("static")})
-            out[(M, K, N)] = row
-            st_bytes = nbytes + 4
-            st_t_bytes = st_bytes / HBM_BYTES_PER_S
-            out[("static", M, K, N)] = dict(
-                design=own.design, split=own.split,
-                ms=t[f"static_{own.design}_ms"], library_ms=lib_ms,
-                bound_ms=max(st_t_bytes, t_ops) * 1e3, bytes=st_bytes, ops=ops,
-                max_abs_err=st_err, int_mm_kn_ms=t["int_mm_kn_ms"],
-                int_mm_cm_ms=t["int_mm_cm_ms"],
-                bound_by="bytes" if st_t_bytes >= t_ops else "operations",
-                **{k.removeprefix("static_"): v for k, v in t.items()
-                   if k.startswith("static_")})
-            log(f"  M={M} K={K} N={N}: kernel {row['ms'] * 1e3:.2f} us "
-                f"({own.design}, split {own.split}"
-                + "".join(f"; {d} {t[f'{d}_ms'] * 1e3:.2f} us"
-                          for d in geos if len(geos) > 1)
-                + f"), static {t[f'static_{own.design}_ms'] * 1e3:.2f} us"
-                + "".join(f" ({d} {t[f'static_{d}_ms'] * 1e3:.2f})"
-                          for d in geos if len(geos) > 1)
-                + (f", plain {t['plain_ms'] * 1e3:.2f} / static "
-                   f"{t['static_plain_ms'] * 1e3:.2f} us" if "plain_ms" in t
-                   else "")
-                + f", _int_mm {t['int_mm_kn_ms'] * 1e3:.2f} us ([K, N]) / "
-                f"{t['int_mm_cm_ms'] * 1e3:.2f} us (column-major), bound "
-                f"{max(t_bytes, t_ops) * 1e6:.3f} us ({row['bound_by']}), "
-                f"err {err:.2e} / static {st_err:.2e}")
-            if err != 0.0 or st_err != 0.0:
-                failures.append(f"w8a8 timing inputs M={M} K={K} N={N}")
-            del ws
+        n = max(2, (192 << 20) // (K * N))
+        ws = weights(K, N, n)
+        x = act(M, K, torch.bfloat16)
+        s_act = static_scale(x)
+        own, geos = designs(M, K, N, 2)
+        err = max(exact(w8a8_matmul(x, q, cs), w8a8_matmul_ref(x, q, cs))
+                  for q, cs in ws[:4])
+        st_err = max(exact(w8a8_matmul(x, q, cs, s_act),
+                           w8a8_matmul_static_ref(x, q, cs, s_act))
+                     for q, cs in ws[:4])
+        t = {}
+        for d, geo in geos.items():
+            t[f"{d}_ms"] = time_calls(
+                [lambda q=q, cs=cs, geo=geo: w8a8_matmul_as(
+                    x, q, cs, None, geo) for q, cs in ws], iters)
+            t[f"static_{d}_ms"] = time_calls(
+                [lambda q=q, cs=cs, geo=geo: w8a8_matmul_as(
+                    x, q, cs, s_act, geo) for q, cs in ws], iters)
+        if M in plain_rows:
+            t["plain_ms"] = time_calls(
+                [lambda q=q, cs=cs: w8a8_matmul_ref(x, q, cs)
+                 for q, cs in ws[:8]], 30 if M > 1000 else 100)
+            t["static_plain_ms"] = time_calls(
+                [lambda q=q, cs=cs: w8a8_matmul_static_ref(x, q, cs, s_act)
+                 for q, cs in ws[:8]], 30 if M > 1000 else 100)
+        xq = quantize_rows(x)
+        if M <= 16:                    # torch._int_mm needs M > 16
+            xq = torch.cat([xq, xq.new_zeros(32 - M, K)])
+        t["int_mm_kn_ms"] = time_calls(
+            [lambda q=q: torch._int_mm(xq, q) for q, _ in ws], iters)
+        cm = [q.t().contiguous().t() for q, _ in ws]
+        t["int_mm_cm_ms"] = time_calls(
+            [lambda q=q: torch._int_mm(xq, q) for q in cm], iters)
+        del cm
+        nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+        ops = 2 * M * K * N
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops / PEAK_FLOPS["int8"]
+        lib_ms = min(t["int_mm_kn_ms"], t["int_mm_cm_ms"])
+        row = dict(design=own.design, split=own.split,
+                   ms=t[f"{own.design}_ms"], library_ms=lib_ms,
+                   bound_ms=max(t_bytes, t_ops) * 1e3, bytes=nbytes,
+                   ops=ops, max_abs_err=err,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   **{k: v for k, v in t.items()
+                      if not k.startswith("static")})
+        out[(M, K, N)] = row
+        st_bytes = nbytes + 4
+        st_t_bytes = st_bytes / HBM_BYTES_PER_S
+        out[("static", M, K, N)] = dict(
+            design=own.design, split=own.split,
+            ms=t[f"static_{own.design}_ms"], library_ms=lib_ms,
+            bound_ms=max(st_t_bytes, t_ops) * 1e3, bytes=st_bytes, ops=ops,
+            max_abs_err=st_err, int_mm_kn_ms=t["int_mm_kn_ms"],
+            int_mm_cm_ms=t["int_mm_cm_ms"],
+            bound_by="bytes" if st_t_bytes >= t_ops else "operations",
+            **{k.removeprefix("static_"): v for k, v in t.items()
+               if k.startswith("static_")})
+        log(f"  M={M} K={K} N={N}: kernel {row['ms'] * 1e3:.2f} us "
+            f"({own.design}, split {own.split}"
+            + "".join(f"; {d} {t[f'{d}_ms'] * 1e3:.2f} us"
+                      for d in geos if len(geos) > 1)
+            + f"), static {t[f'static_{own.design}_ms'] * 1e3:.2f} us"
+            + "".join(f" ({d} {t[f'static_{d}_ms'] * 1e3:.2f})"
+                      for d in geos if len(geos) > 1)
+            + (f", plain {t['plain_ms'] * 1e3:.2f} / static "
+               f"{t['static_plain_ms'] * 1e3:.2f} us" if "plain_ms" in t
+               else "")
+            + f", _int_mm {t['int_mm_kn_ms'] * 1e3:.2f} us ([K, N]) / "
+            f"{t['int_mm_cm_ms'] * 1e3:.2f} us (column-major), bound "
+            f"{max(t_bytes, t_ops) * 1e6:.3f} us ({row['bound_by']}), "
+            f"err {err:.2e} / static {st_err:.2e}")
+        if err != 0.0 or st_err != 0.0:
+            failures.append(f"w8a8 timing inputs M={M} K={K} N={N}")
+        del ws
     for M in W8A8_CROSSOVER_MS:
         for mode, pre in (("dynamic", ()), ("static", ("static",))):
             layer = {d: sum(out[(*pre, M, K, N)][f"{d}_ms"] * c
@@ -1090,24 +1207,6 @@ def w8a8_phase(failures: list) -> dict:
                 f"{layer['splitk'] * 1e3:.2f} us, tiled "
                 f"{layer['tiled'] * 1e3:.2f} us; the geometry takes "
                 f"{'splitk' if M <= star else 'tiled'}")
-    # the tiled design's every split of K at the 64-slot engine's M (the
-    # geometry takes the least split that gives a block an SM)
-    splits = {}
-    for (K, N) in Q8_SHAPES:
-        n = max(2, (192 << 20) // (K * N))
-        ws = weights(K, N, n)
-        x = act(ENGINE_M, K, torch.bfloat16)
-        splits[f"{K},{N}"] = {
-            sp: time_calls([lambda q=q, cs=cs, geo=tiled_geometry(
-                ENGINE_M, K, N, sms, sp): w8a8_matmul_as(x, q, cs, None, geo)
-                for q, cs in ws], 100) for sp in tiled_splits(K)}
-        log(f"  tiled M={ENGINE_M} K={K} N={N} dynamic by split: "
-            + ", ".join(f"{sp}: {ms * 1e3:.2f} us" for sp, ms in
-                        splits[f"{K},{N}"].items())
-            + f" (the geometry takes "
-            f"{tiled_geometry(ENGINE_M, K, N, sms).split})")
-        del ws
-    out["tiled_splits"] = splits
     out["max_abs_err"] = worst
     return out
 
@@ -1184,6 +1283,36 @@ def full_width_model(gguf_path: str, device: str):
     from nemotron_tpu_torch.params import load_model
 
     return load_model(gguf_path, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def full_width_w8a8(gguf_path: str):
+    """The full-width GGUF's weights as W8A8 (quantize_model_params of
+    full_width_model's, on the card), once for the W8A8 path and the
+    multi-GPU phase."""
+    from nemotron_tpu_torch.params import quantize_model_params
+
+    return quantize_model_params(full_width_model(gguf_path, "cuda")[0],
+                                 mode="w8a8")
+
+
+def dense_of(params):
+    """`params` with every Q8_0 leaf dequantized in f32 (what
+    load_model(keep_quantized=False) gives for a Q8_0 GGUF)."""
+    import torch
+
+    from nemotron_tpu_torch.ops.quant import QTensor, dequantize
+    from nemotron_tpu_torch.params import map_leaves
+
+    return map_leaves(lambda x: dequantize(x, torch.float32)
+                      if isinstance(x, QTensor) else x, params)
+
+
+def compare_model(model, n: int = COMPARE_LAYERS):
+    """(params, cfg, vocab) of a comparison phase: `model` (load_model's
+    triple) cut to its first n layers."""
+    params, cfg, vocab = model
+    return (*cut_layers(params, cfg, n), vocab)
 
 
 def mode_seconds(R: int) -> float:
@@ -1435,16 +1564,72 @@ def replay_layers(calls, params, dtype) -> list:
     return gaps
 
 
-def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
+def w8a8_mels(cfg, cc):
+    """The W8A8 path's encoder input: n_seg + 2 chunks of seeded mel (the
+    int8 rings fill and wrap) for W8A8_STREAMS streams, and the same moved
+    by W8A8_CONTROL_ULPS f32 ulps (the control)."""
+    n_seg = cc.kv_len // cc.chunk_enc_len
+    mels = np.random.default_rng(SEED + 1).standard_normal(
+        (n_seg + 2, W8A8_STREAMS, cc.chunk_mel_frames, cfg.n_mels)).astype(
+        np.float32)
+    return mels, (mels * np.float32(1 + W8A8_CONTROL_ULPS * 2.0 ** -23)
+                  ).astype(np.float32)
+
+
+# the W8A8 path's R = 13 cache config, on the card and the CPU
+W8A8_CPU_CC = dict(att_right_context=13, kv_cache_int8=True)
+
+
+def cpu_w8a8_reference(gguf_path: str, out_path: str) -> None:
+    """The W8A8 path's CPU run (f32, W8A8_CPU_CC, W8A8_STREAMS streams of
+    seeded PCM; w8a8_path_phase's reference): each stream's tokens, the
+    encoder over w8a8_mels with the last chunk's layer calls, and over the
+    control's mel; written with torch.save."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.params import load_model, quantize_model_params
+
+    params, cfg, vocab = load_model(gguf_path, device="cpu")
+    params = quantize_model_params(params, mode="w8a8")
+    cc = CacheConfig(n_mels=cfg.n_mels, **W8A8_CPU_CC)
+    S, f32 = W8A8_STREAMS, torch.float32
+    pcm = np.stack([seeded_pcm(s) for s in range(S)])
+    sess = run_session(params, cfg, vocab, cc, pcm, f32)
+    mels, nudged = w8a8_mels(cfg, cc)
+    o_cpu, st_cpu, calls = encoder_run(params, cfg, cc, mels, f32,
+                                       record_last=True)
+    o_ctl, st_ctl, _ = encoder_run(params, cfg, cc, nudged, f32)
+    torch.save(dict(tokens=[sess.get_tokens(s) for s in range(S)],
+                    o_cpu=o_cpu, st_cpu=st_cpu, calls=calls, o_ctl=o_ctl,
+                    st_ctl=st_ctl), out_path)
+
+
+def finish_torch_job(proc: subprocess.Popen, out_path: str,
+                     timeout=900):
+    """Wait for a start_cpu_job child and torch.load what it wrote."""
+    import torch
+
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"CPU job exit {proc.returncode}: {err[-2000:]}")
+    return torch.load(out_path, weights_only=False)
+
+
+def w8a8_path_phase(gguf_path: str, ref_job, ref_path: str,
+                    failures: list) -> dict:
     import torch
 
     from nemotron_tpu_torch.config import CacheConfig
     from nemotron_tpu_torch.ops.w8a8_kernel import w8a8_matmul
-    from nemotron_tpu_torch.params import load_model, quantize_model_params
 
     t0 = time.perf_counter()
-    params, cfg, vocab = load_model(gguf_path, device="cuda")
-    params = quantize_model_params(params, mode="w8a8")
+    _, cfg, vocab = full_width_model(gguf_path, "cuda")
+    params = full_width_w8a8(gguf_path)
     torch.cuda.synchronize()
     log(f"phase W8A8 path: load_model(device='cuda') + quantize_model_params"
         f"(mode='w8a8') {time.perf_counter() - t0:.1f} s, encoder matmuls: "
@@ -1488,8 +1673,7 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
         del sess
 
     # where a chunk's time goes: the R = 13 bf16 session, profiled
-    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
-                     kv_cache_int8=True)
+    cc = CacheConfig(n_mels=cfg.n_mels, **W8A8_CPU_CC)
     from nemotron_tpu_torch.streaming.session import StreamSession
 
     sess = StreamSession(params, cfg, vocab, cc, n_streams=S,
@@ -1527,32 +1711,31 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
         log("  profile R=13 bf16: no device time recorded (not measured)")
     del sess
 
-    # f32, R = 13, the same config on the card and the port's CPU run
-    cpu_params = quantize_model_params(
-        full_width_model(gguf_path, "cpu")[0], mode="w8a8")
+    # f32, R = 13, the same config on the card and in the port's CPU run
+    # (cpu_w8a8_reference, a child process started with the main path)
     card = run_session(params, cfg, vocab, cc, pcm, f32)
-    cpu = run_session(cpu_params, cfg, vocab, cc, pcm, f32)
-    agree = [position_agreement(card.get_tokens(s), cpu.get_tokens(s))
+    mels, nudged = w8a8_mels(cfg, cc)
+    o_card, st_card, _ = encoder_run(params, cfg, cc, mels, f32)
+    o_bf16, st_bf16, _ = encoder_run(params, cfg, cc, mels, bf16)
+    bf = run_session(params, cfg, vocab, cc, pcm, bf16)
+    t0 = time.perf_counter()
+    ref = finish_torch_job(ref_job, ref_path)
+    log(f"  the CPU run (a child process): waited for it "
+        f"{time.perf_counter() - t0:.1f} s")
+    cpu_tokens = ref["tokens"]
+    agree = [position_agreement(card.get_tokens(s), cpu_tokens[s])
              for s in range(S)]
     log(f"  R=13 f32 S={S} tokens card vs CPU: {sum(a == 1 for a in agree)} "
         f"of {S} streams equal, position agreement {min(agree):.4f}-"
-        f"{max(agree):.4f} ({sum(len(cpu.get_tokens(s)) for s in range(S))} "
+        f"{max(agree):.4f} ({sum(len(t) for t in cpu_tokens)} "
         f"tokens; tol {TOL_W8A8_TOKEN_AGREE})")
     if min(agree) < TOL_W8A8_TOKEN_AGREE:
         failures.append(f"W8A8 R=13 f32 tokens card vs CPU: agreement "
                         f"{min(agree):.4f}")
 
     # the encoder over n_seg + 2 chunks: the int8 rings fill and wrap
-    n_seg = cc.kv_len // cc.chunk_enc_len
-    mels = np.random.default_rng(SEED + 1).standard_normal(
-        (n_seg + 2, S, cc.chunk_mel_frames, cfg.n_mels)).astype(np.float32)
-    nudged = (mels * np.float32(1 + W8A8_CONTROL_ULPS * 2.0 ** -23)
-              ).astype(np.float32)
-    o_cpu, st_cpu, calls = encoder_run(cpu_params, cfg, cc, mels, f32,
-                                       record_last=True)
-    o_ctl, st_ctl, _ = encoder_run(cpu_params, cfg, cc, nudged, f32)
-    o_card, st_card, _ = encoder_run(params, cfg, cc, mels, f32)
-    o_bf16, st_bf16, _ = encoder_run(params, cfg, cc, mels, bf16)
+    o_cpu, st_cpu, calls = ref["o_cpu"], ref["st_cpu"], ref["calls"]
+    o_ctl, st_ctl = ref["o_ctl"], ref["st_ctl"]
 
     for dtype, tol in ((f32, TOL_W8A8_LAYER_REL),
                        (bf16, TOL_BF16_VS_F32_REL)):
@@ -1600,7 +1783,6 @@ def w8a8_path_phase(gguf_path: str, failures: list) -> dict:
                             f"over the control: {over}")
 
     # bf16 against f32 on the card: tokens
-    bf = run_session(params, cfg, vocab, cc, pcm, bf16)
     agree = [position_agreement(bf.get_tokens(s), card.get_tokens(s))
              for s in range(S)]
     log(f"  W8A8 R=13 tokens bf16 vs f32 on the card: position agreement "
@@ -1620,16 +1802,73 @@ def valid_gap(a, b, lengths) -> float:
             / max(b[i, :n].abs().max().item() for i, n in enumerate(lengths)))
 
 
-def full_utterance_phase(gguf_path: str, failures: list) -> dict:
+def full_utterance_encode(params, cfg, mel, lengths) -> tuple:
+    """encode_batch over the batch mel (f32, masked past each utterance's
+    length) and greedy_decode's tokens: (encoder output, tokens), on the
+    CPU."""
     import torch
 
     from nemotron_tpu_torch.models import decoder as dec_mod
     from nemotron_tpu_torch.models import encoder as enc_mod
+
+    lens = torch.from_numpy(lengths).to(params.device)
+    e = enc_mod.encode_batch(params, cfg,
+                             torch.from_numpy(mel).to(params.device),
+                             enc_lengths=lens)
+    st = dec_mod.init_decoder_state(cfg, mel.shape[0], torch.float32,
+                                    params.device)
+    toks = dec_mod.greedy_decode(params, cfg, e, st, enc_lengths=lens)[0]
+    return e.float().cpu(), toks.cpu()
+
+
+def full_utterance_chain(params, cfg, vocab, utt) -> list:
+    """transcribe_batch_with_state over the two halves of `utt`, the
+    decoder state carried: [(text, tokens, frame offset)] a half."""
+    from nemotron_tpu_torch.streaming import session as sess_mod
+
+    half = utt.size // 2
+    st, off, out = None, 0, []
+    for seg in (utt[:half], utt[half:]):
+        text, tl, st, off = sess_mod.transcribe_batch_with_state(
+            params, cfg, vocab, seg, dec_state=st, frame_offset=off)
+        out.append((text, tl, off))
+    return out
+
+
+def cpu_full_utterance_reference(gguf_path: str, out_path: str) -> None:
+    """The full-utterance phase's CPU run: the batch mel of the seeded
+    utterances, encode_batch's output over it and over the mel moved by
+    W8A8_CONTROL_ULPS ulps (the control), greedy tokens, and the
+    two-segment transcribe_batch_with_state chain; written with
+    torch.save."""
+    import torch
+
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming import session as sess_mod
+
+    params, cfg, vocab = load_model(gguf_path, device="cpu")
+    utts = [seeded_pcm(i, s) for i, s in enumerate(FULL_UTT_SECONDS)]
+    mel, lengths = sess_mod.batch_mel(params, cfg, utts)
+    nudged = (mel * np.float32(1 + W8A8_CONTROL_ULPS * 2.0 ** -23)
+              ).astype(np.float32)
+    with torch.no_grad():
+        enc, toks = full_utterance_encode(params, cfg, mel, lengths)
+        ctl, _ = full_utterance_encode(params, cfg, nudged, lengths)
+    torch.save(dict(mel=mel, lengths=lengths, enc=enc, toks=toks,
+                    control=ctl,
+                    chain=full_utterance_chain(params, cfg, vocab, utts[1])),
+               out_path)
+
+
+def full_utterance_phase(gguf_path: str, ref_job, ref_path: str,
+                         failures: list) -> dict:
+    import torch
+
+    from nemotron_tpu_torch.models import decoder as dec_mod
     from nemotron_tpu_torch.streaming import session as sess_mod
     from nemotron_tpu_torch.utils.text import tokens_to_text
 
     params, cfg, vocab = full_width_model(gguf_path, "cuda")
-    cpu_params, _, _ = full_width_model(gguf_path, "cpu")
     utts = [seeded_pcm(i, s) for i, s in enumerate(FULL_UTT_SECONDS)]
     audio_s = sum(FULL_UTT_SECONDS)
     sess_mod.transcribe_batch(params, cfg, vocab, utts)        # warm-up
@@ -1670,24 +1909,20 @@ def full_utterance_phase(gguf_path: str, failures: list) -> dict:
     else:
         failures.append("full utterance profile: no device time recorded")
 
-    # card vs the port's CPU run on the CPU's mel: the encoder output (and
-    # the control that fixes its tolerance), then greedy tokens
-    mel, lengths = sess_mod.batch_mel(cpu_params, cfg, utts)
-    nudged = (mel * np.float32(1 + W8A8_CONTROL_ULPS * 2.0 ** -23)
-              ).astype(np.float32)
-    enc, toks = {}, {}
-    for name, p, m in (("cpu", cpu_params, mel), ("control", cpu_params,
-                                                  nudged),
-                       ("card", params, mel)):
-        lens = torch.from_numpy(lengths).to(p.device)
-        e = enc_mod.encode_batch(p, cfg, torch.from_numpy(m).to(p.device),
-                                 enc_lengths=lens)
-        if name != "control":
-            st = dec_mod.init_decoder_state(cfg, len(utts), torch.float32,
-                                            p.device)
-            toks[name] = dec_mod.greedy_decode(p, cfg, e, st,
-                                               enc_lengths=lens)[0].cpu()
-        enc[name] = e.float().cpu()
+    # card vs the port's CPU run (cpu_full_utterance_reference, a child
+    # process started beside the earlier phases) on the CPU's mel: the
+    # encoder output (and the control that fixes its tolerance), then
+    # greedy tokens
+    card_chain = full_utterance_chain(params, cfg, vocab, utts[1])
+    t0 = time.perf_counter()
+    ref = finish_torch_job(ref_job, ref_path)
+    log(f"  the CPU run (a child process): waited for it "
+        f"{time.perf_counter() - t0:.1f} s")
+    lengths = ref["lengths"]
+    enc = {"cpu": ref["enc"], "control": ref["control"]}
+    toks = {"cpu": ref["toks"]}
+    enc["card"], toks["card"] = full_utterance_encode(params, cfg,
+                                                      ref["mel"], lengths)
     rows = enc["card"].shape[0] * enc["card"].shape[1]
     control = valid_gap(enc["control"], enc["cpu"], lengths)
     tol = FULL_CONTROL_FACTOR * control
@@ -1713,15 +1948,7 @@ def full_utterance_phase(gguf_path: str, failures: list) -> dict:
                         "the CPU")
 
     # decoder state carried over two segments of the 8 s utterance
-    half = utts[1].size // 2
-    chains = {}
-    for name, p in (("card", params), ("cpu", cpu_params)):
-        st, off, out = None, 0, []
-        for seg in (utts[1][:half], utts[1][half:]):
-            text, tl, st, off = sess_mod.transcribe_batch_with_state(
-                p, cfg, vocab, seg, dec_state=st, frame_offset=off)
-            out.append((text, tl, off))
-        chains[name] = out
+    chains = {"card": card_chain, "cpu": ref["chain"]}
     same = chains["card"] == chains["cpu"]
     log(f"  transcribe_batch_with_state, 2 segments: card vs CPU "
         f"{'equal' if same else 'DIFFER'} (tokens "
@@ -2134,13 +2361,15 @@ def engine_phase(gguf_path: str, failures: list) -> dict:
     from nemotron_tpu_torch.streaming.serving import ServingEngine
 
     bf16, f32 = torch.bfloat16, torch.float32
-    q8_params, cfg, vocab = full_width_model(gguf_path, "cuda")
+    q8_params, cfg, vocab = compare_model(full_width_model(gguf_path,
+                                                           "cuda"))
     w8_params = quantize_model_params(q8_params, mode="w8a8")
     n = ENGINE_SLOTS
 
     launches = {"attn": 0, "q8": 0, "w8a8": 0}
     out = {"modes": {}, "slot_counts": {}}
-    log(f"phase engine: ServingEngine at full width, {n} slots, "
+    log(f"phase engine: ServingEngine at full width, {cfg.n_layers} "
+        f"layers, {n} slots, "
         f"{n - ENGINE_HALF} at the real-time rate, {ENGINE_HALF} at half "
         f"rate, {ENGINE_EVICT} evicted and re-admitted, "
         f"{ENGINE_SECONDS:g} s a stream")
@@ -3423,7 +3652,8 @@ def snapshot_engine(make, tmp) -> dict:
 
 
 def quant_tier_phase(gguf_path: str, failures: list) -> dict:
-    """Slice 10 at full width: SmoothQuant calibrated on the card, then
+    """Slice 10 at full width, COMPARE_LAYERS layers: SmoothQuant
+    calibrated on the card, then
     w8a8-sq-static with int4 rings (bf16, 8 streams) in the four modes,
     launches a step by name; the int8 dynamic tier timed beside it, and
     readings against it and the port's CPU run; --rc-by-layer on Q8_0 f32
@@ -3436,8 +3666,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     import torch
 
     from nemotron_tpu_torch.config import CacheConfig
-    from nemotron_tpu_torch.params import (load_model, quantize_model_params,
-                                           to_device)
+    from nemotron_tpu_torch.params import quantize_model_params, to_device
     from nemotron_tpu_torch.streaming.serving import ServingEngine
     from nemotron_tpu_torch.streaming.session import StreamSession
 
@@ -3450,8 +3679,8 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
         return counted(fn, launches)
 
     t0 = time.perf_counter()
-    dense, cfg, vocab = load_model(gguf_path, device="cuda",
-                                   keep_quantized=False)
+    dense, cfg, vocab = compare_model(full_width_model(gguf_path, "cuda"))
+    dense = dense_of(dense)
     cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
                        kv_cache_int4=True)
     t1 = time.perf_counter()
@@ -3462,7 +3691,8 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     del dense
     act = [float(sq.layers.attn_q_w.act_scale[l]) for l in (0, cfg.n_layers - 1)]
     out["calibration_s"] = calib_s
-    log(f"phase quant tiers: dense load {t1 - t0:.1f} s; SmoothQuant on the "
+    log(f"phase quant tiers ({cfg.n_layers} layers): the dense weights "
+        f"(Q8_0 dequantized) {t1 - t0:.1f} s; SmoothQuant on the "
         f"card over {SQ_CALIB_SECONDS:g} s of seeded PCM, fold, W8A8 and "
         f"static scales {calib_s:.1f} s; attn q static scale layer 0 "
         f"{act[0]:.4e}, layer {cfg.n_layers - 1} {act[1]:.4e}")
@@ -3527,7 +3757,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     # and of the port's CPU run of this tier (f32 on both devices):
     # full-width W8A8 is chaotic under int8 rounding (the W8A8 path
     # phase), so these are readings
-    q8, _, _ = full_width_model(gguf_path, "cuda")
+    q8, _, _ = compare_model(full_width_model(gguf_path, "cuda"))
     w8 = quantize_model_params(q8, mode="w8a8")
     cc8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
                       kv_cache_int8=True)
@@ -3555,7 +3785,7 @@ def quant_tier_phase(gguf_path: str, failures: list) -> dict:
     del dyn, card32, cpu32
 
     # per-layer right context on the exact tier: Q8_0 f32, S = 1
-    cpu_q8, _, _ = full_width_model(gguf_path, "cpu")
+    cpu_q8, _, _ = compare_model(full_width_model(gguf_path, "cpu"))
     ccr = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
                       att_right_context_by_layer=RC_BY_LAYER)
     card, n = count(lambda: run_session(q8, cfg, vocab, ccr, pcm[:1], f32))
@@ -3906,10 +4136,12 @@ def shared_weights(engines) -> bool:
 
 
 def lockstep_phase(gguf_path: str, failures: list) -> dict:
-    """Slice 13 at full width.
+    """Slice 13 at full width, COMPARE_LAYERS layers (the serve entry
+    points: the 24-layer GGUF).
     (1) Q8_0 f32, 8 streams, R = 13, tick_pipelined over 4 s of seeded PCM:
         the tokens of the chunks of real audio equal 8 solo f32 sessions'
-        (the exact tier), 24 attention and 240 Q8 launches a chunk; the
+        (the exact tier), one attention and 10 Q8 launches a layer a
+        chunk; the
         finals against the sessions' as a reading (the lockstep pads
         silence PCM where a session pads zero mel, as in JAX).
     (2) W8A8 + int8 K/V bf16, 64 streams, the four modes, beside a 64-slot
@@ -3918,7 +4150,8 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
         the user's call: tick_pipelined, or feed_audio + step; 2 s a stream
         at R = 0 and 1): tick p50/p90 over the ticks that ran a chunk
         against the mode's limit, aggregate RTF, peak GiB,
-        launches a chunk (24 attention, 240 W8A8); at R = 13 two streams
+        launches a chunk (a layer: one attention, 10 W8A8); at R = 13 two
+        streams
         against solo bf16 sessions (w8a8_solo_readings, as the engine
         phase: position agreement beside its controls, token counts
         checked; the agreement held to 95%) and a profile of 3 ticks (busy
@@ -3942,7 +4175,8 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
 
     bf16, f32 = torch.bfloat16, torch.float32
     gc.collect()
-    q8_params, cfg, vocab = full_width_model(gguf_path, "cuda")
+    q8_params, cfg, vocab = compare_model(full_width_model(gguf_path,
+                                                           "cuda"))
     w8_params = quantize_model_params(q8_params, mode="w8a8")
     out = {"modes": {}}
     launches = {"attn": 0, "q8": 0, "w8a8": 0}
@@ -3986,11 +4220,18 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
     # (2) W8A8 + int8 K/V bf16, 64 streams, four modes, beside the engine
     # on the same audio, in turns (lockstep, engine, engine, lockstep); at
     # R = 0 and 1 over the first 2 s (25 and 12 ticks a run: the phase's
-    # time limit, PERF.md §4)
+    # time limit, PERF.md §4); R = 13, whose streams are held to solo
+    # sessions, at 24 layers (at 4 the tier's int8 rounding moved a stream
+    # below the 95% bound)
     n64 = ENGINE_SLOTS
     pcm64 = np.stack([seeded_pcm(s) for s in range(n64)])
+    w8_by_depth = {cfg.n_layers: (w8_params, cfg)}
+    full_cfg = full_width_model(gguf_path, "cuda")[1]
+    w8_by_depth[full_cfg.n_layers] = (full_width_w8a8(gguf_path), full_cfg)
     for R in MODES:
         t0 = time.perf_counter()
+        w8_mode, cfg_mode = w8_by_depth[full_cfg.n_layers if R == 13
+                                        else cfg.n_layers]
         cc = CacheConfig(att_right_context=R, n_mels=cfg.n_mels,
                          kv_cache_int8=True)
         pcm = pcm64[:, :int(mode_seconds(R) * 16000)]
@@ -3999,14 +4240,16 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
             gc.collect()
             torch.cuda.reset_peak_memory_stats()
             if kind == "lockstep":
-                eng = LockstepEngine(w8_params, cfg, vocab, cc, n_streams=n64)
+                eng = LockstepEngine(w8_mode, cfg_mode, vocab, cc,
+                                     n_streams=n64)
                 run, n, steps = count(lambda: lockstep_run(eng, pcm))
             else:
-                eng = ServingEngine(w8_params, cfg, vocab, cc, n_slots=n64,
-                                    compute_dtype=bf16, dsp="device")
+                eng = ServingEngine(w8_mode, cfg_mode, vocab, cc,
+                                    n_slots=n64, compute_dtype=bf16,
+                                    dsp="device")
                 run, n, steps = count(lambda: engine_ticks(eng, pcm))
-            check_engine_launches(f"{kind} W8A8 R={R}", n, steps, cfg, 10,
-                                  "w8a8", failures)
+            check_engine_launches(f"{kind} W8A8 R={R}", n, steps, cfg_mode,
+                                  10, "w8a8", failures)
             res[kind].append(tick_summary(run, cc, n64) | dict(
                 launches=n, tokens=run["tokens"],
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -4017,7 +4260,8 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
             del eng, run
         out["modes"][f"R={R}"] = res
         lk, en = res["lockstep"], res["engine"]
-        log(f"  W8A8 bf16 int8 K/V, {n64} streams, R={R} (limit "
+        log(f"  W8A8 bf16 int8 K/V, {n64} streams, {cfg_mode.n_layers} "
+            f"layers, R={R} (limit "
             f"{SHIFT_MS[R]} ms), in turns L E E L, ticks that ran a "
             f"chunk: lockstep tick p50 "
             f"{lk[0]['p50_ms']:.2f} / {lk[1]['p50_ms']:.2f} ms (p90 "
@@ -4041,7 +4285,7 @@ def lockstep_phase(gguf_path: str, failures: list) -> dict:
             res["solo"] = w8a8_solo_readings(
                 dict(pcm={s: pcm64[s] for s in range(n64)},
                      finals={s: first["streamed"][s] for s in range(n64)}),
-                w8_params, cfg, vocab, cc, R, failures, [0, n64 - 1])
+                w8_mode, cfg_mode, vocab, cc, R, failures, [0, n64 - 1])
             low = {sid: r["engine"] for sid, r in res["solo"].items()
                    if r["engine"] < TOL_W8A8_TOKEN_AGREE}
             if low:
@@ -4350,12 +4594,13 @@ def full_width_lm(cfg, device):
         scale=0.05), device=device)
 
 
-def start_cpu_job(fn: str, *args) -> subprocess.Popen:
-    """chip_smoke.<fn>(*args) in a child process on the CPU (4 threads),
-    so that a CPU reference runs while this process drives the card."""
+def start_cpu_job(fn: str, *args, threads: int = 4) -> subprocess.Popen:
+    """chip_smoke.<fn>(*args) in a child process on the CPU (`threads`
+    threads), so that a CPU reference runs while this process drives the
+    card."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = (f"import sys; sys.path.insert(0, {here!r}); import torch; "
-            f"torch.set_num_threads(4); import chip_smoke; "
+            f"torch.set_num_threads({threads}); import chip_smoke; "
             f"chip_smoke.{fn}(*{list(args)!r})")
     return subprocess.Popen([sys.executable, "-c", code], cwd=here,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -4423,7 +4668,8 @@ def cpu_tones_reference(out_path: str) -> None:
 
 
 def beam_phase(gguf_path: str, failures: list) -> dict:
-    """Slice 14 at full width (the seeded Q8_0 GGUF, its prediction side
+    """Slice 14 at full width, COMPARE_LAYERS layers but for the card
+    against the CPU, at 24 (the seeded Q8_0 GGUF, its prediction side
     peaked by peaked_params so that the beams emit). Every beam is held to
     its reference by compare_beams: each slot's score within
     TOL_BEAM_SCORE, tokens equal but for near-ties, best hypotheses
@@ -4464,23 +4710,25 @@ def beam_phase(gguf_path: str, failures: list) -> dict:
     tmp = tempfile.mkdtemp()
     ref_path = os.path.join(tmp, "ref.json")
     ref_job = start_cpu_job("cpu_beam_reference", gguf_path, ref_path)
-    q8, cfg, vocab = full_width_model(gguf_path, "cuda")
+    q8_full, cfg_full, vocab = full_width_model(gguf_path, "cuda")
+    q8, cfg = cut_layers(q8_full, cfg_full, COMPARE_LAYERS)
     qp = peaked_params(q8)
     w8 = quantize_model_params(qp, mode="w8a8")
     launches = {"attn": 0, "q8": 0, "w8a8": 0}
     out = {"k1_vs_greedy": {}, "w8a8_sessions": {}}
     log(f"phase beam: K = {BEAM_K}, {BEAM_EXPANSIONS} expansions a frame, "
-        f"{BEAM_MAX_TOKENS} token slots a hypothesis, full width, the "
+        f"{BEAM_MAX_TOKENS} token slots a hypothesis, full width, "
+        f"{cfg.n_layers} layers, the "
         f"prediction side peaked")
 
     def add(counts):
         for k in launches:
             launches[k] += counts[k]
 
-    def want_counts(chunks, kernel):
+    def want_counts(chunks, kernel, n_layers=cfg.n_layers):
         other = "w8a8" if kernel == "q8" else "q8"
-        return {"attn": cfg.n_layers * chunks,
-                kernel: 10 * cfg.n_layers * chunks, other: 0}
+        return {"attn": n_layers * chunks,
+                kernel: 10 * n_layers * chunks, other: 0}
 
     # (1) K = 1 against greedy
     pcm = seeded_pcm(0)
@@ -4508,18 +4756,20 @@ def beam_phase(gguf_path: str, failures: list) -> dict:
             failures.append(f"beam K=1 R={R}: log-prob {float(bscore[0])} "
                             f"below the greedy path's {g_score}")
 
-    # (2) card vs CPU, K = 4, R = 13 (the CPU's run is the child's;
-    # compared at the end of the phase)
+    # (2) card vs CPU, K = 4, R = 13, at 24 layers (the CPU's run is the
+    # child's; compared at the end of the phase)
     cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
     pcm = seeded_pcm(1, (BEAM_CPU_CHUNKS + 1) * cc13.shift_samples / 16000)
-    beam_session(qp, cfg, vocab, cc13, pcm[None, :3 * cc13.shift_samples],
-                 f32)                                          # warm-up
+    qp_full = peaked_params(q8_full)
+    beam_session(qp_full, cfg_full, vocab, cc13,
+                 pcm[None, :3 * cc13.shift_samples], f32)      # warm-up
     card, card_counts = counted(lambda: beam_session(
-        qp, cfg, vocab, cc13, pcm[None], f32, finalize=False,
+        qp_full, cfg_full, vocab, cc13, pcm[None], f32, finalize=False,
         chunks=BEAM_CPU_CHUNKS), launches)
+    del qp_full
     card_chunks = card.total_chunks
-    if card_chunks != BEAM_CPU_CHUNKS or \
-            card_counts != want_counts(card_chunks, "q8"):
+    if card_chunks != BEAM_CPU_CHUNKS or card_counts != want_counts(
+            card_chunks, "q8", cfg_full.n_layers):
         failures.append(f"beam card session: {card_chunks} chunks, launches "
                         f"{card_counts}")
 
@@ -6171,105 +6421,774 @@ def training_tones_phase(failures: list) -> dict:
     return out
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("error: torch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("error: no CUDA device; this smoke run needs one GPU",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from nemotron_tpu_torch.ops import cuda_build
-    from nemotron_tpu_torch.device import resolve_device
-    from nemotron_tpu_torch.ops.quant_kernel import SPLITK_MAX_M
-    from nemotron_tpu_torch.ops.w8a8_kernel import \
-        SPLITK_MAX_M as W8A8_SPLITK_MAX_M
+# ---------------------------------------------------------------------------
+# slice 17: multi-GPU (a mesh of torch.distributed ranks)
+# ---------------------------------------------------------------------------
 
-    t_start = time.perf_counter()
-    resolve_device("cuda")
-    card = gpu_name_and_power()
-    kind = torch.cuda.get_device_name(0)
-    log(f"device: {card} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
+# (a) a one-rank NCCL mesh against the unsharded engines: MG_SLOTS slots
+# (streams), one quantum (R = 13: 1.12 s) of seeded PCM a slot a tick,
+# MG_TICKS ticks; the ServingEngine in turns (unsharded, mesh, mesh,
+# unsharded) for its tick times
+MG_SLOTS, MG_TICKS = 64, 3
+# (b) two ranks sharing the card over gloo at model-parallel 2: the Q8_0
+# f32 engine (host DSP) and the W8A8 bf16 engine (device DSP) on (a)'s
+# schedule; encode_chunk over MG_ENC_CHUNKS chunks of MG_ENC_STREAMS
+# streams of seeded mel (the Q8_0 and the W8A8 weights, f32), held within
+# MG_CONTROL_FACTOR times the gap of a control (the one-rank encoder
+# against itself with its mel moved by two f32 ulps; for the W8A8
+# weights, the larger gap of a move up and down); the W8A8 engine's
+# tokens held as the W8A8 path holds them (TOL_W8A8_TOKEN_AGREE); layer
+# 0's first W8A8 FFN on MG_PROBE_ROWS seeded f32 rows within
+# TOL_MG_PROBE_REL of the one-rank product's largest value (the partial
+# sums meet in another order; a w2 split with the local K's own
+# activation groups misses it ~1e3-fold: PROBE_REL in
+# tests/test_torch_mesh.py)
+MG_ENC_STREAMS, MG_ENC_CHUNKS, MG_CONTROL_FACTOR = 4, 3, 4.0
+MG_PROBE_ROWS, TOL_MG_PROBE_REL = 896, 1e-5
+# (c) two ranks, data-parallel 2: MultihostLockstep and MultihostServing,
+# MG_DP_ROWS rows a rank
+MG_DP_ROWS = 32
+# (d) a model-parallel-2 train step on the TRAIN_CUT_LAYERS-layer cut
+# against one rank: loss within TOL_MG_LOSS_REL (relative), every
+# gradient within TOL_MG_GRAD_REL of its leaf's largest |g| (the CPU
+# tests' training tolerances, tests/test_torch_mesh_training.py)
+TOL_MG_LOSS_REL, TOL_MG_GRAD_REL = 1e-6, 1e-5
+# (e) the entry points' audio
+MG_ENTRY_SECONDS = 2.5
+
+
+def mg_pcm(row: int, n: int) -> np.ndarray:
+    """n samples of stream `row`'s seeded PCM."""
+    return seeded_pcm(1700 + row, (n + 1) / 16000)[:n]
+
+
+def mg_token_lists(eng, slots) -> dict:
+    return {str(s): [[int(v) for v in t] for t in eng.tokens[s]]
+            for s in slots}
+
+
+def mg_serving_run(eng, ticks: int, row0: int = 0):
+    """Every free slot admitted (a multi-process engine's own), one quantum
+    of its seeded PCM (stream row0 + slot) a tick: (tick seconds, tokens by
+    slot)."""
+    import torch
+
+    q = eng.cc.shift_samples
+    slots = eng.add_streams(getattr(eng, "n_local", eng.n_slots))
+    audio = {s: mg_pcm(row0 + s, q * ticks) for s in slots}
+    times = []
+    for t in range(ticks):
+        eng.feed_audio({s: audio[s][t * q:(t + 1) * q] for s in slots})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, mg_token_lists(eng, slots)
+
+
+def mg_lockstep_run(eng, ticks: int, rows, make=None, snap=None):
+    """One quantum of each row's seeded PCM a tick; with `make` and
+    `snap`, the engine is saved halfway and a fresh one from make() loads
+    it and goes on. Returns (tick seconds, tokens by local index, the
+    engine)."""
+    import torch
+
+    q = eng.cc.shift_samples
+    audio = np.stack([mg_pcm(r, q * ticks) for r in rows])
+    times = []
+    for t in range(ticks):
+        if make is not None and t == ticks // 2:
+            eng.save(snap)
+            eng = make()
+            eng.load(snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.tick(audio[:, t * q:(t + 1) * q])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, mg_token_lists(eng, range(len(rows))), eng
+
+
+def mg_state(eng) -> dict:
+    """Every device state leaf of an engine over every row and head (the
+    mesh gathers them), as numpy."""
+    from nemotron_tpu_torch.parallel import mesh as mesh_mod
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+    from nemotron_tpu_torch.utils import npz
+
+    out = {}
+    for side in ("enc", "dec"):
+        st = getattr(eng, f"{side}_state")
+        if eng.mesh is not None and not hasattr(eng, "local_rows"):
+            st = mesh_mod.gather_state(st, eng.mesh, eng._heads_split()
+                                       if side == "enc" else False)
+        for k, v in vars(st).items():
+            out[f"{side}/{k}"] = npz.to_numpy(v)
+    if isinstance(eng, ServingEngine):
+        for k in ("front_res", "front_last", "mel_buf_dev"):
+            if getattr(eng, k, None) is not None:
+                out[k] = eng._whole(getattr(eng, k))
+    else:
+        for k, v in (("front_last", eng.front.last_sample),
+                     ("front_res", eng.front.residue),
+                     ("mel_buf", eng.mel_buf)):
+            out[k] = eng._fetch_block(v, 0)
+    return out
+
+
+def mg_equal_states(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+def mg_encode(params, cfg, cc, nudge_ulps: int = 0) -> dict:
+    """encode_chunk over MG_ENC_CHUNKS chunks of MG_ENC_STREAMS streams of
+    seeded mel (f32), with the rank's heads under a mesh; the outputs and
+    the K/V rings (gathered over the model axis)."""
+    import torch
+
+    from nemotron_tpu_torch.models import encoder as enc_mod
+    from nemotron_tpu_torch.parallel.collectives import gather_along
+
+    rng = np.random.default_rng(SEED + 17)
+    mels = rng.standard_normal((MG_ENC_CHUNKS, MG_ENC_STREAMS,
+                                cc.chunk_mel_frames, cfg.n_mels)).astype(
+        np.float32)
+    if nudge_ulps:
+        mels = (mels * np.float32(1 + nudge_ulps * 2.0 ** -23)).astype(
+            np.float32)
+    dev = params.device
+    st = enc_mod.init_encoder_state(cfg, cc, MG_ENC_STREAMS, torch.float32,
+                                    dev, n_heads=enc_mod.local_heads(params,
+                                                                     cfg))
+    ph = enc_mod.precompute_pos_heads(params, cfg, cc)
+    outs = []
+    with torch.no_grad():
+        for m in mels:
+            o, st = enc_mod.encode_chunk(params, cfg, cc,
+                                         torch.from_numpy(m).to(dev), st, ph)
+            outs.append(o)
+    rings = {"k_cache": st.k_cache, "v_cache": st.v_cache}
+    tp = params.tp
+    if tp is not None and tp.attn:
+        rings = {k: gather_along(v, 2, tp.group, tp.size, tp.index)
+                 for k, v in rings.items()}
+    return {"out": torch.stack(outs).cpu().numpy(),
+            **{k: v.cpu().numpy() for k, v in rings.items()}}
+
+
+def mg_ffn_probe(params, cfg) -> np.ndarray:
+    """Layer 0's first FFN (a rank's share summed over the model axis
+    where the pair is split) on MG_PROBE_ROWS seeded f32 rows."""
+    import torch
+
+    from nemotron_tpu_torch.models.encoder import _group
+    from nemotron_tpu_torch.ops.basic import ffn
+
+    lp = params.layers.unstack(cfg.n_layers)[0]
+    x = np.random.default_rng(SEED + 18).standard_normal(
+        (MG_PROBE_ROWS, cfg.d_model)).astype(np.float32)
+    with torch.no_grad():
+        y = ffn(torch.from_numpy(x).to(params.device), lp.ffn1_w1,
+                lp.ffn1_w2, _group(params.tp, "ffn1"))
+    return y.cpu().numpy()
+
+
+def mg_train_step(params, cfg, mesh=None):
+    """One train step of `params` (whole, or a rank's share under `mesh`)
+    on the training phase's batch: (loss, norm, {leaf: whole gradient})."""
+    from nemotron_tpu_torch import training
+    from nemotron_tpu_torch.parallel.mesh import gather_param
+    from nemotron_tpu_torch.params import flatten
+
+    batch = train_batch(params, cfg)
+    opt, sched = training.make_optimizer(params, TRAIN_LR, 10)
+    step = training.make_train_step(cfg, opt, sched, att_chunk=TRAIN_CHUNK,
+                                    mesh=mesh)
+    loss = float(step(params, batch))
+    grads = {k: gather_param(v.grad, k, params.tp).cpu().numpy()
+             for k, v in flatten(params).items()}
+    return loss, float(step.grad_norm), grads
+
+
+def mesh_rank_job(addr: str, rank: int, world: int, gguf_path: str,
+                  w8_path: str, dense_path: str, out_dir: str) -> None:
+    """One of the two ranks of the multi-GPU phase, sharing the card over
+    gloo (the kernels are built already; the rank only loads them): (b)
+    model-parallel 2 -- the Q8_0 f32 and W8A8 bf16 engines on (a)'s
+    schedule, the all_reduce calls and bytes of their ticks, a profile of
+    a Q8_0 tick, encode_chunk's outputs and rings (Q8_0 and W8A8), the
+    W8A8 FFN probe; (c) data-parallel 2 --
+    MultihostLockstep (straight, and saved / loaded halfway) and
+    MultihostServing, MG_DP_ROWS rows a rank; (d) a model-parallel-2 train
+    step on the 2-layer cut. Writes JSON (and rank 0 the arrays) to
+    out_dir."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from nemotron_tpu_torch import training
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.device import resolve_device
+    from nemotron_tpu_torch.parallel import multihost as mh
+    from nemotron_tpu_torch.parallel.mesh import (init_world, make_mesh,
+                                                  shard_params)
+    from nemotron_tpu_torch.params import load_model, to_device
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
 
     t0 = time.perf_counter()
-    cuda_build.build_all()
-    log(f"phase build: {', '.join(cuda_build.KERNELS)} built for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+    dev = resolve_device("cuda:0")
+    init_world(f"tcp://{addr}", world, rank, "gloo")
+    res = {"rank": rank, "walls": {}}
+    bf16, f32 = torch.bfloat16, torch.float32
 
-    failures: list[str] = []
+    # (b) model-parallel 2
+    mesh = make_mesh(model_parallel=2, device=dev)
+    q8, cfg, vocab = load_model(gguf_path, device=dev)
+    cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    eng = ServingEngine(q8, cfg, vocab, cc13, n_slots=MG_SLOTS,
+                        compute_dtype=f32, dsp="numpy", mesh=mesh)
+    lp = eng.params.layers
+    res["split"] = [eng.params.tp.ffn1, eng.params.tp.ffn2,
+                    eng.params.tp.attn]
+    res["local_shapes"] = {f: list(getattr(lp, f).q.shape[1:]) for f in (
+        "ffn1_w1", "ffn1_w2", "attn_q_w", "attn_pos_w", "attn_out_w",
+        "conv_pw1_w")}
+    res["local_heads"] = eng.params.tp.n_heads
+    calls = {"n": 0, "bytes": 0}
+    all_reduce = dist.all_reduce
 
-    def phase(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args, failures)
-        log(f"phase {name}: wall {time.perf_counter() - t0:.1f} s")
+    def counting(t, *a, **kw):
+        calls["n"] += 1
+        calls["bytes"] += t.numel() * t.element_size()
+        return all_reduce(t, *a, **kw)
+
+    dist.all_reduce = counting
+    reset_counts()
+    res["q8_times"], res["q8_tokens"] = mg_serving_run(eng, MG_TICKS)
+    dist.all_reduce = all_reduce
+    res["q8_counts"] = kernel_counts()
+    res["q8_collectives"] = dict(calls)
+    # a profiled tick of both ranks (rank 0 reads its profile)
+    q = cc13.shift_samples
+    slots = list(range(MG_SLOTS))
+    eng.feed_audio({s: mg_pcm(s, q * (MG_TICKS + 1))[MG_TICKS * q:]
+                    for s in slots})
+    if rank == 0:
+        prof = profile_window(eng.step)
+        res["profile"] = dict(
+            busy_us=prof["busy_us"], wall_us=prof["wall_us"],
+            attn=launches_of(prof, "ring_attn_cluster_kernel"),
+            q8=launches_of(prof, "q8_matmul"),
+            top=prof["by_name"][:6])
+    else:
+        eng.step()
+    del eng
+    enc = mg_encode(shard_params(q8, mesh), cfg, cc13)
+    w8 = to_device(torch.load(w8_path, weights_only=False), dev)
+    cc8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                      kv_cache_int8=True)
+    eng = ServingEngine(w8, cfg, vocab, cc8, n_slots=MG_SLOTS,
+                        compute_dtype=bf16, dsp="device", mesh=mesh)
+    res["w8_split"] = (None if eng.params.tp is None else
+                       [eng.params.tp.ffn1, eng.params.tp.ffn2,
+                        eng.params.tp.attn])
+    reset_counts()
+    res["w8_times"], res["w8_tokens"] = mg_serving_run(eng, MG_TICKS)
+    res["w8_counts"] = kernel_counts()
+    del eng
+    w8_local = shard_params(w8, mesh)
+    enc_w8 = mg_encode(w8_local, cfg, cc13)
+    probe = mg_ffn_probe(w8_local, cfg)
+    del w8_local, w8
+
+    res["walls"]["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (c) data-parallel 2
+    dp = make_mesh(model_parallel=1, device=dev)
+    rows = list(range(rank * MG_DP_ROWS, (rank + 1) * MG_DP_ROWS))
+
+    def lock():
+        return mh.MultihostLockstep(q8, cfg, vocab, cc13,
+                                    n_streams=2 * MG_DP_ROWS,
+                                    compute_dtype=f32, mesh=dp)
+
+    eng = lock()
+    assert [int(r) for r in eng.local_rows] == rows
+    _, res["lock_tokens"], eng = mg_lockstep_run(eng, MG_TICKS, rows)
+    lock_state = mg_state(eng)
+    _, res["lock_resumed_tokens"], eng = mg_lockstep_run(
+        lock(), MG_TICKS, rows, make=lock,
+        snap=os.path.join(out_dir, "lock_snap.npz"))
+    res["lock_resumed_equal"] = mg_equal_states(mg_state(eng), lock_state)
+    del eng
+    eng = mh.MultihostServing(q8, cfg, vocab, cc13, n_slots=2 * MG_DP_ROWS,
+                              compute_dtype=f32, mesh=dp)
+    _, res["mh_serving_tokens"] = mg_serving_run(eng, MG_TICKS)
+    del eng, q8
+
+    res["walls"]["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (d) a model-parallel-2 train step on the 2-layer cut
+    dense = to_device(torch.load(dense_path, weights_only=False), dev)
+    cut_cfg = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    params = training.trainable(shard_params(dense, mesh))
+    res["train_loss"], res["train_norm"], grads = mg_train_step(
+        params, cut_cfg, mesh)
+    res["walls"]["d"] = time.perf_counter() - t0
+
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(res, f)
+    np.savez(os.path.join(out_dir, f"lock_state{rank}.npz"), **lock_state)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "enc.npz"), **enc)
+        np.savez(os.path.join(out_dir, "enc_w8.npz"), **enc_w8,
+                 probe=probe)
+        np.savez(os.path.join(out_dir, "grads.npz"), **grads)
+    dist.destroy_process_group()
+
+
+def start_rank_jobs(gguf_path, w8_path, dense_path, out_dir) -> list:
+    """The two ranks of mesh_rank_job, started together."""
+    addr = f"127.0.0.1:{free_port()}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(2):
+        code = (f"import sys; sys.path.insert(0, {here!r}); import torch; "
+                f"torch.set_num_threads(2); import chip_smoke; "
+                f"chip_smoke.mesh_rank_job({addr!r}, {r}, 2, {gguf_path!r}, "
+                f"{w8_path!r}, {dense_path!r}, {out_dir!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p50(xs) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, 50))
+
+
+def multi_gpu_phase(gguf_path: str, failures: list) -> dict:
+    """Slice 17 at full width (24 layers, d_model 1024, the seeded GGUF).
+    The card is one H100, so nothing here is a multi-GPU speed: (a) a
+    one-rank NCCL mesh, and (b)-(d) two ranks sharing the card over gloo,
+    show that the sharded code is correct.
+    (a) ServingEngine(mesh=) (64 slots, W8A8 + int8 K/V bf16, device DSP,
+        R = 13; in turns with the unsharded engine) and LockstepEngine
+        (mesh=) (64 streams), and the Q8_0 f32 engine (host DSP): tokens
+        and every state leaf bit-equal to the unsharded engine's, launches
+        a tick by kernel equal (one attention and ten matmuls a layer an
+        encoder step); the tick p50 beside the unsharded engine's.
+    (b) model-parallel 2 over two ranks: the Q8_0 f32 engine's tokens
+        equal to (a)'s, encode_chunk's output and rings within
+        MG_CONTROL_FACTOR times a control's gap; the W8A8 bf16 engine
+        (its FFNs split, the attention whole) decoding as many tokens a
+        slot as (a)'s, its position agreement at least
+        TOL_W8A8_TOKEN_AGREE; the W8A8 weights' encode_chunk (f32) within
+        MG_CONTROL_FACTOR times their control's gap, and layer 0's FFN
+        within TOL_MG_PROBE_REL of the one-rank product;
+        a profiled tick (24 attention and 240 Q8 launches at the rank's
+        local shapes), the all_reduce calls and bytes of a tick, and the
+        tick p50 (two ranks sharing one card).
+    (c) data-parallel 2: MultihostLockstep and MultihostServing, 32 rows a
+        rank, tokens and state bit-equal to a one-process engine of the
+        same rows; a per-rank save / load halfway equal to the straight
+        run.
+    (d) a model-parallel-2 train step on the 2-layer cut against one rank.
+    (e) `serve --mesh 1` and `--mesh 2`, `serve --lockstep --coordinator`
+        (two processes) and `train --model-parallel 2`: exit 0 with their
+        summaries.
+    (a)'s timed turns run first, on an idle card; then the ranks and the
+    entry points start, and the rest of (a) and the references of (b)-(d)
+    run beside them (their times are not readings)."""
+    import shutil as _shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from nemotron_tpu_torch import training
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+    from nemotron_tpu_torch.params import to_device
+    from nemotron_tpu_torch.streaming.lockstep import LockstepEngine
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    q8, cfg, vocab = full_width_model(gguf_path, "cuda")
+    t0 = time.perf_counter()
+    w8 = full_width_w8a8(gguf_path)
+    log(f"phase multi-GPU: full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}); W8A8 weights {time.perf_counter() - t0:.1f} s")
+
+    # (a) a one-rank NCCL mesh against the unsharded engines
+    mesh1 = make_mesh(device="cuda:0")
+    cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    cc8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                      kv_cache_int8=True)
+    runs = {"unsharded": [], "mesh": []}
+    for kind in ("unsharded", "mesh", "mesh", "unsharded"):
+        eng = ServingEngine(w8, cfg, vocab, cc8, n_slots=MG_SLOTS,
+                            compute_dtype=bf16, dsp="device",
+                            mesh=mesh1 if kind == "mesh" else None)
+        (times, toks), n = counted(lambda: mg_serving_run(eng, MG_TICKS),
+                                   launches)
+        runs[kind].append(dict(times=times, tokens=toks, counts=n,
+                               state=mg_state(eng)))
+        del eng
+    u, m = runs["unsharded"][0], runs["mesh"][0]
+    same = (u["tokens"] == m["tokens"] and mg_equal_states(u["state"],
+                                                           m["state"])
+            and all(r["tokens"] == u["tokens"] for r in runs["unsharded"]
+                    + runs["mesh"]))
+    steps = m["counts"]["attn"] // cfg.n_layers
+    counts_ok = (u["counts"] == m["counts"] and steps > 0
+                 and m["counts"]["attn"] == cfg.n_layers * steps
+                 and m["counts"]["w8a8"] == 10 * cfg.n_layers * steps
+                 and m["counts"]["q8"] == 0)
+    if not (same and counts_ok):
+        failures.append(f"multi-GPU (a) W8A8 engine on a one-rank mesh: "
+                        f"tokens and state equal {same}, launches "
+                        f"{m['counts']} vs {u['counts']}")
+    eng_p50 = {k: p50([t for r in v for t in r["times"][1:]])
+               for k, v in runs.items()}
+    out["a_engine"] = dict(equal=same, counts=m["counts"], steps=steps,
+                           tick_p50_ms=eng_p50)
+    log(f"  (a) ServingEngine W8A8 + int8 K/V bf16 device DSP, {MG_SLOTS} "
+        f"slots, R=13, one-rank {mesh1.backend} mesh vs unsharded, in turns: "
+        f"tokens and every state leaf bit-equal {same}; launches "
+        f"{m['counts']} in {steps} encoder steps ({cfg.n_layers} attention, "
+        f"{10 * cfg.n_layers} W8A8 a step); tick p50 (ticks 2-{MG_TICKS}) "
+        f"mesh {eng_p50['mesh']:.2f} / unsharded {eng_p50['unsharded']:.2f}"
+        f" ms")
+    log(f"  (a) timed turns: wall {time.perf_counter() - t0:.1f} s")
+
+    # the ranks' inputs: the W8A8 weights and the dense 2-layer cut (the
+    # Q8_0 weights dequantized in f32), as files
+    tmp = tempfile.mkdtemp(prefix="mg_")
+    w8_path = os.path.join(tmp, "w8.pt")
+    torch.save(to_device(w8, "cpu"), w8_path)
+    cut, cut_cfg = cut_layers(q8, cfg, TRAIN_CUT_LAYERS)
+    dense = dense_of(cut)
+    dense_path = os.path.join(tmp, "dense_cut.pt")
+    torch.save(to_device(dense, "cpu"), dense_path)
+    pcm_path = os.path.join(tmp, "entry.pcm")
+    mg_pcm(0, int(MG_ENTRY_SECONDS * 16000)).tofile(pcm_path)
+
+    # (b)-(d) on two ranks, and (e), beside the parent's references
+    t_start = time.perf_counter()
+    ranks = start_rank_jobs(gguf_path, w8_path, dense_path, tmp)
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    serve_args = [gguf_path, pcm_path, "--streams", "4", "--slots", "4",
+                  "--seconds", str(MG_ENTRY_SECONDS)]
+    coord = f"127.0.0.1:{free_port()}"
+    entries = {
+        "serve --mesh 1": [start_module("serve", serve_args + ["--mesh", "1"],
+                                        env, here)],
+        "serve --mesh 2": [start_module("serve", serve_args + ["--mesh", "2"],
+                                        env, here)],
+        "serve --coordinator": [start_module(
+            "serve", serve_args + ["--lockstep", "--coordinator", coord,
+                                   "--num-processes", "2", "--process-id",
+                                   str(i)], env, here) for i in (0, 1)],
+        "train --model-parallel 2": [start_module(
+            "train", ["--random", "--config", "tiny", "--steps", "3",
+                      "--batch", "4", "--eval-every", "1",
+                      "--model-parallel", "2"], env, here)],
+    }
+    try:
+        lock = {}
+        for kind in ("unsharded", "mesh"):
+            eng = LockstepEngine(w8, cfg, vocab, cc8, n_streams=MG_SLOTS,
+                                 compute_dtype=bf16,
+                                 mesh=mesh1 if kind == "mesh" else None)
+            (times, toks, eng), n = counted(
+                lambda: mg_lockstep_run(eng, MG_TICKS, range(MG_SLOTS)),
+                launches)
+            lock[kind] = dict(times=times, tokens=toks, counts=n,
+                              state=mg_state(eng))
+            del eng
+        same = (lock["mesh"]["tokens"] == lock["unsharded"]["tokens"]
+                and mg_equal_states(lock["mesh"]["state"],
+                                    lock["unsharded"]["state"])
+                and lock["mesh"]["counts"] == lock["unsharded"]["counts"]
+                and lock["mesh"]["counts"]["attn"] > 0)
+        if not same:
+            failures.append("multi-GPU (a) LockstepEngine on a one-rank mesh: "
+                            "tokens, state or launches differ")
+        out["a_lockstep"] = dict(equal=same, counts=lock["mesh"]["counts"],
+                                 tick_p50_ms={k: p50(v["times"][1:])
+                                              for k, v in lock.items()})
+        log(f"  (a) LockstepEngine, {MG_SLOTS} streams, one-rank mesh vs "
+            f"unsharded: tokens, state and launches equal {same} "
+            f"({lock['mesh']['counts']}); tick p50 beside the ranks: mesh "
+            f"{out['a_lockstep']['tick_p50_ms']['mesh']:.2f} / unsharded "
+            f"{out['a_lockstep']['tick_p50_ms']['unsharded']:.2f} ms")
+        del lock, runs
+        # the Q8_0 f32 engine, unsharded and on the one-rank mesh: (b)'s
+        # reference
+        q8runs = {}
+        for kind in ("unsharded", "mesh"):
+            eng = ServingEngine(q8, cfg, vocab, cc13, n_slots=MG_SLOTS,
+                                compute_dtype=f32, dsp="numpy",
+                                mesh=mesh1 if kind == "mesh" else None)
+            (times, toks), n = counted(lambda: mg_serving_run(eng, MG_TICKS),
+                                       launches)
+            q8runs[kind] = dict(times=times, tokens=toks, counts=n,
+                                state=mg_state(eng))
+            del eng
+        same = (q8runs["mesh"]["tokens"] == q8runs["unsharded"]["tokens"]
+                and mg_equal_states(q8runs["mesh"]["state"],
+                                    q8runs["unsharded"]["state"])
+                and q8runs["mesh"]["counts"] == q8runs["unsharded"]["counts"])
+        if not same:
+            failures.append("multi-GPU (a) Q8_0 f32 engine on a one-rank mesh: "
+                            "tokens, state or launches differ")
+        out["a_q8"] = dict(equal=same, counts=q8runs["mesh"]["counts"],
+                           tick_p50_ms={k: p50(v["times"][1:])
+                                        for k, v in q8runs.items()})
+        log(f"  (a) ServingEngine Q8_0 f32 host DSP, {MG_SLOTS} slots: one-rank "
+            f"mesh vs unsharded equal {same} ({q8runs['mesh']['counts']}); tick "
+            f"p50 mesh {out['a_q8']['tick_p50_ms']['mesh']:.2f} / unsharded "
+            f"{out['a_q8']['tick_p50_ms']['unsharded']:.2f} ms")
+        dist.destroy_process_group()
+        enc_ref = mg_encode(q8, cfg, cc13)
+        enc_ctl = mg_encode(q8, cfg, cc13, nudge_ulps=2)
+        w8_ref = mg_encode(w8, cfg, cc13)
+        w8_ctl = [mg_encode(w8, cfg, cc13, nudge_ulps=n) for n in (2, -2)]
+        probe_ref = mg_ffn_probe(w8, cfg)
+        del w8
+        halves = []
+        for h in range(2):
+            rows = list(range(h * MG_DP_ROWS, (h + 1) * MG_DP_ROWS))
+            eng = LockstepEngine(q8, cfg, vocab, cc13, n_streams=MG_DP_ROWS,
+                                 compute_dtype=f32)
+            _, ltoks, eng = mg_lockstep_run(eng, MG_TICKS, rows)
+            lstate = mg_state(eng)
+            del eng
+            eng = ServingEngine(q8, cfg, vocab, cc13, n_slots=MG_DP_ROWS,
+                                compute_dtype=f32, dsp="numpy")
+            _, stoks = mg_serving_run(eng, MG_TICKS, row0=h * MG_DP_ROWS)
+            del eng
+            halves.append(dict(lock=ltoks, lock_state=lstate, serving={
+                str(int(s) + h * MG_DP_ROWS): v for s, v in stoks.items()}))
+        ref_params = training.trainable(to_device(dense, "cuda"))
+        ref_loss, ref_norm, ref_grads = mg_train_step(ref_params, cut_cfg)
+        del ref_params
+        results = []
+        for r, p in enumerate(ranks):
+            try:
+                _, err = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+            if p.returncode:
+                failures.append(f"multi-GPU rank {r}: exit {p.returncode}: "
+                                f"{err[-2000:]}")
+        rank_wall = time.perf_counter() - t_start
+        entry_out = {name: [finish_module(p, f"multi-GPU (e) {name}",
+                                          failures, timeout=600)
+                            for p in procs]
+                     for name, procs in entries.items()}
+    finally:
+        for p in ranks + [p for v in entries.values() for p in v]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if any(p.returncode for p in ranks):
+        _shutil.rmtree(tmp, ignore_errors=True)
         return out
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json"), encoding="utf-8") as f:
+            results.append(json.load(f))
+    r0 = results[0]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # the full-width GGUF is written by a child process while the
-        # kernel phases run on the card
-        path = os.path.join(tmp, "full_width_q8.gguf")
-        t0 = time.perf_counter()
-        gguf_job = start_cpu_job("write_full_width_gguf", path)
-        attn = phase("attention kernel", attention_phase)
-        q8 = phase("Q8 kernel", q8_phase)
-        w8 = phase("W8A8 kernel", w8a8_phase)
-        _, err = gguf_job.communicate()
-        if gguf_job.returncode:
-            raise RuntimeError(f"writing the GGUF: exit "
-                               f"{gguf_job.returncode}: {err[-2000:]}")
-        log(f"phase main path: {os.path.getsize(path) / 2 ** 30:.2f} GiB "
-            f"GGUF written by a child process beside the kernel phases, "
-            f"ready {time.perf_counter() - t0:.1f} s after its start")
-        runs = phase("Q8_0 main path", main_path_phase, path)
-        w8_runs = phase("W8A8 path", w8a8_path_phase, path)
-        full = phase("full utterance", full_utterance_phase, path)
-        engine = phase("serving engine (slice 8)", engine_phase, path)
-        server = phase("server (slice 9)", server_phase, path)
-        quant = phase("quant tiers and snapshots (slice 10)",
-                      quant_tier_phase, path)
-        # the TDT/CTC GGUF is written, and decoded on the CPU, by a child
-        # process while the lockstep and beam phases run on the card
-        tdt_path = os.path.join(tmp, "full_width_tdt_ctc.gguf")
-        tdt_ref = os.path.join(tmp, "tdt_ctc_ref.json")
-        tdt_job = start_cpu_job("cpu_tdt_ctc_reference", tdt_path, tdt_ref)
-        train_job = None
-        try:
-            lock = phase("lockstep, cohorts and serve (slice 13)",
-                         lockstep_phase, path)
-            beam = phase("beam family (slice 14)", beam_phase, path)
-            # the training phase's CPU reference (a 2-layer cut of the
-            # same GGUF) runs beside the TDT and CTC phase
-            train_ref = os.path.join(tmp, "training_ref.json")
-            train_job = start_cpu_job("cpu_training_reference", path,
-                                      train_ref)
-            tdt = phase("TDT and CTC (slice 15)", tdt_ctc_phase, tdt_path,
-                        tdt_job, tdt_ref, w8_runs)
-            full_width_model.cache_clear()
-            train = phase("training (slice 16)", training_phase, path,
-                          tdt_path, train_job, train_ref)
-        finally:
-            for job in (tdt_job, train_job):
-                if job is not None and job.poll() is None:
-                    job.kill()
-                    job.communicate()
-        full_width_model.cache_clear()
-    tones = phase("tones", tones_phase)
-    engine_tones = phase("serving engine tones (slice 8)", engine_tones_phase)
-    server_tones = phase("server tones (slice 9)", server_tones_phase)
-    clis = phase("CLIs and server entry points (slice 9)", cli_phase)
-    tones_quant = phase("tones quant tiers (slice 10)", tones_quant_phase)
-    clis_quant = phase("CLIs and server with the quant flags (slice 10)",
-                       cli_quant_phase)
-    beam_tones = phase("beam family on the trained fixtures (slice 14)",
-                       beam_tones_phase)
-    tdt_tones = phase("TDT and CTC on the trained fixtures (slice 15)",
-                      tdt_ctc_tones_phase)
-    train_tones = phase("training on the trained fixture and the tiny "
-                        "config (slice 16)", training_tones_phase)
+    # (b) model-parallel 2
+    want = q8runs["unsharded"]["tokens"]
+    q8_equal = all(r["q8_tokens"] == want for r in results)
+    enc = dict(np.load(os.path.join(tmp, "enc.npz")))
+    gap = {k: float(np.abs(enc[k] - enc_ref[k]).max()) for k in enc_ref}
+    ctl = {k: float(np.abs(enc_ctl[k] - enc_ref[k]).max()) for k in enc_ref}
+    tol = {k: MG_CONTROL_FACTOR * max(ctl[k], 1e-7) for k in ctl}
+    enc_ok = all(gap[k] <= tol[k] for k in gap)
+    enc_w8 = dict(np.load(os.path.join(tmp, "enc_w8.npz")))
+    probe = enc_w8.pop("probe")
+    w8_gap = {k: float(np.abs(enc_w8[k] - w8_ref[k]).max()) for k in w8_ref}
+    w8_ctl = {k: max(float(np.abs(c[k] - w8_ref[k]).max()) for c in w8_ctl)
+              for k in w8_ref}
+    w8_tol = {k: MG_CONTROL_FACTOR * max(w8_ctl[k], 1e-7) for k in w8_ctl}
+    probe_gap = float(np.abs(probe - probe_ref).max()
+                      / np.abs(probe_ref).max())
+    w8_enc_ok = (all(w8_gap[k] <= w8_tol[k] for k in w8_gap)
+                 and probe_gap <= TOL_MG_PROBE_REL)
+    w8_want = u["tokens"]
+    agree = [position_agreement([tuple(t) for t in r0["w8_tokens"][s]],
+                                [tuple(t) for t in w8_want[s]])
+             for s in w8_want]
+    w8_counts_ok = all(len(r0["w8_tokens"][s]) == len(w8_want[s])
+                       and w8_want[s] for s in w8_want)
+    w8_ok = (w8_counts_ok and w8_enc_ok and r0["w8_split"] == [True, True,
+                                                                 False]
+             and min(agree) >= TOL_W8A8_TOKEN_AGREE)
+    prof = r0["profile"]
+    steps_b = r0["q8_counts"]["attn"] // cfg.n_layers
+    prof_ok = (prof["attn"] > 0 and prof["attn"] % cfg.n_layers == 0
+               and prof["q8"] == 10 * prof["attn"]
+               and r0["q8_counts"]["q8"] == 10 * cfg.n_layers * steps_b
+               and steps_b > 0 and r0["local_heads"] == cfg.n_heads // 2
+               and r0["split"] == [True, True, True])
+    coll = r0["q8_collectives"]
+    if not (q8_equal and enc_ok and w8_ok and prof_ok):
+        failures.append(
+            f"multi-GPU (b) model-parallel 2: Q8_0 tokens equal {q8_equal}, "
+            f"encoder gaps {gap} (tol {tol}), W8A8 token counts "
+            f"{w8_counts_ok}, agreement {min(agree):.4f} (tol "
+            f"{TOL_W8A8_TOKEN_AGREE}), encoder gaps {w8_gap} (tol {w8_tol}),"
+            f" FFN probe {probe_gap:.3e} (tol {TOL_MG_PROBE_REL:.0e}), split "
+            f"{r0['w8_split']}; profile {prof['attn']} attention / "
+            f"{prof['q8']} Q8 launches, split {r0['split']}")
+    out["b"] = dict(q8_tokens_equal=q8_equal, encoder_gap=gap,
+                    encoder_control=ctl, w8a8_encoder_gap=w8_gap,
+                    w8a8_encoder_control=w8_ctl, w8a8_ffn_probe_rel=probe_gap,
+                    w8a8_agreement_min=min(agree),
+                    w8a8_agreement_mean=float(np.mean(agree)),
+                    w8a8_split=r0["w8_split"],
+                    local_shapes=r0["local_shapes"],
+                    profile=dict(attn=prof["attn"], q8=prof["q8"],
+                                 busy_us=prof["busy_us"],
+                                 wall_us=prof["wall_us"]),
+                    collectives_a_tick=dict(
+                        calls=coll["n"] / MG_TICKS,
+                        mib=coll["bytes"] / MG_TICKS / 2 ** 20),
+                    tick_p50_ms=dict(q8=p50(r0["q8_times"][1:]),
+                                     w8a8=p50(r0["w8_times"][1:])),
+                    launches=dict(q8=r0["q8_counts"], w8a8=r0["w8_counts"]))
+    log(f"  (b) model-parallel 2, two ranks sharing one card over gloo "
+        f"(local heads {r0['local_heads']}, local (K, N) "
+        f"{r0['local_shapes']}; products split {r0['split']}, W8A8 "
+        f"{r0['w8_split']}): Q8_0 f32 engine tokens equal to (a)'s "
+        f"{q8_equal}; encode_chunk gap "
+        + ", ".join(f"{k} {gap[k]:.3e} (control {ctl[k]:.3e})" for k in gap)
+        + f"; W8A8 bf16 engine: token counts equal {w8_counts_ok}, position "
+        f"agreement with (a)'s min {min(agree):.4f} (tol "
+        f"{TOL_W8A8_TOKEN_AGREE}) mean {float(np.mean(agree)):.4f}; W8A8 "
+        f"encode_chunk (f32) gap "
+        + ", ".join(f"{k} {w8_gap[k]:.3e} (control {w8_ctl[k]:.3e})"
+                    for k in w8_gap)
+        + f", layer 0's FFN {probe_gap:.3e} of its max (tol "
+        f"{TOL_MG_PROBE_REL:.0e}); profiled tick: {prof['attn']} "
+        f"attention and {prof['q8']} Q8 launches, device busy "
+        f"{prof['busy_us'] / 1e3:.2f} of {prof['wall_us'] / 1e3:.2f} ms; "
+        f"all_reduce a tick: {coll['n'] / MG_TICKS:g} calls, "
+        f"{coll['bytes'] / MG_TICKS / 2 ** 20:.2f} MiB; tick p50 (two ranks "
+        f"sharing one card) Q8_0 {out['b']['tick_p50_ms']['q8']:.2f} ms, "
+        f"W8A8 {out['b']['tick_p50_ms']['w8a8']:.2f} ms")
+    for line in prof["top"]:
+        log(f"      {line[1] / 1e3:9.3f} ms  {line[0]}")
+
+    # (c) data-parallel 2
+    lock_ok = serv_ok = True
+    for r, res in enumerate(results):
+        h = halves[r]
+        st = dict(np.load(os.path.join(tmp, f"lock_state{r}.npz")))
+        lock_ok &= (res["lock_tokens"] == h["lock"]
+                    and res["lock_resumed_tokens"] == h["lock"]
+                    and res["lock_resumed_equal"]
+                    and mg_equal_states(st, h["lock_state"]))
+        serv_ok &= res["mh_serving_tokens"] == h["serving"]
+    if not (lock_ok and serv_ok):
+        failures.append(f"multi-GPU (c) data-parallel 2: MultihostLockstep "
+                        f"equal {lock_ok}, MultihostServing equal {serv_ok}")
+    out["c"] = dict(lockstep_equal=lock_ok, serving_equal=serv_ok,
+                    rows_a_rank=MG_DP_ROWS)
+    log(f"  (c) data-parallel 2, {MG_DP_ROWS} rows a rank: MultihostLockstep"
+        f" tokens and state bit-equal to one-process engines of the same "
+        f"rows, and its per-rank save / load halfway equal: {lock_ok}; "
+        f"MultihostServing tokens equal: {serv_ok}")
+
+    # (d) training
+    grads = dict(np.load(os.path.join(tmp, "grads.npz")))
+    loss_ok = (abs(r0["train_loss"] - ref_loss)
+               <= TOL_MG_LOSS_REL * abs(ref_loss))
+    norm_ok = (abs(r0["train_norm"] - ref_norm)
+               <= TOL_MG_LOSS_REL * abs(ref_norm))
+    worst = max(float(np.abs(grads[k] - ref_grads[k]).max())
+                / max(float(np.abs(ref_grads[k]).max()), 1e-30)
+                for k in ref_grads)
+    if not (loss_ok and norm_ok and worst <= TOL_MG_GRAD_REL
+            and grads.keys() == ref_grads.keys()):
+        failures.append(f"multi-GPU (d) training: loss {r0['train_loss']} vs"
+                        f" {ref_loss}, norm {r0['train_norm']} vs {ref_norm},"
+                        f" worst gradient gap {worst:.3e} of a leaf's max")
+    out["d"] = dict(loss=r0["train_loss"], loss_one_rank=ref_loss,
+                    norm=r0["train_norm"], norm_one_rank=ref_norm,
+                    worst_grad_rel=worst)
+    log(f"  (d) train step, {TRAIN_CUT_LAYERS}-layer cut, model-parallel 2 "
+        f"vs one rank: loss {r0['train_loss']:.6f} / {ref_loss:.6f}, norm "
+        f"{r0['train_norm']:.6f} / {ref_norm:.6f}, worst gradient gap "
+        f"{worst:.3e} of a leaf's max (tol {TOL_MG_GRAD_REL:.0e})")
+
+    # (e) the entry points
+    want_lines = {
+        "serve --mesh 1": ["rank 0/1: backend nccl, device cuda:0",
+                           "aggregate real-time"],
+        "serve --mesh 2": ["rank 0/2: backend gloo, device cuda:0",
+                           "rank 1/2: backend gloo, device cuda:0",
+                           "aggregate real-time"],
+        "serve --coordinator": ["backend gloo, device cuda:0",
+                                "aggregate real-time"],
+        "train --model-parallel 2": [
+            "devices: 1, mesh {'data': 1, 'model': 1}", "step     2"]}
+    ent = {}
+    for name, outs in entry_out.items():
+        ok = all(all(w in err for w in want_lines[name]) for _, err in outs)
+        if not ok:
+            failures.append(f"multi-GPU (e) {name}: summary lines missing")
+        ent[name] = ok
+        summary = [ln for _, err in outs for ln in err.splitlines()
+                   if "aggregate real-time" in ln or ln.startswith(
+                       ("devices:", "rank ", "process "))]
+        log(f"  (e) {name}: exit 0 and its summary {ok}: "
+            + " | ".join(summary[:4]))
+    out["e"] = ent
+    out["ranks_wall_s"] = rank_wall
+    log(f"  the ranks: {rank_wall:.1f} s from their start to their end "
+        f"(rank 0: (b) {r0['walls']['b']:.1f} s with its start and loads, "
+        f"(c) {r0['walls']['c']:.1f} s, (d) {r0['walls']['d']:.1f} s)")
+    out["launches"] = launches
+    _shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
+    """The `kernels` JSON of a whole run: each kernel's launches on the
+    main paths (every phase's count), its time, plain time, bound and
+    library time from the kernel phases, at the shapes the rows name."""
+    attn, q8, w8 = res["attention"], res["q8"], res["w8a8"]
+    runs, w8_runs, full = res["main-path"], res["w8a8-path"], \
+        res["full-utterance"]
+    engine, server, quant = res["engine"], res["server"], res["quant"]
+    lock, beam, tdt = res["lockstep"], res["beam"], res["tdt-ctc"]
+    tones, engine_tones = res["tones"], res["engine-tones"]
+    server_tones, tones_quant = res["server-tones"], res["tones-quant"]
+    beam_tones, tdt_tones = res["beam-tones"], res["tdt-tones"]
+    mgpu = res["multi-gpu"]
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
@@ -6278,6 +7197,7 @@ def main() -> int:
                 + tones_quant["launches"][k] + lock["launches"][k]
                 + beam["launches"][k] + beam_tones["launches"][k]
                 + tdt["launches"][k] + tdt_tones["launches"][k]
+                + mgpu["launches"][k]
                 for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
@@ -6338,7 +7258,10 @@ def main() -> int:
                      "(packed two a byte); no library call computes it"},
          "engine_int4": {k: attn["engine_int4"][k] for k in attn_keys}
          | {"shape": "one call, B=64 (engine slots) H=8 Q=14 KV=84 Dh=128 "
-                     "bf16 int4 rings; no library call computes it"}},
+                     "bf16 int4 rings; no library call computes it"},
+         "model_parallel_2": {k: attn["mp2_f32"][k] for k in attn_keys}
+         | {"shape": "one call, B=64 (engine slots) H=4 (a model-parallel-2 "
+                     "rank's heads) Q=14 KV=84 Dh=128 f32 dense rings"}},
         {"name": "q8_matmul", "route": "cuda",
          "source": "nemotron_tpu_torch/csrc/q8_matmul.cu",
          "replaces": "nemotron_tpu/ops/quant_kernel.py:58",
@@ -6354,7 +7277,14 @@ def main() -> int:
          "per_m": {f"M={M}": {k: v for k, v in q8_layer(M).items()
                               if k not in ("bytes", "flops")}
                    for M in (1, 14, *Q8_CROSSOVER_MS)},
-         "m_star": SPLITK_MAX_M,
+         "m_star": q8_m_star,
+         "model_parallel_2": {
+             f"{what} ({K},{N})": {k: q8[(ENGINE_M, K, N)][k] for k in (
+                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "design", "max_abs_err")}
+             for (K, N), what in LOCAL_SHAPES.items()}
+         | {"shape": "one call at M=896 (64 slots x 14), f32: a "
+                     "model-parallel-2 rank's (K,N)"},
          "designs": "splitk (split-K cluster) for M <= m_star, tiled (128 x "
                     "128 tiles, dequantized once a block) above; per_m gives "
                     "both designs' layer times at the crossover rows"},
@@ -6387,43 +7317,228 @@ def main() -> int:
                           for M in (8, *W8A8_CROSSOVER_MS)},
          "static_shape": "one layer's 10 calls, bf16, static activation "
                          "scale (SmoothQuant); library = the same _int_mm",
-         "m_star": W8A8_SPLITK_MAX_M,
-         "tiled_splits_m896": {shape: {str(sp): ms for sp, ms in row.items()}
-                               for shape, row in w8["tiled_splits"].items()},
+         "m_star": w8a8_m_star,
+         "model_parallel_2": {
+             f"{what} ({K},{N}){' static' if mode else ''}": {
+                 k: w8[(*mode, ENGINE_M, K, N)][k] for k in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "design", "max_abs_err")}
+             for (K, N), what in W8A8_LOCAL_SHAPES.items()
+             for mode in ((), ("static",))}
+         | {"shape": "one call at M=896 (64 slots x 14), bf16: a "
+                     "model-parallel-2 rank's FFN (K,N), dynamic and "
+                     "static"},
          "designs": "splitk (split-K clusters of up to 8 blocks, each "
                     "quantizing its own slice of x) for M <= m_star, tiled "
                     "(128 x 128 tiles, x quantized once a block for 128 "
                     "columns) above; per_m gives both designs' layer times "
                     "at the crossover rows"},
     ]
-    modes = {f"R={R}": {k: v for k, v in r.items() if k != "tokens"}
-             | {"n_tokens": len(r["tokens"])} for R, r in runs.items()}
-    log("main path: " + json.dumps(modes))
-    log("W8A8 path: " + json.dumps(w8_runs))
-    log("full utterance: " + json.dumps(full))
-    log("tones: " + json.dumps(tones))
-    log("serving engine: " + json.dumps(engine))
-    log("serving engine tones: " + json.dumps(engine_tones))
-    log("server: " + json.dumps(server))
-    log("server tones: " + json.dumps(server_tones))
-    log("CLIs and entry points: " + json.dumps(clis))
-    log("quant tiers and snapshots: " + json.dumps(quant))
-    log("tones quant tiers: " + json.dumps(tones_quant))
-    log("CLIs and server with the quant flags: " + json.dumps(clis_quant))
-    log("lockstep, cohorts and serve: " + json.dumps(lock))
-    log("beam family: " + json.dumps(beam))
-    log("beam family on the trained fixtures: " + json.dumps(beam_tones))
-    log("TDT and CTC: " + json.dumps(tdt))
-    log("TDT and CTC on the trained fixtures: " + json.dumps(tdt_tones))
-    log("training: " + json.dumps(train))
-    log("training on the trained fixture and the tiny config: "
-        + json.dumps(train_tones))
+    return kernels
+
+
+# the phases in the order a whole run takes them, by the name that
+# `--phase NAME` gives; the full-width GGUF, the TDT/CTC GGUF and the CPU
+# reference jobs are made for the chosen phases that need them
+PHASES = {
+    "attention": "attention kernel",
+    "q8": "Q8 kernel",
+    "w8a8": "W8A8 kernel",
+    "main-path": "Q8_0 main path",
+    "w8a8-path": "W8A8 path",
+    "full-utterance": "full utterance",
+    "engine": "serving engine (slice 8)",
+    "server": "server (slice 9)",
+    "quant": "quant tiers and snapshots (slice 10)",
+    "lockstep": "lockstep, cohorts and serve (slice 13)",
+    "beam": "beam family (slice 14)",
+    "tdt-ctc": "TDT and CTC (slice 15)",
+    "multi-gpu": "multi-GPU (slice 17)",
+    "training": "training (slice 16)",
+    "tones": "tones",
+    "engine-tones": "serving engine tones (slice 8)",
+    "server-tones": "server tones (slice 9)",
+    "clis": "CLIs and server entry points (slice 9)",
+    "tones-quant": "tones quant tiers (slice 10)",
+    "clis-quant": "CLIs and server with the quant flags (slice 10)",
+    "beam-tones": "beam family on the trained fixtures (slice 14)",
+    "tdt-tones": "TDT and CTC on the trained fixtures (slice 15)",
+    "training-tones": "training on the trained fixture and the tiny config "
+                      "(slice 16)",
+}
+FULL_WIDTH_PHASES = ("main-path", "w8a8-path", "full-utterance", "engine",
+                     "server", "quant", "lockstep", "beam", "training",
+                     "multi-gpu")
+
+
+def chosen_phases(argv: list[str]) -> set | None:
+    """The phases named by `--phase NAME` (repeatable; `--phase=NAME` too),
+    or None (every phase) without one. An unknown name raises
+    SystemExit(2)."""
+    names, i = [], 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--phase" and i + 1 < len(argv):
+            names.append(argv[i + 1])
+            i += 2
+            continue
+        if a.startswith("--phase="):
+            names.append(a.split("=", 1)[1])
+        else:
+            print(f"error: unknown argument {a!r}; usage: chip_smoke.py "
+                  f"[--phase NAME ...], NAME one of {', '.join(PHASES)}",
+                  file=sys.stderr)
+            raise SystemExit(2)
+        i += 1
+    bad = [n for n in names if n not in PHASES]
+    if bad:
+        print(f"error: unknown phase {', '.join(bad)}; one of "
+              f"{', '.join(PHASES)}", file=sys.stderr)
+        raise SystemExit(2)
+    return set(names) if names else None
+
+
+def main() -> int:
+    want = chosen_phases(sys.argv[1:])
+    try:
+        import torch
+    except ImportError:
+        print("error: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("error: no CUDA device; this smoke run needs one GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nemotron_tpu_torch.ops import cuda_build
+    from nemotron_tpu_torch.device import resolve_device
+    from nemotron_tpu_torch.ops.quant_kernel import SPLITK_MAX_M
+    from nemotron_tpu_torch.ops.w8a8_kernel import \
+        SPLITK_MAX_M as W8A8_SPLITK_MAX_M
+
+    t_start = time.perf_counter()
+    resolve_device("cuda")
+    card = gpu_name_and_power()
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
+    if want is not None:
+        log(f"phases: {', '.join(n for n in PHASES if n in want)}")
+
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    log(f"phase build: {', '.join(cuda_build.KERNELS)} built for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    failures: list[str] = []
+    res: dict = {}
+
+    def chosen(key):
+        return want is None or key in want
+
+    def phase(key, fn, *args):
+        if not chosen(key):
+            return None
+        t0 = time.perf_counter()
+        res[key] = fn(*args, failures)
+        log(f"phase {PHASES[key]}: wall {time.perf_counter() - t0:.1f} s")
+        return res[key]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the full-width GGUF is written by a child process while the
+        # kernel phases run on the card
+        path = os.path.join(tmp, "full_width_q8.gguf")
+        full = any(chosen(k) for k in FULL_WIDTH_PHASES)
+        t0 = time.perf_counter()
+        gguf_job = (start_cpu_job("write_full_width_gguf", path) if full
+                    else None)
+        phase("attention", attention_phase)
+        phase("q8", q8_phase)
+        phase("w8a8", w8a8_phase)
+        if gguf_job is not None:
+            _, err = gguf_job.communicate()
+            if gguf_job.returncode:
+                raise RuntimeError(f"writing the GGUF: exit "
+                                   f"{gguf_job.returncode}: {err[-2000:]}")
+            log(f"phase main path: {os.path.getsize(path) / 2 ** 30:.2f} GiB"
+                f" GGUF written by a child process beside the kernel phases, "
+                f"ready {time.perf_counter() - t0:.1f} s after its start")
+        jobs = []
+
+        def job(key, fn, *args, threads=4):
+            """A CPU reference child for phase `key`, if it runs."""
+            if not chosen(key):
+                return None
+            jobs.append(start_cpu_job(fn, *args, threads=threads))
+            return jobs[-1]
+
+        try:
+            # the W8A8 path's and the full utterance's CPU runs: child
+            # processes beside the card's work from the main path on
+            w8_ref = os.path.join(tmp, "w8a8_ref.pt")
+            fu_ref = os.path.join(tmp, "full_utterance_ref.pt")
+            w8_job = job("w8a8-path", "cpu_w8a8_reference", path, w8_ref,
+                         threads=5)
+            fu_job = job("full-utterance", "cpu_full_utterance_reference",
+                         path, fu_ref, threads=3)
+            phase("main-path", main_path_phase, path)
+            phase("w8a8-path", w8a8_path_phase, path, w8_job, w8_ref)
+            phase("full-utterance", full_utterance_phase, path, fu_job,
+                  fu_ref)
+            phase("engine", engine_phase, path)
+            phase("server", server_phase, path)
+            phase("quant", quant_tier_phase, path)
+            # the TDT/CTC GGUF is written, and decoded on the CPU, by a
+            # child process while the lockstep and beam phases run
+            tdt_path = os.path.join(tmp, "full_width_tdt_ctc.gguf")
+            tdt_ref = os.path.join(tmp, "tdt_ctc_ref.json")
+            tdt_job = (start_cpu_job("cpu_tdt_ctc_reference", tdt_path,
+                                     tdt_ref)
+                       if chosen("tdt-ctc") or chosen("training") else None)
+            jobs.append(tdt_job)
+            phase("lockstep", lockstep_phase, path)
+            phase("beam", beam_phase, path)
+            # the training phase's CPU reference (a 2-layer cut of the
+            # same GGUF) runs beside the TDT and CTC phase
+            train_ref = os.path.join(tmp, "training_ref.json")
+            train_job = job("training", "cpu_training_reference", path,
+                            train_ref)
+            phase("tdt-ctc", tdt_ctc_phase, tdt_path, tdt_job, tdt_ref,
+                  res.get("w8a8-path", {}))
+            phase("multi-gpu", multi_gpu_phase, path)
+            if chosen("training") and not chosen("tdt-ctc"):
+                finish_job(tdt_job, tdt_ref)     # the TDT GGUF is written
+            full_width_model.cache_clear()
+            full_width_w8a8.cache_clear()
+            phase("training", training_phase, path, tdt_path, train_job,
+                  train_ref)
+        finally:
+            for j in jobs:
+                if j is not None and j.poll() is None:
+                    j.kill()
+                    j.communicate()
+        full_width_model.cache_clear()
+    for key, fn in (("tones", tones_phase),
+                    ("engine-tones", engine_tones_phase),
+                    ("server-tones", server_tones_phase),
+                    ("clis", cli_phase),
+                    ("tones-quant", tones_quant_phase),
+                    ("clis-quant", cli_quant_phase),
+                    ("beam-tones", beam_tones_phase),
+                    ("tdt-tones", tdt_ctc_tones_phase),
+                    ("training-tones", training_tones_phase)):
+        phase(key, fn)
+    for key, value in res.items():
+        if key not in ("attention", "q8", "w8a8"):   # logged line by line
+            log(f"{PHASES[key]}: " + json.dumps(value, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": kernels}))
+    if want is None:
+        print(json.dumps({"kernels": kernels_line(
+            res, SPLITK_MAX_M, W8A8_SPLITK_MAX_M)}))
     print(gpu_name_and_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

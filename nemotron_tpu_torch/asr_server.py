@@ -34,7 +34,8 @@ The counterpart of `scripts/asr_server.py`:
   - --ctc decodes a hybrid checkpoint with its CTC head; a TDT checkpoint
     decodes with the duration-aware walk (or beam) with no flag
   - --dsp native comes with the native-bindings slice of this port and
-    --coordinator with the multi-GPU slice: each exits 1
+    exits 1; scripts/asr_server.py has no --coordinator, and neither has
+    this server (an unsupported flag: exit 1)
 """
 
 from __future__ import annotations
@@ -43,8 +44,6 @@ import asyncio
 import sys
 import time
 
-# flags of scripts/asr_server.py that come with later slices of the port
-_LATER = {"--coordinator": "multi-GPU"}
 _VALUED = ("--host", "--port", "--slots", "--right-context", "--quantize",
            "--dsp", "--endpoint-silence", "--tick-ms", "--http-stats",
            "--ws-port", "--stats-every", "--rc-by-layer", "--beam", "--lm",
@@ -53,15 +52,12 @@ _SWITCHES = ("--kv-int8", "--kv-int4", "--confidence", "--endpoint-reset",
              "--cpu", "--refine", "--ctc")
 
 
-def later_flag(argv: list[str], later: dict = _LATER) -> str | None:
-    """The error for the first flag in `argv` that comes with a later slice
-    of the port (`later`: flag -> slice), or None."""
+def later_flag(argv: list[str]) -> str | None:
+    """The error for `--dsp native` in `argv`, which comes with a later
+    slice of the port, or None."""
     for i, a in enumerate(argv):
-        name = a.split("=", 1)[0]
-        if name in later:
-            return f"{name} comes with the {later[name]} slice of this port"
-        if name == "--dsp" and (a == "--dsp=native" or argv[i + 1:i + 2]
-                                == ["native"]):
+        if a.split("=", 1)[0] == "--dsp" and (
+                a == "--dsp=native" or argv[i + 1:i + 2] == ["native"]):
             return ("--dsp native comes with the native-bindings slice of "
                     "this port")
     return None

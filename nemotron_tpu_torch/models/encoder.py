@@ -45,16 +45,33 @@ from ..ops.rel_attention import (pos_emb_descending, project_pos,
 from ..ops.ring_attn_kernel import pack_int4
 
 
-def _conformer_block(lp, x, attention, conv_cache, ln_capture=None):
+def _group(tp, product: str):
+    """The model group over which `product` ('ffn1', 'ffn2', 'attn') is
+    split, or None (whole parameters, or a product every rank computes
+    whole)."""
+    return tp.group if tp is not None and getattr(tp, product) else None
+
+
+def local_heads(params, cfg: ModelConfig) -> int:
+    """The attention heads the params compute: cfg.n_heads, or a rank's
+    share of them (parallel.mesh.shard_params)."""
+    return cfg.n_heads if params.tp is None else params.tp.n_heads
+
+
+def _conformer_block(lp, x, attention, conv_cache, ln_capture=None,
+                     tp=None):
     """The residual structure of one conformer layer (reference
     src/nemo-ggml.cpp:768-813) around `attention(norm_attn) -> (out, new_k,
     new_v)`. Returns (y, new_k, new_v, new_conv_cache, norm_attn).
     ln_capture: a dict that receives the four LayerNorm outputs that feed
-    quantized matmuls, by site name (what SmoothQuant calibrates on)."""
+    quantized matmuls, by site name (what SmoothQuant calibrates on).
+    tp: a rank's TensorParallel, whose split FFNs are summed over the model
+    axis (the attention sums its own; the conv module and the LayerNorms
+    run whole on every rank)."""
     cap = {} if ln_capture is None else ln_capture
     r = x
     cur = cap["norm_ff1"] = layer_norm(r, lp.norm_ff1_w, lp.norm_ff1_b)
-    r = r + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2)
+    r = r + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2, _group(tp, "ffn1"))
 
     norm_attn = cap["norm_attn"] = layer_norm(r, lp.norm_attn_w,
                                               lp.norm_attn_b)
@@ -66,30 +83,34 @@ def _conformer_block(lp, x, attention, conv_cache, ln_capture=None):
     r = r + conv
 
     cur = cap["norm_ff2"] = layer_norm(r, lp.norm_ff2_w, lp.norm_ff2_b)
-    r = r + 0.5 * ffn(cur, lp.ffn2_w1, lp.ffn2_w2)
+    r = r + 0.5 * ffn(cur, lp.ffn2_w1, lp.ffn2_w2, _group(tp, "ffn2"))
     return (layer_norm(r, lp.norm_final_w, lp.norm_final_b), new_k, new_v,
             new_conv, norm_attn)
 
 
 def conformer_layer(lp, x, pos_heads, mask, conv_cache, layer_idx: int,
                     k_ring_all, v_ring_all, chron, k_cols, v_cols, *,
-                    n_heads: int, d_head: int, packed_int4: bool = False):
+                    n_heads: int, d_head: int, packed_int4: bool = False,
+                    tp=None):
     """One conformer layer over the ring cache (packed_int4: nibble-pair
-    rings). Returns
+    rings; tp: a rank's TensorParallel, n_heads then the rank's). Returns
     (y, new_k [B, H, Q, Dh], new_v, new_conv_cache, norm_attn [B, Q, D]),
     norm_attn being the attention's input (what the shared x-ring keeps)."""
     return _conformer_block(lp, x, lambda a: rel_pos_mha_ring_fused(
         lp, a, pos_heads, n_heads, d_head, layer_idx, k_ring_all,
-        v_ring_all, chron, mask, k_cols, v_cols, packed_int4), conv_cache)
+        v_ring_all, chron, mask, k_cols, v_cols, packed_int4,
+        group=_group(tp, "attn")), conv_cache, tp=tp)
 
 
 def conformer_layer_batch(lp, x, pos_heads, mask=None, *, n_heads: int,
-                          d_head: int, ln_capture=None) -> torch.Tensor:
+                          d_head: int, ln_capture=None,
+                          tp=None) -> torch.Tensor:
     """One conformer layer over whole utterances (no caches; the depthwise
     conv zero-pads its causal history): x [B, T', D] -> [B, T', D].
-    ln_capture: see _conformer_block."""
+    ln_capture: see _conformer_block; tp: see conformer_layer."""
     return _conformer_block(lp, x, lambda a: rel_pos_mha(
-        lp, a, pos_heads, n_heads, d_head, mask=mask), None, ln_capture)[0]
+        lp, a, pos_heads, n_heads, d_head, mask=mask,
+        group=_group(tp, "attn")), None, ln_capture, tp=tp)[0]
 
 
 def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
@@ -140,13 +161,14 @@ def encode_batch(params, cfg: ModelConfig, mel: torch.Tensor,
         mask = cmask if mask is None else mask + cmask
 
     lps = params.layers.unstack(cfg.n_layers)
+    H = local_heads(params, cfg)
 
     def layer(x, l, cap=None):
         lp = lps[l]
-        pos_heads = project_pos(lp.attn_pos_w, pos, cfg.n_heads, cfg.d_head)
-        return conformer_layer_batch(lp, x, pos_heads, mask,
-                                     n_heads=cfg.n_heads, d_head=cfg.d_head,
-                                     ln_capture=cap)
+        pos_heads = project_pos(lp.attn_pos_w, pos, H, cfg.d_head)
+        return conformer_layer_batch(lp, x, pos_heads, mask, n_heads=H,
+                                     d_head=cfg.d_head, ln_capture=cap,
+                                     tp=params.tp)
 
     checkpointed = remat and torch.is_grad_enabled()
     for l in range(cfg.n_layers):
@@ -186,15 +208,18 @@ class EncoderState:
 
 
 def init_encoder_state(cfg: ModelConfig, cc: CacheConfig, batch: int,
-                       dtype: torch.dtype, device) -> EncoderState:
+                       dtype: torch.dtype, device,
+                       n_heads: int | None = None) -> EncoderState:
     """Zeroed caches for `batch` streams on `device`: the split ring in the
     compute dtype (f32 or bf16), in int8 or in packed int4 (Dh/2 bytes a
-    row), or the shared x-ring."""
+    row), or the shared x-ring. n_heads: a rank's share of the heads
+    (local_heads) for split rings; the shared x-ring stays whole."""
     kv = cc.kv_len
     if kv % cc.chunk_enc_len:
         raise ValueError(f"kv_len {kv} must be a multiple of chunk_enc_len "
                          f"{cc.chunk_enc_len} for the ring cache")
-    L, D, H, DH = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head
+    L, D, DH = cfg.n_layers, cfg.d_model, cfg.d_head
+    H = cfg.n_heads if n_heads is None else n_heads
     n_seg = kv // cc.chunk_enc_len
     ring_dtype = torch.int8 if cc.kv_quant_max is not None else dtype
     if cc.shared_cache:
@@ -221,11 +246,13 @@ def init_encoder_state(cfg: ModelConfig, cc: CacheConfig, batch: int,
 def precompute_pos_heads(params, cfg: ModelConfig, cc: CacheConfig,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[L, P, H, Dh] in `dtype`: per-layer linear_pos projection of the
-    streaming pos-emb slice, hoisted out of the chunk step."""
+    streaming pos-emb slice, hoisted out of the chunk step (a rank's share
+    of the heads under a mesh)."""
     pos = torch.from_numpy(pos_emb_descending(cc.kv_len, cfg.d_model)).to(
         device=params.device, dtype=dtype)
     w = params.layers.attn_pos_w
-    return torch.stack([project_pos(w[l], pos, cfg.n_heads, cfg.d_head)
+    H = local_heads(params, cfg)
+    return torch.stack([project_pos(w[l], pos, H, cfg.d_head)
                         for l in range(cfg.n_layers)])
 
 
@@ -250,6 +277,9 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     validity-masked cached layers, valid_len bump, valid_out truncation.
 
     mel_chunk: [B, chunk_mel_frames, n_mels]; pos_heads [L, P, H, Dh].
+    Under a mesh, params hold a rank's share (parallel.mesh.shard_params):
+    the rings, their scales and pos_heads hold its heads, and the split
+    products are summed over the model axis inside the layers.
     Returns (enc_out [B, valid_out_len, d_model], new EncoderState).
 
     The rings are written IN PLACE: `state.k_cache`/`v_cache` are the same
@@ -328,7 +358,7 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     layer_masks = ([mask] * cfg.n_layers if rcs is None else
                    [mask + lookahead(r) for r in rcs])
 
-    H, Dh = cfg.n_heads, cfg.d_head
+    H, Dh = local_heads(params, cfg), cfg.d_head
     quant = cc.kv_quant_max is not None
     shared = cc.shared_cache
     if quant:
@@ -359,7 +389,7 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
         x, nk, nv, ncv, norm_attn = conformer_layer(
             lp, x, pos_heads[l], layer_masks[l], state.conv_cache[l], ring_l,
             *rings, chron, k_cols, v_cols, n_heads=H, d_head=Dh,
-            packed_int4=cc.kv_cache_int4)
+            packed_int4=cc.kv_cache_int4, tp=params.tp)
         if shared:
             new_k.append(norm_attn[:, None])                        # [B,1,Q,D]
         else:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import model_copy, model_sum
 from .quant import qmm
 
 
@@ -34,7 +35,9 @@ def glu(x: torch.Tensor) -> torch.Tensor:
     return x[..., :c] * torch.sigmoid(x[..., c:])
 
 
-def ffn(x: torch.Tensor, w1, w2) -> torch.Tensor:
+def ffn(x: torch.Tensor, w1, w2, group=None) -> torch.Tensor:
     """Linear -> SiLU -> Linear (no biases in this model). Weights may be
-    dense tensors or int8 QTensors."""
-    return qmm(silu(qmm(x, w1)), w2)
+    dense tensors or int8 QTensors. `group`: the model axis over which w1's
+    columns and w2's rows are split (the partial products are summed after
+    w2; nemotron_tpu/ops/basic.py:37-40 under GSPMD)."""
+    return model_sum(qmm(silu(qmm(model_copy(x, group), w1)), w2), group)

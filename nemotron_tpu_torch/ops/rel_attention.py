@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.collectives import model_copy, model_sum
 from .quant import QTensor, QTensorW8A8, dequantize, qmm, qmm_shared
 from .ring_attn_kernel import fused_ring_attention, unpack_int4
 
@@ -106,7 +107,7 @@ def _softmax(content: torch.Tensor, pos_attn: torch.Tensor, mask,
 
 
 def rel_pos_mha(lp, x, pos_heads, n_heads: int, d_head: int,
-                kv_cache=None, mask=None):
+                kv_cache=None, mask=None, group=None):
     """Relative-position MHA in batch mode, or over the legacy shift cache
     (nemotron_tpu/ops/rel_attention.py:80-132). Plain tensor code: the JAX
     package leaves this attention to XLA too.
@@ -119,13 +120,15 @@ def rel_pos_mha(lp, x, pos_heads, n_heads: int, d_head: int,
         new caches (reference src/nemo-stream.cpp:457-484).
     mask: optional additive mask broadcastable to [B, 1, Q, kv]
         (0 = valid, -1e9 = masked).
+    group: the model axis over which the heads are split (n_heads is then
+        the rank's; its partial outputs are summed after attn_out_w).
 
     Returns (out [B, Q, D], new_k_cache, new_v_cache)."""
     B, Q, D = x.shape
     dt = x.dtype
     f32 = torch.float32
-    q, k_full, v_full = qmm_shared(x, [lp.attn_q_w, lp.attn_k_w,
-                                       lp.attn_v_w])
+    q, k_full, v_full = qmm_shared(model_copy(x, group),
+                                   [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w])
     new_k_cache = new_v_cache = None
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
@@ -142,14 +145,15 @@ def rel_pos_mha(lp, x, pos_heads, n_heads: int, d_head: int,
     pos_attn = rel_shift(_pos_raw(q_v, pos_heads), kv)
     w = _softmax(content, pos_attn, mask, d_head)
     ctx = torch.einsum("bhij,bhjd->bhid", w.to(f32), v.to(f32)).to(dt)
-    ctx = ctx.transpose(1, 2).reshape(B, Q, D)
-    return qmm(ctx, lp.attn_out_w), new_k_cache, new_v_cache
+    ctx = ctx.transpose(1, 2).reshape(B, Q, -1)
+    return (model_sum(qmm(ctx, lp.attn_out_w), group), new_k_cache,
+            new_v_cache)
 
 
 def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
                      k_ring, v_ring, chron, mask,
                      k_scale_cols=None, v_scale_cols=None,
-                     packed_int4: bool = False):
+                     packed_int4: bool = False, group=None):
     """Relative-position MHA over ONE layer's ring [B, H, KV, Dh]: the plain
     path (nemotron_tpu/ops/rel_attention.py:148-251), with the current
     chunk's keys/values attended as Q extra slots after the ring.
@@ -158,12 +162,13 @@ def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
     mask [B|1, 1, 1|Q, KV+Q]: additive validity mask in slot order.
     packed_int4: the rings are [B, H, KV, Dh/2] nibble pairs, unpacked
     here (nemotron_tpu/ops/rel_attention.py:135-145, 199-201).
+    group: the model axis over which the heads are split (see rel_pos_mha).
     Returns (out [B, Q, D], k_new [B, H, Q, Dh], v_new [B, H, Q, Dh])."""
     B, Q, D = x.shape
     dt = x.dtype
     f32 = torch.float32
     q, k_new, v_new = (_heads(t, n_heads, d_head) for t in qmm_shared(
-        x, [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w]))
+        model_copy(x, group), [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w]))
     kv = k_ring.shape[2]
     if packed_int4:
         k_r, v_r = unpack_int4(k_ring, dt), unpack_int4(v_ring, dt)
@@ -188,13 +193,14 @@ def rel_pos_mha_ring(lp, x, pos_heads, n_heads: int, d_head: int,
     ctx = (torch.einsum("bhij,bhjd->bhid", w_r.to(f32), v_r.to(f32))
            + torch.einsum("bhij,bhjd->bhid", w[..., kv:].to(f32),
                           v_new.to(f32))).to(dt)
-    ctx = ctx.transpose(1, 2).reshape(B, Q, D)
-    return qmm(ctx, lp.attn_out_w), k_new, v_new
+    ctx = ctx.transpose(1, 2).reshape(B, Q, -1)
+    return model_sum(qmm(ctx, lp.attn_out_w), group), k_new, v_new
 
 
 def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
                            layer_idx: int, k_ring_all, v_ring_all, chron,
-                           mask, k_cols, v_cols, packed_int4: bool = False):
+                           mask, k_cols, v_cols, packed_int4: bool = False,
+                           group=None):
     """rel_pos_mha_ring with ring reads, scores, softmax and context fused
     into one kernel (ops/ring_attn_kernel.py). The rings are the FULL
     stacked [L, B, H, KV, Dh] tensors; the kernel reads layer `layer_idx`
@@ -203,11 +209,13 @@ def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
 
     k_cols/v_cols [B, H, KV] f32: per-slot dequant columns (ones if dense).
     packed_int4: the rings are [L, B, H, KV, Dh/2] nibble pairs.
+    group: the model axis over which the heads are split (n_heads, the
+    rings and k_cols/v_cols are then the rank's; see rel_pos_mha).
     Returns (out [B, Q, D], k_new [B, H, Q, Dh], v_new [B, H, Q, Dh])."""
     B, Q, D = x.shape
     dt = x.dtype
     q, k_new, v_new = (_heads(t, n_heads, d_head) for t in qmm_shared(
-        x, [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w]))
+        model_copy(x, group), [lp.attn_q_w, lp.attn_k_w, lp.attn_v_w]))
     kv = k_ring_all.shape[3]
     q_u = (q + lp.pos_bias_u.to(dt)[None, :, None, :]).contiguous()
     q_v = q + lp.pos_bias_v.to(dt)[None, :, None, :]
@@ -220,15 +228,16 @@ def rel_pos_mha_ring_fused(lp, x, pos_heads, n_heads: int, d_head: int,
     ctx = fused_ring_attention(layer_idx, q_u, k_new, v_new, k_ring_all,
                                v_ring_all, a, k_cols, v_cols,
                                packed_int4=packed_int4)
-    ctx = ctx.transpose(1, 2).reshape(B, Q, D)
-    return qmm(ctx, lp.attn_out_w), k_new, v_new
+    ctx = ctx.transpose(1, 2).reshape(B, Q, -1)
+    return model_sum(qmm(ctx, lp.attn_out_w), group), k_new, v_new
 
 
 def project_pos(lp_pos_w, pos_emb: torch.Tensor, n_heads: int,
                 d_head: int) -> torch.Tensor:
     """pos_emb [P, D] @ linear_pos -> [P, H, Dh], dequantizing a quantized
-    weight first, in pos_emb's dtype. Precomputed once per session, not
-    once per chunk."""
+    weight first, in pos_emb's dtype (a rank's column share of linear_pos
+    gives its own n_heads). Precomputed once per session, not once per
+    chunk."""
     if isinstance(lp_pos_w, QTensor):
         lp_pos_w = dequantize(lp_pos_w, pos_emb.dtype)
     elif isinstance(lp_pos_w, QTensorW8A8):

@@ -146,6 +146,9 @@ class ModelParams:
     joint: JointParams
     preprocessor: PreprocessorParams
     ctc: Any = None                  # CtcParams | None (hybrid checkpoints)
+    # parallel.mesh.TensorParallel when the layers hold one rank's share of
+    # split products (shard_params), None for whole parameters
+    tp: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -169,11 +172,11 @@ def _containers(params: ModelParams):
 
 def map_leaves(fn, params: ModelParams) -> ModelParams:
     """Apply `fn` to every leaf: an array, or a QTensor or QTensorW8A8 as a
-    whole."""
+    whole (a rank's share keeps its TensorParallel)."""
     return ModelParams(**{
         name: cls(**{f.name: fn(getattr(getattr(params, name), f.name))
                      for f in dataclasses.fields(cls)})
-        for name, cls in _containers(params)})
+        for name, cls in _containers(params)}, tp=params.tp)
 
 
 def flatten(params: ModelParams) -> dict[str, Any]:
@@ -615,7 +618,17 @@ def save_model(path: str, params: ModelParams, cfg: ModelConfig,
     tensors, or the encoder matmul weights as Q8_0 / Q4_0 blocks with
     quantize_mode 'q8_0' / 'q4_0'; a TDT config's durations in
     `nemo.tdt_durations`; the CTC head where there is one; vocab entries
-    cut to the 7-byte slot (gguf.fit_vocab_token)."""
+    cut to the 7-byte slot (gguf.fit_vocab_token). A rank's share of
+    split params (parallel.mesh.shard_params) is gathered first, so the
+    file holds the JAX package's global keys and shapes; every rank calls
+    it, rank 0 writes."""
+    from .parallel.mesh import gather_params, is_writer, sync
+
+    if params.tp is not None:
+        params = gather_params(params)
+    if not is_writer():
+        sync()
+        return
     arrays = params_to_arrays(params, cfg)
     meta: dict[str, object] = {"general.architecture": "nemo"}
     if vocab:
@@ -637,6 +650,7 @@ def save_model(path: str, params: ModelParams, cfg: ModelConfig,
         quantize = {n: gtype for n, a in arrays.items()
                     if should_quantize(n, a)}
     gguf_mod.write_gguf(path, meta, arrays, quantize=quantize)
+    sync()
 
 
 def parse_boost_spec(spec: str) -> dict:

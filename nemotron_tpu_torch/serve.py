@@ -10,6 +10,7 @@ The counterpart of `scripts/serve.py`:
         [--rc-by-layer 13,6,1,0] [--lockstep] [--dsp auto|numpy|device]
         [--confidence] [--endpoint-silence S] [--endpoint-reset]
         [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B] [--ctc]
+        [--mesh N] [--coordinator H:P --num-processes N --process-id I]
         [--cpu]
 
   - --lockstep: every stream advances every tick through LockstepEngine
@@ -24,8 +25,18 @@ The counterpart of `scripts/serve.py`:
     calibrate SmoothQuant on the audio's first 20 s
   - the summary (aggregate real-time, tick p50/p90/p99) goes to stderr,
     the first three streams' transcripts to stdout
-  - --mesh and --coordinator come with the multi-GPU slice of this port
-    and --dsp native with the native-bindings slice: each exits 1
+  - --mesh N starts N local ranks under torch.distributed.run (or runs
+    as a rank of the N that a launcher started), one device each (cuda:i,
+    or the CPU under --cpu), over a data-parallel mesh (parallel/
+    mesh.py): NCCL
+    where every rank has a card of its own, gloo where ranks share one;
+    each rank prints its backend and device on stderr, rank 0 the summary
+  - --coordinator H:P --num-processes N --process-id I (with --lockstep):
+    this process is rank I of N serving one MultihostLockstep slab
+    (parallel/multihost.py), feeding and reading only its own rows; rank
+    0 creates the world at H:P
+  - --dsp native comes with the native-bindings slice of this port and
+    exits 1
 """
 
 from __future__ import annotations
@@ -37,22 +48,54 @@ import numpy as np
 
 from .asr_server import flag_value, later_flag, positional_args
 
-# flags of scripts/serve.py that come with later slices of the port
-_LATER = {
-    "--mesh": "multi-GPU",
-    "--coordinator": "multi-GPU", "--num-processes": "multi-GPU",
-    "--process-id": "multi-GPU",
-}
 _VALUED = ("--streams", "--slots", "--right-context", "--seconds",
            "--quantize", "--rc-by-layer", "--dsp", "--endpoint-silence",
-           "--beam", "--lm", "--lm-weight", "--lm-bonus")
+           "--beam", "--lm", "--lm-weight", "--lm-bonus", "--mesh",
+           "--coordinator", "--num-processes", "--process-id")
 _SWITCHES = ("--kv-int8", "--kv-int4", "--lockstep", "--confidence",
              "--endpoint-reset", "--cpu", "--ctc")
 _SQ_MODES = ("w8a8-sq", "w8a8-sq-static")
 
 
+def start_ranks(argv: list[str], n: int) -> int:
+    """`--mesh N` in a process that no launcher started: run this command
+    as N ranks on this host under torch.distributed.run (which stops every
+    rank when one fails); its exit code."""
+    import subprocess
+
+    return subprocess.call([sys.executable, "-m", "torch.distributed.run",
+                            "--standalone", "--nproc-per-node", str(n), "-m",
+                            "nemotron_tpu_torch.serve", *argv[1:]])
+
+
+def join_mesh(n: int, device: str):
+    """In a rank of the launcher's world (RANK, WORLD_SIZE, LOCAL_RANK and
+    MASTER_ADDR/PORT in the environment): join it and return (the
+    data-parallel mesh, this rank's device), printing its backend."""
+    import os
+
+    import torch
+
+    from .parallel.mesh import backend_for, init_world, make_mesh
+
+    rank = int(os.environ["RANK"])
+    if int(os.environ["WORLD_SIZE"]) != n:
+        raise ValueError(f"--mesh {n} in a world of "
+                         f"{os.environ['WORLD_SIZE']} ranks")
+    if device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = f"cuda:{local % max(torch.cuda.device_count(), 1)}"
+    else:   # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    backend = init_world("env://", n, rank, backend_for(n, device))
+    mesh = make_mesh(device=device)
+    print(f"rank {rank}/{n}: backend {backend}, device {device}",
+          file=sys.stderr)
+    return mesh, device
+
+
 def main(argv: list[str]) -> int:
-    refused = later_flag(argv[1:], _LATER)
+    refused = later_flag(argv[1:])
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 1
@@ -79,9 +122,60 @@ def main(argv: list[str]) -> int:
                  lm_weight=opt("--lm-weight", 0.3, float),
                  lm_bonus=opt("--lm-bonus", 0.0, float))
     device = "cpu" if "--cpu" in argv else "cuda"
+    mesh_n = opt("--mesh", 0, int)
+    coordinator = opt("--coordinator", None, str)
+    if mesh_n and coordinator:
+        print("error: --mesh and --coordinator exclude each other",
+              file=sys.stderr)
+        return 1
+    if mesh_n < 0 or (mesh_n and (n_streams if "--lockstep" in argv
+                                  else n_slots) % mesh_n):
+        print(f"error: --mesh {mesh_n}: the streams and slots must be "
+              "divisible by the ranks (the data axis)", file=sys.stderr)
+        return 1
+    if coordinator:
+        # JAX's rule: the ragged ServingEngine's admission calls are
+        # per-process data-dependent
+        if "--lockstep" not in argv:
+            print("error: multihost serving requires --lockstep (the "
+                  "ragged ServingEngine's admission calls are per-process "
+                  "data-dependent)", file=sys.stderr)
+            return 1
+        if opt("--num-processes", 2, int) < 2:
+            print("error: MultihostLockstep needs a torch.distributed "
+                  "world of two or more ranks; use --lockstep alone in one "
+                  "process", file=sys.stderr)
+            return 1
+    import os
+
+    mesh = None
+    rank = 0
+    if mesh_n:
+        if "RANK" not in os.environ:
+            return start_ranks(argv, mesh_n)
+        try:
+            mesh, device = join_mesh(mesh_n, device)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        rank = mesh.rank
+    elif coordinator:
+        import torch
+
+        from .parallel.multihost import init_multihost
+
+        rank = opt("--process-id", 0, int)
+        n_proc = opt("--num-processes", 2, int)
+        if device == "cuda":
+            device = f"cuda:{rank % max(torch.cuda.device_count(), 1)}"
+        else:   # the processes may share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_proc))
+        backend = init_multihost(coordinator, n_proc, rank,
+                                 cpu_gloo=device == "cpu")
+        print(f"process {rank}/{n_proc}: backend {backend}, device "
+              f"{device}", file=sys.stderr)
 
     import dataclasses
-    import os
 
     from .cli import calibrate, load_lm_flag
     from .config import CacheConfig
@@ -156,16 +250,26 @@ def main(argv: list[str]) -> int:
 
     if "--lockstep" in argv:
         try:
-            eng = LockstepEngine(params, cfg, vocab, cc, n_streams=n_streams,
-                                 **ep_kw)
-        except ValueError as e:
+            if coordinator:
+                # one slab over every process's ranks; this process feeds
+                # and reads only its own rows (global row indices)
+                from .parallel.multihost import MultihostLockstep
+
+                eng = MultihostLockstep(params, cfg, vocab, cc,
+                                        n_streams=n_streams, **ep_kw)
+                rows = [int(r) for r in eng.local_rows]
+            else:
+                eng = LockstepEngine(params, cfg, vocab, cc,
+                                     n_streams=n_streams, mesh=mesh, **ep_kw)
+                rows = list(range(n_streams))
+        except (ValueError, RuntimeError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
-        slots = list(range(n_streams))
+        slots = list(range(len(rows)))  # engine-local indices
         tick_times = []
         t0 = time.perf_counter()
         for _ in range(n_ticks):
-            pcm = np.stack([block_for(s) for s in slots])
+            pcm = np.stack([block_for(r) for r in rows])
             tt = time.perf_counter()
             eng.tick_pipelined(pcm)
             tick_times.append(time.perf_counter() - tt)
@@ -175,7 +279,7 @@ def main(argv: list[str]) -> int:
         wall = time.perf_counter() - t0
         if ep_s > 0:
             print(f"utterances finalized: {n_utts}", file=sys.stderr)
-        audio_s = eng.total_chunks * n_streams * cc.valid_out_len \
+        audio_s = eng.total_chunks * len(rows) * cc.valid_out_len \
             * cc.subsampling_factor * cc.hop_length / cc.sample_rate
         t = np.asarray(tick_times)
         st = {"audio_seconds_decoded": audio_s,
@@ -187,7 +291,8 @@ def main(argv: list[str]) -> int:
     else:
         try:
             eng = ServingEngine(params, cfg, vocab, cc, n_slots=n_slots,
-                                dsp=opt("--dsp", "auto", str), **ep_kw)
+                                dsp=opt("--dsp", "auto", str), mesh=mesh,
+                                **ep_kw)
             slots = eng.add_streams(n_streams)
         except (ValueError, NotImplementedError, RuntimeError) as e:
             print(f"error: {e}", file=sys.stderr)
@@ -199,9 +304,12 @@ def main(argv: list[str]) -> int:
             report_utterances(eng.poll_endpoints())
         wall = time.perf_counter() - t0
         st = eng.stats()
-        if ep_s > 0:
+        if ep_s > 0 and rank == 0:
             print(f"utterances finalized: {st['utterances_finalized']}",
                   file=sys.stderr)
+    eng.refresh_transcripts()
+    if mesh is not None and rank != 0:
+        return 0          # rank 0 of a mesh reports for every rank
     print(f"streams={n_streams} slots={n_slots} mode=R{R}"
           f"{' ' + quant_mode if quant_mode else ''} device={eng.device}",
           file=sys.stderr)
@@ -214,7 +322,6 @@ def main(argv: list[str]) -> int:
         print(f"per-tick latency p50 {lat['p50']*1e3:.1f} ms  "
               f"p90 {lat['p90']*1e3:.1f} ms  p99 {lat['p99']*1e3:.1f} ms",
               file=sys.stderr)
-    eng.refresh_transcripts()
     for s in slots[:3]:
         print(f"[slot {s}] {eng.transcripts[s][:70]}")
     return 0

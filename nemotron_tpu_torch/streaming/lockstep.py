@@ -3,7 +3,7 @@ tokens on the params' device.
 
 The port's counterpart of `nemotron_tpu/streaming/lockstep.py` (RNN-T
 greedy or beam, with or without LM fusion, the TDT walk or beam, the CTC
-head; no mesh). Where `ServingEngine`
+head; greedy decodes over a mesh). Where `ServingEngine`
 (serving.py) lets slots advance at independent rates, `LockstepEngine`
 feeds one PCM block to all S streams at once and runs the whole pipeline
 on the device:
@@ -42,6 +42,7 @@ from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..models import tdt as tdt_mod
 from ..models.lm import lm_to_device
+from ..parallel import mesh as mesh_mod
 from ..params import ModelParams, cast_params
 from ..utils import npz
 from ..utils.text import tokens_to_text
@@ -237,8 +238,17 @@ class LockstepEngine:
     best hypotheses (their tokens carry frame 0). Endpointing and
     confidence need greedy decode.
 
-    A device mesh (the multi-GPU slice) comes with a later slice of the
-    port and raises NotImplementedError."""
+    mesh (parallel.mesh.Mesh): as ServingEngine's (JAX lockstep.py:346-400)
+    -- every rank builds the engine alike, is given the same ticks and
+    keeps the whole host state; the data axis splits the stream rows of
+    the device state, the model axis the encoder's FFNs and heads; tokens
+    are gathered over the data axis a tick. Beam decode is not wired on a
+    mesh (NotImplementedError).
+
+    Subclasses that feed only some rows from the host (the multi-process
+    engine, parallel/multihost.py) preset `n_local` and `_local_rows`
+    before this __init__ and override the host <-> device seams
+    (`_put_pcm`, `_fetch_block`, `_unsnap_rows`, `_shard_loaded_state`)."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -258,15 +268,27 @@ class LockstepEngine:
                                                   beam_size, endpoint_reset)
         if endpoint_silence_s is not None and beam_size > 1:
             raise ValueError("endpointing requires greedy decode")
-        if mesh is not None:
-            raise NotImplementedError("a device mesh comes with the "
-                                      "multi-GPU slice of the port")
+        if mesh is not None and beam_size > 1:
+            raise NotImplementedError("beam decode is not wired on a mesh")
         _check_dtype(compute_dtype)
         self.cfg = cfg
         self.cc = cache_config or CacheConfig(n_mels=cfg.n_mels)
         self.pcfg = PreprocessorConfig(n_mels=cfg.n_mels)
         self.vocab = vocab or []
         self.n_streams = n_streams
+        # the host interface's rows (nemotron_tpu/streaming/lockstep.py:
+        # 275-281): multi-process subclasses preset n_local/_local_rows
+        # BEFORE this __init__, their hosts feeding and reading only their
+        # own rows; otherwise local == global
+        if not hasattr(self, "n_local"):
+            self.n_local = n_streams
+            self._local_rows = None
+        # the device rows [lo, hi) this rank holds (all of them off a mesh)
+        self.mesh = mesh
+        self._lo, self._hi = (0, n_streams) if mesh is None else \
+            mesh.row_span(n_streams)
+        if mesh is not None:
+            params = mesh_mod.shard_params(params, mesh)
         self.dtype = compute_dtype
         self.device = params.device
         self.confidence = bool(confidence)
@@ -300,9 +322,11 @@ class LockstepEngine:
         self.reset()
 
     def reset(self) -> None:
-        cfg, cc, S, dev = self.cfg, self.cc, self.n_streams, self.device
-        self.enc_state = enc_mod.init_encoder_state(cfg, cc, S, self.dtype,
-                                                    dev)
+        cfg, cc, dev = self.cfg, self.cc, self.device
+        S = self._hi - self._lo                 # this rank's device rows
+        self.enc_state = enc_mod.init_encoder_state(
+            cfg, cc, S, self.dtype, dev,
+            n_heads=enc_mod.local_heads(self.params, cfg))
         self.dec_state = dec_mod.init_decoder_state(cfg, S, self.dtype, dev)
         self.beam_state = None
         if self.beam_size > 1:
@@ -312,7 +336,8 @@ class LockstepEngine:
         # the TDT jump carry (device) and the CTC collapse carry (host)
         self.tdt_skip = (torch.zeros((S,), dtype=torch.int32, device=dev)
                          if self.tdt else None)
-        self.ctc_prev = np.full(S, -1, np.int64) if self.ctc else None
+        n = self.n_local                        # the host's rows
+        self.ctc_prev = np.full(n, -1, np.int64) if self.ctc else None
         # transcripts are rebuilt from the beam lazily, once a tick has
         # advanced it
         self._beam_dirty = False
@@ -323,13 +348,13 @@ class LockstepEngine:
         self.mel_buf = torch.zeros((S, cap, cfg.n_mels), dtype=self.dtype,
                                    device=dev)
         self.buf_len = cc.pre_encode_cache_size
-        self.tokens: list[list[tuple]] = [[] for _ in range(S)]
-        self.transcripts = [""] * S
+        self.tokens: list[list[tuple]] = [[] for _ in range(n)]
+        self.transcripts = [""] * n
         self.frame_offset = 0
         self.total_chunks = 0
-        self.ep_silence = np.zeros(S, np.int64)
-        self.ep_emitted = np.zeros(S, bool)
-        self.ep_utt_start = np.zeros(S, np.int64)
+        self.ep_silence = np.zeros(n, np.int64)
+        self.ep_emitted = np.zeros(n, bool)
+        self.ep_utt_start = np.zeros(n, np.int64)
         # (stream, end_idx) with end_idx taken at fire time, so that later
         # emissions never leak into the finished utterance's event
         self._ep_pending: list[tuple[int, int]] = []
@@ -338,17 +363,64 @@ class LockstepEngine:
         # canonical tick size (samples), fixed by the first tick
         self._tick_samples: int | None = None
 
-    # -- host <-> device boundary (the multi-GPU slice overrides these) ------
+    # -- host <-> device boundary (parallel/multihost.py overrides these) ----
+
+    def _dev_rows(self, a: np.ndarray, axis: int = 0) -> np.ndarray:
+        """The device rows of a host array over the host's rows."""
+        if self.mesh is None:
+            return a
+        return np.take(a, np.arange(self._lo, self._hi), axis=axis)
 
     def _put_pcm(self, pcm_i16: np.ndarray) -> torch.Tensor:
-        """Host PCM block [S, N] -> int16 tensor on the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(pcm_i16, np.int16)).to(
-            self.device)
+        """Host PCM block [n_local, N] -> int16 tensor of this rank's rows
+        on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(
+            self._dev_rows(pcm_i16), np.int16)).to(self.device)
 
     def _fetch_block(self, x: torch.Tensor, stream_axis: int) -> np.ndarray:
-        """A device tensor -> numpy rows along `stream_axis` (all of them on
-        one device; a copy, bf16 upcast to f32)."""
+        """A device tensor of this rank's rows -> numpy over the host's
+        rows along `stream_axis` (gathered over the data axis under a mesh;
+        a copy, bf16 upcast to f32)."""
+        if self.mesh is not None:
+            x = mesh_mod.gather_rows(x, self.mesh, stream_axis)
         return npz.to_numpy(x)
+
+    def _unsnap_rows(self, a, dtype, stream_axis: int) -> torch.Tensor:
+        """Inverse of `_fetch_block` for snapshot restore: a snapshot leaf
+        over the host's rows -> a fresh tensor of them on the device (all
+        of them; `_shard_loaded_state` takes this rank's share)."""
+        return npz.to_tensor(a, dtype, self.device)
+
+    def _heads_split(self) -> bool:
+        """Whether the K/V rings hold a rank's share of the heads."""
+        return mesh_mod.rings_split(self.params, self.cc)
+
+    def _shard_loaded_state(self) -> None:
+        """After a load: this rank's rows and heads of the restored device
+        state (a no-op off a mesh)."""
+        if self.mesh is None:
+            return
+        m = self.mesh
+        self.enc_state = mesh_mod.shard_state(self.enc_state, m,
+                                              self._heads_split())
+        self.dec_state = mesh_mod.shard_state(self.dec_state, m)
+        self.front = mesh_mod.shard_state(self.front, m)
+        lo, hi = self._lo, self._hi
+        self.mel_buf = self.mel_buf[lo:hi].clone()
+        if self.tdt_skip is not None:
+            self.tdt_skip = self.tdt_skip[lo:hi].clone()
+
+    def _whole_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """A ring leaf with every head (gathered over the model axis where
+        the rings hold a rank's share)."""
+        if not self._heads_split():
+            return x
+        return mesh_mod.gather_along(x, 2, self.mesh.model_group,
+                                     self.mesh.model, self.mesh.model_index)
+
+    def _writes_snapshot(self) -> bool:
+        """Whether this rank writes the snapshot file (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # -- the tick ------------------------------------------------------------
 
@@ -364,7 +436,7 @@ class LockstepEngine:
         for `_collect`: result is (tokens, confs or None) for greedy RNN-T
         and TDT, (ids, log-posteriors or None) for CTC, None for a
         beam."""
-        assert pcm_i16.shape[0] == self.n_streams
+        assert pcm_i16.shape[0] == self.n_local
         cap = self.mel_buf.shape[1]
         f = frames_after(self.front.residue.shape[1], pcm_i16.shape[1],
                          self.pcfg)
@@ -432,12 +504,12 @@ class LockstepEngine:
             if self.ctc:
                 emitted = ctc_mod.collapse_chunk(
                     first[i].astype(np.int64), self.ctc_prev,
-                    range(self.n_streams), self.cfg.blank_token,
+                    range(self.n_local), self.cfg.blank_token,
                     base + i * V, None if second is None else second[i])
             else:
                 emitted = dec_mod.extract_emitted(
                     first[i], self.cfg.blank_token,
-                    np.full(self.n_streams, base + i * V, np.int64),
+                    np.full(self.n_local, base + i * V, np.int64),
                     confs=None if second is None else second[i])
             for s, toks in emitted.items():
                 self.tokens[s].extend(toks)
@@ -466,11 +538,12 @@ class LockstepEngine:
         self.ep_emitted[fired] = False
         self.ep_silence[fired] = 0
         if self._ep_reset:
-            mask = torch.zeros(self.n_streams, dtype=torch.bool,
-                               device=self.device)
-            mask[torch.from_numpy(fired).to(self.device)] = True
-            self.dec_state = _reset_decoder_slots(self.dec_state, mask,
-                                                  self.cfg.blank_token)
+            mask = np.zeros(self.n_local, bool)
+            mask[fired] = True
+            self.dec_state = _reset_decoder_slots(
+                self.dec_state,
+                torch.from_numpy(self._dev_rows(mask)).to(self.device),
+                self.cfg.blank_token)
 
     def poll_endpoints(self) -> list[tuple[int, str, list]]:
         """Drain the utterance-endpoint events: one (stream, text, tokens)
@@ -551,10 +624,13 @@ class LockstepEngine:
         self.flush_pipeline()
         self.refresh_transcripts()
         fetch = self._fetch_block
-        flat = {f"enc/{k}": fetch(getattr(self.enc_state, k),
-                                  0 if k in ("valid_len", "phase") else 1)
-                for k in ("k_cache", "v_cache", "k_scale", "v_scale",
-                          "conv_cache", "valid_len", "phase")}
+        heads = ("k_cache", "v_cache", "k_scale", "v_scale")
+        flat = {f"enc/{k}": fetch(
+            self._whole_heads(getattr(self.enc_state, k)) if k in heads
+            else getattr(self.enc_state, k),
+            0 if k in ("valid_len", "phase") else 1)
+            for k in ("k_cache", "v_cache", "k_scale", "v_scale",
+                      "conv_cache", "valid_len", "phase")}
         flat |= {f"dec/{k}": fetch(getattr(self.dec_state, k), 0)
                  for k in ("h", "c", "prev_token")}
         flat |= {
@@ -578,9 +654,12 @@ class LockstepEngine:
             flat["ep/utt_start"] = self.ep_utt_start
             flat["ep/pending"] = np.asarray(self._ep_pending,
                                             np.int64).reshape(-1, 2)
-        for s in range(self.n_streams):
+        for s in range(self.n_local):
             flat[f"tokens/{s}"] = token_rows(self.tokens[s], self.confidence)
-        npz.savez(path, flat)
+        if self._writes_snapshot():
+            npz.savez(path, flat)
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def load(self, path: str) -> None:
         """Restore a snapshot written by `save` (or by the JAX engine):
@@ -589,28 +668,27 @@ class LockstepEngine:
         greedy against beam, width, LM fusion, beam family) raises
         ValueError."""
         z = npz.NpzView(np.load(path, allow_pickle=True))
-        if len(z["dec/prev_token"]) != self.n_streams:
+        if len(z["dec/prev_token"]) != self.n_local:
             raise ValueError(
                 f"snapshot holds {len(z['dec/prev_token'])} stream rows, "
-                f"engine owns {self.n_streams}")
+                f"engine owns {self.n_local}")
         beam_state = check_engine_snapshot(z, self.beam_size, self.lm,
                                            self.dtype, self.device,
                                            self.ctc, self.tdt)
+        un = self._unsnap_rows
         self.enc_state, self.dec_state = restore_states(
-            z, self.cc, self.dtype, self.device)
+            z, self.cc, self.dtype, self.device, put=un)
         self.beam_state = beam_state
         self._beam_dirty = beam_state is not None
         if self.tdt:
-            self.tdt_skip = npz.to_tensor(z["tdt_skip"], torch.int32,
-                                          self.device)
+            self.tdt_skip = un(z["tdt_skip"], torch.int32, 0)
         if self.ctc:
             self.ctc_prev = z["ctc_prev"].astype(np.int64)
         f32 = torch.float32
         self.front = FrontendState(
-            last_sample=npz.to_tensor(z["front/last_sample"], f32,
-                                      self.device),
-            residue=npz.to_tensor(z["front/residue"], f32, self.device))
-        self.mel_buf = npz.to_tensor(z["mel_buf"], self.dtype, self.device)
+            last_sample=un(z["front/last_sample"], f32, 0),
+            residue=un(z["front/residue"], f32, 0))
+        self.mel_buf = un(z["mel_buf"], self.dtype, 0)
         self.buf_len = int(z["buf_len"])
         self.frame_offset = int(z["frame_offset"])
         self.total_chunks = int(z["total_chunks"])
@@ -622,8 +700,9 @@ class LockstepEngine:
                                 for s, e in z["ep/pending"].reshape(-1, 2)]
         self.transcripts = [str(t) for t in z["transcripts"]]
         self.tokens = [token_list(z[f"tokens/{s}"])
-                       for s in range(self.n_streams)]
+                       for s in range(self.n_local)]
         self._pending = None
+        self._shard_loaded_state()
 
     def finalize(self) -> list[str]:
         """Flush the pending (non-overlap) mel frames with one zero-padded
@@ -634,6 +713,6 @@ class LockstepEngine:
         if pending > 0:
             need = (self.cc.chunk_mel_frames - self.buf_len) * \
                 self.pcfg.n_window_stride
-            self.tick(np.zeros((self.n_streams,
+            self.tick(np.zeros((self.n_local,
                                 max(need, 0) + self.pcfg.n_fft), np.int16))
         return self.refresh_transcripts()

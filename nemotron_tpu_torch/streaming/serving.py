@@ -1,8 +1,8 @@
 """Many-stream continuous-batching serving engine (RNN-T, TDT and CTC).
 
-The port's counterpart of `nemotron_tpu/streaming/serving.py` without its
-mesh. A fixed slab of `n_slots` stream slots
-keeps its state on the params' device; admission and eviction zero a
+The port's counterpart of `nemotron_tpu/streaming/serving.py`. A fixed
+slab of `n_slots` stream slots keeps its state on the params' device (or,
+under a mesh, each rank its rows of it); admission and eviction zero a
 slot's slices (the reference's reset semantics, src/nemo-stream.cpp:81-101,
 per slot).
 
@@ -42,6 +42,7 @@ from ..models import ctc as ctc_mod
 from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..models.lm import lm_to_device
+from ..parallel import mesh as mesh_mod
 from ..params import ModelParams, cast_params
 from ..utils import npz
 from ..utils.text import tokens_to_text
@@ -171,13 +172,6 @@ def _reset_beam_slots(beam_state, mask: np.ndarray, blank_token: int):
     return beam_state
 
 
-def _reset_slot(enc_state, dec_state, slot: int, blank_token: int):
-    """_reset_slots for one slot."""
-    mask = np.zeros(enc_state.valid_len.shape[0], bool)
-    mask[slot] = True
-    return _reset_slots(enc_state, dec_state, mask, blank_token)
-
-
 def _reset_decoder_slots(dec_state, mask: torch.Tensor, blank_token: int):
     """A fresh prediction network for the masked slots. Utterance
     endpointing resets only the decoder (LSTM h/c and prev_token): the
@@ -231,7 +225,8 @@ def _mel_buf_shift(cc: CacheConfig, mel_buf, consume_mask):
 def _device_dsp_tick(cc: CacheConfig, pcfg: PreprocessorConfig, pcm_i16,
                      front_res, front_last, mel_buf, window, filterbank,
                      dsp_mask: np.ndarray, fresh_mask: np.ndarray,
-                     consume_mask: np.ndarray, decode):
+                     consume_mask: np.ndarray, decode,
+                     any_consume: bool | None = None):
     """One ragged tick with the DSP on the device
     (nemotron_tpu/streaming/serving.py:269-496): the DSP for every
     DSP-advancing slot, the two-offset mel-buffer insert, then ONE masked
@@ -245,7 +240,9 @@ def _device_dsp_tick(cc: CacheConfig, pcfg: PreprocessorConfig, pcm_i16,
     (a full chunk is buffered after the insert). Frozen slots' DSP state,
     mel buffer, caches and decoder state pass through unchanged. A tick in
     which no slot consumes runs no encoder (result None): a fully masked
-    chunk step changes nothing. Returns (decode's result, front_res,
+    chunk step changes nothing. `any_consume` overrides that test (a mesh
+    rank's masks hold its rows only, and every rank must run the step
+    when any row consumes). Returns (decode's result, front_res,
     front_last, mel_buf)."""
     dev = mel_buf.device
     dsp_m, fresh_m, consume_m = (torch.from_numpy(m).to(dev) for m in
@@ -254,7 +251,7 @@ def _device_dsp_tick(cc: CacheConfig, pcfg: PreprocessorConfig, pcm_i16,
         cc, pcfg, pcm_i16, front_res, front_last, mel_buf, window,
         filterbank, dsp_m, fresh_m)
     result = None
-    if consume_mask.any():
+    if consume_mask.any() if any_consume is None else any_consume:
         result = decode(mel_buf[:, :cc.chunk_mel_frames], consume_m)
         mel_buf = _mel_buf_shift(cc, mel_buf, consume_m)
     return result, front_res, front_last, mel_buf
@@ -311,9 +308,26 @@ class ServingEngine:
     A TDT checkpoint decodes with the duration-aware walk (each slot
     carries its jump overshoot, `tdt_skip`) or beam; ctc=True decodes a
     hybrid checkpoint with its CTC head (the collapse carry `ctc_prev` on
-    the host). A device mesh (the multi-GPU slice) and dsp="native" (the
-    native-bindings slice) come with later slices of the port and raise
-    NotImplementedError."""
+    the host). dsp="native" (the native-bindings slice) comes with a later
+    slice of the port and raises NotImplementedError.
+
+    mesh (parallel.mesh.Mesh): every rank of the mesh builds the engine
+    with the same arguments, is given the same calls and keeps the whole
+    host state, as a process of a JAX multi-controller run does
+    (nemotron_tpu/streaming/serving.py:636-647). The data axis splits the
+    slot rows of the device work (each rank holds its rows' caches,
+    decoder state and device DSP state); the model axis splits the
+    encoder's FFNs and heads (parallel.mesh.shard_params). Tokens (and
+    confidences, CTC ids) are gathered over the data axis each step, so
+    every rank's `tokens`, `transcripts` and events equal the unsharded
+    engine's. The decoder and joint stay whole, so the greedy loop's host
+    syncs involve no collective. Every rank of a model group must issue
+    the same sequence of encoder calls: the ragged decisions (admission,
+    realign, the finalize loops, endpointing) are made from the host
+    state, which is the same on every rank by construction, and a tick
+    that steps any slot runs the chunk step on every rank (its rows
+    masked where none of them is ready). Beam decode is not wired on a
+    mesh (NotImplementedError)."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -338,9 +352,8 @@ class ServingEngine:
                                                   beam_size, endpoint_reset)
         if endpoint_silence_s is not None and beam_size > 1:
             raise ValueError("endpointing requires greedy decode")
-        if mesh is not None:
-            raise NotImplementedError("a device mesh comes with the "
-                                      "multi-GPU slice of the port")
+        if mesh is not None and beam_size > 1:
+            raise NotImplementedError("beam decode is not wired on a mesh")
         if dsp == "native":
             raise NotImplementedError("the native frontend comes with the "
                                       "utils and native-bindings slice of "
@@ -353,6 +366,12 @@ class ServingEngine:
         self.vocab = vocab or []
         self.n_slots = n_slots
         self.dtype = compute_dtype
+        # the device rows [lo, hi) this rank holds (all of them off a mesh)
+        self.mesh = mesh
+        self._lo, self._hi = (0, n_slots) if mesh is None else \
+            mesh.row_span(n_slots)
+        if mesh is not None:
+            params = mesh_mod.shard_params(params, mesh)
         self.device = params.device
         self.confidence = bool(confidence)
         self.beam_size = beam_size
@@ -388,13 +407,15 @@ class ServingEngine:
                              * self.cc.hop_length)
 
         dev = self.device
+        B = self._hi - self._lo
         self.params = cast_params(params, compute_dtype)
         self.pos_heads = enc_mod.precompute_pos_heads(
             self.params, cfg, self.cc, compute_dtype)
-        self.enc_state = enc_mod.init_encoder_state(cfg, self.cc, n_slots,
-                                                    compute_dtype, dev)
-        self.dec_state = dec_mod.init_decoder_state(cfg, n_slots,
-                                                    compute_dtype, dev)
+        self.enc_state = enc_mod.init_encoder_state(
+            cfg, self.cc, B, compute_dtype, dev,
+            n_heads=enc_mod.local_heads(self.params, cfg))
+        self.dec_state = dec_mod.init_decoder_state(cfg, B, compute_dtype,
+                                                    dev)
         # beam mode: K hypotheses a slot (the server reads beam_state to
         # pick its PARTIAL semantics); transcripts are rebuilt from it
         # lazily, once a tick has advanced it (_beam_dirty)
@@ -405,8 +426,8 @@ class ServingEngine:
                                         max_beam_tokens, compute_dtype, dev,
                                         lm=self.lm)
         # the TDT jump carry (device) and the CTC collapse carry (host)
-        self.tdt_skip = (torch.zeros((n_slots,), dtype=torch.int32,
-                                     device=dev) if self.tdt else None)
+        self.tdt_skip = (torch.zeros((B,), dtype=torch.int32, device=dev)
+                         if self.tdt else None)
         self.ctc_prev = np.full(n_slots, -1, np.int64) if self.ctc else None
 
         fb = params.preprocessor.filterbank.float().cpu().numpy()
@@ -441,11 +462,11 @@ class ServingEngine:
                 pad_window(win, pcfg.n_fft)).to(dev)
             self._filterbank = torch.from_numpy(fb).to(dev)
             cap = self.cc.chunk_mel_frames + self.cc.shift_mel_frames - 1
-            self.front_res = torch.zeros((n_slots, self._RCAP),
+            self.front_res = torch.zeros((B, self._RCAP),
                                          dtype=torch.float32, device=dev)
-            self.front_last = torch.zeros((n_slots,), dtype=torch.float32,
+            self.front_last = torch.zeros((B,), dtype=torch.float32,
                                           device=dev)
-            self.mel_buf_dev = torch.zeros((n_slots, cap, cfg.n_mels),
+            self.mel_buf_dev = torch.zeros((B, cap, cfg.n_mels),
                                            dtype=compute_dtype, device=dev)
             # host bookkeeping: per-slot PCM FIFOs, mel fill levels and the
             # first-quantum flag
@@ -484,6 +505,29 @@ class ServingEngine:
         self.phase_counter = 0
         self.slot_phase = np.zeros(n_slots, np.int64)
 
+    # -- the rows of the device work (a mesh rank holds its rows only) -------
+
+    def _rows(self, a: np.ndarray) -> np.ndarray:
+        """This rank's rows of a host array over every slot."""
+        return a[self._lo:self._hi]
+
+    def _row(self, slot: int) -> int | None:
+        """A slot's row in the device state, None where another rank holds
+        it."""
+        return slot - self._lo if self._lo <= slot < self._hi else None
+
+    def _whole(self, x: torch.Tensor) -> np.ndarray:
+        """A per-slot device tensor of this rank's rows -> numpy over every
+        slot (gathered over the data axis under a mesh; bf16 upcast to
+        f32)."""
+        if self.mesh is not None:
+            x = mesh_mod.gather_rows(x, self.mesh)
+        return npz.to_numpy(x)
+
+    def _heads_split(self) -> bool:
+        """Whether the K/V rings hold a rank's share of the heads."""
+        return mesh_mod.rings_split(self.params, self.cc)
+
     def _fresh_mel_buffer(self) -> _MelBuffer:
         # 9-frame zero-seeded overlap (reference src/nemo-stream.cpp:58-60)
         return _MelBuffer(np.zeros(
@@ -491,9 +535,11 @@ class ServingEngine:
 
     def _dsp_reset(self, slot: int) -> None:
         if self.dsp_mode == "device":
-            self.front_res[slot] = 0.0
-            self.front_last[slot] = 0.0
-            self.mel_buf_dev[slot] = 0
+            r = self._row(slot)
+            if r is not None:
+                self.front_res[r] = 0.0
+                self.front_last[r] = 0.0
+                self.mel_buf_dev[r] = 0
             self.pcm_fifos[slot] = _PcmBuffer()
             self.mel_fill[slot] = self.cc.pre_encode_cache_size
             self.fresh[slot] = True
@@ -521,7 +567,8 @@ class ServingEngine:
         mask = np.zeros(self.n_slots, bool)
         mask[slots] = True
         self.enc_state, self.dec_state = _reset_slots(
-            self.enc_state, self.dec_state, mask, self.cfg.blank_token)
+            self.enc_state, self.dec_state, self._rows(mask),
+            self.cfg.blank_token)
         self._reset_decode_carries(mask)
         for s in slots:
             s = int(s)
@@ -599,16 +646,17 @@ class ServingEngine:
             self.beam_state = _reset_beam_slots(self.beam_state, mask,
                                                 self.cfg.blank_token)
         if self.tdt_skip is not None:
-            self.tdt_skip.index_fill_(
-                0, torch.from_numpy(np.flatnonzero(mask)).to(self.device), 0)
+            self.tdt_skip.index_fill_(0, torch.from_numpy(np.flatnonzero(
+                self._rows(mask))).to(self.device), 0)
         if self.ctc_prev is not None:
             self.ctc_prev[mask] = -1
 
     def _clear_slot(self, slot: int) -> None:
-        self.enc_state, self.dec_state = _reset_slot(
-            self.enc_state, self.dec_state, slot, self.cfg.blank_token)
         mask = np.zeros(self.n_slots, bool)
         mask[slot] = True
+        self.enc_state, self.dec_state = _reset_slots(
+            self.enc_state, self.dec_state, self._rows(mask),
+            self.cfg.blank_token)
         self._reset_decode_carries(mask)
         self._dsp_reset(slot)
         self.mel_buffers[slot] = self._fresh_mel_buffer()
@@ -676,14 +724,17 @@ class ServingEngine:
             if self.slot_phase[s] != self.phase_counter:
                 delta = int((self.phase_counter - self.slot_phase[s])
                             % self.n_seg)
-                self.enc_state = enc_mod.realign_ring(
-                    self.enc_state, int(s), delta, self.cc.chunk_enc_len)
+                r = self._row(int(s))
+                if r is not None:
+                    self.enc_state = enc_mod.realign_ring(
+                        self.enc_state, r, delta, self.cc.chunk_enc_len)
                 self.slot_phase[s] = self.phase_counter
 
     def _decode(self, chunk: torch.Tensor, mask: torch.Tensor):
         """ONE masked chunk step of the engine's decode family over all
-        slots (`mask` [S] bool on the device: the advancing ones), the
-        device state updated. Returns its host half: (tokens [S, T, MAX],
+        slots (a mesh rank's rows; `mask` [S] bool on the device: the
+        advancing ones), the device state updated. Returns its host half
+        over every slot: (tokens [S, T, MAX],
         confs or None) for greedy RNN-T and TDT, (ids [S, T], log-posteriors
         or None) for CTC, None for a beam (its transcripts are refreshed
         lazily; the device is synchronized, so the tick's time covers its
@@ -720,8 +771,7 @@ class ServingEngine:
                                     with_confidence=self.confidence)
             out, self.enc_state, self.dec_state = res[:3]
             extra = res[3] if self.confidence else None
-        return (out.cpu().numpy(),
-                None if extra is None else extra.cpu().numpy())
+        return self._whole(out), None if extra is None else self._whole(extra)
 
     def _emit(self, result, slots: np.ndarray, out: dict[int, str]) -> dict:
         """Append each advancing slot's emitted tokens and text from a
@@ -800,7 +850,8 @@ class ServingEngine:
             mask = np.zeros(self.n_slots, bool)
             mask[fired] = True
             self.dec_state = _reset_decoder_slots(
-                self.dec_state, torch.from_numpy(mask).to(self.device),
+                self.dec_state,
+                torch.from_numpy(self._rows(mask)).to(self.device),
                 self.cfg.blank_token)
 
     def poll_endpoints(self, with_audio: bool = False):
@@ -843,8 +894,9 @@ class ServingEngine:
             self._realign(ready_slots)
             # cast to the compute dtype on the HOST, so that a bf16 upload
             # ships 2 bytes an element (the tick's largest upload)
-            chunk = torch.from_numpy(chunk_np).to(self.dtype).to(self.device)
-            mask = torch.from_numpy(ready).to(self.device)
+            chunk = torch.from_numpy(self._rows(chunk_np)).to(self.dtype).to(
+                self.device)
+            mask = torch.from_numpy(self._rows(ready)).to(self.device)
             t0 = time.perf_counter()
             result = self._decode(chunk, mask)
             self.step_times.append(time.perf_counter() - t0)
@@ -888,13 +940,14 @@ class ServingEngine:
             pcm = np.zeros((S, self._quantum), np.int16)
             for s in np.flatnonzero(dsp):
                 pcm[s] = self.pcm_fifos[s].take(self._quantum)
-            pcm = torch.from_numpy(pcm).to(self.device)
+            pcm = torch.from_numpy(self._rows(pcm)).to(self.device)
             t0 = time.perf_counter()
             (result, self.front_res, self.front_last,
              self.mel_buf_dev) = _device_dsp_tick(
                 cc, self._pcfg, pcm, self.front_res, self.front_last,
-                self.mel_buf_dev, self._window, self._filterbank, dsp, fresh,
-                consume, self._decode)
+                self.mel_buf_dev, self._window, self._filterbank,
+                self._rows(dsp), self._rows(fresh), self._rows(consume),
+                self._decode, any_consume=bool(consume.any()))
             if not consume.any():               # a DSP-only tick
                 self._sync()
             self.step_times.append(time.perf_counter() - t0)
@@ -930,18 +983,23 @@ class ServingEngine:
 
     # -- checkpoint / resume ---------------------------------------------------
 
-    def _dsp_state(self, slot: int) -> dict:
+    def _dsp_state(self, slot: int, front=None) -> dict:
+        """A slot's DSP state; `front` (device DSP): (residue, last_sample)
+        of every slot, fetched once."""
         if self.dsp_mode == "device":
-            return {"last_sample": npz.to_numpy(self.front_last[slot])[None],
-                    "residue": npz.to_numpy(self.front_res[slot])[None]}
+            res, last = front
+            return {"last_sample": last[slot:slot + 1],
+                    "residue": res[slot:slot + 1]}
         return self.preprocs[slot].state_dict()
 
     def _dsp_load_state(self, slot: int, st: dict) -> None:
         if self.dsp_mode == "device":
-            self.front_res[slot] = torch.from_numpy(
-                np.asarray(st["residue"], np.float32).ravel().copy())
-            self.front_last[slot] = float(
-                np.asarray(st["last_sample"]).ravel()[0])
+            r = self._row(slot)
+            if r is not None:
+                self.front_res[r] = torch.from_numpy(
+                    np.asarray(st["residue"], np.float32).ravel().copy())
+                self.front_last[r] = float(
+                    np.asarray(st["last_sample"]).ravel()[0])
         else:
             self.preprocs[slot].load_state_dict(st)
 
@@ -950,7 +1008,9 @@ class ServingEngine:
         admission map, endpointing, transcripts) as an .npz with the JAX
         package's keys (nemotron_tpu/streaming/serving.py:1351-1425).
         Restoring into a fresh engine with the same n_slots, cache config
-        and DSP mode resumes every active stream exactly.
+        and DSP mode resumes every active stream exactly. On a mesh every
+        rank calls it with the same path: the rows and heads are gathered,
+        and rank 0 writes the file the unsharded engine writes.
 
         Device DSP (`devdsp/*`): the device mel buffer, its fill levels,
         the first-quantum flags and the PCM FIFOs, as the JAX engine's. The
@@ -961,10 +1021,14 @@ class ServingEngine:
         its current best hypotheses); a TDT engine its tdt_skip, a CTC
         engine its ctc_prev."""
         self.refresh_transcripts()
-        flat = {f"enc/{k}": getattr(self.enc_state, k)
+        enc, dec = self.enc_state, self.dec_state
+        if self.mesh is not None:
+            enc = mesh_mod.gather_state(enc, self.mesh, self._heads_split())
+            dec = mesh_mod.gather_state(dec, self.mesh)
+        flat = {f"enc/{k}": getattr(enc, k)
                 for k in ("k_cache", "v_cache", "conv_cache", "valid_len",
                           "phase", "k_scale", "v_scale")}
-        flat |= {f"dec/{k}": getattr(self.dec_state, k)
+        flat |= {f"dec/{k}": getattr(dec, k)
                  for k in ("h", "c", "prev_token")}
         flat |= {
             "active": self.active,
@@ -976,7 +1040,7 @@ class ServingEngine:
         if self.beam_state is not None:
             flat |= beam_leaves(self.beam_state)
         if self.tdt_skip is not None:
-            flat["tdt_skip"] = self.tdt_skip
+            flat["tdt_skip"] = self._whole(self.tdt_skip)
         if self.ctc_prev is not None:
             flat["ctc_prev"] = self.ctc_prev
         if self._ep_frames is not None:
@@ -995,14 +1059,16 @@ class ServingEngine:
                 flat[f"seg/pcm/{s}"] = sb.compact()
                 flat[f"seg/meta/{s}"] = np.asarray(
                     [sb.abs0, int(sb.truncated)], np.int64)
+        front = ((self._whole(self.front_res), self._whole(self.front_last))
+                 if self.dsp_mode == "device" else None)
         for s in range(self.n_slots):
-            pp = self._dsp_state(s)
+            pp = self._dsp_state(s, front)
             flat[f"preproc/last_sample/{s}"] = pp["last_sample"]
             flat[f"preproc/residue/{s}"] = pp["residue"]
             flat[f"mel_buffer/{s}"] = self.mel_buffers[s].compact()
             flat[f"tokens/{s}"] = token_rows(self.tokens[s], self.confidence)
         if self.dsp_mode == "device":
-            flat["devdsp/mel_buf"] = self.mel_buf_dev
+            flat["devdsp/mel_buf"] = self._whole(self.mel_buf_dev)
             flat["devdsp/mel_fill"] = self.mel_fill
             flat["devdsp/fresh"] = self.fresh
             for s in range(self.n_slots):
@@ -1010,7 +1076,10 @@ class ServingEngine:
                 flat[f"devdsp/fifo/{s}"] = (
                     np.concatenate(fifo.parts) if fifo.parts
                     else np.zeros(0, np.int16))
-        npz.savez(path, flat)
+        if self.mesh is None or self.mesh.rank == 0:
+            npz.savez(path, flat)
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     def load(self, path: str) -> None:
         """Restore a snapshot written by `save` (or by the JAX engine) into
@@ -1031,11 +1100,15 @@ class ServingEngine:
                              "buffer/fill state")
         self.enc_state, self.dec_state = restore_states(
             z, self.cc, self.dtype, self.device)
+        if self.mesh is not None:
+            self.enc_state = mesh_mod.shard_state(
+                self.enc_state, self.mesh, self._heads_split())
+            self.dec_state = mesh_mod.shard_state(self.dec_state, self.mesh)
         self.beam_state = beam_state
         self._beam_dirty = beam_state is not None
         if self.tdt:
-            self.tdt_skip = npz.to_tensor(z["tdt_skip"], torch.int32,
-                                          self.device)
+            self.tdt_skip = npz.to_tensor(self._rows(z["tdt_skip"]),
+                                          torch.int32, self.device)
         if self.ctc:
             self.ctc_prev = z["ctc_prev"].astype(np.int64)
         self.active = z["active"].astype(bool)
@@ -1074,8 +1147,8 @@ class ServingEngine:
                 s, {"last_sample": z[f"preproc/last_sample/{s}"],
                     "residue": z[f"preproc/residue/{s}"]})
         if self.dsp_mode == "device":
-            self.mel_buf_dev = npz.to_tensor(z["devdsp/mel_buf"], self.dtype,
-                                             self.device)
+            self.mel_buf_dev = npz.to_tensor(self._rows(z["devdsp/mel_buf"]),
+                                             self.dtype, self.device)
             self.mel_fill = z["devdsp/mel_fill"].astype(np.int64)
             self.fresh = z["devdsp/fresh"].astype(bool)
             self.pcm_fifos = [_PcmBuffer() for _ in range(self.n_slots)]

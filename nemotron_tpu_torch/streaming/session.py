@@ -620,19 +620,26 @@ class StreamSession:
         return self.total_compute_seconds / self.total_audio_seconds
 
 
-def restore_states(st, cc: CacheConfig, dtype: torch.dtype, device):
+def restore_states(st, cc: CacheConfig, dtype: torch.dtype, device,
+                   put=None):
     """(EncoderState, DecoderState) from a snapshot's enc/* and dec/*
     leaves: the rings in int8 when quantized (int8 or packed int4), else
-    in `dtype`, as fresh tensors on `device`."""
+    in `dtype`, as fresh tensors on `device`. put(array, dtype,
+    stream_axis): how a leaf becomes a tensor (default: the whole array
+    on `device`)."""
+    if put is None:
+        def put(a, t, _axis):
+            return npz.to_tensor(a, t, device)
     ring = torch.int8 if cc.kv_quant_max is not None else dtype
     f32, i32 = torch.float32, torch.int32
     enc = enc_mod.EncoderState(**{
-        k: npz.to_tensor(st[f"enc/{k}"], t, device) for k, t in (
+        k: put(st[f"enc/{k}"], t, 0 if k in ("valid_len", "phase") else 1)
+        for k, t in (
             ("k_cache", ring), ("v_cache", ring), ("k_scale", f32),
             ("v_scale", f32), ("conv_cache", dtype), ("valid_len", i32),
             ("phase", i32))})
     dec = dec_mod.DecoderState(**{
-        k: npz.to_tensor(st[f"dec/{k}"], t, device) for k, t in (
+        k: put(st[f"dec/{k}"], t, 0) for k, t in (
             ("h", dtype), ("c", dtype), ("prev_token", i32))})
     return enc, dec
 

@@ -12,6 +12,7 @@ lines:
         [--long-gap-prob P] [--delay-penalty L] [--ctc-weight W]
         [--tdt-durations 0,1,2,3] [--tdt-sigma S] [--val N]
         [--prefetch K] [--att-chunks 14,1] [--eval-every N] [--seed S]
+        [--model-parallel M]
 
   - --random trains seeded random weights of the --config size (full,
     the 0.6B model, by default; Glorot init for --task tones); a GGUF is
@@ -28,8 +29,14 @@ lines:
     a linear warmup then a cosine to 0.1 lr (training.make_optimizer).
   - --checkpoint writes the train state every --eval-every steps and at
     the end (the port's own file layout); --resume continues from one.
-  - runs on the card unless --cpu is given; --model-parallel above 1
-    comes with the multi-GPU slice of this port and exits 1.
+  - runs on the card unless --cpu is given.
+  - the step runs over a mesh of every rank of the world (parallel/
+    mesh.py): one rank, or the ranks a launcher such as
+    `python -m torch.distributed.run --nproc-per-node N` starts (RANK,
+    WORLD_SIZE and MASTER_ADDR/PORT in the environment; one card a rank,
+    or the CPU under --cpu); --model-parallel M splits the encoder over
+    M of them where M divides the rank count, else 1 (scripts/train.py's
+    rule), the batch rows over the rest. Rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -129,15 +136,33 @@ def ter_on_batch(params, cfg, batch: dict, att_chunk=None,
     return dist / max(tot, 1)
 
 
+def join_world(device: str) -> tuple[int, int]:
+    """(ranks, this rank) of the world a launcher started (RANK and
+    WORLD_SIZE in the environment), joined here; (1, 0) without one."""
+    import os
+
+    n = int(os.environ.get("WORLD_SIZE", "1"))
+    if n < 2:
+        return 1, 0
+    from .parallel.mesh import backend_for, init_world
+
+    rank = int(os.environ["RANK"])
+    init_world("env://", n, rank, backend_for(n, device))
+    if device == "cpu":     # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    return n, rank
+
+
 def main(argv: list[str]) -> int:
     from .asr_server import flag_value as opt
 
     def opt_val(name, default, cast):
         return opt(argv, name, default, cast)
 
-    if opt_val("--model-parallel", 1, int) > 1:
-        print("error: --model-parallel comes with the multi-GPU slice of "
-              "this port", file=sys.stderr)
+    mp = opt_val("--model-parallel", 1, int)
+    if mp < 1:
+        print(f"error: --model-parallel {mp}: the model axis needs at "
+              "least one rank", file=sys.stderr)
         return 1
     device = "cpu" if "--cpu" in argv else "cuda"
     steps = opt_val("--steps", 20, int)
@@ -149,10 +174,24 @@ def main(argv: list[str]) -> int:
     from . import params as P
     from .config import CacheConfig
     from .device import resolve_device
+    from .parallel.mesh import make_mesh, shard_params
     from .training import (load_train_state, make_optimizer,
                            make_train_step, save_train_state, trainable)
 
+    n_ranks, rank = join_world(device)
+    if device == "cuda":
+        device = f"cuda:{rank % max(torch.cuda.device_count(), 1)}"
     dev = resolve_device(device)
+    mesh = make_mesh(model_parallel=mp if n_ranks % mp == 0 else 1,
+                     device=dev)
+    if batch % mesh.data:
+        print(f"error: --batch {batch} not divisible by the data axis "
+              f"({mesh.data})", file=sys.stderr)
+        return 1
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, file=sys.stderr, flush=True)
     ctc_w = opt_val("--ctc-weight", 0.0, float)
     if argv[1:] and argv[1] == "--random":
         cfg = config_of(opt_val("--config", "full", str))
@@ -207,8 +246,8 @@ def main(argv: list[str]) -> int:
                                  n_tones, fb, win, cfg.n_mels,
                                  seed=seed + 999983, device="cpu")
         if pool_n:
-            print(f"rendering tones pool: {pool_n} utts x {utt_tones} "
-                  f"tones of {n_tones}", file=sys.stderr)
+            say(f"rendering tones pool: {pool_n} utts x {utt_tones} "
+                f"tones of {n_tones}")
             pool = tones.make_dataset(pool_n, utt_tones, n_tones, fb, win,
                                       cfg.n_mels, seed=seed, device="cpu")
         # streaming-equivalent chunked attention (encoder frames a chunk):
@@ -222,9 +261,9 @@ def main(argv: list[str]) -> int:
 
     if arrays is not None:
         params = P.params_from_arrays(arrays, cfg, device=dev)
-    params = trainable(params)
-    print(f"device: {dev}, batch {batch}, task {task}, "
-          f"att_chunks {att_chunks}", file=sys.stderr)
+    params = trainable(shard_params(params, mesh))
+    say(f"devices: {n_ranks}, mesh {mesh.shape}, batch {batch}, task "
+        f"{task}, att_chunks {att_chunks}")
 
     opt_, sched = make_optimizer(params, lr, steps)
     # default 0: on the tones task lambda = 0.05 stalls training (the
@@ -242,7 +281,7 @@ def main(argv: list[str]) -> int:
                                    att_chunk=c, delay_penalty=delay_pen,
                                    ctc_weight=ctc_w,
                                    tdt_sigma=opt_val("--tdt-sigma", 0.05,
-                                                     float))
+                                                     float), mesh=mesh)
                 for c in att_chunks}
 
     execs: list = []
@@ -289,7 +328,7 @@ def main(argv: list[str]) -> int:
         if "--resume" in argv:
             ck = argv[argv.index("--resume") + 1]
             start = load_train_state(ck, params, opt_, sched)
-            print(f"resumed from {ck} at step {start}", file=sys.stderr)
+            say(f"resumed from {ck} at step {start}")
 
         ck = (argv[argv.index("--checkpoint") + 1]
               if "--checkpoint" in argv else None)
@@ -310,7 +349,7 @@ def main(argv: list[str]) -> int:
                         ter = ter_on_batch(params, cfg, val,
                                            att_chunk=att_chunks[0], ctc=True)
                         msg += f"  ctc TER {ter * 100:.2f}%"
-                print(msg, file=sys.stderr, flush=True)
+                say(msg)
                 if ck is not None and i > start:
                     # a periodic snapshot (written then renamed) so a long
                     # run survives a crash
@@ -321,7 +360,7 @@ def main(argv: list[str]) -> int:
 
     if ck is not None:
         save_train_state(ck, params, opt_, sched, step=steps)
-        print(f"checkpointed to {ck}", file=sys.stderr)
+        say(f"checkpointed to {ck}")
 
     if "--save" in argv:
         out = argv[argv.index("--save") + 1]
@@ -329,7 +368,7 @@ def main(argv: list[str]) -> int:
         vocab = tones_vocab(n_tones, cfg.vocab_size) if task == "tones" \
             else None
         P.save_model(out, params, cfg, vocab=vocab)
-        print(f"saved trained weights to {out}", file=sys.stderr)
+        say(f"saved trained weights to {out}")
     return 0
 
 

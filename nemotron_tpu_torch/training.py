@@ -8,6 +8,13 @@ prediction network over label prefixes, the joint over the whole
 and the optimizer of `scripts/train.py`: global-norm clipping, AdamW with
 optax's defaults and a warmup-cosine schedule.
 
+Over a mesh (parallel/mesh.py; JAX training.py:6-8, 205 under GSPMD) the
+batch rows split over the data axis and the encoder's FFNs and heads over
+the model axis: the layers sum their partial products over the model axis
+(forward and backward, parallel/collectives.py), the gradients are summed
+over the data axis, the global norm counts a split leaf's shards once
+each and a whole leaf once, and AdamW updates each rank's shards.
+
 Training runs on dense f32 parameters. The port's CUDA kernels (the Q8_0
 and W8A8 matmuls, the ring attention) have no backward, so `loss_fn`
 refuses quantized leaves instead of training through them, and the batch
@@ -31,6 +38,7 @@ from .models.decoder import joint_project_enc
 from .models.encoder import encode_batch
 from .ops.lstm import lstm_step
 from .ops.quant import QTensor, QTensorW8A8
+from .parallel import collectives
 from .params import ModelParams, _containers, flatten, map_leaves
 
 # optax.adamw's defaults, and the weight decay scripts/train.py trains with
@@ -249,38 +257,98 @@ def make_optimizer(params: ModelParams, lr: float, steps: int | None = None):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: list, max_norm: float = CLIP_NORM) -> None:
+def clip_by_global_norm(grads: list, max_norm: float = CLIP_NORM,
+                        split: list | None = None,
+                        group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: each g stays if the global norm
     is below max_norm, else becomes g / norm * max_norm (no epsilon, unlike
-    torch.nn.utils.clip_grad_norm_; no host sync)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    torch.nn.utils.clip_grad_norm_; no host sync). Returns the norm.
+
+    split: which grads are a rank's shard of a leaf split over the model
+    axis `group` (their squares are summed over it; a whole leaf, the same
+    on every rank, counts once)."""
+    sq = [torch.sum(g * g) for g in grads]
+    if split is None:
+        total = sum(sq)
+    else:
+        zero = torch.zeros((), dtype=grads[0].dtype, device=grads[0].device)
+        part = sum((q for q, s in zip(sq, split) if s), zero)
+        collectives.all_sum_(part, group)
+        total = sum((q for q, s in zip(sq, split) if not s), zero) + part
+    norm = torch.sqrt(total)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def batch_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of a batch (every value [B, ...]) over the data
+    axis."""
+    out = {}
+    for k, v in batch.items():
+        lo, hi = mesh.row_span(v.shape[0])
+        out[k] = v[lo:hi]
+    return out
+
+
+def split_flags(params: ModelParams) -> list | None:
+    """For each flatten() leaf, whether it is a rank's shard of a leaf
+    split over the model axis (None for whole parameters)."""
+    tp = params.tp
+    if tp is None:
+        return None
+    return [tp.axes.get(k) is not None for k in flatten(params)]
 
 
 def make_train_step(cfg: ModelConfig, optimizer, scheduler=None,
                     remat: bool = False, att_chunk: int | None = None,
                     delay_penalty: float = 0.0, ctc_weight: float = 0.0,
-                    tdt_sigma: float = 0.05):
+                    tdt_sigma: float = 0.05, mesh=None):
     """step(params, batch) -> loss (a detached scalar tensor; reading it
     is the caller's only host sync), updating in place the leaves the
     optimizer holds: zero the grads, backward, zero grads for leaves the
     loss does not reach (optax sees zeros there, so weight decay still
     applies), clip by global norm 1.0, the optimizer step, the schedule
-    step (nemotron_tpu/training.py:202-230)."""
+    step (nemotron_tpu/training.py:202-230). `step.grad_norm` holds the
+    last step's global norm (before the clip).
+
+    mesh: every rank calls step with the same whole batch and its share
+    of the params (trainable(parallel.mesh.shard_params(...))); the rank
+    trains on its data index's rows, the gradients and the loss are
+    summed over the data axis (each rank's mean weighted 1/data: the
+    whole batch's mean), and the norm is taken over the model axis's
+    shards."""
     leaves = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(params: ModelParams, batch: dict) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            batch = batch_rows(batch, mesh)
         loss = loss_fn(params, cfg, batch, remat=remat, att_chunk=att_chunk,
                        delay_penalty=delay_penalty, ctc_weight=ctc_weight,
                        tdt_sigma=tdt_sigma)
+        if mesh is not None and mesh.data > 1:
+            loss = loss / mesh.data
         loss.backward()
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_by_global_norm([p.grad for p in leaves])
+        grads = [p.grad for p in leaves]
+        if mesh is not None and mesh.data > 1:
+            # one collective for every gradient, and the loss
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [loss.detach().reshape(1)])
+            collectives.all_sum_(flat, mesh.data_group)
+            ofs = 0
+            for g in grads:
+                g.copy_(flat[ofs:ofs + g.numel()].view_as(g))
+                ofs += g.numel()
+            loss = flat[-1]
+        tp = params.tp
+        step.grad_norm = clip_by_global_norm(
+            grads, split=split_flags(params),
+            group=None if tp is None else tp.group)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -292,8 +360,28 @@ def make_train_step(cfg: ModelConfig, optimizer, scheduler=None,
 # -- train state -------------------------------------------------------------
 
 def _structure(params: ModelParams) -> list:
-    return [(k, tuple(v.shape), str(v.dtype))
-            for k, v in flatten(params).items()]
+    """(key, whole shape, dtype) of every leaf (a split leaf's shape is
+    the whole leaf's)."""
+    tp = params.tp
+    out = []
+    for k, v in flatten(params).items():
+        shape = list(v.shape)
+        axis = None if tp is None else tp.axes.get(k)
+        if axis is not None:
+            shape[axis] *= tp.size
+        out.append((k, tuple(shape), str(v.dtype)))
+    return out
+
+
+def _per_leaf(params: ModelParams, opt_state: dict, fn) -> dict:
+    """The optimizer state dict with fn(tensor, key) applied to each
+    per-leaf tensor of the leaf's shape (Adam's moments)."""
+    keys = list(flatten(params))
+    state = {}
+    for i, st in opt_state["state"].items():
+        state[i] = {n: fn(t, keys[i]) if isinstance(t, torch.Tensor)
+                    and t.dim() else t for n, t in st.items()}
+    return dict(opt_state, state=state)
 
 
 def save_train_state(path: str, params: ModelParams, optimizer,
@@ -302,25 +390,36 @@ def save_train_state(path: str, params: ModelParams, optimizer,
     to one file, written to `path`.tmp and renamed, so an interrupted
     write leaves the previous checkpoint whole. The layout is the port's
     own (torch.save); params interchange with the JAX package through
-    save_model / load_model."""
+    save_model / load_model. A rank's share of split params (and of their
+    Adam moments) is gathered over the model axis first, so a mesh writes
+    the file one process writes; every rank calls it, rank 0 writes."""
+    from .parallel.mesh import gather_param, is_writer, sync
+
+    tp = params.tp
     state = {
         "structure": _structure(params),
-        "params": {k: v.detach().to("cpu")
+        "params": {k: gather_param(v.detach(), k, tp).to("cpu")
                    for k, v in flatten(params).items()},
-        "optimizer": optimizer.state_dict(),
+        "optimizer": _per_leaf(params, optimizer.state_dict(),
+                               lambda t, k: gather_param(t, k, tp)),
         "scheduler": None if scheduler is None else scheduler.state_dict(),
         "step": int(step),
     }
-    tmp = path + ".tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
+    if is_writer():
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    sync()
 
 
 def load_train_state(path: str, params: ModelParams, optimizer,
                      scheduler=None) -> int:
-    """Restore a save_train_state checkpoint into `params` (in place),
-    `optimizer` and `scheduler`; returns the step count. A checkpoint of
-    another model or optimizer structure raises ValueError."""
+    """Restore a save_train_state checkpoint into `params` (in place;
+    a rank's share of split ones), `optimizer` and `scheduler`; returns
+    the step count. A checkpoint of another model or optimizer structure
+    raises ValueError."""
+    from .parallel.mesh import slice_param
+
     state = torch.load(path, map_location="cpu", weights_only=True)
     if list(state["structure"]) != _structure(params):
         raise ValueError(f"{path}: checkpoint structure does not match "
@@ -330,10 +429,12 @@ def load_train_state(path: str, params: ModelParams, optimizer,
             len(g["params"]) for g in optimizer.param_groups]:
         raise ValueError(f"{path}: checkpoint structure does not match "
                          "the optimizer")
+    tp = params.tp
     with torch.no_grad():
         for k, v in flatten(params).items():
-            v.copy_(state["params"][k])
-    optimizer.load_state_dict(state["optimizer"])
+            v.copy_(slice_param(state["params"][k], k, tp))
+    optimizer.load_state_dict(_per_leaf(
+        params, state["optimizer"], lambda t, k: slice_param(t, k, tp)))
     if scheduler is not None and state["scheduler"] is not None:
         scheduler.load_state_dict(state["scheduler"])
     return state["step"]

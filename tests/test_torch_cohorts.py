@@ -388,27 +388,37 @@ def test_serve_refuses_later_slices(serve_files, flags, slice_name, capsys):
     the refusal comes before anything loads). The TDT/CTC slice's --ctc is
     ported: on a model without a CTC head the engine refuses it with the
     JAX package's error (tests/test_torch_ctc.py drives it on a hybrid
-    model)."""
+    model). The multi-GPU slice's --mesh and --coordinator are ported
+    (tests/test_torch_multihost.py runs them): here their refusals before
+    anything starts -- streams not divisible by the ranks, and a
+    one-process multihost world."""
     from nemotron_tpu_torch import serve
 
     gguf_path, audio, _ = serve_files
+    extra = {"--mesh": ["--streams", "3"],
+             "--coordinator": ["--num-processes", "1"]}.get(flags[0], [])
     assert serve.main(["serve", gguf_path, audio, "--cpu", "--lockstep",
-                       *flags]) == 1
+                       *flags, *extra]) == 1
     err = capsys.readouterr().err
     if slice_name == "TDT/CTC":
         assert "ctc=True needs a model with a CTC head" in err
         assert "slice" not in err
         return
+    if slice_name == "multi-GPU":
+        assert "slice" not in err
+        assert ("divisible by the ranks" if flags[0] == "--mesh"
+                else "two or more ranks") in err
+        return
     assert slice_name in err and flags[0] in err
 
 
 def test_serve_module_exits_1_on_a_later_flag(serve_files):
-    """The module's exit status, not only main's return value."""
+    """The module's exit status, not only main's return value (--dsp
+    native: the native-bindings slice)."""
     gguf_path, audio, _ = serve_files
-    r = run_serve(gguf_path, audio, "--cpu", "--lockstep", "--coordinator",
-                  "127.0.0.1:1")
+    r = run_serve(gguf_path, audio, "--cpu", "--dsp", "native")
     assert r.returncode == 1
-    assert "multi-GPU" in r.stderr and not r.stdout
+    assert "native-bindings" in r.stderr and not r.stdout
 
 
 def test_serve_rejects_bad_arguments(serve_files, capsys):

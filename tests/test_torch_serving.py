@@ -731,9 +731,19 @@ def check_endpoint_events(events, eng, truth1, truth2):
 def test_engine_refuses_later_slices_and_resolves_auto(tiny, tmp_path):
     _jp, tp, cfg, vocab = tiny
     cc = TCC(**CC_KW, n_mels=cfg.n_mels)
-    for kw in ({"mesh": object()}, {"dsp": "native"}):
-        with pytest.raises(NotImplementedError):
-            TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, **kw)
+    with pytest.raises(NotImplementedError):
+        TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
+                dsp="native")
+    # the multi-GPU slice is ported (tests/test_torch_mesh.py): a one-rank
+    # mesh builds an engine over every slot; a beam on a mesh is refused
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(NotImplementedError, match="beam"):
+        TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, mesh=mesh,
+                beam_size=4)
+    assert TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
+                   mesh=mesh).enc_state.k_cache.shape[1] == 2
     # the TDT/CTC slice is ported (tests/test_torch_tdt.py,
     # tests/test_torch_ctc.py): ctc=True without a CTC head raises the JAX
     # package's ValueError, and a TDT config builds a TDT engine

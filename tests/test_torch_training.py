@@ -681,8 +681,8 @@ def test_train_entry_point_tones_checkpoint_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--random", "--config", "tiny", "--model-parallel", "2"],
-     "multi-GPU slice"),
+    (["--random", "--config", "tiny", "--model-parallel", "0"],
+     "the model axis needs at least one rank"),
     (["--random", "--config", "tiny", "--tdt-durations", "0,1,2",
       "--delay-penalty", "0.01"], "RNN-T lattice only"),
     ([FIXTURE, "--ctc-weight", "0.3"], "needs a model with a CTC head"),
