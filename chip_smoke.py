@@ -184,7 +184,8 @@ Phases (any failure exits non-zero):
      same frames, K = 1 beam against the walk, the host syncs of a chunk;
      the K = 4 TDT beam card against CPU (compare_beams, t and sym equal);
      the 64-slot engine (TDT host DSP, CTC device DSP) and the lockstep
-     engine (8 streams) in both families against solo sessions; readings
+     engine (8 streams) in both families against solo sessions (since
+     slice 18 on the 4-layer cut); readings
      of W8A8 + int8 K/V bf16 (S = 8 chunk ms in the four modes, the
      64-slot engine's tick p50 / p90, a profile and the decode's device
      ms for TDT greedy, TDT beam and CTC). Then the trained fixtures
@@ -227,7 +228,20 @@ Phases (any failure exits non-zero):
      H = 4 of 8, Q8 at (K, N) = (1024, 2048), (2048, 1024), (1024, 512),
      (512, 1024), W8A8 at the FFN's two. No number here is a multi-GPU
      speed: the machine has one card.
- 17. one JSON line of kernel results, the card's name and power limit, and
+ 17. dump tracing, the profiler reader, the native bindings and beam
+     decode on a mesh (slice 18, `--phase utils-native`), at full width,
+     R = 13: (a) NativeGGUF's views equal to the plain reader's bytes and
+     load_model's params equal with and without it; (b) a traced session
+     (8 chunks, f32) bit-equal to an untraced one in tokens, state and
+     launches, its 28 dump files with their shapes, read_dump round trips;
+     (c) `cli --profile=DIR` on the card: step_percentiles counts the
+     chunk steps, each with device time, and the trace holds the ring and
+     Q8 kernels; (d) ServingEngine(dsp="native") at 16 slots: tokens equal
+     to solo native sessions, the native mel within 2e-4 of the numpy
+     backend's, the native DSP's ms a tick beside the device DSP's; (e) a
+     K = 4 beam engine on a one-rank NCCL mesh bit-equal to the unsharded
+     one, and on two gloo ranks sharing the card with its tokens.
+ 18. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -5377,12 +5391,15 @@ def tdt_ctc_phase(tdt_path: str, ref_job, ref_path: str, w8_runs: dict,
         chunk and of one K = BEAM_K beam chunk (readings).
     (3) card vs CPU, the K = BEAM_K TDT beam over TDT_CHUNKS chunks at
         R = 13: compare_beams, and t and sym equal in every slot.
-    (4) the 64-slot ServingEngine, Q8_0 f32, the engine phase's ragged
-        schedule, TDT greedy with host DSP (finalized tokens of the tracked
-        streams equal to solo sessions') and CTC with device DSP (their
-        tokens over the chunks of real audio); the LockstepEngine, 8
-        streams, in both families (the real-audio chunks' tokens equal to
-        solo sessions'); every compared list non-empty.
+    (4) on the COMPARE_LAYERS cut (since slice 18, to keep the script's
+        time with the slice's phase; same-card comparisons, as the engine
+        and lockstep phases'): the 64-slot ServingEngine, Q8_0 f32, the
+        engine phase's ragged schedule, TDT greedy with host DSP
+        (finalized tokens of the tracked streams equal to solo sessions')
+        and CTC with device DSP (their tokens over the chunks of real
+        audio); the LockstepEngine, 8 streams, in both families (the
+        real-audio chunks' tokens equal to solo sessions'); every compared
+        list non-empty.
     (5) readings, W8A8 + int8 K/V bf16: mean chunk ms at S = 8 in the four
         modes for TDT greedy and CTC (beside this run's RNN-T greedy), the
         64-slot device-DSP engine's tick p50 / p90 at R = 13 for TDT
@@ -5530,25 +5547,28 @@ def tdt_ctc_phase(tdt_path: str, ref_job, ref_path: str, w8_runs: dict,
     if bcounts != want_counts(bsess.total_chunks, "q8"):
         failures.append(f"TDT beam session: launches {bcounts}")
 
-    # (4) the engines against solo sessions
+    # (4) the engines against solo sessions, on the COMPARE_LAYERS cut
+    # (same-card comparisons, as the engine and lockstep phases' since
+    # PR 17; slice 18)
+    q8c, cfgc = cut_layers(q8, cfg, COMPARE_LAYERS)
     n = ENGINE_SLOTS
     plan = ragged_plan(n, ENGINE_SECONDS, cc13.shift_samples)
     out["engine"], out["lockstep"] = {}, {}
     for (fam, kw), dsp in zip(families, ("numpy", "device")):
         kw = {k: v for k, v in kw.items() if k == "ctc"}
         t0 = time.perf_counter()
-        eng = ServingEngine(q8, cfg, vocab, cc13, n_slots=n,
+        eng = ServingEngine(q8c, cfgc, vocab, cc13, n_slots=n,
                             compute_dtype=f32, dsp=dsp, **kw)
         with EncoderTap() as tap:
             run, counts = counted(lambda: engine_schedule(
                 eng, lambda sid: seeded_pcm(sid, ENGINE_SECONDS), **plan),
                 launches)
-        check_engine_launches(f"{fam} {dsp} DSP", counts, tap.calls, cfg,
+        check_engine_launches(f"{fam} {dsp} DSP", counts, tap.calls, cfgc,
                               10, "q8", failures)
         same, lens = [], []
         for sid in tracked_streams(n):
-            solo = solo_session(q8, cfg, vocab, cc13, run["pcm"][sid], f32,
-                                **kw)
+            solo = solo_session(q8c, cfgc, vocab, cc13, run["pcm"][sid],
+                                f32, **kw)
             got, want = ((run["finals"][sid], solo["final"]) if dsp == "numpy"
                          else (streamed_part(run["finals"][sid], solo),
                                solo["streamed"]))
@@ -5570,13 +5590,13 @@ def tdt_ctc_phase(tdt_path: str, ref_job, ref_path: str, w8_runs: dict,
         del eng, run
         S = BEAM_LOCK_STREAMS
         pcm = np.stack([seeded_pcm(s) for s in range(S)])
-        lock = LockstepEngine(q8, cfg, vocab, cc13, n_streams=S,
+        lock = LockstepEngine(q8c, cfgc, vocab, cc13, n_streams=S,
                               compute_dtype=f32, **kw)
         with EncoderTap() as tap:
             run, counts = counted(lambda: lockstep_run(lock, pcm), launches)
-        check_engine_launches(f"lockstep {fam}", counts, tap.calls, cfg, 10,
+        check_engine_launches(f"lockstep {fam}", counts, tap.calls, cfgc, 10,
                               "q8", failures)
-        solos = [solo_session(q8, cfg, vocab, cc13, pcm[s], f32, **kw)
+        solos = [solo_session(q8c, cfgc, vocab, cc13, pcm[s], f32, **kw)
                  for s in range(S)]
         same = [run["streamed"][s] == solos[s]["streamed"]
                 and len(solos[s]["streamed"]) > 0 for s in range(S)]
@@ -7176,6 +7196,435 @@ def multi_gpu_phase(gguf_path: str, failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 18: dump tracing, the profiler reader, the native bindings and beam
+# decode on a mesh
+# ---------------------------------------------------------------------------
+
+# (b) the chunks the traced session runs; (c) the CLI's audio in chunks
+# (the finalize may add one)
+UN_CHUNKS, UN_CLI_CHUNKS = 8, 4
+# (d) the native-DSP engine: slots, ticks of one quantum each, the slots
+# held to solo sessions, and the native mel's tolerance against the numpy
+# backend's (the JAX package's log-mel tolerance)
+UN_SLOTS, UN_TICKS = 16, 4
+UN_TRACKED = (0, 15)
+TOL_NATIVE_MEL = 2e-4
+# (e) the beam engine on a mesh: slots and ticks
+UN_BEAM_SLOTS, UN_BEAM_TICKS = 4, 4
+
+
+def un_pcm(row: int, n: int) -> np.ndarray:
+    """n samples of stream `row`'s seeded PCM."""
+    return seeded_pcm(1800 + row, (n + 1) / 16000)[:n]
+
+
+def un_beam_engine(params, cfg, vocab, mesh=None):
+    """(e)'s ServingEngine over the peaked model (peaked_params: its beams
+    emit): K = BEAM_K, f32, host DSP, R = 13."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+
+    cc = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    return ServingEngine(peaked_params(params), cfg, vocab, cc,
+                         n_slots=UN_BEAM_SLOTS, compute_dtype=torch.float32,
+                         dsp="numpy", beam_size=BEAM_K, mesh=mesh)
+
+
+def un_beam_run(eng) -> dict:
+    """Every slot admitted and fed one quantum of its PCM a tick; the
+    refreshed best hypotheses' tokens by slot."""
+    q = eng.cc.shift_samples
+    slots = eng.add_streams(eng.n_slots)
+    for t in range(UN_BEAM_TICKS):
+        eng.feed_audio({s: un_pcm(s, q * UN_BEAM_TICKS)[t * q:(t + 1) * q]
+                        for s in slots})
+        eng.step()
+    eng.refresh_transcripts()
+    return mg_token_lists(eng, slots)
+
+
+def un_beam_leaves(eng) -> dict:
+    """Every beam-state leaf (gathered over the data axis on a mesh) and
+    every encoder and decoder state leaf, as numpy."""
+    from nemotron_tpu_torch.models import beam as beam_mod
+    from nemotron_tpu_torch.parallel import mesh as mesh_mod
+    from nemotron_tpu_torch.utils import npz
+
+    beam = eng.beam_state
+    if eng.mesh is not None:
+        beam = mesh_mod.gather_stream_major(beam, eng.mesh)
+    out = {f"beam/{k}": npz.to_numpy(v)
+           for k, v in beam_mod.leaves(beam).items()}
+    return out | mg_state(eng)
+
+
+def beam_rank_job(addr: str, rank: int, world: int, gguf_path: str,
+                  out_path: str, device: str) -> None:
+    """One of (e)'s two ranks, sharing the card over gloo (the kernels are
+    built already): the beam engine on a data-parallel 2 mesh over (e)'s
+    schedule; rank 0 writes the tokens."""
+    import torch.distributed as dist
+
+    from nemotron_tpu_torch.device import resolve_device
+    from nemotron_tpu_torch.parallel.mesh import init_world, make_mesh
+    from nemotron_tpu_torch.params import load_model
+
+    dev = resolve_device(device)
+    init_world(f"tcp://{addr}", world, rank, "gloo")
+    mesh = make_mesh(model_parallel=1, device=dev)
+    params, cfg, vocab = load_model(gguf_path, device=dev)
+    toks = un_beam_run(un_beam_engine(params, cfg, vocab, mesh))
+    if rank == 0:
+        with open(out_path, "w", encoding="utf-8") as f:
+            json.dump(toks, f)
+    dist.destroy_process_group()
+
+
+def start_beam_ranks(gguf_path: str, out_path: str, device: str) -> list:
+    """The two ranks of beam_rank_job on `device`, started together."""
+    addr = f"127.0.0.1:{free_port()}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {here!r}); import torch; "
+         f"torch.set_num_threads(2); import chip_smoke; "
+         f"chip_smoke.beam_rank_job({addr!r}, {r}, 2, {gguf_path!r}, "
+         f"{out_path!r}, {device!r})"], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+
+
+def params_equal(a, b) -> bool:
+    """Every leaf of two ModelParams equal (dtype, shape and bytes)."""
+    import torch
+
+    from nemotron_tpu_torch.params import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(
+        not isinstance(v, torch.Tensor)
+        or (v.dtype == fb[k].dtype and torch.equal(v, fb[k]))
+        for k, v in fa.items())
+
+
+def utils_native_phase(gguf_path: str, failures: list) -> dict:
+    """Slice 18 at full width (24 layers, d_model 1024, the seeded Q8_0
+    GGUF), R = 13:
+    (a) NativeGGUF over the GGUF: every tensor's bytes equal to the plain
+        reader's; load_model through it (the "auto" default the other
+        phases loaded with) and load_model(use_native=False): every
+        parameter equal. Both reads' host wall (warm page cache).
+    (b) a traced session on the card (f32, one stream, UN_CHUNKS chunks)
+        beside an untraced one: tokens and every state leaf bit-equal,
+        24 attention and 240 Q8 launches a chunk in both; the 24
+        layer_NN_out files and the other four, with their shapes;
+        encoder_out equal to the last layer's output; read_dump round
+        trips (appending its records again writes the same bytes).
+    (c) `python -m nemotron_tpu_torch.cli ... --profile=DIR` on the card
+        (a child process): a trace in DIR, step_percentiles' n_steps = the
+        CLI's chunks less drop_first, every step's device time > 0, and
+        the ring and Q8 kernels among its kernel events.
+    (d) ServingEngine(dsp="native") with UN_SLOTS slots for UN_TICKS
+        ticks: dsp_mode "native"; its tracked slots' tokens equal to solo
+        sessions with the native frontend; the native mel within
+        TOL_NATIVE_MEL of the numpy backend's (FFT on the card); the
+        native DSP's host ms a tick beside the device DSP's device ms for
+        the same slots.
+    (e) ServingEngine(beam_size=BEAM_K) on a one-rank NCCL mesh against
+        the unsharded engine: tokens, scores and every beam-state and
+        state leaf bit-equal; then two gloo ranks sharing the card (data
+        2), their tokens equal to the unsharded engine's.
+    (c) and (e)'s ranks run as child processes beside (a), (b) and (d)."""
+    import torch
+
+    from nemotron_tpu_torch import gguf_native
+    from nemotron_tpu_torch.config import (MAX_SYMBOLS_PER_STEP, CacheConfig,
+                                           PreprocessorConfig)
+    from nemotron_tpu_torch.frontend.device_frontend import (
+        init_frontend_state, mel_frontend_step)
+    from nemotron_tpu_torch.frontend.preprocessor import (
+        StreamingPreprocessor, pad_window)
+    from nemotron_tpu_torch.gguf import read_gguf
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+    from nemotron_tpu_torch.params import load_model
+    from nemotron_tpu_torch.streaming.serving import ServingEngine
+    from nemotron_tpu_torch.streaming.session import (CHUNK_STEP_RANGE,
+                                                      StreamSession)
+    from nemotron_tpu_torch.utils import dump, profiler
+
+    f32 = torch.float32
+    out = {}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    q8, cfg, vocab = full_width_model(gguf_path, CARD)
+    cc13 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels)
+    tmp = tempfile.mkdtemp(prefix="un_")
+    # the children: (c)'s CLI and (e)'s two ranks
+    n_cli = cc13.chunk_samples + (UN_CLI_CHUNKS - 1) * cc13.shift_samples
+    pcm_path = os.path.join(tmp, "cli.pcm")
+    un_pcm(0, n_cli).tofile(pcm_path)
+    prof_dir = os.path.join(tmp, "prof")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli = start_module("cli", [gguf_path, pcm_path, "80", "13",
+                               f"--profile={prof_dir}",
+                               *(["--cpu"] if CARD == "cpu" else [])],
+                       dict(os.environ), here)
+    beam_out = os.path.join(tmp, "beam_ranks.json")
+    card0 = f"{CARD}:0" if CARD == "cuda" else CARD
+    ranks = start_beam_ranks(gguf_path, beam_out, card0)
+    walls, t_part = {}, time.perf_counter()
+    try:
+        # (a) the native GGUF loader
+        t0 = time.perf_counter()
+        nat = read_gguf(gguf_path, use_native=True)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = read_gguf(gguf_path, use_native=False)
+        t_plain = time.perf_counter() - t0
+        same_bytes = (list(nat.tensors) == list(plain.tensors) and all(
+            t.shape == plain.tensors[n].shape
+            and t.ggml_type == plain.tensors[n].ggml_type
+            and np.array_equal(t.raw, np.frombuffer(plain.tensors[n].raw,
+                                                    np.uint8))
+            for n, t in nat.tensors.items()))
+        n_bytes = sum(len(t.raw) for t in plain.tensors.values())
+        n_tensors = len(plain.tensors)
+        del nat, plain
+        native_default = gguf_native.available()
+        t0 = time.perf_counter()
+        plain_params = load_model(gguf_path, device=CARD,
+                                  use_native=False)[0]
+        t_load = time.perf_counter() - t0
+        same_params = params_equal(q8, plain_params)
+        del plain_params
+        if not (same_bytes and same_params and native_default):
+            failures.append(f"utils-native (a): tensor bytes equal "
+                            f"{same_bytes}, load_model params equal "
+                            f"{same_params}, native loader built "
+                            f"{native_default}")
+        out["a"] = dict(tensors=n_tensors, bytes=n_bytes, native_read_s=t_nat,
+                        plain_read_s=t_plain, plain_load_model_s=t_load,
+                        bytes_equal=same_bytes, params_equal=same_params)
+        log(f"  (a) NativeGGUF: {out['a']['tensors']} tensors, {n_bytes} "
+            f"bytes equal to the plain reader's {same_bytes}; read "
+            f"{t_nat:.3f} s (mmap views) vs {t_plain:.3f} s (read copies), "
+            f"warm page cache; load_model params equal with and without it "
+            f"{same_params} (plain load_model {t_load:.1f} s)")
+
+        walls["a"], t_part = time.perf_counter() - t_part, time.perf_counter()
+        # (b) a traced session beside an untraced one
+        trace_dir = os.path.join(tmp, "trace")
+        sessions, counts = {}, {}
+        q = cc13.shift_samples
+        pcm = un_pcm(1, q * (UN_CHUNKS + 2))
+        for name, kw in (("plain", {}), ("traced", {"trace_dir": trace_dir})):
+            sess = StreamSession(q8, cfg, vocab, cc13, compute_dtype=f32,
+                                 **kw)
+
+            def feed(sess=sess):
+                i = 0
+                while sess.total_chunks < UN_CHUNKS:
+                    sess.process(pcm[i * q:(i + 1) * q])
+                    i += 1
+
+            t0 = time.perf_counter()
+            _, counts[name] = counted(feed, launches)
+            sessions[name] = (sess, time.perf_counter() - t0)
+        (tr, t_tr), (pl, t_pl) = sessions["traced"], sessions["plain"]
+        equal = tr.get_tokens(0) == pl.get_tokens(0) and all(
+            torch.equal(getattr(a, f), getattr(b, f))
+            for a, b in ((tr.enc_state, pl.enc_state),
+                         (tr.dec_state, pl.dec_state))
+            for f in vars(a))
+        want_counts = {"attn": cfg.n_layers * UN_CHUNKS,
+                       "q8": 10 * cfg.n_layers * UN_CHUNKS, "w8a8": 0}
+        T = cc13.chunk_enc_len
+        shapes = {"mel.bin": (UN_CHUNKS * cc13.chunk_mel_frames, cfg.n_mels),
+                  "pre_encode_out.bin": (UN_CHUNKS * T, cfg.d_model),
+                  "encoder_out.bin": (UN_CHUNKS * cc13.valid_out_len,
+                                      cfg.d_model),
+                  "tokens.bin": (UN_CHUNKS * cc13.valid_out_len,
+                                 MAX_SYMBOLS_PER_STEP)}
+        shapes |= {f"layer_{l:02d}_out.bin": (UN_CHUNKS * T, cfg.d_model)
+                   for l in range(cfg.n_layers)}
+        files = sorted(os.listdir(trace_dir))
+        got = {f: dump.read_dump(os.path.join(trace_dir, f)) for f in files}
+        shapes_ok = files == sorted(shapes) and all(
+            got[f].shape == s for f, s in shapes.items())
+        last_ok = np.array_equal(
+            got["encoder_out.bin"],
+            got[f"layer_{cfg.n_layers - 1:02d}_out.bin"][
+                np.arange(UN_CHUNKS * T) % T < cc13.valid_out_len])
+        rt_dir = os.path.join(tmp, "roundtrip")
+        os.makedirs(rt_dir)
+        for f, arr in got.items():
+            for rec in np.split(arr, UN_CHUNKS):
+                dump.append_dump(os.path.join(rt_dir, f), rec)
+        round_trip = all(
+            open(os.path.join(rt_dir, f), "rb").read()
+            == open(os.path.join(trace_dir, f), "rb").read() for f in files)
+        counts_ok = counts["traced"] == counts["plain"] == want_counts
+        if not (equal and counts_ok and shapes_ok and last_ok
+                and round_trip):
+            failures.append(
+                f"utils-native (b) traced session: tokens and state equal "
+                f"{equal}, launches {counts} (want {want_counts}), files "
+                f"{len(files)} with their shapes {shapes_ok}, encoder_out = "
+                f"last layer {last_ok}, read_dump round trip {round_trip}")
+        out["b"] = dict(equal=equal, counts=counts, files=len(files),
+                        shapes_ok=shapes_ok, encoder_out_is_last=last_ok,
+                        round_trip=round_trip, wall_traced_s=t_tr,
+                        wall_plain_s=t_pl,
+                        chunk_ms_traced=tr.chunk_seconds / UN_CHUNKS * 1e3,
+                        chunk_ms_plain=pl.chunk_seconds / UN_CHUNKS * 1e3,
+                        tokens=len(pl.get_tokens(0)))
+        log(f"  (b) traced session, {UN_CHUNKS} chunks f32: tokens "
+            f"({len(pl.get_tokens(0))}) and every state leaf bit-equal "
+            f"{equal}; launches traced {counts['traced']} / untraced "
+            f"{counts['plain']}; {len(files)} dump files with their shapes "
+            f"{shapes_ok}; encoder_out = layer {cfg.n_layers - 1} "
+            f"{last_ok}; read_dump round trip {round_trip}; chunk "
+            f"{out['b']['chunk_ms_traced']:.2f} ms traced / "
+            f"{out['b']['chunk_ms_plain']:.2f} untraced (host clock)")
+        del sessions, tr, pl, got
+
+        walls["b"], t_part = time.perf_counter() - t_part, time.perf_counter()
+        # (d) the native-DSP engine
+        eng = ServingEngine(q8, cfg, vocab, cc13, n_slots=UN_SLOTS,
+                            compute_dtype=f32, dsp="native")
+        slots = eng.add_streams(UN_SLOTS)
+        audio = {s: un_pcm(100 + s, q * UN_TICKS) for s in slots}
+        feed_ms = []
+
+        def ticks():
+            for t in range(UN_TICKS):
+                t0 = time.perf_counter()
+                eng.feed_audio({s: audio[s][t * q:(t + 1) * q]
+                                for s in slots})
+                feed_ms.append((time.perf_counter() - t0) * 1e3)
+                eng.step()
+
+        counted(ticks, launches)
+        tokens_ok, mel_err = True, 0.0
+        pcfg = PreprocessorConfig(n_mels=cfg.n_mels)
+        fb = q8.preprocessor.filterbank.float().cpu().numpy()
+        win = q8.preprocessor.window.float().cpu().numpy()
+        for s in UN_TRACKED:
+            solo = StreamSession(q8, cfg, vocab, cc13, compute_dtype=f32,
+                                 frontend="native")
+            (_, n) = counted(lambda: solo.process(audio[s]), launches)
+            tokens_ok &= solo.get_tokens(0) == eng.tokens[s]
+            mels = [StreamingPreprocessor(fb, win, cfg=pcfg, device=CARD,
+                                          backend=b).process(audio[s])
+                    for b in ("native", "numpy")]
+            mel_err = max(mel_err, float(np.abs(mels[0] - mels[1]).max()))
+        # the device DSP's time for the same slots: one quantum of each
+        front = init_frontend_state(UN_SLOTS, CARD, pcfg)
+        block = torch.from_numpy(np.stack([audio[s][:q] for s in slots])).to(
+            CARD)
+        wdev = torch.from_numpy(pad_window(win, pcfg.n_fft)).to(CARD)
+        fdev = torch.from_numpy(fb).to(CARD)
+        for _ in range(3):
+            mel_frontend_step(block, front, wdev, fdev, pcfg)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            mel_frontend_step(block, front, wdev, fdev, pcfg)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms = start.elapsed_time(end) / 20
+        native_ms = float(np.percentile(feed_ms[1:], 50))
+        ok = (eng.dsp_mode == "native" and tokens_ok
+              and mel_err <= TOL_NATIVE_MEL)
+        n_tok = {s: len(eng.tokens[s]) for s in UN_TRACKED}
+        if not ok:
+            failures.append(f"utils-native (d) native-DSP engine: dsp_mode "
+                            f"{eng.dsp_mode}, tokens equal to solo native "
+                            f"sessions {tokens_ok}, native mel against numpy "
+                            f"{mel_err:.3e} (tol {TOL_NATIVE_MEL:g})")
+        out["d"] = dict(dsp_mode=eng.dsp_mode, tokens_equal=tokens_ok,
+                        tokens=n_tok, mel_max_abs_err=mel_err,
+                        native_ms_tick_p50=native_ms, device_dsp_ms=dev_ms,
+                        chunk_steps=len(eng.step_times))
+        log(f"  (d) ServingEngine dsp={eng.dsp_mode}, {UN_SLOTS} slots, "
+            f"{UN_TICKS} ticks: tracked slots' tokens {n_tok} equal to solo "
+            f"native sessions {tokens_ok}; native mel vs numpy (FFT on the "
+            f"card) max_abs_err {mel_err:.3e} (tol {TOL_NATIVE_MEL:g}); "
+            f"native DSP {native_ms:.3f} ms a tick (host, p50) vs device "
+            f"DSP {dev_ms:.3f} ms (CUDA events) for {UN_SLOTS} slots")
+        del eng
+
+        walls["d"], t_part = time.perf_counter() - t_part, time.perf_counter()
+        # (e) the beam engine on a one-rank NCCL mesh
+        mesh1 = make_mesh(device=card0)
+        res = {}
+        for kind in ("unsharded", "mesh"):
+            eng = un_beam_engine(q8, cfg, vocab,
+                                 mesh1 if kind == "mesh" else None)
+            toks, _ = counted(lambda: un_beam_run(eng), launches)
+            res[kind] = (toks, un_beam_leaves(eng))
+            del eng
+        same = (res["mesh"][0] == res["unsharded"][0]
+                and mg_equal_states(res["mesh"][1], res["unsharded"][1]))
+        emitted = sum(len(v) for v in res["unsharded"][0].values())
+        walls["e"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    finally:
+        cli_out, cli_err = finish_module(cli, "utils-native (c) cli "
+                                         "--profile", failures)
+        rank_logs = [p.communicate(timeout=600) for p in ranks]
+    walls["children"] = time.perf_counter() - t_part
+    rank_ok = all(p.returncode == 0 for p in ranks)
+    gloo_same = rank_ok and json.load(open(beam_out)) == res["unsharded"][0]
+    if not (same and gloo_same and emitted):
+        failures.append(
+            f"utils-native (e) beam K={BEAM_K} on a mesh: one-rank "
+            f"{mesh1.backend} mesh bit-equal {same}, two gloo ranks' tokens "
+            f"equal {gloo_same} (exits {[p.returncode for p in ranks]}: "
+            f"{[e[-800:] for _, e in rank_logs if e]}), tokens {emitted}")
+    out["e"] = dict(one_rank_equal=same, gloo_equal=gloo_same,
+                    tokens=emitted, backend=mesh1.backend)
+    log(f"  (e) beam K={BEAM_K}, {UN_BEAM_SLOTS} slots, {UN_BEAM_TICKS} "
+        f"ticks: one-rank {mesh1.backend} mesh vs unsharded, tokens "
+        f"({emitted}), scores and every beam and state leaf bit-equal "
+        f"{same}; two gloo ranks sharing the card (data 2): tokens equal "
+        f"{gloo_same}")
+
+    # (c) the CLI's profile
+    try:
+        chunks = int(cli_err.split("processed ")[1].split()[0])
+        trace = profiler.latest_trace(prof_dir)
+        durs = profiler.module_durations_ms(trace)[CHUNK_STEP_RANGE]
+        st = profiler.step_percentiles(prof_dir, match=CHUNK_STEP_RANGE)
+        with open(trace, encoding="utf-8") as f:
+            kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"}
+        ring = any("ring_attn_cluster_kernel" in k for k in kernels)
+        q8k = any("q8_matmul" in k for k in kernels)
+        line = f"profiler trace written to {prof_dir}" in cli_err
+        ok = (line and st["n_steps"] == chunks - 1 and len(durs) == chunks
+              and min(durs) > 0 and ring and q8k)
+        out["c"] = dict(chunks=chunks, steps=st, min_step_ms=min(durs),
+                        ring_kernel=ring, q8_kernel=q8k, line=line)
+    except (IndexError, ValueError, KeyError, FileNotFoundError) as e:
+        ok, out["c"] = False, dict(error=repr(e))
+    if not ok:
+        failures.append(f"utils-native (c) cli --profile: {out['c']}")
+    else:
+        log(f"  (c) cli --profile on the card: {chunks} chunk steps, "
+            f"step_percentiles {st['n_steps']} steps p50 "
+            f"{st['p50_ms']:.3f} / p90 {st['p90_ms']:.3f} / max "
+            f"{st['max_ms']:.3f} device ms (min {min(durs):.3f}); ring "
+            f"and Q8 kernels in the trace {ring and q8k}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  parts (s): {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}"
+        f" (children: the wait for (c)'s CLI and (e)'s ranks after (e))")
+    out["launches"], out["walls"] = launches, walls
+    return out
+
+
 def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
     """The `kernels` JSON of a whole run: each kernel's launches on the
     main paths (every phase's count), its time, plain time, bound and
@@ -7188,7 +7637,7 @@ def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
     tones, engine_tones = res["tones"], res["engine-tones"]
     server_tones, tones_quant = res["server-tones"], res["tones-quant"]
     beam_tones, tdt_tones = res["beam-tones"], res["tdt-tones"]
-    mgpu = res["multi-gpu"]
+    mgpu, utils_native = res["multi-gpu"], res["utils-native"]
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
@@ -7197,7 +7646,7 @@ def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
                 + tones_quant["launches"][k] + lock["launches"][k]
                 + beam["launches"][k] + beam_tones["launches"][k]
                 + tdt["launches"][k] + tdt_tones["launches"][k]
-                + mgpu["launches"][k]
+                + mgpu["launches"][k] + utils_native["launches"][k]
                 for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
@@ -7354,6 +7803,8 @@ PHASES = {
     "beam": "beam family (slice 14)",
     "tdt-ctc": "TDT and CTC (slice 15)",
     "multi-gpu": "multi-GPU (slice 17)",
+    "utils-native": "dump tracing, profiler, native bindings, mesh beam "
+                    "(slice 18)",
     "training": "training (slice 16)",
     "tones": "tones",
     "engine-tones": "serving engine tones (slice 8)",
@@ -7368,7 +7819,7 @@ PHASES = {
 }
 FULL_WIDTH_PHASES = ("main-path", "w8a8-path", "full-utterance", "engine",
                      "server", "quant", "lockstep", "beam", "training",
-                     "multi-gpu")
+                     "multi-gpu", "utils-native")
 
 
 def chosen_phases(argv: list[str]) -> set | None:
@@ -7506,6 +7957,7 @@ def main() -> int:
             phase("tdt-ctc", tdt_ctc_phase, tdt_path, tdt_job, tdt_ref,
                   res.get("w8a8-path", {}))
             phase("multi-gpu", multi_gpu_phase, path)
+            phase("utils-native", utils_native_phase, path)
             if chosen("training") and not chosen("tdt-ctc"):
                 finish_job(tdt_job, tdt_ref)     # the TDT GGUF is written
             full_width_model.cache_clear()

@@ -6,7 +6,7 @@ The counterpart of `scripts/asr_server.py`:
     python -m nemotron_tpu_torch.asr_server <model.gguf> [--host H]
         [--port P] [--slots S] [--right-context R] [--rc-by-layer 13,6,1,0]
         [--quantize q8_0|w8a8] [--kv-int8|--kv-int4]
-        [--dsp auto|numpy|device]
+        [--dsp auto|native|numpy|device]
         [--confidence] [--endpoint-silence S] [--endpoint-reset]
         [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B]
         [--refine] [--refine-beam K] [--ctc]
@@ -33,9 +33,12 @@ The counterpart of `scripts/asr_server.py`:
     carries the result as "refined"
   - --ctc decodes a hybrid checkpoint with its CTC head; a TDT checkpoint
     decodes with the duration-aware walk (or beam) with no flag
-  - --dsp native comes with the native-bindings slice of this port and
-    exits 1; scripts/asr_server.py has no --coordinator, and neither has
-    this server (an unsupported flag: exit 1)
+  - --dsp picks the engine's DSP: "native" the C++ host frontend
+    (native/frontend.cpp, built into build/native/ at first use; exit 1
+    when it cannot be built), "auto" the card's DSP on the card, else
+    native when it builds, else numpy
+  - scripts/asr_server.py has no --coordinator, and neither has this
+    server (an unsupported flag: exit 1)
 """
 
 from __future__ import annotations
@@ -50,17 +53,6 @@ _VALUED = ("--host", "--port", "--slots", "--right-context", "--quantize",
            "--lm-weight", "--lm-bonus", "--refine-beam")
 _SWITCHES = ("--kv-int8", "--kv-int4", "--confidence", "--endpoint-reset",
              "--cpu", "--refine", "--ctc")
-
-
-def later_flag(argv: list[str]) -> str | None:
-    """The error for `--dsp native` in `argv`, which comes with a later
-    slice of the port, or None."""
-    for i, a in enumerate(argv):
-        if a.split("=", 1)[0] == "--dsp" and (
-                a == "--dsp=native" or argv[i + 1:i + 2] == ["native"]):
-            return ("--dsp native comes with the native-bindings slice of "
-                    "this port")
-    return None
 
 
 def positional_args(argv: list[str], valued, switches) -> list | None:
@@ -99,10 +91,6 @@ def flag_value(argv: list[str], name: str, default, cast):
 
 
 def main(argv: list[str]) -> int:
-    refused = later_flag(argv[1:])
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-        return 1
     args = positional_args(argv, _VALUED, _SWITCHES)
     if args is None:
         return 1
@@ -187,7 +175,7 @@ def main(argv: list[str]) -> int:
                                endpoint_silence_s=ep_s if ep_s > 0 else None,
                                endpoint_reset="--endpoint-reset" in argv,
                                keep_segment_audio=refine)
-    except ValueError as e:
+    except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     refiner = None

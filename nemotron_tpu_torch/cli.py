@@ -15,6 +15,7 @@ argv contract (src/transcribe_stream.cpp:27-36):
                                      [--lm=lm.gguf] [--lm-weight=W]
                                      [--lm-bonus=B]
                                      [--boost=piece:weight,...] [--ctc]
+                                     [--trace=DIR] [--profile=DIR]
 
   - input: raw s16le 16 kHz mono PCM file, or '-' / '--stdin' for stdin;
     .wav files decode directly (PCM16 or float32, any sample rate --
@@ -46,11 +47,17 @@ argv contract (src/transcribe_stream.cpp:27-36):
   - --ctc decodes a hybrid checkpoint with its CTC head (greedy collapse)
     instead of the transducer; a TDT checkpoint decodes with the
     duration-aware walk (or beam) with no flag
+  - --trace=DIR dumps each chunk's intermediates (mel, pre_encode_out,
+    layer_NN_out, encoder_out, tokens) into DIR in the reference's binary
+    dump format (greedy RNN-T only); --profile=DIR writes a torch.profiler
+    Chrome trace of the streaming loop into DIR (utils/profiler.py reads
+    each chunk step's device time from it)
   - incremental text on stdout; config + stats on stderr
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import os
 import sys
@@ -60,13 +67,9 @@ import time
 _FLAGS = ("--cpu", "--cuda", "--metal", "--tpu", "--kv-int8", "--kv-int4",
           "--shared-cache", "--timestamps", "--confidence", "--ctc")
 _VALUED = ("--quantize=", "--calib=", "--rc-by-layer=", "--srt", "--vtt",
-           "--beam=", "--lm=", "--lm-weight=", "--lm-bonus=", "--boost=")
+           "--beam=", "--lm=", "--lm-weight=", "--lm-bonus=", "--boost=",
+           "--trace=", "--profile=")
 _SQ_MODES = ("w8a8-sq", "w8a8-sq-static")
-# flags of cli/transcribe_stream.py that come with later slices of the port
-_LATER = {
-    "--trace": "utils and native-bindings",
-    "--profile": "utils and native-bindings",
-}
 
 
 def device_from_flags(flags: list[str]) -> str | None:
@@ -187,12 +190,6 @@ def main(argv: list[str]) -> int:
     if len(args) < 2:
         print(__doc__, file=sys.stderr)
         return 1
-    for f in flags:
-        later = _LATER.get(f.split("=", 1)[0])
-        if later:
-            print(f"error: {f} comes with a later slice of this port: the "
-                  f"{later} slice", file=sys.stderr)
-            return 1
     unknown = [f for f in flags
                if f not in _FLAGS and not f.startswith(_VALUED)]
     if unknown:
@@ -200,7 +197,8 @@ def main(argv: list[str]) -> int:
               f"takes {', '.join(_FLAGS)}, --quantize=q8_0|w8a8|w8a8-sq|"
               "w8a8-sq-static, --calib=FILE, --rc-by-layer=R,.., "
               "--srt=FILE|--vtt=FILE, --beam=K, --lm=FILE, --lm-weight=W, "
-              "--lm-bonus=B and --boost=piece:weight,..)", file=sys.stderr)
+              "--lm-bonus=B, --boost=piece:weight,.., --trace=DIR and "
+              "--profile=DIR)", file=sys.stderr)
         return 1
     sub_fmt, sub_out = None, None
     for f in flags:
@@ -218,8 +216,13 @@ def main(argv: list[str]) -> int:
     if device is None:
         return 1
     quant_mode, calib_path, rc_pat = None, None, None
+    trace_dir, profile_dir = None, None
     for f in flags:
-        if f.startswith("--quantize="):
+        if f.startswith("--trace="):
+            trace_dir = f.split("=", 1)[1]
+        elif f.startswith("--profile="):
+            profile_dir = f.split("=", 1)[1]
+        elif f.startswith("--quantize="):
             quant_mode = f.split("=", 1)[1]
         elif f.startswith("--calib="):
             calib_path = f.split("=", 1)[1]
@@ -313,7 +316,7 @@ def main(argv: list[str]) -> int:
         print(f"LM shallow fusion: {lm_path} (weight {lm_weight})",
               file=sys.stderr)
     try:
-        sess = StreamSession(params, cfg, vocab, cc,
+        sess = StreamSession(params, cfg, vocab, cc, trace_dir=trace_dir,
                              timestamp_words="--timestamps" in flags,
                              confidence_words="--confidence" in flags,
                              beam_size=beam, ctc="--ctc" in flags, lm=lm,
@@ -336,6 +339,11 @@ def main(argv: list[str]) -> int:
         else:
             src.seek(0)
     chunk_bytes = cc.chunk_samples * 2
+    window = contextlib.ExitStack()
+    if profile_dir:
+        from .utils.profiler import profile
+
+        window.enter_context(profile(profile_dir))
 
     t_start = time.perf_counter()
     n_samples = 0
@@ -370,6 +378,10 @@ def main(argv: list[str]) -> int:
 
         n = write_subtitles(sub_out, sess.get_tokens(0), vocab, sub_fmt)
         print(f"wrote {n} cues to {sub_out}", file=sys.stderr)
+
+    window.close()          # the profile window: stop and export
+    if profile_dir:
+        print(f"profiler trace written to {profile_dir}", file=sys.stderr)
 
     elapsed = time.perf_counter() - t_start
     audio_s = n_samples / 16000.0

@@ -1,11 +1,13 @@
 """Mel-spectrogram frontend.
 
-The port's counterpart of `nemotron_tpu/frontend/preprocessor.py` with the
-numpy host backend:
-  - HOST (numpy): i16 -> f32 scaling, pre-emphasis with cross-call carry,
-    residue buffering, framing into [n_frames, n_fft] windows.
-  - DEVICE (torch, on the session's device): window multiply, 512-point
-    rFFT, power spectrum, mel filterbank matmul, log.
+The port's counterpart of `nemotron_tpu/frontend/preprocessor.py`, with
+two backends:
+  - "numpy": on the HOST (numpy) i16 -> f32 scaling, pre-emphasis with
+    cross-call carry, residue buffering, framing into [n_frames, n_fft]
+    windows; on the DEVICE (torch, on the session's device) window
+    multiply, 512-point rFFT, power spectrum, mel filterbank matmul, log.
+  - "native": the whole chain on the host in C++ (frontend/native.py,
+    native/frontend.cpp: the reference's radix-2 f32 FFT).
 
 Numerics mirror reference src/preprocessor.cpp:330-395 (pre-emphasis 0.97
 carrying last_sample, center-pad emulation via an initial n_fft/2-zero
@@ -94,14 +96,38 @@ def mel_filterbank_slaney(n_mels: int = 128, n_fft: int = 512,
     return fb.astype(np.float32)
 
 
+def resolve_backend(backend: str, device: torch.device) -> str:
+    """The DSP backend that `backend` names on `device`: "auto" is "numpy"
+    when the device is CUDA (the FFT on the card, as the serving engine's
+    "auto" picks its device DSP there), else "native" when the C++
+    library builds and loads, else "numpy" (the JAX package's "auto":
+    native when the library is available, nemotron_tpu/frontend/
+    preprocessor.py:105-133)."""
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"backend={backend!r}: 'auto', 'native' or 'numpy'")
+    if backend != "auto":
+        return backend
+    if torch.device(device).type == "cuda":
+        return "numpy"
+    from .native import available
+
+    return "native" if available() else "numpy"
+
+
 class StreamingPreprocessor:
     """Stateful PCM -> log-mel for S parallel streams. All S streams advance
-    by the same number of samples per call. The FFT runs on `device`: the
-    card unless the caller asks for the CPU."""
+    by the same number of samples per call.
+
+    backend: "numpy" (the default: host framing; the FFT runs on
+    `device`, the card unless the caller asks for the CPU), "native" (the
+    C++ host DSP; raises when its library cannot be built or loaded) or
+    "auto" (`resolve_backend`; the JAX package's default). `backend` names
+    the one resolved. Snapshots (`state_dict`) hold the same leaves with
+    either backend."""
 
     def __init__(self, filterbank, window, n_streams: int = 1,
                  cfg: PreprocessorConfig = PreprocessorConfig(),
-                 device="cuda"):
+                 device="cuda", backend: str = "numpy"):
         self.device = resolve_device(device)
         self.cfg = cfg
         fb = np.asarray(filterbank, np.float32)
@@ -109,12 +135,24 @@ class StreamingPreprocessor:
             raise ValueError(f"filterbank {fb.shape} != "
                              f"{(cfg.n_mels, cfg.n_freqs)}")
         self.filterbank = torch.from_numpy(fb).to(self.device)
-        self.window = torch.from_numpy(pad_window(
-            np.asarray(window, np.float32), cfg.n_fft)).to(self.device)
+        win = pad_window(np.asarray(window, np.float32), cfg.n_fft)
+        self.window = torch.from_numpy(win).to(self.device)
         self.n_streams = n_streams
+        self.backend = resolve_backend(backend, self.device)
+        self._native = None
+        if self.backend == "native":
+            from .native import NativeFrontend
+
+            self._native = NativeFrontend(
+                fb, win, n_streams=n_streams, n_fft=cfg.n_fft,
+                hop=cfg.n_window_stride, n_mels=cfg.n_mels,
+                preemph=cfg.preemph, log_zero_guard=cfg.log_zero_guard)
         self.reset()
 
     def reset(self, stream: int | None = None) -> None:
+        if self._native is not None:
+            self._native.reset(stream)
+            return
         if stream is None:
             self.last_sample = np.zeros(self.n_streams, np.float32)
             self.residue = np.zeros((self.n_streams, self.cfg.initial_pad),
@@ -127,15 +165,22 @@ class StreamingPreprocessor:
 
     def state_dict(self) -> dict:
         """The DSP state, for a session snapshot (numpy copies)."""
+        if self._native is not None:
+            return self._native.state_dict()
         return {"last_sample": self.last_sample.copy(),
                 "residue": self.residue.copy()}
 
     def load_state_dict(self, state: dict) -> None:
+        if self._native is not None:
+            self._native.load_state_dict(state)
+            return
         self.last_sample = np.asarray(state["last_sample"],
                                       np.float32).copy()
         self.residue = np.asarray(state["residue"], np.float32).copy()
 
     def n_frames_for(self, n_new_samples: int) -> int:
+        if self._native is not None:
+            return self._native.n_frames_for(n_new_samples)
         avail = self.residue.shape[1] + n_new_samples
         if avail < self.cfg.n_fft:
             return 0
@@ -145,7 +190,10 @@ class StreamingPreprocessor:
         """Host state update and framing without the spectral half: returns
         pre-emphasized frames [S, n_frames, n_fft] f32 numpy, for a caller
         that runs one `spectral` pass over many preprocessors' frames (the
-        serving engine: one FFT call a tick, not one a slot)."""
+        serving engine: one FFT call a tick, not one a slot). The numpy
+        backend only."""
+        if self._native is not None:
+            raise ValueError("frame_only needs the numpy backend")
         cfg = self.cfg
         if audio_i16.ndim == 1:
             audio_i16 = audio_i16[None]
@@ -181,6 +229,9 @@ class StreamingPreprocessor:
     def process(self, audio_i16: np.ndarray) -> np.ndarray:
         """audio_i16: [S, N] (or [N] if n_streams == 1) int16.
         Returns log-mel [S, n_frames, n_mels] f32 numpy (n_frames may be 0)."""
+        if self._native is not None:
+            return self._native.process(
+                audio_i16[None] if audio_i16.ndim == 1 else audio_i16)
         frames = self.frame_only(audio_i16)
         if frames.shape[1] == 0:
             return np.zeros((frames.shape[0], 0, self.cfg.n_mels), np.float32)

@@ -176,6 +176,8 @@ class GGUFTensor:
 class GGUFFile:
     metadata: dict[str, object]
     tensors: dict[str, GGUFTensor]
+    # keeps the native mmap alive while zero-copy tensor views exist
+    _native: object = None
 
 
 def _read_string(f: BinaryIO) -> bytes:
@@ -222,8 +224,23 @@ def _read_value(f: BinaryIO, vtype: int) -> object:
     raise ValueError(f"unsupported metadata type {vtype}")
 
 
-def read_gguf(path: str) -> GGUFFile:
-    """Read a GGUF file (header, metadata, tensor payloads)."""
+def read_gguf(path: str, use_native: bool | str = "auto") -> GGUFFile:
+    """Read a GGUF file (header, metadata, tensor payloads), as the JAX
+    package's read_gguf (nemotron_tpu/gguf.py:224-292). With the native
+    loader (native/gguf_loader.cpp, built at first use: gguf_native) the
+    tensor payload is served as read-only zero-copy views into one mmap
+    instead of per-tensor read() copies; use_native="auto" takes it when it
+    builds and opens the file, True raises when it cannot, False never
+    uses it. The bytes are the same either way."""
+    native = None
+    if use_native in ("auto", True):
+        try:
+            from .gguf_native import NativeGGUF
+
+            native = NativeGGUF(path)
+        except Exception:
+            if use_native is True:
+                raise
     with open(path, "rb") as f:
         if f.read(4) != GGUF_MAGIC:
             raise ValueError(f"{path}: not a GGUF file")
@@ -270,11 +287,14 @@ def read_gguf(path: str) -> GGUFFile:
             if data_start + offset + size > file_size:
                 raise ValueError(f"{path}: tensor {name!r} extends past "
                                  "end of file (truncated?)")
-            f.seek(data_start + offset)
-            raw = f.read(size)
+            if native is not None:
+                raw = native.view(data_start + offset, size)
+            else:
+                f.seek(data_start + offset)
+                raw = f.read(size)
             tensors[name] = GGUFTensor(name, shape, gtype, raw)
 
-    return GGUFFile(metadata=metadata, tensors=tensors)
+    return GGUFFile(metadata=metadata, tensors=tensors, _native=native)
 
 
 # ---------------------------------------------------------------------------

@@ -271,7 +271,8 @@ def _quantize_segment(seg: torch.Tensor, qmax: int, int4: bool):
 
 def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
                  mel_chunk: torch.Tensor, state: EncoderState,
-                 pos_heads: torch.Tensor, step_mask=None):
+                 pos_heads: torch.Tensor, capture: bool = False,
+                 step_mask=None):
     """One streaming encoder step (reference src/nemo-stream.cpp:961-1030):
     subsampling, dropping drop_extra_pre_encoded overlap frames,
     validity-masked cached layers, valid_len bump, valid_out truncation.
@@ -280,7 +281,14 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     Under a mesh, params hold a rank's share (parallel.mesh.shard_params):
     the rings, their scales and pos_heads hold its heads, and the split
     products are summed over the model axis inside the layers.
-    Returns (enc_out [B, valid_out_len, d_model], new EncoderState).
+    Returns (enc_out [B, valid_out_len, d_model], new EncoderState), and
+    with capture=True also the named intermediates {"pre_encode_out"
+    [B, T, D], "layer_out" [L, B, T, D] (each layer's output, whole under
+    a mesh), "encoder_out"}: the JAX package's capture
+    (nemotron_tpu/models/encoder.py:258-266, 550-554), the reference's
+    tensor-dump points (src/nemo-stream.cpp:880-958). The captured step
+    runs the same kernels in the same order; only the layer outputs are
+    kept besides.
 
     The rings are written IN PLACE: `state.k_cache`/`v_cache` are the same
     tensors in the returned state, with this chunk's segment overwritten
@@ -300,6 +308,7 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     dev = mel_chunk.device
     x = conv_subsampling(params.subsampling, mel_chunk)
     x = x[:, cc.drop_extra_pre_encoded:, :]
+    pre_encode_out = x
     B, Q, _ = x.shape
 
     C = cc.att_left_context
@@ -366,7 +375,7 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
         k_cols_all = state.k_scale.repeat_interleave(Q, -1)      # [L,B,H,kv]
         v_cols_all = state.v_scale.repeat_interleave(Q, -1)
     ones = torch.ones((B, H, kv), dtype=torch.float32, device=dev)
-    new_k, new_v, new_conv = [], [], []
+    new_k, new_v, new_conv, layer_out = [], [], [], []
     for l in range(cfg.n_layers):
         lp = params.layers.layer(l)
         if shared:
@@ -390,6 +399,8 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
             lp, x, pos_heads[l], layer_masks[l], state.conv_cache[l], ring_l,
             *rings, chron, k_cols, v_cols, n_heads=H, d_head=Dh,
             packed_int4=cc.kv_cache_int4, tp=params.tp)
+        if capture:
+            layer_out.append(x)
         if shared:
             new_k.append(norm_attn[:, None])                        # [B,1,Q,D]
         else:
@@ -443,6 +454,10 @@ def encode_chunk(params, cfg: ModelConfig, cc: CacheConfig,
     enc_out = torch.where(phase_uniform, enc_out,
                           torch.full((), float("nan"), dtype=enc_out.dtype,
                                      device=dev))
+    if capture:
+        return enc_out, new_state, {"pre_encode_out": pre_encode_out,
+                                    "layer_out": torch.stack(layer_out),
+                                    "encoder_out": enc_out}
     return enc_out, new_state
 
 

@@ -432,3 +432,29 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, axis: int = 0) -> torch.Tensor:
     """Per-stream results of this rank's rows -> every row, gathered over
     the data axis."""
     return gather_along(x, axis, mesh.data_group, mesh.data, mesh.data_index)
+
+
+def shard_stream_major(tree, mesh: Mesh):
+    """This rank's rows of a dataclass whose every set leaf is
+    stream-major ([S, ...]: a BeamState or TdtBeamState), on its device,
+    as JAX's shard_stream_major puts such leaves on the data axis
+    (nemotron_tpu/parallel/mesh.py:106-116; state_shardings' rank map is
+    for [L, B, ...] encoder caches and would pick the wrong axis)."""
+    vals = {}
+    for f in dataclasses.fields(tree):
+        x = getattr(tree, f.name)
+        if x is not None:
+            lo, hi = mesh.row_span(x.shape[0])
+            x = x[lo:hi].to(mesh.device).clone(
+                memory_format=torch.contiguous_format)
+        vals[f.name] = x
+    return type(tree)(**vals)
+
+
+def gather_stream_major(tree, mesh: Mesh):
+    """shard_stream_major's inverse: every row of every set leaf, on every
+    rank."""
+    return type(tree)(**{
+        f.name: (None if getattr(tree, f.name) is None
+                 else gather_rows(getattr(tree, f.name), mesh))
+        for f in dataclasses.fields(tree)})

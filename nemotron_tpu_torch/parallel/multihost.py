@@ -108,8 +108,10 @@ class MultihostLockstep(LockstepEngine):
       - and the ranks of a model group feed the same PCM.
 
     Not supported multihost: `endpoint_reset` (the reset is a collective
-    whose firing is data-dependent per process). Plain endpointing (events
-    without decoder reset) is pure host accounting and works.
+    whose firing is data-dependent per process), and beam decode (the JAX
+    package's MultihostServing refuses it, nemotron_tpu/parallel/
+    multihost.py:322-324, and so does this engine). Plain endpointing
+    (events without decoder reset) is pure host accounting and works.
 
     `save`/`load` are per-process shard snapshots: every rank calls them
     COLLECTIVELY with the SAME path; each data index writes/reads its own
@@ -122,6 +124,9 @@ class MultihostLockstep(LockstepEngine):
                  n_streams: int = 256, mesh=None, model_parallel: int = 1,
                  **kw):
         _check_world("MultihostLockstep", "LockstepEngine")
+        if kw.get("beam_size", 1) > 1:
+            raise ValueError("beam decode is not wired multihost "
+                             "(staged beam-slot resets not implemented)")
         if kw.get("endpoint_reset"):
             raise ValueError("endpoint_reset is not supported multihost "
                              "(data-dependent collective); endpoint events "

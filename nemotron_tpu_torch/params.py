@@ -444,6 +444,7 @@ def params_from_jax_arrays(flat: dict, cfg: ModelConfig,
 
 
 def load_model(path: str, device="cuda", keep_quantized: bool = True,
+               use_native: bool | str = "auto",
                ) -> tuple[ModelParams, ModelConfig, list[str]]:
     """Load a GGUF file onto `device`: (params, config, vocab).
 
@@ -459,9 +460,11 @@ def load_model(path: str, device="cuda", keep_quantized: bool = True,
     encoder matmul weights stay int8 plus per-block f32 scales (QTensor),
     bit-identical to the file's blocks, and go through the Q8 kernel;
     without it every tensor is dequantized to dense f32 (what SmoothQuant
-    folds; nemotron_tpu/params.py:311-333)."""
+    folds; nemotron_tpu/params.py:311-333). use_native: gguf.read_gguf's
+    (the mmap loader when it builds, as the JAX package's load_model
+    reads); the parameters are the same with it and without it."""
     device = resolve_device(device)
-    g = gguf_mod.read_gguf(path)
+    g = gguf_mod.read_gguf(path, use_native=use_native)
     md = g.metadata
 
     def u32(key, default):

@@ -7,7 +7,8 @@ The counterpart of `scripts/serve.py`:
     python -m nemotron_tpu_torch.serve <model.gguf> <audio.pcm|.wav>
         [--streams N] [--slots S] [--right-context R] [--seconds T]
         [--quantize q8_0|w8a8|w8a8-sq|w8a8-sq-static] [--kv-int8|--kv-int4]
-        [--rc-by-layer 13,6,1,0] [--lockstep] [--dsp auto|numpy|device]
+        [--rc-by-layer 13,6,1,0] [--lockstep]
+        [--dsp auto|native|numpy|device]
         [--confidence] [--endpoint-silence S] [--endpoint-reset]
         [--beam K] [--lm lm.gguf] [--lm-weight W] [--lm-bonus B] [--ctc]
         [--mesh N] [--coordinator H:P --num-processes N --process-id I]
@@ -35,8 +36,10 @@ The counterpart of `scripts/serve.py`:
     this process is rank I of N serving one MultihostLockstep slab
     (parallel/multihost.py), feeding and reading only its own rows; rank
     0 creates the world at H:P
-  - --dsp native comes with the native-bindings slice of this port and
-    exits 1
+  - --dsp native runs the ServingEngine's DSP in the C++ host frontend
+    (native/frontend.cpp, built into build/native/ at first use; exit 1
+    when it cannot be built)
+  - --beam K with --mesh N: each rank holds its rows of the beam state
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import time
 
 import numpy as np
 
-from .asr_server import flag_value, later_flag, positional_args
+from .asr_server import flag_value, positional_args
 
 _VALUED = ("--streams", "--slots", "--right-context", "--seconds",
            "--quantize", "--rc-by-layer", "--dsp", "--endpoint-silence",
@@ -95,10 +98,6 @@ def join_mesh(n: int, device: str):
 
 
 def main(argv: list[str]) -> int:
-    refused = later_flag(argv[1:])
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
-        return 1
     args = positional_args(argv, _VALUED, _SWITCHES)
     if args is None:
         return 1

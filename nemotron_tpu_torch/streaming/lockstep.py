@@ -3,7 +3,7 @@ tokens on the params' device.
 
 The port's counterpart of `nemotron_tpu/streaming/lockstep.py` (RNN-T
 greedy or beam, with or without LM fusion, the TDT walk or beam, the CTC
-head; greedy decodes over a mesh). Where `ServingEngine`
+head; greedy and beam decode over a mesh). Where `ServingEngine`
 (serving.py) lets slots advance at independent rates, `LockstepEngine`
 feeds one PCM block to all S streams at once and runs the whole pipeline
 on the device:
@@ -242,8 +242,11 @@ class LockstepEngine:
     -- every rank builds the engine alike, is given the same ticks and
     keeps the whole host state; the data axis splits the stream rows of
     the device state, the model axis the encoder's FFNs and heads; tokens
-    are gathered over the data axis a tick. Beam decode is not wired on a
-    mesh (NotImplementedError).
+    are gathered over the data axis a tick. A beam engine holds its rows of
+    the beam state (parallel.mesh.shard_stream_major, as JAX's
+    lockstep.py:381-390); the best hypotheses are gathered when the
+    transcripts are refreshed, the whole beam state when a snapshot is
+    saved.
 
     Subclasses that feed only some rows from the host (the multi-process
     engine, parallel/multihost.py) preset `n_local` and `_local_rows`
@@ -268,8 +271,6 @@ class LockstepEngine:
                                                   beam_size, endpoint_reset)
         if endpoint_silence_s is not None and beam_size > 1:
             raise ValueError("endpointing requires greedy decode")
-        if mesh is not None and beam_size > 1:
-            raise NotImplementedError("beam decode is not wired on a mesh")
         _check_dtype(compute_dtype)
         self.cfg = cfg
         self.cc = cache_config or CacheConfig(n_mels=cfg.n_mels)
@@ -405,6 +406,8 @@ class LockstepEngine:
                                               self._heads_split())
         self.dec_state = mesh_mod.shard_state(self.dec_state, m)
         self.front = mesh_mod.shard_state(self.front, m)
+        if self.beam_state is not None:
+            self.beam_state = mesh_mod.shard_stream_major(self.beam_state, m)
         lo, hi = self._lo, self._hi
         self.mel_buf = self.mel_buf[lo:hi].clone()
         if self.tdt_skip is not None:
@@ -606,7 +609,7 @@ class LockstepEngine:
         if self.beam_state is not None and self._beam_dirty:
             for s, (toks, text) in best_transcripts(
                     self.beam_state, self.vocab,
-                    range(self.n_streams)).items():
+                    range(self.n_streams), self.mesh).items():
                 self.tokens[s] = toks
                 self.transcripts[s] = text
             self._beam_dirty = False
@@ -643,7 +646,7 @@ class LockstepEngine:
             "transcripts": np.asarray(self.transcripts, dtype=object),
         }
         if self.beam_state is not None:
-            flat |= beam_leaves(self.beam_state)
+            flat |= beam_leaves(self.beam_state, self.mesh)
         if self.tdt_skip is not None:
             flat["tdt_skip"] = fetch(self.tdt_skip, 0)
         if self.ctc_prev is not None:

@@ -17,7 +17,8 @@ realigned (rolled) when it resumes, so every stream's transcript equals
 its solo run's.
 
 The DSP runs on the host (`dsp="numpy"`: numpy framing per slot, one
-`torch.fft` spectral pass over every fed slot's frames) or on the device
+`torch.fft` spectral pass over every fed slot's frames; `dsp="native"`:
+one ragged call of the C++ frontend over every fed slot) or on the device
 (`dsp="device"`: raw int16 PCM in, the whole DSP chain inside the tick).
 
 `save` / `load` snapshot the whole engine in the JAX package's .npz format:
@@ -35,6 +36,7 @@ import torch
 from ..config import CacheConfig, ModelConfig, PreprocessorConfig
 from ..frontend.device_frontend import (FrontendState, frames_after,
                                         mel_frontend_step, residue_after)
+from ..frontend import native as native_frontend
 from ..frontend.preprocessor import StreamingPreprocessor, pad_window
 from ..config import MAX_SYMBOLS_PER_STEP
 from ..models import beam as beam_mod
@@ -283,10 +285,15 @@ class ServingEngine:
     device, in `compute_dtype` (float32 or bfloat16), with RNN-T greedy or
     beam decode.
 
-    dsp: "numpy" (host framing, one spectral pass a tick), "device" (the
-    DSP inside the tick; the stream runs one chunk behind real time until
-    `finalize_stream`) or "auto" ("device" when the params live on CUDA,
-    else "numpy").
+    dsp: "numpy" (host framing, one spectral pass a tick), "native" (ONE
+    C++ frontend over every slot: one ragged call a tick frames, transforms
+    and filters every fed slot at its own sample count, with each slot's
+    DSP state in C++; raises when its library cannot be built or loaded),
+    "device" (the DSP inside the tick; the stream runs one chunk behind
+    real time until `finalize_stream`) or "auto", which resolves as the
+    JAX engine's (nemotron_tpu/streaming/serving.py:650-726): "device" when
+    the params live on CUDA, else "native" when the library builds and
+    loads, else "numpy". `dsp_mode` names the one resolved.
 
     confidence: tokens become (id, frame, log_posterior) triples (the
     greedy loop's log softmax at the emitting frame), in `tokens`,
@@ -308,8 +315,7 @@ class ServingEngine:
     A TDT checkpoint decodes with the duration-aware walk (each slot
     carries its jump overshoot, `tdt_skip`) or beam; ctc=True decodes a
     hybrid checkpoint with its CTC head (the collapse carry `ctc_prev` on
-    the host). dsp="native" (the native-bindings slice) comes with a later
-    slice of the port and raises NotImplementedError.
+    the host).
 
     mesh (parallel.mesh.Mesh): every rank of the mesh builds the engine
     with the same arguments, is given the same calls and keeps the whole
@@ -326,8 +332,11 @@ class ServingEngine:
     realign, the finalize loops, endpointing) are made from the host
     state, which is the same on every rank by construction, and a tick
     that steps any slot runs the chunk step on every rank (its rows
-    masked where none of them is ready). Beam decode is not wired on a
-    mesh (NotImplementedError)."""
+    masked where none of them is ready). A beam engine on a mesh holds its
+    rows of the beam state (JAX's shard_stream_major, nemotron_tpu/
+    streaming/serving.py:636-647); the best hypotheses are gathered over
+    the data axis when the transcripts are refreshed, and the whole beam
+    state when a snapshot is saved."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -352,14 +361,9 @@ class ServingEngine:
                                                   beam_size, endpoint_reset)
         if endpoint_silence_s is not None and beam_size > 1:
             raise ValueError("endpointing requires greedy decode")
-        if mesh is not None and beam_size > 1:
-            raise NotImplementedError("beam decode is not wired on a mesh")
-        if dsp == "native":
-            raise NotImplementedError("the native frontend comes with the "
-                                      "utils and native-bindings slice of "
-                                      "the port")
-        if dsp not in ("auto", "numpy", "device"):
-            raise ValueError(f"dsp={dsp!r}: 'auto', 'numpy' or 'device'")
+        if dsp not in ("auto", "numpy", "native", "device"):
+            raise ValueError(f"dsp={dsp!r}: 'auto', 'numpy', 'native' or "
+                             "'device'")
         _check_dtype(compute_dtype)
         self.cfg = cfg
         self.cc = cache_config or CacheConfig(n_mels=cfg.n_mels)
@@ -422,7 +426,7 @@ class ServingEngine:
         self.beam_state = None
         self._beam_dirty = False
         if beam_size > 1:
-            self.beam_state = init_beam(cfg, self.tdt, n_slots, beam_size,
+            self.beam_state = init_beam(cfg, self.tdt, B, beam_size,
                                         max_beam_tokens, compute_dtype, dev,
                                         lm=self.lm)
         # the TDT jump carry (device) and the CTC collapse carry (host)
@@ -435,9 +439,11 @@ class ServingEngine:
         pcfg = PreprocessorConfig(n_mels=cfg.n_mels)
         self._pcfg = pcfg
         if dsp == "auto":
-            dsp = "device" if dev.type == "cuda" else "numpy"
+            dsp = ("device" if dev.type == "cuda" else
+                   "native" if native_frontend.available() else "numpy")
         self.dsp_mode = dsp
         self.preprocs: list[StreamingPreprocessor] = []
+        self.native_fe = None
         if dsp == "device":
             # Each slot advances by one chunk shift of samples a DSP step,
             # so after its first quantum the residue length is a constant
@@ -474,10 +480,16 @@ class ServingEngine:
             self.mel_fill = np.full(n_slots, self.cc.pre_encode_cache_size,
                                     np.int64)
             self.fresh = np.ones(n_slots, bool)
+        elif dsp == "native":
+            self.native_fe = native_frontend.NativeFrontend(
+                fb, pad_window(win, pcfg.n_fft), n_streams=n_slots,
+                n_fft=pcfg.n_fft, hop=pcfg.n_window_stride,
+                n_mels=cfg.n_mels, preemph=pcfg.preemph,
+                log_zero_guard=pcfg.log_zero_guard)
         else:
             self.preprocs = [
                 StreamingPreprocessor(fb, win, n_streams=1, cfg=pcfg,
-                                      device=dev)
+                                      device=dev, backend="numpy")
                 for _ in range(n_slots)]
 
         self.active = np.zeros(n_slots, bool)
@@ -543,6 +555,8 @@ class ServingEngine:
             self.pcm_fifos[slot] = _PcmBuffer()
             self.mel_fill[slot] = self.cc.pre_encode_cache_size
             self.fresh[slot] = True
+        elif self.native_fe is not None:
+            self.native_fe.reset_fresh(slot)
         else:
             self.preprocs[slot].reset()
 
@@ -643,7 +657,8 @@ class ServingEngine:
         """A fresh beam, TDT jump carry and CTC collapse carry for the
         masked slots (nemotron_tpu/streaming/serving.py:836-844)."""
         if self.beam_state is not None:
-            self.beam_state = _reset_beam_slots(self.beam_state, mask,
+            self.beam_state = _reset_beam_slots(self.beam_state,
+                                                self._rows(mask),
                                                 self.cfg.blank_token)
         if self.tdt_skip is not None:
             self.tdt_skip.index_fill_(0, torch.from_numpy(np.flatnonzero(
@@ -692,6 +707,14 @@ class ServingEngine:
             for slot, audio in audio_by_slot.items():
                 self.pcm_fifos[slot].append(
                     np.asarray(audio, np.int16).ravel())
+            return
+        if self.native_fe is not None:
+            # ONE ragged C++ call: framing, FFT and mel of every fed slot
+            # at its own sample count (nemo_frontend_process_ragged)
+            for slot, mel in self.native_fe.process_ragged(
+                    audio_by_slot).items():
+                if mel.shape[0]:
+                    self.mel_buffers[slot].append(mel)
             return
         slots, frames_list = [], []
         for slot, audio in audio_by_slot.items():
@@ -975,7 +998,7 @@ class ServingEngine:
         if self.beam_state is not None and self._beam_dirty:
             for s, (toks, text) in best_transcripts(
                     self.beam_state, self.vocab,
-                    np.flatnonzero(self.active)).items():
+                    np.flatnonzero(self.active), self.mesh).items():
                 self.tokens[s] = toks
                 self.transcripts[s] = text
             self._beam_dirty = False
@@ -990,6 +1013,8 @@ class ServingEngine:
             res, last = front
             return {"last_sample": last[slot:slot + 1],
                     "residue": res[slot:slot + 1]}
+        if self.native_fe is not None:
+            return self.native_fe.slot_state_dict(slot)
         return self.preprocs[slot].state_dict()
 
     def _dsp_load_state(self, slot: int, st: dict) -> None:
@@ -1000,6 +1025,8 @@ class ServingEngine:
                     np.asarray(st["residue"], np.float32).ravel().copy())
                 self.front_last[r] = float(
                     np.asarray(st["last_sample"]).ravel()[0])
+        elif self.native_fe is not None:
+            self.native_fe.load_slot_state_dict(slot, st)
         else:
             self.preprocs[slot].load_state_dict(st)
 
@@ -1038,7 +1065,7 @@ class ServingEngine:
             "slot_phase": self.slot_phase,
         }
         if self.beam_state is not None:
-            flat |= beam_leaves(self.beam_state)
+            flat |= beam_leaves(self.beam_state, self.mesh)
         if self.tdt_skip is not None:
             flat["tdt_skip"] = self._whole(self.tdt_skip)
         if self.ctc_prev is not None:
@@ -1104,6 +1131,9 @@ class ServingEngine:
             self.enc_state = mesh_mod.shard_state(
                 self.enc_state, self.mesh, self._heads_split())
             self.dec_state = mesh_mod.shard_state(self.dec_state, self.mesh)
+            if beam_state is not None:
+                beam_state = mesh_mod.shard_stream_major(beam_state,
+                                                         self.mesh)
         self.beam_state = beam_state
         self._beam_dirty = beam_state is not None
         if self.tdt:

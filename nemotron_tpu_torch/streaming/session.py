@@ -31,12 +31,16 @@ from ..models import decoder as dec_mod
 from ..models import encoder as enc_mod
 from ..models import tdt as tdt_mod
 from ..models.lm import lm_to_device
+from ..parallel import mesh as mesh_mod
 from ..params import ModelParams, cast_params
 from ..utils import npz
+from ..utils.dump import DumpTracer
 from ..utils.tones import enc_frames_of_mel
 from ..utils.text import tokens_to_text
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the torch.profiler range of a session's chunk step (utils/profiler.py)
+CHUNK_STEP_RANGE = "chunk_step"
 
 
 def chunk_step(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
@@ -55,6 +59,20 @@ def chunk_step(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
     out = dec_mod.greedy_decode(params, cfg, enc_out, dec_state,
                                 with_confidence=with_confidence)
     return (out[0], enc_state) + out[1:]
+
+
+def chunk_step_captured(params: ModelParams, cfg: ModelConfig,
+                        cc: CacheConfig, mel_chunk: torch.Tensor, enc_state,
+                        dec_state, pos_heads):
+    """chunk_step with the encoder's named intermediates captured (dump
+    tracing; nemotron_tpu/streaming/session.py:355-361): (tokens,
+    enc_state', dec_state', inter), inter as encoder.encode_chunk's
+    capture. Tokens and state are those of chunk_step."""
+    enc_out, enc_state, inter = enc_mod.encode_chunk(
+        params, cfg, cc, mel_chunk, enc_state, pos_heads, capture=True)
+    tokens, dec_state = dec_mod.greedy_decode(params, cfg, enc_out,
+                                              dec_state)
+    return tokens, enc_state, dec_state, inter
 
 
 def chunk_step_masked(params: ModelParams, cfg: ModelConfig, cc: CacheConfig,
@@ -217,11 +235,16 @@ def check_beam_options(beam_size: int, lm, confidence: bool = False,
                          "(the LM rescored search IS the beam)")
 
 
-def best_transcripts(beam_state, vocab, rows) -> dict:
+def best_transcripts(beam_state, vocab, rows, mesh=None) -> dict:
     """{row: (tokens, text)} of each row's current best hypothesis
     (length-normalized selection, the serving default): one device call
-    and one [S, U] download. Beam tokens carry no frame (0)."""
+    and one [S, U] download. Beam tokens carry no frame (0). Under a mesh
+    the beam state holds this rank's rows (parallel.mesh.
+    shard_stream_major), and the best hypotheses of every row are gathered
+    over the data axis."""
     btok, blen, _ = beam_mod.best_hypothesis(beam_state, length_norm=True)
+    if mesh is not None:
+        btok, blen = (mesh_mod.gather_rows(t, mesh) for t in (btok, blen))
     btok, blen = btok.cpu().numpy(), blen.cpu().numpy()
     out = {}
     for s in rows:
@@ -230,9 +253,12 @@ def best_transcripts(beam_state, vocab, rows) -> dict:
     return out
 
 
-def beam_leaves(beam_state) -> dict:
+def beam_leaves(beam_state, mesh=None) -> dict:
     """The beam state's snapshot leaves under the JAX package's beam/*
-    keys (beam/lm_h and beam/lm_c with an LM)."""
+    keys (beam/lm_h and beam/lm_c with an LM); every row of them under a
+    mesh (gathered over the data axis)."""
+    if mesh is not None:
+        beam_state = mesh_mod.gather_stream_major(beam_state, mesh)
     return {f"beam/{k}": npz.to_numpy(v)
             for k, v in beam_mod.leaves(beam_state).items()}
 
@@ -293,7 +319,19 @@ class StreamSession:
     walk, carrying each stream's jump overshoot (`tdt_skip`), or with the
     duration-aware beam; ctc=True decodes a hybrid checkpoint with its CTC
     head (greedy, with confidence and word timestamps; the collapse carries
-    each stream's last frame id across chunks, `ctc_prev`)."""
+    each stream's last frame id across chunks, `ctc_prev`).
+
+    trace_dir: every chunk appends its named intermediates (mel,
+    pre_encode_out, layer_{l:02d}_out, encoder_out, tokens) to dump files
+    in that directory, in the reference's binary format (utils/dump.py;
+    the reference's my_bin/ tracing, src/nemo-stream.cpp:880-958). Greedy
+    RNN-T only, as in the JAX package; the traced step's tokens and state
+    are the untraced step's.
+
+    frontend: the StreamingPreprocessor backend. "auto" (the default)
+    resolves as the JAX session's does on the CPU, to its native C++ DSP
+    (so the mel is JAX's bit for bit), and on the card to "numpy" (the FFT
+    on the card); "numpy" and "native" ask for one."""
 
     def __init__(self, params: ModelParams, cfg: ModelConfig,
                  vocab: list[str] | None = None,
@@ -309,21 +347,26 @@ class StreamSession:
                  confidence_words: bool = False,
                  ctc: bool = False,
                  lm=None, lm_weight: float = 0.3,
-                 lm_bonus: float = 0.0):
+                 lm_bonus: float = 0.0, frontend: str = "auto"):
+        # the JAX package's refusals, in its order (session.py:425-462):
+        # tracing captures the greedy RNN-T step only
+        traced = trace_dir is not None
+        if traced and beam_size > 1 and not timestamp_words:
+            raise ValueError("tracing supports greedy decode only")
         check_beam_options(beam_size, lm, confidence or confidence_words,
                            timestamp_words)
+        if traced and (confidence or confidence_words):
+            raise ValueError("confidence and tracing are mutually exclusive "
+                             "(the traced step has no confidence output)")
         self.ctc, self.tdt = check_decode_options(params, cfg, ctc, beam_size,
                                                   excludes="beam/tracing")
-        if trace_dir is not None:
-            # the JAX package's refusals of tracing a CTC or TDT decode
-            if self.ctc:
-                raise ValueError("ctc decode excludes beam/tracing (CTC beam "
-                                 "would be a prefix search; decode the "
-                                 "hybrid's RNN-T head for beam)")
-            if self.tdt:
-                raise ValueError("tracing supports greedy decode only")
-            raise NotImplementedError("dump tracing comes with the utils "
-                                      "slice of the port")
+        if traced and self.ctc:
+            raise ValueError("ctc decode excludes beam/tracing (CTC beam "
+                             "would be a prefix search; decode the "
+                             "hybrid's RNN-T head for beam)")
+        if traced and self.tdt:
+            raise ValueError("tracing supports greedy decode only")
+        self.tracer = DumpTracer(trace_dir) if traced else None
         _check_dtype(compute_dtype)
         self.params = cast_params(params, compute_dtype)
         self.dtype = compute_dtype
@@ -347,7 +390,8 @@ class StreamSession:
             params.preprocessor.filterbank.float().cpu().numpy(),
             params.preprocessor.window.float().cpu().numpy(),
             n_streams=n_streams,
-            cfg=PreprocessorConfig(n_mels=cfg.n_mels), device=self.device)
+            cfg=PreprocessorConfig(n_mels=cfg.n_mels), device=self.device,
+            backend=frontend)
         self.pos_heads = enc_mod.precompute_pos_heads(
             self.params, cfg, self.cc, compute_dtype)
         self.reset()
@@ -417,57 +461,17 @@ class StreamSession:
                 self.mel_buffer[:, :cc.chunk_mel_frames])).to(
                     self.device, self.dtype)
             t0 = time.perf_counter()
-            if self.beam_state is not None:
-                if self.tdt:
-                    self.enc_state, self.beam_state = chunk_step_tdt_beam(
-                        self.params, self.cfg, cc, chunk, self.enc_state,
-                        self.beam_state, self.pos_heads, self.beam_size,
-                        self.lm, self.lm_weight, self.lm_bonus)
-                else:
-                    self.enc_state, self.beam_state = chunk_step_beam(
-                        self.params, self.cfg, cc, chunk, self.enc_state,
-                        self.beam_state, self.pos_heads, self.beam_size,
-                        self.beam_expansions, self.lm, self.lm_weight,
-                        self.lm_bonus)
-                self._refresh_beam_transcripts()
-                self.chunk_seconds += time.perf_counter() - t0
-                self.total_chunks += 1
-                self.mel_buffer = self.mel_buffer[:, cc.shift_mel_frames:]
-                self.frame_offset += cc.valid_out_len
-                continue
-            if self.ctc:
-                ids, logp, self.enc_state = chunk_step_ctc(
-                    self.params, self.cfg, cc, chunk, self.enc_state,
-                    self.pos_heads, with_confidence=self.confidence)
-                ids = ids.cpu().numpy()                 # [S, valid_out]
-                emitted = ctc_mod.collapse_chunk(
-                    ids, self.ctc_prev, range(self.n_streams),
-                    self.cfg.blank_token, self.frame_offset,
-                    None if logp is None else logp.cpu().numpy())
-                n_frames = ids.shape[1]
-            else:
-                if self.tdt:
-                    (tokens, self.enc_state, self.dec_state, self.tdt_skip,
-                     confs) = chunk_step_tdt(
-                        self.params, self.cfg, cc, chunk, self.enc_state,
-                        self.dec_state, self.pos_heads, self.tdt_skip,
-                        with_confidence=self.confidence)
-                else:
-                    out = chunk_step(self.params, self.cfg, cc, chunk,
-                                     self.enc_state, self.dec_state,
-                                     self.pos_heads,
-                                     with_confidence=self.confidence)
-                    tokens, self.enc_state, self.dec_state = out[:3]
-                    confs = out[3] if self.confidence else None
-                tokens = tokens.cpu().numpy()   # [S, valid_out, MAX]
-                emitted = dec_mod.extract_emitted(
-                    tokens, self.cfg.blank_token,
-                    np.full(self.n_streams, self.frame_offset, np.int64),
-                    confs=None if confs is None else confs.cpu().numpy())
-                n_frames = tokens.shape[1]
+            # the profiler range of one chunk step (utils/profiler.py reads
+            # its device time), its host fetch included
+            with torch.profiler.record_function(CHUNK_STEP_RANGE):
+                emitted, n_frames = self._step(chunk)
             self.chunk_seconds += time.perf_counter() - t0
             self.total_chunks += 1
             self.mel_buffer = self.mel_buffer[:, cc.shift_mel_frames:]
+            self.frame_offset += n_frames
+            if emitted is None:           # a beam step: the transcripts
+                self._refresh_beam_transcripts()      # are rewritten
+                continue
             for s, toks in emitted.items():
                 self.tokens[s].extend(toks)
                 text = tokens_to_text(toks, self.vocab,
@@ -475,8 +479,73 @@ class StreamSession:
                                       confidence_words=self.confidence_words)
                 self.transcripts[s] += text
                 new_text[s] += text
-            self.frame_offset += n_frames
         return new_text
+
+    def _step(self, chunk: torch.Tensor) -> tuple[dict | None, int]:
+        """One chunk step of the session's decode family, the device state
+        updated: ({stream: tokens} emitted this chunk, or None for a beam
+        step; the encoder frames it covered)."""
+        cc = self.cc
+        if self.beam_state is not None:
+            if self.tdt:
+                self.enc_state, self.beam_state = chunk_step_tdt_beam(
+                    self.params, self.cfg, cc, chunk, self.enc_state,
+                    self.beam_state, self.pos_heads, self.beam_size,
+                    self.lm, self.lm_weight, self.lm_bonus)
+            else:
+                self.enc_state, self.beam_state = chunk_step_beam(
+                    self.params, self.cfg, cc, chunk, self.enc_state,
+                    self.beam_state, self.pos_heads, self.beam_size,
+                    self.beam_expansions, self.lm, self.lm_weight,
+                    self.lm_bonus)
+            return None, cc.valid_out_len
+        if self.ctc:
+            ids, logp, self.enc_state = chunk_step_ctc(
+                self.params, self.cfg, cc, chunk, self.enc_state,
+                self.pos_heads, with_confidence=self.confidence)
+            ids = ids.cpu().numpy()                     # [S, valid_out]
+            return ctc_mod.collapse_chunk(
+                ids, self.ctc_prev, range(self.n_streams),
+                self.cfg.blank_token, self.frame_offset,
+                None if logp is None else logp.cpu().numpy()), ids.shape[1]
+        confs = None
+        if self.tdt:
+            (tokens, self.enc_state, self.dec_state, self.tdt_skip,
+             confs) = chunk_step_tdt(
+                self.params, self.cfg, cc, chunk, self.enc_state,
+                self.dec_state, self.pos_heads, self.tdt_skip,
+                with_confidence=self.confidence)
+        elif self.tracer is not None:
+            tokens, self.enc_state, self.dec_state = self._traced_step(chunk)
+        else:
+            out = chunk_step(self.params, self.cfg, cc, chunk,
+                             self.enc_state, self.dec_state, self.pos_heads,
+                             with_confidence=self.confidence)
+            tokens, self.enc_state, self.dec_state = out[:3]
+            confs = out[3] if self.confidence else None
+        tokens = tokens.cpu().numpy()           # [S, valid_out, MAX]
+        return dec_mod.extract_emitted(
+            tokens, self.cfg.blank_token,
+            np.full(self.n_streams, self.frame_offset, np.int64),
+            confs=None if confs is None else confs.cpu().numpy()), \
+            tokens.shape[1]
+
+    def _traced_step(self, chunk: torch.Tensor):
+        """The greedy chunk step with its intermediates captured, each
+        appended to its dump file under the JAX package's names
+        (nemotron_tpu/streaming/session.py:673-685): mel, pre_encode_out,
+        layer_{l:02d}_out, encoder_out, tokens."""
+        tokens, enc_state, dec_state, inter = chunk_step_captured(
+            self.params, self.cfg, self.cc, chunk, self.enc_state,
+            self.dec_state, self.pos_heads)
+        self.tracer("mel", chunk)
+        self.tracer("pre_encode_out", inter["pre_encode_out"])
+        layer_out = inter["layer_out"].float().cpu().numpy()
+        for l in range(layer_out.shape[0]):
+            self.tracer(f"layer_{l:02d}_out", layer_out[l])
+        self.tracer("encoder_out", inter["encoder_out"])
+        self.tracer("tokens", tokens.float())
+        return tokens, enc_state, dec_state
 
     def _refresh_beam_transcripts(self) -> None:
         """Rewrite transcripts and tokens from the current best hypothesis
@@ -661,16 +730,18 @@ def token_list(rows) -> list[tuple]:
 def batch_mel(params: ModelParams, cfg: ModelConfig, utterances,
               min_mel_frames: int = 0):
     """Log-mel of each utterance (int16 PCM, 1-D) through its own
-    StreamingPreprocessor on the params' device, zero-padded along time to
-    max(longest, min_mel_frames) frames. Returns (mel [B, Tm, n_mels] f32
-    numpy, enc_lengths [B] int32 numpy: each utterance's encoder frames)."""
+    StreamingPreprocessor on the params' device ("auto": the native DSP on
+    the CPU, as the JAX package's, the FFT on the card), zero-padded along
+    time to max(longest, min_mel_frames) frames. Returns (mel [B, Tm,
+    n_mels] f32 numpy, enc_lengths [B] int32 numpy: each utterance's
+    encoder frames)."""
     fb = params.preprocessor.filterbank.float().cpu().numpy()
     win = params.preprocessor.window.float().cpu().numpy()
     mels = []
     for audio in utterances:
         pre = StreamingPreprocessor(fb, win,
                                     cfg=PreprocessorConfig(n_mels=cfg.n_mels),
-                                    device=params.device)
+                                    device=params.device, backend="auto")
         mels.append(pre.process(np.asarray(audio).reshape(1, -1))[0])
     Tm = max(max(m.shape[0] for m in mels), min_mel_frames)
     mel = np.zeros((len(mels), Tm, cfg.n_mels), np.float32)

@@ -77,7 +77,9 @@ def make_dataset(n_utts: int, tones_per_utt: int, n_tones: int,
     stack consumes (nemotron_tpu/utils/tones.py:77-118). All utterances
     carry U = tones_per_utt labels; audio length varies with the sampled
     durations and is zero-padded to the pool maximum, with mel_lengths
-    masking the padding out of the loss. The FFT runs on `device`.
+    masking the padding out of the loss. The DSP is the preprocessor's
+    "auto" backend on `device` (the JAX package's native DSP on the CPU,
+    the FFT on the card).
     """
     from ..config import PreprocessorConfig
     from ..frontend.preprocessor import StreamingPreprocessor
@@ -95,7 +97,7 @@ def make_dataset(n_utts: int, tones_per_utt: int, n_tones: int,
 
     pre = StreamingPreprocessor(filterbank, window, n_streams=n_utts,
                                 cfg=PreprocessorConfig(n_mels=n_mels),
-                                device=device)
+                                device=device, backend="auto")
     mel = pre.process(audio)                       # [N, Tm, n_mels]
 
     # per-utterance valid length from the true (un-padded) signal span
@@ -127,7 +129,8 @@ class TonesSampler:
     encoder.
 
     Same static shapes as `make_dataset` (nemotron_tpu/utils/tones.py:
-    121-244); mel through the port's StreamingPreprocessor on `device`.
+    121-244); mel through the port's StreamingPreprocessor on `device`
+    ("auto", as make_dataset).
     One sampler instance is single-threaded -- create one per prefetch
     worker.
     """
@@ -188,7 +191,8 @@ class TonesSampler:
                                   * SAMPLE_RATE)
         self._pre = StreamingPreprocessor(
             filterbank, window, n_streams=batch,
-            cfg=PreprocessorConfig(n_mels=n_mels), device=device)
+            cfg=PreprocessorConfig(n_mels=n_mels), device=device,
+            backend="auto")
         self._seed = seed
 
     def sample(self, step: int) -> dict:

@@ -158,16 +158,13 @@ def test_batch_cli_refuses_bad_subtitle_flags(capsys, flags, want):
     ("--trace=d", "utils and native-bindings"),
     ("--profile=d", "utils and native-bindings")])
 def test_stream_cli_refuses_later_flags(capsys, flag, slice_name):
-    """Each flag of cli/transcribe_stream.py out of this port's slices
-    exits 1 and names the slice that brings it. The quant-tiers and
-    TDT/CTC slices' flags are ported: they are taken, and a missing model
-    is the first error (the beam family's: tests/test_torch_refine.py;
-    --ctc against the JAX CLI: tests/test_torch_ctc.py)."""
-    if slice_name in ("quant-tiers", "TDT/CTC"):
-        assert cli.main(["cli", "missing.gguf", "a.pcm", "--cpu", flag]) == 1
-        err = capsys.readouterr().err
-        assert "model file not found: missing.gguf" in err
-        assert "slice" not in err and "unsupported flag" not in err
-        return
-    assert cli.main(["cli", FIXTURE, "a.pcm", "--cpu", flag]) == 1
-    assert f"the {slice_name} slice" in capsys.readouterr().err
+    """Each flag of cli/transcribe_stream.py that a later slice of this
+    port brought is taken now, and a missing model is the first error:
+    the quant-tiers, TDT/CTC and utils slices' flags (the beam family's:
+    tests/test_torch_refine.py; --ctc against the JAX CLI:
+    tests/test_torch_ctc.py; --trace and --profile run:
+    tests/test_torch_profiler.py)."""
+    assert cli.main(["cli", "missing.gguf", "a.pcm", "--cpu", flag]) == 1
+    err = capsys.readouterr().err
+    assert "model file not found: missing.gguf" in err
+    assert "slice" not in err and "unsupported flag" not in err

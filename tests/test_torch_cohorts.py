@@ -331,9 +331,10 @@ def run_serve(*args):
 
 
 def direct_slot_lines(gguf_path, pcm, lockstep, n_streams=2, R=1,
-                      seconds=2.0):
+                      seconds=2.0, dsp="auto"):
     """The `[slot s]` lines of the same run, driving the port's engine
-    directly with serve's staggered blocks (bf16, as serve runs)."""
+    directly with serve's staggered blocks (bf16, as serve runs; `dsp`
+    the ragged engine's)."""
     params, cfg, vocab = load_model(gguf_path, device="cpu")
     cc = TCC(att_right_context=R, n_mels=cfg.n_mels)
     q = cc.shift_samples
@@ -352,7 +353,8 @@ def direct_slot_lines(gguf_path, pcm, lockstep, n_streams=2, R=1,
         eng.flush_pipeline()
         slots = range(n_streams)
     else:
-        eng = TEngine(params, cfg, vocab, cc, n_slots=max(8, n_streams))
+        eng = TEngine(params, cfg, vocab, cc, n_slots=max(8, n_streams),
+                      dsp=dsp)
         slots = eng.add_streams(n_streams)
         for _ in range(n_ticks):
             eng.feed_audio({s: block(i) for i, s in enumerate(slots)})
@@ -391,10 +393,21 @@ def test_serve_refuses_later_slices(serve_files, flags, slice_name, capsys):
     model). The multi-GPU slice's --mesh and --coordinator are ported
     (tests/test_torch_multihost.py runs them): here their refusals before
     anything starts -- streams not divisible by the ranks, and a
-    one-process multihost world."""
+    one-process multihost world. The native-bindings slice's --dsp native
+    is ported: the ragged engine serves with the C++ frontend, its
+    `[slot s]` lines those of the native engine driven directly."""
     from nemotron_tpu_torch import serve
 
-    gguf_path, audio, _ = serve_files
+    gguf_path, audio, pcm = serve_files
+    if slice_name == "native-bindings":
+        assert serve.main(["serve", gguf_path, audio, "--cpu", "--streams",
+                           "2", "--right-context", "1", "--seconds", "2",
+                           *flags]) == 0
+        out, err = capsys.readouterr()
+        assert "slice" not in err and "aggregate real-time" in err
+        lines = [ln for ln in out.splitlines() if ln.startswith("[slot ")]
+        assert lines == direct_slot_lines(gguf_path, pcm, False, dsp="native")
+        return
     extra = {"--mesh": ["--streams", "3"],
              "--coordinator": ["--num-processes", "1"]}.get(flags[0], [])
     assert serve.main(["serve", gguf_path, audio, "--cpu", "--lockstep",
@@ -413,12 +426,14 @@ def test_serve_refuses_later_slices(serve_files, flags, slice_name, capsys):
 
 
 def test_serve_module_exits_1_on_a_later_flag(serve_files):
-    """The module's exit status, not only main's return value (--dsp
-    native: the native-bindings slice)."""
+    """The module's exit status, not only main's return value (no flag
+    names a later slice any more: --mesh 2 over 3 lockstep streams is
+    refused before anything starts)."""
     gguf_path, audio, _ = serve_files
-    r = run_serve(gguf_path, audio, "--cpu", "--dsp", "native")
+    r = run_serve(gguf_path, audio, "--cpu", "--lockstep", "--mesh", "2",
+                  "--streams", "3")
     assert r.returncode == 1
-    assert "native-bindings" in r.stderr and not r.stdout
+    assert "divisible by the ranks" in r.stderr and not r.stdout
 
 
 def test_serve_rejects_bad_arguments(serve_files, capsys):

@@ -528,7 +528,8 @@ def test_lockstep_bf16_mel_ring(tiny, tmp_path):
 
 def test_lockstep_refuses_later_slices_and_defaults(tiny, tmp_path):
     """A one-rank mesh builds an engine over every stream (the multi-GPU
-    slice, tests/test_torch_mesh.py) and refuses a beam; beam search is ported
+    slice, tests/test_torch_mesh.py), a beam engine too (its rows of the
+    beam state, tests/test_torch_mesh_beam.py); beam search is ported
     (tests/test_torch_beam.py) and an LM without a beam raises the JAX
     package's ValueError; so is the TDT/CTC slice (tests/test_torch_tdt.py,
     tests/test_torch_ctc.py): ctc=True without a CTC head raises JAX's
@@ -540,8 +541,8 @@ def test_lockstep_refuses_later_slices_and_defaults(tiny, tmp_path):
     from nemotron_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        TLock(tp, cfg, vocab, cc, n_streams=2, mesh=mesh, beam_size=4)
+    assert TLock(tp, cfg, vocab, cc, n_streams=2, compute_dtype=F32,
+                 mesh=mesh, beam_size=4).beam_state.h.shape[:2] == (2, 4)
     assert TLock(tp, cfg, vocab, cc, n_streams=2, compute_dtype=F32,
                  mesh=mesh).dec_state.h.shape[0] == 2
     with pytest.raises(ValueError, match="needs a model with a CTC head"):

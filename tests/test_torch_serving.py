@@ -731,17 +731,20 @@ def check_endpoint_events(events, eng, truth1, truth2):
 def test_engine_refuses_later_slices_and_resolves_auto(tiny, tmp_path):
     _jp, tp, cfg, vocab = tiny
     cc = TCC(**CC_KW, n_mels=cfg.n_mels)
-    with pytest.raises(NotImplementedError):
-        TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
-                dsp="native")
+    # the native-bindings slice is ported (tests/test_torch_native.py):
+    # dsp="native" builds one C++ frontend over every slot
+    native = TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
+                     dsp="native")
+    assert native.dsp_mode == "native" and native.native_fe.n_streams == 2
+    assert not native.preprocs
     # the multi-GPU slice is ported (tests/test_torch_mesh.py): a one-rank
-    # mesh builds an engine over every slot; a beam on a mesh is refused
+    # mesh builds an engine over every slot, a beam one too (its rows of
+    # the beam state; tests/test_torch_mesh_beam.py)
     from nemotron_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="beam"):
-        TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32, mesh=mesh,
-                beam_size=4)
+    assert TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
+                   mesh=mesh, beam_size=4).beam_state.scores.shape == (2, 4)
     assert TEngine(tp, cfg, vocab, cc, n_slots=2, compute_dtype=F32,
                    mesh=mesh).enc_state.k_cache.shape[1] == 2
     # the TDT/CTC slice is ported (tests/test_torch_tdt.py,
@@ -765,8 +768,10 @@ def test_engine_refuses_later_slices_and_resolves_auto(tiny, tmp_path):
         TEngine(tp, cfg, vocab, cc, n_slots=2, keep_segment_audio=True)
     with pytest.raises(ValueError, match="dsp"):
         TEngine(tp, cfg, vocab, cc, n_slots=2, dsp="scipy")
+    # "auto" resolves as the JAX engine's: on CPU params the native
+    # frontend, which builds here
     eng = TEngine(tp, cfg, vocab, cc, n_slots=2)
-    assert eng.dsp_mode == "numpy" and eng.dtype == torch.bfloat16
+    assert eng.dsp_mode == "native" and eng.dtype == torch.bfloat16
     defaults = inspect.signature(TEngine).parameters
     assert defaults["n_slots"].default == 64
     assert defaults["compute_dtype"].default == torch.bfloat16

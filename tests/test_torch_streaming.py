@@ -220,15 +220,16 @@ def test_session_q8_tokens_match_jax(models):
     assert tsess.total_chunks == jsess.total_chunks > 3
 
 
-def test_session_refuses_other_decoders(fixture_models):
-    """Tracing names the utils slice; a beam session is built
+def test_session_refuses_other_decoders(fixture_models, tmp_path):
+    """Tracing is ported (tests/test_torch_dump.py holds it to JAX): a
+    traced session is built and makes its directory; a beam session is built
     (tests/test_torch_beam.py holds it to JAX), and with confidence it
     raises the JAX package's ValueError; ctc=True on a model without a CTC
     head raises JAX's ValueError (tests/test_torch_ctc.py decodes a hybrid
     model)."""
     _, (tp, tc, tv) = fixture_models
-    with pytest.raises(NotImplementedError, match="utils"):
-        TSession(tp, tc, tv, trace_dir="x")
+    assert TSession(tp, tc, tv, trace_dir=str(tmp_path / "x")).tracer
+    assert (tmp_path / "x").is_dir()
     with pytest.raises(ValueError, match="needs a model with a CTC head"):
         TSession(tp, tc, tv, ctc=True)
     with pytest.raises(ValueError, match="confidence requires greedy"):
