@@ -256,7 +256,23 @@ Phases (any failure exits non-zero):
      bf16 / int8 tiers within TOL_EVAL_AGREEMENT_PCT / TOL_EVAL_TER_PCT.
      (a) and (c) run on the card in two child processes beside the
      utils-native phase; (b) runs in this process.
- 19. one JSON line of kernel results, the card's name and power limit, and
+ 19. the numpy oracle and the parity ladder (slice 20, `--phase
+     parity`), through the tools' main(argv): (a) `run_parity --quick` on
+     the full-width Q8_0 GGUF (24 layers, dequantized: the oracle's
+     weights): load, stages (compare_layers, each stage's max_abs logged),
+     greedy (exact tokens) and streaming R=13 PASS, the ring and Q8
+     kernels launched; `debug_conv_layers --layer 0` and `--layer 23` with
+     no DIFF, `debug_joint_trace --frames 8` with no divergence; (b) a
+     NeMo-style .nemo (the same seeded weights cut to 4 layers) through
+     convert_to_gguf (f32, q8_0) and convert_weights (.nemo -> bin ->
+     gguf), every tensor equal to the checkpoint's (Q8_0: its block
+     rounding) and every file equal to the CPU's byte for byte, then
+     `run_parity --quick` on the f32 GGUF: stages 1-4 PASS, stage 5's
+     agreements (Q8 and W8A8 kernels; dense, int8 and int4 rings) within
+     TOL_EVAL_AGREEMENT_PCT of the same ladder with --cpu. (a) and (b) run
+     in a child process on the card beside the multi-GPU, utils-native and
+     eval phases; (b)'s CPU side in one beside the phases from lockstep on.
+ 20. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -265,6 +281,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -7706,18 +7723,20 @@ def eval_args(name: str, cpu: bool = False) -> list:
             for a in EVAL_TONES[name]] + (["--cpu"] if cpu else [])
 
 
-def run_entry(name: str, args: list) -> tuple[int, str]:
-    """nemotron_tpu_torch.scripts.<name>.main in this process: (its exit
-    code, its stdout). Its stderr goes to the log."""
-    import contextlib
+def run_entry(name: str, args: list) -> tuple[int, str, str]:
+    """nemotron_tpu_torch.scripts.<name>.main in this process with both of
+    its streams captured: (exit code, stdout, stderr). The stderr of a
+    run that exits other than 0 also goes to this process's stderr."""
     import importlib
     import io
 
     mod = importlib.import_module(f"nemotron_tpu_torch.scripts.{name}")
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = mod.main([name, *args])
-    return rc, buf.getvalue()
+    if rc:
+        sys.stderr.write(err.getvalue())
+    return rc, out.getvalue(), err.getvalue()
 
 
 def eval_json(name: str, out: str):
@@ -7741,11 +7760,11 @@ def cpu_eval_reference(gguf_path: str, pcm_path: str, out_path: str) -> None:
     Q8_0 GGUF and each EVAL_TONES entry point with --cpu, their stdout
     (as JSON)."""
     res = {}
-    rc, out = run_entry("compare_outputs", [gguf_path, eval_cmp_pcm(pcm_path),
-                                            "--right-context", "13", "--cpu"])
+    rc, out, _err = run_entry("compare_outputs", [
+        gguf_path, eval_cmp_pcm(pcm_path), "--right-context", "13", "--cpu"])
     res["compare_outputs"] = [rc, out]
     for name in EVAL_TONES:
-        res[name] = list(run_entry(name, eval_args(name, cpu=True)))
+        res[name] = list(run_entry(name, eval_args(name, cpu=True))[:2])
     with open(out_path, "w", encoding="utf-8") as f:
         json.dump(res, f)
 
@@ -7757,7 +7776,7 @@ def eval_tones_card(out_path: str) -> None:
     n = {"attn": 0, "q8": 0, "w8a8": 0}
     t0 = time.perf_counter()
     runs = {name: list(counted(lambda: run_entry(name, eval_args(name)),
-                               n)[0]) for name in EVAL_TONES}
+                               n)[0][:2]) for name in EVAL_TONES}
     with open(out_path, "w", encoding="utf-8") as f:
         json.dump({"runs": runs, "launches": n,
                    "wall": time.perf_counter() - t0}, f)
@@ -7806,7 +7825,7 @@ def eval_full_agreement(gguf_path: str, out_path: str) -> None:
     ta.run_config = counted_run
     t0 = time.perf_counter()
     try:
-        rc, text = run_entry("token_agreement", EVAL_FULL_ARGS)
+        rc, text, _err = run_entry("token_agreement", EVAL_FULL_ARGS)
     finally:
         ta.run_config = plain_run
     wall = time.perf_counter() - t0
@@ -7877,7 +7896,7 @@ def eval_phase(gguf_path: str, children: dict, failures: list) -> dict:
         return g
 
     def compare():
-        res["rc"], res["out"] = run_entry("compare_outputs", [
+        res["rc"], res["out"], _err = run_entry("compare_outputs", [
             gguf_path, pcm_path, "--right-context", "13"])
 
     quant_kernel.q8_launch_geometry = tallied
@@ -8004,6 +8023,410 @@ def eval_phase(gguf_path: str, children: dict, failures: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the numpy oracle and the parity ladder (slice 20)
+# ---------------------------------------------------------------------------
+
+# (b)'s NeMo-style checkpoint: the full-width GGUF's seeded weights (SEED,
+# token 5's joint bias) cut to PARITY_LAYERS layers at the published widths
+PARITY_LAYERS = 4
+# (a): debug_conv_layers on the first and the last layer's conv module,
+# debug_joint_trace over PARITY_TRACE_FRAMES frames
+PARITY_CONV_LAYERS = (0, 23)
+PARITY_TRACE_FRAMES = 8
+# the ladder's stages that must pass (stage 5's agreements are held to the
+# CPU's ladder within TOL_EVAL_AGREEMENT_PCT instead of its 95% bar: random
+# weights sit on a blank-or-token edge)
+PARITY_NEED = ("load", "stages", "greedy", "streaming R=13")
+# the card's child of (b) waits at most this long for the CPU child's
+# checkpoint (written within ~20 s of that child's start, some 400 s
+# before)
+PARITY_WAIT_S = 600
+
+
+# the kernels' names in a profile, by the wrappers' count keys
+KERNEL_NAMES = {"attn": "ring_attn_cluster_kernel", "q8": "q8_matmul",
+                "w8a8": "w8a8_matmul"}
+
+
+def counted_by_name(fn, launches: dict):
+    """fn() under counted and profile_window: (its result, the wrappers'
+    launches, the profile's launches by kernel name); the wrappers'
+    launches are added to `launches`."""
+    box = []
+    prof, n = counted(lambda: profile_window(lambda: box.append(fn())),
+                      launches)
+    return box[0], n, {k: launches_of(prof, v)
+                       for k, v in KERNEL_NAMES.items()}
+
+
+def write_nemo_checkpoint(path: str) -> None:
+    """(b)'s checkpoint: random_weight_arrays at SEED with token 5's joint
+    bias (the full-width GGUF's weights, in NeMo's names and conv shapes)
+    cut to PARITY_LAYERS layers, as a .nemo tar of model_weights.ckpt,
+    model_config.yaml and tokenizer.vocab (t0 ... without the blank, which
+    the converter appends); written to a temporary name and renamed."""
+    import io
+    import tarfile
+
+    import torch
+
+    from nemotron_tpu_torch.config import ModelConfig
+    from nemotron_tpu_torch.params import random_weight_arrays
+
+    cfg = ModelConfig()
+    arrays = random_weight_arrays(cfg, seed=SEED)
+    arrays["joint.joint_net.2.bias"][5] = 2.0
+    keep = {n: torch.from_numpy(a) for n, a in arrays.items()
+            if not n.startswith("encoder.layers.")
+            or int(n.split(".")[2]) < PARITY_LAYERS}
+    ckpt = io.BytesIO()
+    torch.save(keep, ckpt)
+    config = (f"encoder:\n  d_model: {cfg.d_model}\n  n_heads: "
+              f"{cfg.n_heads}\n  n_layers: {PARITY_LAYERS}\n")
+    vocab = "".join(f"t{i}\t0.0\n" for i in range(cfg.vocab_size - 1))
+    with tarfile.open(path + ".part", "w") as tar:
+        for name, data in (("model_config.yaml", config.encode()),
+                           ("model_weights.ckpt", ckpt.getvalue()),
+                           ("tokenizer.vocab", vocab.encode())):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    os.replace(path + ".part", path)
+
+
+def check_converted(path: str, want: dict) -> dict:
+    """A converted GGUF's tensors against the checkpoint's (`want`, after
+    convert_conv_weights): F32 tensors equal, Q8_0 tensors equal to the
+    source's own Q8_0 round trip (quantize_q8_0, dequantize_q8_0: the
+    block rounding), and the largest |tensor - source| of the Q8_0 ones."""
+    from nemotron_tpu_torch import gguf
+
+    g = gguf.read_gguf(path)
+    n_f32 = n_q8 = 0
+    q8_err = 0.0
+    bad = [n for n in g.tensors if n not in want]
+    for name, a in want.items():
+        t = g.tensors.get(name)
+        got = None if t is None else t.to_numpy()
+        if got is None or got.shape != a.shape:
+            bad.append(name)
+        elif t.ggml_type == gguf.GGML_F32:
+            n_f32 += np.array_equal(got, a)
+        elif t.ggml_type == gguf.GGML_Q8_0:
+            ref = gguf.dequantize_q8_0(gguf.quantize_q8_0(a), a.size)
+            n_q8 += np.array_equal(got, ref.reshape(a.shape))
+            q8_err = max(q8_err, float(np.abs(got - a).max()))
+        else:
+            bad.append(name)
+    ok = not bad and n_f32 + n_q8 == len(want)
+    return dict(ok=ok, tensors=len(g.tensors), f32_equal=n_f32,
+                q8_0_equal=n_q8, q8_0_max_abs=q8_err, bad=bad[:4])
+
+
+def parity_conversions(nemo_path: str, out_dir: str, cpu: bool) -> dict:
+    """(b)'s converters through their main (with --cpu for the CPU's
+    side): convert_to_gguf unquantized and with --quantize q8_0,
+    convert_weights .nemo -> NEMO bin -> GGUF. Each output is held to the
+    checkpoint's tensors (check_converted; the bin to the raw state dict,
+    exactly); the files' sha256 let the card's side be held to the CPU's
+    byte for byte."""
+    import hashlib
+
+    from nemotron_tpu_torch.scripts.convert_to_gguf import (
+        convert_conv_weights, load_checkpoint)
+    from nemotron_tpu_torch.utils.nemo_bin import read_nemo_bin
+
+    flag = ["--cpu"] if cpu else []
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, f"parity_{k}")
+             for k in ("f32.gguf", "q8_0.gguf", "bin", "bin.gguf")}
+    t0 = time.perf_counter()
+    rcs = [run_entry(name, args + flag)[0] for name, args in (
+        ("convert_to_gguf", [nemo_path, paths["f32.gguf"]]),
+        ("convert_to_gguf", [nemo_path, paths["q8_0.gguf"], "--quantize",
+                             "q8_0"]),
+        ("convert_weights", [nemo_path, paths["bin"]]),
+        ("convert_weights", [paths["bin"], paths["bin.gguf"]]))]
+    wall = time.perf_counter() - t0
+    raw, _vocab, _config = load_checkpoint(nemo_path)
+    want = convert_conv_weights(raw)
+    checks = {k: check_converted(paths[k], want)
+              for k in ("f32.gguf", "q8_0.gguf", "bin.gguf")}
+    b = read_nemo_bin(paths["bin"])
+    checks["bin"] = dict(ok=set(b) == set(raw) and all(
+        np.array_equal(b[n], raw[n]) for n in raw), tensors=len(b))
+    sha = {}
+    for k, p in paths.items():
+        with open(p, "rb") as f:
+            sha[k] = hashlib.file_digest(f, "sha256").hexdigest()
+    return dict(rcs=rcs, checks=checks, sha256=sha, wall=wall,
+                gguf=paths["f32.gguf"])
+
+
+def parity_ladder_side(nemo_path: str, out_dir: str, cpu: bool) -> dict:
+    """(b) on the CPU's side (cpu: it writes the checkpoint first,
+    write_nemo_checkpoint, and passes --cpu) or on the card's (it waits for
+    the CPU child's checkpoint): the conversions (parity_conversions) and
+    `run_parity --quick` on the unquantized GGUF, the card's launches
+    counted. Returns
+    the conversions, the ladder's exit code, stdout, stderr and launches,
+    its wall and the wait."""
+    t0 = time.perf_counter()
+    if cpu:
+        write_nemo_checkpoint(nemo_path)
+    while not os.path.exists(nemo_path):
+        if time.perf_counter() - t0 > PARITY_WAIT_S:
+            raise RuntimeError(f"no checkpoint {nemo_path} after "
+                               f"{PARITY_WAIT_S} s")
+        time.sleep(1.0)
+    waited = time.perf_counter() - t0
+    flag = ["--cpu"] if cpu else []
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    conv = parity_conversions(nemo_path, out_dir, cpu)
+    t1 = time.perf_counter()
+
+    def ladder():
+        return run_entry("run_parity", [conv["gguf"], "--quick", *flag])
+
+    (rc, out, err), _ = (ladder(), None) if cpu else counted(ladder,
+                                                             launches)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"conversions": conv, "rc": rc, "out": out, "err": err,
+            "launches": launches, "wall": time.perf_counter() - t1,
+            "waited": waited}
+
+
+def parity_cpu_child(nemo_path: str, out_dir: str, out_path: str) -> None:
+    """(b)'s CPU side (parity_ladder_side with --cpu) in a child process
+    started with the other CPU references; as JSON."""
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(parity_ladder_side(nemo_path, out_dir, cpu=True), f)
+
+
+def parity_card_child(gguf_path: str, nemo_path: str, out_dir: str,
+                      out_path: str) -> None:
+    """(a)'s tool runs and (b)'s card side in a child process on the card,
+    started before the multi-GPU phase.
+    (a): run_parity --quick, debug_conv_layers at each PARITY_CONV_LAYERS
+    and debug_joint_trace --frames PARITY_TRACE_FRAMES on the full-width
+    GGUF, the tools sharing one load of it (scripts.sharing_loads), each
+    run's launches counted (the ladder's also by name, counted_by_name):
+    {run: [exit code, stdout, stderr, launches]}. As JSON: (a), the
+    ladder's launches by name, its wall, (b)."""
+    from nemotron_tpu_torch.scripts import sharing_loads
+
+    runs = {"run_parity": [gguf_path, "--quick"],
+            **{f"debug_conv_layers {layer}": [gguf_path, "--layer",
+                                              str(layer)]
+               for layer in PARITY_CONV_LAYERS},
+            "debug_joint_trace": [gguf_path, "--frames",
+                                  str(PARITY_TRACE_FRAMES)]}
+    t0 = time.perf_counter()
+    a, by_name = {}, None
+    with sharing_loads():
+        for key, args in runs.items():
+            n = {"attn": 0, "q8": 0, "w8a8": 0}
+
+            def run():
+                return run_entry(key.split()[0], args)
+
+            if key == "run_parity":
+                res, _, by_name = counted_by_name(run, n)
+            else:
+                res, _ = counted(run, n)
+            a[key] = [*res, n]
+    wall = time.perf_counter() - t0
+    b = parity_ladder_side(nemo_path, out_dir, cpu=False)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump({"a": a, "a_by_name": by_name, "a_wall": wall, "b": b}, f)
+
+
+def ladder_rows(out: str) -> dict:
+    """run_parity's PASS/FAIL table: {stage: (passed, detail)}."""
+    import re
+
+    rows, inside = {}, False
+    for ln in out.splitlines():
+        if ln.startswith("==== parity ladder"):
+            inside = True
+        elif ln.startswith("===="):
+            inside = False
+        elif inside:
+            m = re.match(r"  (.+?)\s+(PASS|FAIL)  (.*)$", ln)
+            if m:
+                rows[m.group(1)] = (m.group(2) == "PASS", m.group(3))
+    return rows
+
+
+def stage_errors(text: str) -> list:
+    """The per-stage lines of compare_layers / debug_conv_layers in
+    `text`: [(flag, stage, max_abs)]."""
+    import re
+
+    return [(m.group(1).strip(), m.group(2).strip(), float(m.group(3)))
+            for m in re.finditer(r"\[(OK |DIFF|SHAPE)\] (.+?)\s+max_abs "
+                                 r"(\S+)", text)]
+
+
+def agreement_of(detail: str) -> float | None:
+    """A quant stage's token agreement in percent."""
+    import re
+
+    m = re.search(r"token agreement ([0-9.]+)%", detail)
+    return float(m.group(1)) if m else None
+
+
+def parity_full_width(runs: dict, by_name: dict, out: dict, launches: dict,
+                      failures: list) -> None:
+    """parity_phase's (a) from the card child's tool runs (`runs`; the
+    ladder's launches by kernel name `by_name`), its results into `out`,
+    its launches into `launches`. Every check is the card's against the
+    numpy oracle, and one that fails is a failure of the run."""
+    rc, text, err, n_a = runs["run_parity"]
+    rows = ladder_rows(text)
+    bad = [s for s in PARITY_NEED if not rows.get(s, (False,))[0]]
+    stages = stage_errors(err)
+    out["a_ladder"] = dict(rc=rc, rows=rows, launches=n_a, by_name=by_name,
+                           stages=stages)
+    log(f"  (a) run_parity --quick, full-width Q8_0 GGUF (24 layers): exit "
+        f"{rc}; launches {json.dumps(n_a)}, in the profile by kernel name "
+        f"{json.dumps(by_name)}")
+    for s, (ok, detail) in rows.items():
+        log(f"      {s}: {'PASS' if ok else 'FAIL'} {detail}")
+    for flag, name, e in stages:
+        log(f"      [{flag}] {name}: max_abs {e:.3e}")
+    if not (n_a["attn"] and n_a["q8"]) or by_name != n_a:
+        failures.append(f"parity (a): launches {n_a}, by name {by_name}")
+    if rc or bad:
+        failures.append(f"parity (a) run_parity: exit {rc}, {bad} not PASS")
+
+    for layer in PARITY_CONV_LAYERS:
+        rc, text, _err, n = runs[f"debug_conv_layers {layer}"]
+        st = stage_errors(text)
+        worst = text.strip().splitlines()[-1] if text.strip() else ""
+        out[f"a_conv_{layer}"] = dict(rc=rc, stages=st, worst=worst,
+                                      launches=n)
+        log(f"  (a) debug_conv_layers --layer {layer}: exit {rc}; {worst}; "
+            + ", ".join(f"{name} {e:.2e}" for _f, name, e in st))
+        flags = [f for f in ("DIFF", "SHAPE") if f"[{f}]" in text]
+        if rc or flags or not st:
+            failures.append(f"parity (a) debug_conv_layers --layer {layer}: "
+                            f"exit {rc}, flags {flags}")
+
+    rc, text, _err, n = runs["debug_joint_trace"]
+    lines = text.strip().splitlines() or [""]
+    out["a_trace"] = dict(rc=rc, steps=len(lines) - 1, last=lines[-1],
+                          launches=n)
+    log(f"  (a) debug_joint_trace --frames {PARITY_TRACE_FRAMES}: exit {rc}; "
+        f"{len(lines) - 1} symbol steps; {lines[-1]}")
+    if rc or "no divergence" not in lines[-1]:
+        failures.append(f"parity (a) debug_joint_trace: exit {rc}, "
+                        f"{lines[-1]}")
+    for run in runs.values():
+        for k in launches:
+            launches[k] += run[3][k]
+
+
+def parity_phase(children: dict, failures: list) -> dict:
+    """Slice 20: the numpy oracle (nemotron_tpu_torch.oracle) and the
+    parity tools through their main(argv) on the card, in two child
+    processes: the CPU's (parity_cpu_child), started with the other CPU
+    references, and the card's (parity_card_child), started before the
+    multi-GPU phase.
+    (a) The full-width Q8_0 GGUF (24 layers, dequantized for the oracle;
+        one load shared by the tools): `run_parity --quick`: load, stages
+        (compare_layers: subsampling, encoder, decoder step, joint, a
+        streaming chunk at R = 13 through the ring kernel), greedy (tokens
+        exact against the oracle) and streaming R=13 (compare_outputs: the
+        Q8 kernel) PASS, exit 0; each stage's max_abs logged; the ring
+        and Q8 kernels launched, as many times by the wrappers' counts as
+        by name in a profile of the ladder.
+        `debug_conv_layers --layer L` for PARITY_CONV_LAYERS: no DIFF;
+        `debug_joint_trace --frames PARITY_TRACE_FRAMES`: no divergence.
+    (b) The NeMo-style checkpoint (write_nemo_checkpoint, by the CPU
+        child): convert_to_gguf (f32, q8_0) and convert_weights (.nemo ->
+        bin -> gguf) on the card's side: every converted tensor equal to
+        the checkpoint's (Q8_0: its block rounding), every file equal to
+        the CPU's byte for byte; `run_parity --quick` on the f32 GGUF:
+        PARITY_NEED PASS, and stage 5's agreements (q8_0, w8a8, with int8
+        and int4 rings: the Q8 and W8A8 kernels, the ring kernel on three
+        ring types) within TOL_EVAL_AGREEMENT_PCT of the CPU's ladder (not
+        its 95% bar); the three kernels launched.
+    Stage 5 alone is held to the CPU: random weights put its tokens on a
+    blank-or-token edge, on the CPU as on the card. Every other check is
+    the card's against the oracle, and one that fails fails the run.
+    children: {"cpu" | "card": (process, the JSON it writes)}."""
+    out: dict = {}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    t0 = time.perf_counter()
+    cpu, child = (finish_job(*children[k]) for k in ("cpu", "card"))
+    walls = {"wait": time.perf_counter() - t0, "card_a": child["a_wall"],
+             "card_b": child["b"]["wall"], "cpu_b": cpu["wall"]}
+    parity_full_width(child["a"], child["a_by_name"], out, launches,
+                      failures)
+
+    # (b) the NeMo-style checkpoint: the children's conversions and ladders
+    card = child["b"]
+    conv = card["conversions"]
+    same_bytes = conv["sha256"] == cpu["conversions"]["sha256"]
+    ok = (conv["rcs"] == [0] * 4 and same_bytes
+          and all(c["ok"] for c in conv["checks"].values()))
+    out["b_conversions"] = dict(rcs=conv["rcs"], checks=conv["checks"],
+                                same_bytes_as_cpu=same_bytes,
+                                wall=conv["wall"])
+    log(f"  (b) {PARITY_LAYERS}-layer full-width .nemo (the card's child, "
+        f"{card['waited']:.1f} s waiting for the checkpoint): convert_to_gguf"
+        f" (f32, q8_0), convert_weights (.nemo -> bin -> gguf) in "
+        f"{conv['wall']:.1f} s: exits {conv['rcs']}; files equal to the CPU "
+        f"child's byte for byte {same_bytes}")
+    for k, c in conv["checks"].items():
+        log(f"      {k}: {json.dumps(c)}")
+    if not ok:
+        failures.append(f"parity (b) conversions: {out['b_conversions']}")
+    rc, text, err, n_b = card["rc"], card["out"], card["err"], \
+        card["launches"]
+    for k in launches:
+        launches[k] += n_b[k]
+    rows, cpu_rows = ladder_rows(text), ladder_rows(cpu["out"])
+    bad = [s for s in PARITY_NEED if not rows.get(s, (False,))[0]]
+    quant = {s: (agreement_of(d), agreement_of(cpu_rows.get(s, (0, ""))[1]))
+             for s, (_ok, d) in rows.items() if s.startswith("quant ")}
+    gaps = {s: abs(a - c) for s, (a, c) in quant.items()
+            if a is not None and c is not None}
+    out["b_ladder"] = dict(rc=rc, cpu_rc=cpu["rc"], rows=rows,
+                           quant=quant, launches=n_b,
+                           stages=stage_errors(err),
+                           cpu_stages=stage_errors(cpu["err"]))
+    log(f"  (b) run_parity --quick on the converted f32 GGUF: exit {rc} "
+        f"({card['wall']:.1f} s; the --cpu child: exit {cpu['rc']}, "
+        f"{cpu['wall']:.1f} s); launches {json.dumps(n_b)}")
+    for s, (ok, detail) in rows.items():
+        log(f"      {s}: {'PASS' if ok else 'FAIL'} {detail}"
+            + (f" | CPU {cpu_rows[s][1]}" if s in cpu_rows else ""))
+    for (flag, name, e), (_f, _n, ce) in zip(out["b_ladder"]["stages"],
+                                              out["b_ladder"]["cpu_stages"]):
+        log(f"      [{flag}] {name}: max_abs {e:.3e} (CPU {ce:.3e})")
+    if bad:
+        failures.append(f"parity (b) run_parity: {bad} not PASS")
+    for s, (ok, _d) in rows.items():
+        if s.startswith("quant ") and not ok and not cpu_rows.get(
+                s, (True,))[0]:
+            log(f"  FINDING: (b) {s} is under the 95% bar on the CPU too: "
+                f"the random model's blank-or-token edge, not the card's")
+    if (len(gaps) != 4 or set(quant) != {s for s in cpu_rows
+                                          if s.startswith("quant ")}
+            or max(gaps.values()) > TOL_EVAL_AGREEMENT_PCT):
+        failures.append(f"parity (b) stage 5, card against CPU: {quant}")
+    if not (n_b["attn"] and n_b["q8"] and n_b["w8a8"]):
+        failures.append(f"parity (b): launches {n_b}")
+    log(f"  parts (s): {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}"
+        f" (wait: for the children; card_a, card_b, cpu_b: the parts' walls "
+        f"in theirs)")
+    out["launches"], out["walls"] = launches, walls
+    return out
+
+
 def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
     """The `kernels` JSON of a whole run: each kernel's launches on the
     main paths (every phase's count), its time, plain time, bound and
@@ -8017,7 +8440,7 @@ def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
     server_tones, tones_quant = res["server-tones"], res["tones-quant"]
     beam_tones, tdt_tones = res["beam-tones"], res["tdt-tones"]
     mgpu, utils_native = res["multi-gpu"], res["utils-native"]
-    evaluation = res["eval"]
+    evaluation, parity = res["eval"], res["parity"]
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
@@ -8027,7 +8450,7 @@ def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
                 + beam["launches"][k] + beam_tones["launches"][k]
                 + tdt["launches"][k] + tdt_tones["launches"][k]
                 + mgpu["launches"][k] + utils_native["launches"][k]
-                + evaluation["launches"][k]
+                + evaluation["launches"][k] + parity["launches"][k]
                 for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
@@ -8187,6 +8610,7 @@ PHASES = {
     "utils-native": "dump tracing, profiler, native bindings, mesh beam "
                     "(slice 18)",
     "eval": "evaluation entry points (slice 19)",
+    "parity": "oracle and parity ladder (slice 20)",
     "training": "training (slice 16)",
     "tones": "tones",
     "engine-tones": "serving engine tones (slice 8)",
@@ -8201,7 +8625,7 @@ PHASES = {
 }
 FULL_WIDTH_PHASES = ("main-path", "w8a8-path", "full-utterance", "engine",
                      "server", "quant", "lockstep", "beam", "training",
-                     "multi-gpu", "utils-native", "eval")
+                     "multi-gpu", "utils-native", "eval", "parity")
 
 
 def chosen_phases(argv: list[str]) -> set | None:
@@ -8334,6 +8758,14 @@ def main() -> int:
             ev_ref = os.path.join(tmp, "eval_ref.json")
             ev_job = job("eval", "cpu_eval_reference", path,
                          os.path.join(tmp, "eval_cmp.pcm"), ev_ref, threads=2)
+            # the parity phase's checkpoint, its conversions and its ladder
+            # with --cpu, beside the phases up to it
+            nemo_path = os.path.join(tmp, "parity.nemo")
+            par_cpu = os.path.join(tmp, "parity_cpu.json")
+            par_children = {"cpu": (job(
+                "parity", "parity_cpu_child", nemo_path,
+                os.path.join(tmp, "parity_cpu"), par_cpu, threads=2),
+                par_cpu)}
             phase("lockstep", lockstep_phase, path)
             phase("beam", beam_phase, path)
             # the training phase's CPU reference (a 2-layer cut of the
@@ -8343,6 +8775,15 @@ def main() -> int:
                             train_ref)
             phase("tdt-ctc", tdt_ctc_phase, tdt_path, tdt_job, tdt_ref,
                   res.get("w8a8-path", {}))
+            # the parity phase's tool runs, conversions and ladder: a child
+            # process on the card beside the multi-GPU, utils-native and
+            # eval phases (it takes ~45-100 s; beside utils-native alone it
+            # outlasted the eval phase by up to 29 s)
+            par_card = os.path.join(tmp, "parity_card.json")
+            par_children["card"] = (job(
+                "parity", "parity_card_child", path, nemo_path,
+                os.path.join(tmp, "parity_card"), par_card, threads=2),
+                par_card)
             phase("multi-gpu", multi_gpu_phase, path)
             # the eval phase's full-width harness and its runs of the
             # trained fixtures: child processes on the card beside the
@@ -8357,6 +8798,7 @@ def main() -> int:
                               threads=1), ev_tones)}
             phase("utils-native", utils_native_phase, path)
             phase("eval", eval_phase, path, ev_children)
+            phase("parity", parity_phase, par_children)
             if chosen("training") and not chosen("tdt-ctc"):
                 finish_job(tdt_job, tdt_ref)     # the TDT GGUF is written
             full_width_model.cache_clear()

@@ -464,7 +464,14 @@ def load_model(path: str, device="cuda", keep_quantized: bool = True,
     (the mmap loader when it builds, as the JAX package's load_model
     reads); the parameters are the same with it and without it."""
     device = resolve_device(device)
-    g = gguf_mod.read_gguf(path, use_native=use_native)
+    return model_from_gguf(gguf_mod.read_gguf(path, use_native=use_native),
+                           device, keep_quantized)
+
+
+def model_from_gguf(g, device, keep_quantized: bool = True,
+                    ) -> tuple[ModelParams, ModelConfig, list[str]]:
+    """load_model on a GGUF already read (gguf.read_gguf), for a caller
+    that also reads its tensors: (params, config, vocab) on `device`."""
     md = g.metadata
 
     def u32(key, default):

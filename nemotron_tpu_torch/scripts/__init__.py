@@ -19,6 +19,21 @@ given, and exposes `main(argv) -> int` for in-process callers.
   export_layer_data a traced session's dumps as .npy
   compare_tensors   diff of two dumps or dump directories
   layer_flamechart  a GGUF's tensor sizes as an HTML treemap
+  compare_layers    per-stage diff of the torch model against the numpy
+                    oracle (nemotron_tpu_torch.oracle)
+  debug_conv_layers every internal stage of the subsampling and of one
+                    conformer conv module against the oracle
+  debug_joint_trace the greedy label loop, step by step, against the
+                    oracle up to the first divergence
+  run_parity        the parity ladder: load, stages, greedy, streaming,
+                    quant tiers, expected / reference transcripts
+  convert_to_gguf   a NeMo .nemo or checkpoint to GGUF
+  convert_weights   the NEMO bin format to and from checkpoints and GGUFs
 
-_common holds what they share.
+_common holds what they share; sharing_loads (from it) lets the oracle
+tools run one after another in a process share one load of a GGUF.
 """
+
+from ._common import sharing_loads
+
+__all__ = ["sharing_loads"]

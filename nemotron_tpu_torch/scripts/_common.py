@@ -1,7 +1,9 @@
 """What the evaluation entry points share: token edit distance, token error
 rate against a truth, the tones fixtures' labels of a vocabulary piece or
-a transcript, the fixtures' directory, the entry points' device, and
-their `--json` writer.
+a transcript, the fixtures' directory, the entry points' device, their
+`--json` writer, and what the oracle tools share (a GGUF's dense model
+beside the tensors the numpy oracle reads, loaded once for a run of
+several tools; tensors to the host; the positional arguments).
 
 Each JAX script under `scripts/` carries its own copy of these helpers
 (scripts/token_agreement.py:47-59, scripts/beam_quality.py:34-45,
@@ -11,9 +13,11 @@ port keeps one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -75,3 +79,61 @@ def write_json(path: str | None, obj, **kw) -> None:
     if path:
         with open(path, "w") as f:
             json.dump(obj, f, indent=1, **kw)
+
+
+def positionals(argv: list[str], value_flags: tuple = ()) -> list[str]:
+    """argv's positional arguments: argv[1:] without its flags and without
+    the value that follows each flag of `value_flags`."""
+    skip = {i + 1 for i, a in enumerate(argv) if a in value_flags}
+    return [a for i, a in enumerate(argv) if i > 0 and i not in skip
+            and not a.startswith("--")]
+
+
+def host(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu").numpy()
+    return np.asarray(x)
+
+
+# dense_model's loads while a sharing_loads block lasts, by (file, device)
+_LOADS: dict | None = None
+
+
+@contextlib.contextmanager
+def sharing_loads():
+    """Within the block, dense_model loads each GGUF once for each device
+    (a file rewritten in between is read anew): the oracle tools that run
+    one after another in one process share the load. A nested block shares
+    the outermost one's."""
+    global _LOADS
+    if _LOADS is not None:
+        yield
+        return
+    _LOADS = {}
+    try:
+        yield
+    finally:
+        _LOADS = None
+
+
+def dense_model(path: str, device: torch.device):
+    """A GGUF as the oracle tools hold it: (params with every tensor
+    dequantized to dense f32 on `device`, config, vocab, {name: f32
+    array} as the numpy oracle reads the file's tensors, the file as
+    gguf.read_gguf gives it). The file is read once; inside sharing_loads
+    it is loaded once."""
+    from .. import gguf
+    from ..params import model_from_gguf
+
+    st = os.stat(path)
+    key = (os.path.realpath(path), st.st_mtime_ns, st.st_size, str(device))
+    if _LOADS is not None and key in _LOADS:
+        return _LOADS[key]
+    g = gguf.read_gguf(path)
+    params, cfg, vocab = model_from_gguf(g, device, keep_quantized=False)
+    model = (params, cfg, vocab,
+             {n: t.to_numpy() for n, t in g.tensors.items()}, g)
+    if _LOADS is not None:
+        _LOADS[key] = model
+    return model

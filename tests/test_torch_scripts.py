@@ -3,8 +3,9 @@ against the JAX scripts of the same names, on the CPU, with the same
 arguments and seeds; the JAX scripts run in this process (loaded by path
 from scripts/), so that JAX is imported once.
 
-  - every module imports neither jax nor nemotron_tpu (a subprocess with
-    both blocked), and every entry point asks for the card unless --cpu;
+  - every module, and the numpy oracle that the parity tools import,
+    imports neither jax nor nemotron_tpu (a subprocess with both blocked),
+    and every entry point asks for the card unless --cpu;
   - greedy_decode(with_iters=True) counts JAX's while_loop trips;
   - token_agreement on random weights: run_config's tokens equal JAX's in
     f32 (dense, int8 and int4 rings), and the harness's summary JSON has
@@ -40,7 +41,15 @@ ENTRY_POINTS = ("token_agreement", "compare_outputs", "emission_delay",
                 "beam_quality", "lm_quality", "tdt_quality",
                 "hybrid_quality", "refine_quality", "analyze_streaming",
                 "gen_mel", "export_layer_data", "compare_tensors",
-                "layer_flamechart")
+                "layer_flamechart", "compare_layers", "debug_conv_layers",
+                "debug_joint_trace", "run_parity", "convert_to_gguf",
+                "convert_weights")
+# the numpy oracle, which the parity tools import
+ORACLE_MODULES = ("nemotron_tpu_torch.oracle",
+                  "nemotron_tpu_torch.oracle.ops",
+                  "nemotron_tpu_torch.oracle.preprocessor",
+                  "nemotron_tpu_torch.oracle.model",
+                  "nemotron_tpu_torch.oracle.beam")
 # bf16 tiers: the port's and JAX's bf16 rounding points differ (XLA fuses
 # and reorders), so a near-tie may flip; agreement in percent, TER in
 # percent points
@@ -119,7 +128,8 @@ sys.path.insert(0, sys.argv[1])
 res = {}
 for name in sys.argv[2:]:
     try:
-        importlib.import_module("nemotron_tpu_torch.scripts." + name)
+        importlib.import_module(name if name.startswith("nemotron_tpu_torch.")
+                                else "nemotron_tpu_torch.scripts." + name)
         res[name] = "ok"
     except Exception as e:
         res[name] = repr(e)
@@ -133,14 +143,15 @@ def imports_without_jax():
     """Every module of the scripts package imported in one subprocess in
     which jax and nemotron_tpu cannot be imported."""
     r = subprocess.run([sys.executable, "-c", BLOCKER, REPO, "_common",
-                        *ENTRY_POINTS], capture_output=True, text=True,
+                        *ENTRY_POINTS, *ORACLE_MODULES],
+                       capture_output=True, text=True,
                        timeout=120, env=dict(os.environ,
                                              CUDA_VISIBLE_DEVICES=""))
     assert r.returncode == 0, r.stderr
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("name", ("_common",) + ENTRY_POINTS)
+@pytest.mark.parametrize("name", ("_common",) + ENTRY_POINTS + ORACLE_MODULES)
 def test_script_imports_no_jax(imports_without_jax, name):
     assert imports_without_jax["modules"][name] == "ok"
     assert imports_without_jax["loaded"] == []
@@ -148,6 +159,10 @@ def test_script_imports_no_jax(imports_without_jax, name):
 
 # the fewest arguments that reach each entry point's device choice
 MINIMAL_ARGS = {"compare_outputs": ["m.gguf", "a.pcm"],
+                "compare_layers": ["m.gguf"], "debug_conv_layers": ["m.gguf"],
+                "debug_joint_trace": ["m.gguf"], "run_parity": ["m.gguf"],
+                "convert_to_gguf": ["m.nemo", "out.gguf"],
+                "convert_weights": ["m.bin", "out.gguf"],
                 "gen_mel": ["a.pcm", "out.bin"],
                 "export_layer_data": ["m.gguf", "a.pcm", "out"],
                 "compare_tensors": ["a.bin", "b.bin"],
