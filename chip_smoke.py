@@ -12,7 +12,12 @@ model cut to COMPARE_LAYERS (4) layers (but for two checks that stay at
 24), the W8A8 path's and the full utterance's CPU runs are child
 processes started with the main path (whose host-clock readings now run
 beside them), and the kernel phases time both matmul designs only at
-the main paths' rows.
+the main paths' rows. Since slice 21 the engine and quant-tier phases and
+the trained fixtures' phases (CHILD_PHASES) run in a child process on the
+card beside this process's phases from the server phase on, whenever the
+run has a full-width phase (the trained fixtures' phases alone, `--phase
+tones` and the like, run in this process); the bench phase waits for that
+child, and runs with the card to itself.
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; no CUDA -> exit 2, no result.
@@ -272,7 +277,19 @@ Phases (any failure exits non-zero):
      TOL_EVAL_AGREEMENT_PCT of the same ladder with --cpu. (a) and (b) run
      in a child process on the card beside the multi-GPU, utils-native and
      eval phases; (b)'s CPU side in one beside the phases from lockstep on.
- 20. one JSON line of kernel results, the card's name and power limit, and
+ 20. the bench and tooling scripts (slice 21, `--phase bench`), through
+     their main(argv) in this process, at full width and 24 layers on the
+     scripts' seeded random weights (built once, scripts.sharing_loads):
+     bench_engine (lockstep, lockstep-pipe, engine; 64 slots, W8A8 + int8
+     K/V bf16, R = 13, 20 timed ticks), bench's measure, device trace and
+     record at 16 and 64 streams, check_regression on that record (exit 0
+     or 1 a reading, 2 a failure), profile_step (3 steps at 64 streams:
+     24 attention and 240 W8A8 launches a step by kernel name, the
+     wrappers' counts equal), bench_batch on the Q8_0 GGUF in f32 (240 Q8
+     launches an encode_batch; its blank biased), bench_cohorts (device capacity and --e2e,
+     2 x 32), bench_host_budget and bench_step_variants; every JSON parsed
+     and its keys held to the JAX script's (BENCH_KEYS).
+ 21. one JSON line of kernel results, the card's name and power limit, and
      last the line {"ok": true, "device": {...}}. Each phase prints its
      wall time.
 
@@ -311,9 +328,10 @@ SHORT_SECONDS = 2.0
 # but for two checks the tier's chaos fails at 4 layers (lockstep's W8A8
 # streams against solo sessions at R = 13, the beam's card-vs-CPU
 # scores), which stay at 24, as do the main paths, the full
-# utterance, the server (its time is the engine lock's, not the depth's),
-# TDT/CTC and the serve entry points. Four layers keep --rc-by-layer's
-# four groups whole.
+# utterance, the server (its time is the engine lock's and the greedy
+# decode's, not the depth's: 124.8 s at 24 layers, 124.4 s at 4 on an
+# H100, PERF.md), TDT/CTC and the serve entry points. Four layers keep
+# --rc-by-layer's four groups whole.
 COMPARE_LAYERS = 4
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s per type. The
 # Q8 and attention kernels run f32 and bf16 on the CUDA cores (FFMA, f32
@@ -8427,6 +8445,311 @@ def parity_phase(children: dict, failures: list) -> dict:
     return out
 
 
+# the bench phase (slice 21): the keys of each bench script's JSON, as
+# the JAX script prints them less its "sync RTT" keys (p50_adj_ms, rtt_ms,
+# sync_rtt_ms), plus the keys the port adds (said in each module's
+# docstring)
+BENCH_TICK_KEYS = {"p50_ms", "p90_ms", "mean_ms", "n", "tokens"}
+COHORT_KEYS = {"rounds", "realtime", "bench", "mode", "rc", "cohorts",
+               "batch", "streams_total", "chunk_period_ms",
+               "round_p50_ms", "round_p90_ms",
+               "param_bytes", "state_bytes_per_stream"}      # port's
+BENCH_KEYS = {
+    "bench_engine/lockstep": BENCH_TICK_KEYS,
+    "bench_engine/lockstep-pipe": BENCH_TICK_KEYS,
+    "bench_engine/engine": BENCH_TICK_KEYS | {"frontend_ms", "step_ms"},
+    "bench_cohorts/device": COHORT_KEYS | {"step_p50_ms",
+                                           "compute_headroom_cohorts"},
+    "bench_cohorts/e2e": COHORT_KEYS | {"tick_p50_ms", "tick_p90_ms",
+                                        "note"},
+    "bench": {"metric", "value", "unit", "vs_baseline", "cohorts",
+              "p50_chunk_latency_ms", "p90_chunk_latency_ms",
+              "latency_stat", "device_p50_ms", "device_p90_ms",
+              "device_p99_ms", "device_trace_steps", "latency_budget_ms",
+              "chunk_audio_ms", "mode", "device"},
+    "bench_batch": {"metric", "batch", "utterance_s", "audio_s", "device_s",
+                    "dsp_s", "upload_s", "end_to_end_s", "rtf_device",
+                    "rtf_end_to_end", "audio_s_per_compute_s",
+                    "ref_rtf_cuda_4080", "ref_rtf_cpu", "device",
+                    "tokens", "dtype"},                      # port's last 2
+    "bench_host_budget": {"batch", "cohorts", "streams_total",
+                          "chunk_period_ms", "tick_budget_ms", "host_cores",
+                          "pcm_copy", "pcm_mb_per_tick", "frontend_mel",
+                          "frontend_mb_per_s_per_core", "mel_stage",
+                          "extract_emitted", "emissions_per_tick",
+                          "transcript", "host_ms_per_tick_1core",
+                          "host_ms_per_period_all_cohorts_1core",
+                          "cores_for_half_period", "verdict_realtime_1core"},
+    "bench_step_variants": {"p50_ms", "min_ms", "max_ms"},
+}
+BENCH_SLOTS = 64                   # the port's serving cell
+BENCH_TICKS = 20
+BENCH_BATCHES = (16, 64)           # bench's measure and record
+BENCH_BATCH_SCENARIOS = "1x20,4x20,1x200"
+# the GGUF's joint biased to blank as the bench scripts' own weights are:
+# its random joint emits 10 symbols a frame, and greedy decode's host
+# syncs (one an emission) took 410 s of the phase on an H100 (PERF.md)
+BENCH_BATCH_BLANK_BIAS = "12.0"
+BENCH_BATCH_REPS = 5               # bench_batch's timed runs a scenario
+
+
+def bench_phase(gguf_path: str, failures: list) -> dict:
+    """Slice 21: the bench and tooling scripts through their main(argv) on
+    the card, at full width and 24 layers, every JSON parsed and its keys
+    held to BENCH_KEYS, each script's kernel launches counted by the
+    wrappers (and added to the kernels line). The scripts share one build
+    of their seeded random weights (scripts.sharing_loads).
+    (a) bench_engine: lockstep, lockstep-pipe and engine, 64 slots, R = 13,
+        W8A8 + int8 K/V bf16, BENCH_TICKS timed ticks each;
+    (b) bench's measure at BENCH_BATCHES (3 chains of 3 steps), its device
+        trace (8 steps) and its record (the full search is a run of its
+        own); (c) check_regression on that record (exit 0 or 1 is a
+        reading, 2 a failure);
+    (d) profile_step, 3 steps at 64 streams: 24 attention and 240 W8A8
+        launches a step by kernel name in the profile, the wrappers'
+        counts those of the 3 steps and the warm-up step;
+    (e) bench_batch on the full-width Q8_0 GGUF in f32, its blank biased
+        (BENCH_BATCH_SCENARIOS): 240 Q8 launches an encode_batch;
+    (f) bench_cohorts, device capacity and --e2e, 2 cohorts of 32;
+    (g) bench_host_budget at 64 streams; (h) bench_step_variants at 64.
+    In the W8A8 runs every chunk step launches 10 W8A8 calls a layer to
+    one attention call, and no Q8."""
+    import torch
+
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.models import encoder as enc_mod
+    from nemotron_tpu_torch.params import cast_params
+    from nemotron_tpu_torch.scripts import bench as bench_mod
+    from nemotron_tpu_torch.scripts import sharing_loads
+    from nemotron_tpu_torch.scripts._common import (bench_config,
+                                                    bench_params, bench_w8a8)
+
+    out: dict = {}
+    launches = {"attn": 0, "q8": 0, "w8a8": 0}
+    walls: dict = {}
+    tmp = tempfile.mkdtemp(prefix="bench_")
+    log("phase bench: the bench scripts through main(argv), full width, "
+        "24 layers")
+
+    def counted(name, fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        n = kernel_counts()
+        for k in launches:
+            launches[k] += n[k]
+        return res, n
+
+    def script(name, args):
+        """(exit code, stdout, launches by wrapper) of one script run."""
+        (rc, so, _err), n = counted(name, lambda: run_entry(name, args))
+        if rc != 0:
+            failures.append(f"bench: {name} {' '.join(args)} exited {rc}")
+        return rc, so, n
+
+    def keys(what, got):
+        want = BENCH_KEYS[what]
+        if set(got) != want:
+            failures.append(f"bench: {what} keys {sorted(set(got) ^ want)} "
+                            "differ from the JAX script's")
+
+    def positive(what, *xs):
+        if not all(isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+                   for x in xs):
+            failures.append(f"bench: {what}: a time not finite and positive "
+                            f"{xs}")
+
+    def w8a8_only(what, n, steps=None):
+        """The W8A8 tier's launches: 10 W8A8 calls to one attention call,
+        24 attention calls a step (when `steps` is known), no Q8."""
+        ok = n["q8"] == 0 and n["attn"] > 0 and n["w8a8"] == 10 * n["attn"]
+        if steps is not None:
+            ok = ok and n["attn"] == 24 * steps
+        if not ok:
+            failures.append(f"bench: {what} launches {n}"
+                            + (f" (want 24 / 240 a step x {steps})"
+                               if steps is not None else ""))
+
+    with sharing_loads():
+        # (a) bench_engine
+        rc, so, n = script("bench_engine", [
+            "--modes", "lockstep,lockstep-pipe,engine", "--slots",
+            str(BENCH_SLOTS), "--ticks", str(BENCH_TICKS)])
+        eng = json.loads(so) if rc == 0 else {}
+        for mode in ("lockstep", "lockstep-pipe", "engine"):
+            st = eng.get(f"{mode}/w8a8-int8kv/{BENCH_SLOTS}")
+            if st is None:
+                failures.append(f"bench: bench_engine gave no {mode} entry")
+                continue
+            keys(f"bench_engine/{mode}", st)
+            positive(f"bench_engine {mode}", st["p50_ms"], st["p90_ms"])
+            if st["n"] != BENCH_TICKS:
+                failures.append(f"bench: bench_engine {mode} timed "
+                                f"{st['n']} ticks")
+            log(f"  (a) bench_engine {mode}, {BENCH_SLOTS} slots W8A8 bf16 "
+                f"R = 13: tick p50 {st['p50_ms']} / p90 {st['p90_ms']} ms"
+                + (f" (feed {st['frontend_ms']}, step {st['step_ms']})"
+                   if "step_ms" in st else "")
+                + f", {st['tokens']} tokens")
+        w8a8_only("bench_engine", n)
+        out["bench_engine"] = dict(eng, launches=n)
+
+        # (b) bench's measure, device trace and record at two batches
+        def measured():
+            dev = torch.device(CARD)
+            cfg = bench_config(False)
+            cc8 = CacheConfig(att_right_context=13, n_mels=cfg.n_mels,
+                              kv_cache_int8=True)
+            params = cast_params(bench_w8a8(bench_params(cfg, dev)),
+                                 torch.bfloat16)
+            with torch.no_grad():
+                ph = enc_mod.precompute_pos_heads(params, cfg, cc8,
+                                                  torch.bfloat16)
+                stats = {b: bench_mod.measure(params, cfg, cc8, ph, b,
+                                              torch.bfloat16, chain_len=3,
+                                              reps=3)
+                         for b in BENCH_BATCHES}
+                best = max((b for b, st in stats.items()
+                            if st["p50"] <= bench_mod.LATENCY_BUDGET_S),
+                           default=0)
+                traced = best or BENCH_BATCHES[0]
+                dev_st = bench_mod.measure_device(params, cfg, cc8, ph,
+                                                  traced, torch.bfloat16,
+                                                  n_steps=8)
+            return stats, bench_mod.record(best, stats[traced],
+                                           "w8a8-int8kv", dev_st, None, cc8,
+                                           dev)
+
+        (stats, rec), n = counted("bench", measured)
+        keys("bench", rec)
+        # each measure: a warm-up step and 3 x 3; the trace: 1 + 8
+        w8a8_only("bench measure + trace", n,
+                  steps=len(BENCH_BATCHES) * 10 + 9)
+        positive("bench", rec["p50_chunk_latency_ms"],
+                 rec["device_p50_ms"], rec["device_p99_ms"])
+        for b, st in stats.items():
+            log(f"  (b) bench measure, {b} streams W8A8 bf16 R = 13: p50 "
+                f"{st['p50'] * 1e3:.2f} / p90 {st['p90'] * 1e3:.2f} ms "
+                f"(3 chains of 3)")
+        log(f"  (b) bench record: {json.dumps(rec)}")
+        rec_path = os.path.join(tmp, "bench.json")
+        with open(rec_path, "w") as f:
+            json.dump(rec, f)
+        out["bench"] = dict(record=rec, launches=n, p50_ms={
+            b: st["p50"] * 1e3 for b, st in stats.items()})
+
+        # (c) check_regression on the record
+        (rc, so, _err), _ = counted("check_regression", lambda: run_entry(
+            "check_regression", [rec_path]))
+        if rc not in (0, 1):
+            failures.append(f"bench: check_regression exited {rc}: {so}")
+        log(f"  (c) check_regression (exit {rc}, a reading): "
+            f"{so.strip()}")
+        out["check_regression"] = dict(rc=rc, out=so.strip())
+
+        # (d) profile_step: launches by kernel name against the wrappers
+        rc, so, n = script("profile_step", [
+            "--batch", str(BENCH_SLOTS), "--steps", "3", "--dir",
+            os.path.join(tmp, "profile")])
+        named = {}
+        for line in so.splitlines():
+            for w in ("fused_ring_attention", "q8_matmul", "w8a8_matmul"):
+                if line.startswith(f"  {w}: "):
+                    named[w] = int(line.split()[1])
+        by_wrapper = {"attn": named.get("fused_ring_attention"),
+                      "q8": named.get("q8_matmul"),
+                      "w8a8": named.get("w8a8_matmul")}
+        # the wrappers count the warm-up step too, outside the trace
+        if (by_wrapper != {"attn": 72, "q8": 0, "w8a8": 720}
+                or n != {"attn": 96, "q8": 0, "w8a8": 960}):
+            failures.append(f"bench: profile_step launches by name "
+                            f"{by_wrapper} (want 72 / 0 / 720 in 3 steps), "
+                            f"wrappers {n} (want 96 / 0 / 960 with the "
+                            "warm-up step)")
+        top = [ln for ln in so.splitlines() if ln.startswith("total ")]
+        log(f"  (d) profile_step, 3 steps at {BENCH_SLOTS} streams: "
+            f"{top[0] if top else '(no total line)'}; by kernel name "
+            f"{by_wrapper}, wrappers {n}")
+        out["profile_step"] = dict(by_name=by_wrapper, wrappers=n,
+                                   total=top[0] if top else None)
+
+        # (e) bench_batch on the Q8_0 GGUF in f32
+        rc, so, n = script("bench_batch", [
+            "--gguf", gguf_path, "--blank-bias", BENCH_BATCH_BLANK_BIAS,
+            "--scenarios", BENCH_BATCH_SCENARIOS])
+        lines = [json.loads(ln) for ln in so.strip().splitlines()] \
+            if rc == 0 else []
+        n_scen = len(BENCH_BATCH_SCENARIOS.split(","))
+        if len(lines) != n_scen:
+            failures.append(f"bench: bench_batch printed {len(lines)} "
+                            f"lines (want {n_scen})")
+        for r in lines:
+            keys("bench_batch", r)
+            positive("bench_batch", r["device_s"], r["rtf_device"])
+            if r["dtype"] != "float32":
+                failures.append(f"bench: bench_batch ran {r['dtype']}")
+            log(f"  (e) bench_batch {r['batch']} x {r['utterance_s']:g} s "
+                f"(Q8_0 f32): compute {r['device_s']} s (RTF "
+                f"{r['rtf_device']}), DSP {r['dsp_s']} s, upload "
+                f"{r['upload_s']} s, end to end {r['end_to_end_s']} s, "
+                f"{r['tokens']} tokens")
+        encodes = n_scen * (BENCH_BATCH_REPS + 1)
+        if n["q8"] != 240 * encodes or n["w8a8"]:
+            failures.append(f"bench: bench_batch launches {n} (want 240 Q8 "
+                            f"an encode_batch x {encodes})")
+        out["bench_batch"] = dict(lines=lines, launches=n)
+
+        # (f) bench_cohorts, device capacity and end to end
+        for mode, flags in (("device", []), ("e2e", ["--e2e"])):
+            rc, so, n = script("bench_cohorts", [
+                "--cohorts", "2", "--batch", "32", "--rounds", "3", *flags])
+            res = json.loads(so.strip().splitlines()[-1]) if rc == 0 else {}
+            if res:
+                keys(f"bench_cohorts/{mode}", res)
+                positive(f"bench_cohorts {mode}", res["round_p50_ms"])
+                log(f"  (f) bench_cohorts {mode}, 2 x 32 W8A8 bf16 R = 13: "
+                    f"round p50 {res['round_p50_ms']:.2f} ms, real time "
+                    f"{res['realtime']}, state {res['state_bytes_per_stream']}"
+                    f" B a stream, weights {res['param_bytes']} B")
+            w8a8_only(f"bench_cohorts {mode}", n)
+            out[f"bench_cohorts_{mode}"] = dict(res, launches=n)
+
+        # (g) bench_host_budget
+        rc, so, n = script("bench_host_budget", [
+            "--batch", str(BENCH_SLOTS), "--rounds", "5"])
+        res = json.loads(so.strip().splitlines()[-1]) if rc == 0 else {}
+        if res:
+            keys("bench_host_budget", res)
+            log(f"  (g) bench_host_budget, {BENCH_SLOTS} streams: host "
+                f"{res['host_ms_per_tick_1core']} ms a tick on one core "
+                f"(frontend "
+                f"{(res['frontend_mel'] or {}).get('p50_ms', 'n/a')} ms)")
+        out["bench_host_budget"] = res
+
+        # (h) bench_step_variants
+        rc, so, n = script("bench_step_variants", [
+            "--batches", str(BENCH_SLOTS), "--chains", "2", "--len", "3"])
+        res = json.loads(so) if rc == 0 else {}
+        pt = res.get(f"w8a8-int8kv/B{BENCH_SLOTS}")
+        if pt is None:
+            failures.append("bench: bench_step_variants gave no point")
+        else:
+            keys("bench_step_variants", pt)
+            positive("bench_step_variants", *pt.values())
+            log(f"  (h) bench_step_variants w8a8-int8kv/B{BENCH_SLOTS}: "
+                f"{pt}")
+        w8a8_only("bench_step_variants", n, steps=1 + 2 * 3)
+        out["bench_step_variants"] = dict(res, launches=n)
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["walls_s"] = walls
+    log(f"  bench phase: launches {json.dumps(launches)}; walls (s) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return out
+
+
 def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
     """The `kernels` JSON of a whole run: each kernel's launches on the
     main paths (every phase's count), its time, plain time, bound and
@@ -8441,6 +8764,7 @@ def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
     beam_tones, tdt_tones = res["beam-tones"], res["tdt-tones"]
     mgpu, utils_native = res["multi-gpu"], res["utils-native"]
     evaluation, parity = res["eval"], res["parity"]
+    bench = res["bench"]
     server_n = {k: server["q8_f32"]["launches"][k]
                 + server["w8a8_bf16"]["launches"][k]
                 + server_tones["launches"][k] for k in ("attn", "q8", "w8a8")}
@@ -8451,6 +8775,7 @@ def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
                 + tdt["launches"][k] + tdt_tones["launches"][k]
                 + mgpu["launches"][k] + utils_native["launches"][k]
                 + evaluation["launches"][k] + parity["launches"][k]
+                + bench["launches"][k]
                 for k in engine["launches"]}
 
     def w8_layer(M, mode=()):
@@ -8590,6 +8915,34 @@ def kernels_line(res: dict, q8_m_star: int, w8a8_m_star: int) -> list:
     return kernels
 
 
+def card_child(out_path: str, log_path: str, keys: list,
+               gguf_path: str) -> None:
+    """The phases of CHILD_PHASES named by `keys`, in its order, in a child
+    process on the card beside the main process's phases: their log lines
+    to `log_path`, and {"res": each phase's result, "walls": its wall
+    time, "failures": the failures} as JSON to `out_path`. The engine and
+    quant phases load the full-width GGUF at `gguf_path` in this
+    process."""
+    failures: list = []
+    res, walls = {}, {}
+    # both streams, and those of the processes the phases start, to the
+    # log file: the parent reads it when it collects the child
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    for key, fn in CHILD_PHASES:
+        if key in keys:
+            t0 = time.perf_counter()
+            res[key] = (fn(gguf_path, failures) if key in FULL_WIDTH_PHASES
+                        else fn(failures))
+            walls[key] = time.perf_counter() - t0
+            log(f"phase {PHASES[key]}: wall {walls[key]:.1f} s")
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump({"res": res, "walls": walls, "failures": failures}, f,
+                  default=str)
+
+
 # the phases in the order a whole run takes them, by the name that
 # `--phase NAME` gives; the full-width GGUF, the TDT/CTC GGUF and the CPU
 # reference jobs are made for the chosen phases that need them
@@ -8611,6 +8964,7 @@ PHASES = {
                     "(slice 18)",
     "eval": "evaluation entry points (slice 19)",
     "parity": "oracle and parity ladder (slice 20)",
+    "bench": "bench and tooling scripts (slice 21)",
     "training": "training (slice 16)",
     "tones": "tones",
     "engine-tones": "serving engine tones (slice 8)",
@@ -8623,9 +8977,26 @@ PHASES = {
     "training-tones": "training on the trained fixture and the tiny config "
                       "(slice 16)",
 }
+# the trained fixtures' phases
+TONES_PHASES = (("tones", tones_phase),
+                ("engine-tones", engine_tones_phase),
+                ("server-tones", server_tones_phase),
+                ("clis", cli_phase),
+                ("tones-quant", tones_quant_phase),
+                ("clis-quant", cli_quant_phase),
+                ("beam-tones", beam_tones_phase),
+                ("tdt-tones", tdt_ctc_tones_phase),
+                ("training-tones", training_tones_phase))
+# since slice 21, when the run has a full-width phase, a child process
+# runs these on the card beside the main process's phases, from the
+# server phase on: the engine and quant tiers (full width on the
+# COMPARE_LAYERS cut; their tick and chunk times are readings) and the
+# trained fixtures' phases
+CHILD_PHASES = (("engine", engine_phase),
+                ("quant", quant_tier_phase)) + TONES_PHASES
 FULL_WIDTH_PHASES = ("main-path", "w8a8-path", "full-utterance", "engine",
                      "server", "quant", "lockstep", "beam", "training",
-                     "multi-gpu", "utils-native", "eval", "parity")
+                     "multi-gpu", "utils-native", "eval", "parity", "bench")
 
 
 def chosen_phases(argv: list[str]) -> set | None:
@@ -8742,9 +9113,16 @@ def main() -> int:
             phase("w8a8-path", w8a8_path_phase, path, w8_job, w8_ref)
             phase("full-utterance", full_utterance_phase, path, fu_job,
                   fu_ref)
-            phase("engine", engine_phase, path)
+            # CHILD_PHASES in a card child from here on
+            child_keys = ([k for k, _ in CHILD_PHASES if chosen(k)]
+                          if full else [])
+            child_out = os.path.join(tmp, "card_child.json")
+            child_log = os.path.join(tmp, "card_child.log")
+            child_job = (start_cpu_job("card_child", child_out, child_log,
+                                       child_keys, path, threads=3)
+                         if child_keys else None)
+            jobs.append(child_job)
             phase("server", server_phase, path)
-            phase("quant", quant_tier_phase, path)
             # the TDT/CTC GGUF is written, and decoded on the CPU, by a
             # child process while the lockstep and beam phases run
             tdt_path = os.path.join(tmp, "full_width_tdt_ctc.gguf")
@@ -8799,6 +9177,21 @@ def main() -> int:
             phase("utils-native", utils_native_phase, path)
             phase("eval", eval_phase, path, ev_children)
             phase("parity", parity_phase, par_children)
+            if child_job is not None:
+                # the bench phase's readings want the card to itself
+                t0 = time.perf_counter()
+                try:
+                    child = finish_job(child_job, child_out, timeout=1200)
+                finally:
+                    with open(child_log, encoding="utf-8") as f:
+                        sys.stdout.write(f.read())
+                res.update(child["res"])
+                failures.extend(child["failures"])
+                log(f"phase card child: {', '.join(child_keys)} beside the "
+                    f"phases from the server on, "
+                    f"{sum(child['walls'].values()):.1f} s of phases; "
+                    f"waited {time.perf_counter() - t0:.1f} s for it")
+            phase("bench", bench_phase, path)
             if chosen("training") and not chosen("tdt-ctc"):
                 finish_job(tdt_job, tdt_ref)     # the TDT GGUF is written
             full_width_model.cache_clear()
@@ -8811,16 +9204,9 @@ def main() -> int:
                     j.kill()
                     j.communicate()
         full_width_model.cache_clear()
-    for key, fn in (("tones", tones_phase),
-                    ("engine-tones", engine_tones_phase),
-                    ("server-tones", server_tones_phase),
-                    ("clis", cli_phase),
-                    ("tones-quant", tones_quant_phase),
-                    ("clis-quant", cli_quant_phase),
-                    ("beam-tones", beam_tones_phase),
-                    ("tdt-tones", tdt_ctc_tones_phase),
-                    ("training-tones", training_tones_phase)):
-        phase(key, fn)
+    if not full:          # the trained fixtures' phases alone
+        for key, fn in TONES_PHASES:
+            phase(key, fn)
     for key, value in res.items():
         if key not in ("attention", "q8", "w8a8"):   # logged line by line
             log(f"{PHASES[key]}: " + json.dumps(value, default=str))

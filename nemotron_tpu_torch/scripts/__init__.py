@@ -1,5 +1,6 @@
-"""The port's evaluation and parity entry points, one module for each JAX
-script of the same name under `scripts/`: each runs as
+"""The port's evaluation, parity, benchmark and tooling entry points, one
+module for each JAX script of the same name under `scripts/` (`bench`:
+the repository's root bench.py): each runs as
 `python -m nemotron_tpu_torch.scripts.NAME`, takes that script's flags and
 prints its lines and JSON keys, runs on the CUDA card unless --cpu is
 given, and exposes `main(argv) -> int` for in-process callers.
@@ -29,9 +30,24 @@ given, and exposes `main(argv) -> int` for in-process callers.
                     quant tiers, expected / reference transcripts
   convert_to_gguf   a NeMo .nemo or checkpoint to GGUF
   convert_weights   the NEMO bin format to and from checkpoints and GGUFs
+  ref_oracle_parity the port against the reference's own C++ oracle (a
+                    reference checkout needed; run_parity's stage 8)
+  nemo_reference    NeMo's own streaming inference with per-layer dumps
+                    (nemo_toolkit needed)
+  bench             real-time streams per card at the 120 ms p50 bar
+  bench_engine      tick percentiles of the lockstep and serving engines
+  bench_cohorts     phase-staggered cohorts: device capacity, end to end
+  check_regression  the gate over a bench record
+  profile_step      torch.profiler over the chunk step: kernels ranked,
+                    launches by name
+  bench_batch       the full-utterance pipeline's RTF
+  bench_host_budget the host's stages of a tick at cohort scale
+  bench_step_variants  the chunk step across batches, tiers and modes
+  bench_multichip   collectives and bytes per rank over gloo ranks
 
-_common holds what they share; sharing_loads (from it) lets the oracle
-tools run one after another in a process share one load of a GGUF.
+_common holds what they share; sharing_loads (from it) lets tools run one
+after another in a process share one load of a GGUF, and one build of the
+bench scripts' weights.
 """
 
 from ._common import sharing_loads

@@ -29,11 +29,12 @@ Runs, in order, and prints a docs/STATUS.md-style PASS/FAIL table
                     compare_outputs --expect. Skips (PASS with a note) when
                     the binary can't be built here.
   8. ref oracle  -- optional (--reference-oracle): the reference's own
-                    ggml-free C++ oracle (scripts/ref_oracle_parity.py, a
-                    JAX script not ported yet). Skips (PASS with a note)
-                    when g++ or the checkout ($NEMOTRON_REF_DIR, default
-                    ~/reference) is missing; with both present the stage
-                    FAILs as not run, since only the JAX package runs it.
+                    ggml-free C++ oracle against the port
+                    (nemotron_tpu_torch.scripts.ref_oracle_parity). Skips
+                    (PASS with a note) when g++ or the checkout
+                    ($NEMOTRON_REF_DIR, default ~/reference) is missing;
+                    with both present, an oracle that does not build
+                    FAILs the stage as not run.
 
 The sub-tools (compare_layers, compare_outputs) run in this process
 through their main(argv), where the JAX script starts child processes;
@@ -239,10 +240,11 @@ def ladder(argv: list[str], args: list[str], device: torch.device,
                    f"(rc={rc}, WER bar 0.10)")
 
     # ---- 8. reference C++ ORACLE (ggml-free; runnable offline) ----
-    # The JAX package's scripts/ref_oracle_parity.py compiles the
-    # reference's own oracle and holds the JAX pipeline to it; the port has
-    # no counterpart yet, so with the checkout present the stage cannot
-    # pass here.
+    # ref_oracle_parity compiles the reference's own oracle and holds the
+    # port to it on shared fixtures. Without g++ or the checkout the stage
+    # is skipped, as in the JAX ladder; with them, an oracle that cannot
+    # build (its exit 3) is a FAIL: the ladder never passes a stage it did
+    # not run.
     if "--reference-oracle" in argv:
         ref_dir = reference_checkout()
         if (shutil.which("g++") is None
@@ -251,11 +253,12 @@ def ladder(argv: list[str], args: list[str], device: torch.device,
             record(results, "reference oracle", True,
                    "skipped: g++ or reference checkout unavailable")
         else:
-            record(results, "reference oracle", False,
-                   f"not run: the checkout {ref_dir} is present, but "
-                   "ref_oracle_parity is not ported to nemotron_tpu_torch "
-                   "yet (ROADMAP.md, Queue 1); run scripts/"
-                   "ref_oracle_parity.py with the JAX package")
+            rc, _ = run_tool("ref_oracle_parity", cpu)
+            record(results, "reference oracle", rc == 0,
+                   f"reference src/reference C++ vs torch on shared "
+                   f"fixtures (ref_oracle_parity rc={rc}"
+                   + (": not run, the oracle did not build)" if rc == 3
+                      else ")"))
 
     return finish(results)
 

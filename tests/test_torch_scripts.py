@@ -43,7 +43,10 @@ ENTRY_POINTS = ("token_agreement", "compare_outputs", "emission_delay",
                 "gen_mel", "export_layer_data", "compare_tensors",
                 "layer_flamechart", "compare_layers", "debug_conv_layers",
                 "debug_joint_trace", "run_parity", "convert_to_gguf",
-                "convert_weights")
+                "convert_weights", "bench_engine", "bench_cohorts", "bench",
+                "check_regression", "profile_step", "bench_batch",
+                "bench_host_budget", "bench_step_variants",
+                "bench_multichip", "nemo_reference", "ref_oracle_parity")
 # the numpy oracle, which the parity tools import
 ORACLE_MODULES = ("nemotron_tpu_torch.oracle",
                   "nemotron_tpu_torch.oracle.ops",
@@ -166,7 +169,9 @@ MINIMAL_ARGS = {"compare_outputs": ["m.gguf", "a.pcm"],
                 "gen_mel": ["a.pcm", "out.bin"],
                 "export_layer_data": ["m.gguf", "a.pcm", "out"],
                 "compare_tensors": ["a.bin", "b.bin"],
-                "layer_flamechart": ["m.gguf"]}
+                "layer_flamechart": ["m.gguf"],
+                "check_regression": ["--run"],
+                "nemo_reference": ["m.nemo", "a.pcm"]}
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -217,9 +217,10 @@ def test_run_parity_quick_matches_jax(tiny, tmp_path, capsys, monkeypatch):
 def test_run_parity_q8_and_reference_oracle_not_run(tiny, capsys,
                                                     monkeypatch):
     """On a Q8_0 GGUF the ladder has no quant stage (exit 0); with a
-    reference checkout present, stage 8 FAILs as not run (the port has no
-    ref_oracle_parity) and the ladder exits 2: it never claims a PASS it
-    did not run."""
+    reference checkout present, stage 8 runs ref_oracle_parity, and an
+    oracle that does not build there (an empty checkout) FAILs the stage
+    as not run and the ladder exits 2: it never claims a PASS it did not
+    run."""
     got = run_port("run_parity", [tiny["q8"], "--quick", "--cpu"], capsys)
     rows = ladder(got)
     assert [r.split()[0] for r in rows[1:-1]] == ["load", "stages", "greedy",
@@ -229,11 +230,12 @@ def test_run_parity_q8_and_reference_oracle_not_run(tiny, capsys,
     (checkout / "src" / "reference").mkdir(parents=True, exist_ok=True)
     monkeypatch.setenv("NEMOTRON_REF_DIR", str(checkout))
     monkeypatch.setattr("shutil.which", lambda name: "/usr/bin/" + name)
+    monkeypatch.setenv("CXX", str(tiny["dir"] / "no_compiler"))
     got = run_port("run_parity", [tiny["q8"], "--quick", "--cpu",
                                   "--reference-oracle"], capsys, rc=2)
     row = ladder(got)[-2]
-    assert "reference oracle  FAIL  not run" in row
-    assert "ref_oracle_parity is not ported" in row
+    assert "reference oracle  FAIL" in row
+    assert "ref_oracle_parity rc=3: not run, the oracle did not build" in row
 
 
 # -- the converters -----------------------------------------------------------
